@@ -1,0 +1,116 @@
+"""Attention: plain `sdpa` and the `attend` dispatch to the CUDA kernels.
+Counterpart of `mllm_tpu/nn/attention.py` for the dense cache.
+
+Layouts: q is [B, Sq, H, D]; k/v are in cache layout [B, H_kv, Skv, D].
+
+`attend` sends a single-token query (Sq == 1) to `ops.decode_attention` and
+every other query length to `ops.flash_attention`. Each wrapper runs its
+plain version on CPU tensors and its kernel on CUDA tensors; the TPU
+package's shape thresholds (D % 128, Sq % 128, batch/length switches) do not
+apply. An additive `bias` (tree speculation) or an attention `logit_softcap`
+(gemma2) goes through `sdpa` on the CPU and raises on a card, where no kernel
+takes them yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops.decode_attention import decode_attention
+from ..ops.flash_attention import flash_attention
+
+NEG_INF = -1e30  # large-but-finite, as in mllm_tpu.nn.layers
+
+
+def repeat_kv_cache_layout(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, H_kv, S, D] -> [B, H_kv*n_rep, S, D] (GQA broadcast, contiguous groups)."""
+    if n_rep == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def sdpa(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, H_kv, Skv, D]
+    v: torch.Tensor,  # [B, H_kv, Skv, D]
+    *,
+    q_offset=0,  # absolute position of q[0]: int or [B]
+    kv_valid_len=None,  # number of valid kv entries: int or [B]; None = all
+    kv_start: Optional[torch.Tensor] = None,  # [B] first valid kv index (left pad)
+    causal: bool = True,
+    window: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,  # additive bias [..., Sq, Skv]
+    scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Masked scaled-dot-product attention with f32 softmax statistics; the
+    same arithmetic and masking as `mllm_tpu.nn.attention.sdpa` (masked
+    logits are NEG_INF, so a fully masked row averages V)."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[1]
+    n_rep = h // hkv
+    k = repeat_kv_cache_layout(k, n_rep)
+    v = repeat_kv_cache_layout(v, n_rep)
+    if scale is None:
+        scale = d**-0.5
+    dev = q.device
+
+    logits = torch.einsum("bqhd,bhkd->bhqk", q.float(), k.float()) * scale
+    if logit_softcap is not None:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+
+    skv = k.shape[2]
+    qo = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)  # [1 or B, 1]
+    k_pos = torch.arange(skv, device=dev)
+    ok = torch.ones((1, sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        q_pos = qo + torch.arange(sq, device=dev)[None, :]  # [1 or B, sq]
+        ok = k_pos[None, None, :] <= q_pos[:, :, None]
+        if window is not None:
+            ok = ok & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    if kv_valid_len is not None:
+        kvl = torch.as_tensor(kv_valid_len, device=dev).reshape(-1, 1, 1)
+        ok = ok & (k_pos[None, None, :] < kvl)
+    ok = ok[:, None].expand(logits.shape)
+    if kv_start is not None:  # left-padded batches: mask the pad prefix
+        ok = ok & (k_pos[None, None, None, :] >= kv_start.to(dev)[:, None, None, None])
+    logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
+    if bias is not None:
+        logits = logits + bias.float()
+
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bqhd", probs.float(), v.float())
+    return out.to(q.dtype)
+
+
+def attend(
+    q, k, v, *, q_offset=0, kv_valid_len=None, kv_start=None, causal=True, window=None,
+    bias=None, scale=None, logit_softcap=None,
+):
+    """Dispatch: Sq == 1 -> decode kernel, otherwise the flash kernel.
+
+    The decode kernel measures a window from the last valid key, so it
+    assumes the query sits at position kv_valid_len - 1 (as every decode
+    step does)."""
+    if bias is not None or logit_softcap is not None:
+        if q.is_cuda:
+            raise NotImplementedError(
+                "attention with an additive bias (tree speculation, ROADMAP Queue 1 item 12) "
+                "or a logit softcap (gemma2, item 14) has no CUDA kernel yet")
+        return sdpa(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start,
+                    causal=causal, window=window, bias=bias, scale=scale,
+                    logit_softcap=logit_softcap)
+    if q.shape[1] == 1:
+        return decode_attention(q, k, v, kv_valid_len=kv_valid_len, kv_start=kv_start,
+                                scale=scale, window=window)
+    return flash_attention(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
+                           kv_start=kv_start, causal=causal, window=window, scale=scale)
+
+
+def attend_from_cache(q, cache, layer_idx: int, **kw):
+    """Attention over one layer of the dense KV cache (`attend` arguments)."""
+    k, v = cache.layer(layer_idx)
+    return attend(q, k, v, **kw)
