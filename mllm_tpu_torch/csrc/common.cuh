@@ -78,4 +78,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Four consecutive floats (16-byte aligned) into registers.
+__device__ __forceinline__ void load_f32x4(float (&d)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+// The split-K reduction of the quantized products (split_k.cu):
+// out[r, c] = scale[c] * sum_s ws[s, r, c], the splits added in order, so the
+// result does not depend on how the blocks were scheduled. scale may be null
+// (no scaling). cols % 4 == 0; every pointer 16-byte aligned.
+cudaError_t sum_splits(const float* ws, const float* scale, float* out, int rows, int cols,
+                       int splits, cudaStream_t stream);
+
 }  // namespace mllm

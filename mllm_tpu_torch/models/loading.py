@@ -1,6 +1,8 @@
 """Checkpoint -> CausalLM: counterpart of `mllm_tpu/models/loading.py` for
-float weights (f32 / f16 / bf16 safetensors). Quantized weights and the
-fused-projection checkpoints (phi3, persimmon) come in later slices.
+float weights (f32 / f16 / bf16 safetensors), kept float or quantized at load
+(`quant="int8" | "int4"`, as `make_linear` does it). Quantized checkpoints
+(.mllm / GGUF) and the fused-projection checkpoints (phi3, persimmon) come in
+later slices.
 """
 
 from __future__ import annotations
@@ -9,6 +11,9 @@ import numpy as np
 import torch
 
 from ..core.config import TextConfig
+from ..nn.layers import Int4Linear, Linear, QuantLinear
+from ..ops import quant_matmul as qm
+from ..ops.quantize_model import check_mode
 from .transformer import CausalLM
 
 
@@ -57,12 +62,30 @@ def checkpoint_names(model: CausalLM, nm: NameMap) -> dict[str, str]:
     return names
 
 
+def quant_linear_from_float(w: np.ndarray, bias, quant: str, device):
+    """A float [out, in] checkpoint weight -> QuantLinear (int8) or symmetric
+    Int4Linear (int4) by the numpy packers (`make_linear`,
+    `_maybe_quant_from_float` of the JAX package)."""
+    if quant == "int8":
+        qv, sc = qm.repack_float_to_int8(w)
+        return QuantLinear(torch.from_numpy(qv).to(device), torch.from_numpy(sc).to(device), bias)
+    packed, scales, _ = qm.prepare_int4(*qm.repack_float_to_int4(w, qm.GROUP), qm.GROUP)
+    return Int4Linear(torch.from_numpy(packed).to(device), torch.from_numpy(scales).to(device),
+                      qm.GROUP, None, bias)
+
+
 def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
-                   names: NameMap = None) -> CausalLM:
+                   names: NameMap = None, quant: str | None = None) -> CausalLM:
     """Build the model for `cfg` and fill it from `loader` (strict: every
     parameter must be in the checkpoint). As in the JAX package, an untied
     config whose checkpoint has no lm_head falls back to the tied head, and
-    a qk_norm config whose checkpoint has no q_norm runs without it."""
+    a qk_norm config whose checkpoint has no q_norm runs without it.
+
+    quant="int8" | "int4" quantizes every Linear (the untied lm_head too)
+    from the checkpoint's f32 values on the host; the tied embedding and the
+    MLPs stay as they are (no head quantization, no FusedInt4MLP), as in JAX."""
+    if quant is not None:
+        check_mode(quant)
     nm = names or NameMap()
     model = CausalLM(cfg, device=device, dtype=dtype)
     if model.lm_head is not None and nm.lm_head not in loader:
@@ -71,9 +94,23 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
         if blk.attn.q_norm is not None and nm.blk.format(i=blk.attn.layer_idx) + nm.q_norm not in loader:
             blk.attn.q_norm = blk.attn.k_norm = None
     sd = model.state_dict()
+    arrays = {key: np.array(loader.load(ck, tuple(sd[key].shape), np.float32))
+              for key, ck in checkpoint_names(model, nm).items()}
+
+    def tensor(a):
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
+
     state = {}
-    for key, ck in checkpoint_names(model, nm).items():
-        arr = loader.load(ck, tuple(sd[key].shape), np.float32)
-        state[key] = torch.from_numpy(np.array(arr)).to(device=device, dtype=dtype)
+    if quant is not None:
+        for path, lin in list(model.named_modules()):
+            if not isinstance(lin, Linear):
+                continue
+            bias = arrays.pop(path + ".bias", None)
+            ql = quant_linear_from_float(arrays.pop(path + ".weight"), None if bias is None
+                                         else tensor(bias), quant, device)
+            parent, _, name = path.rpartition(".")
+            setattr(model.get_submodule(parent), name, ql)
+            state.update({f"{path}.{k}": v for k, v in ql.state_dict().items()})
+    state.update({k: tensor(a) for k, a in arrays.items()})
     model.load_state_dict(state, strict=True)
     return model

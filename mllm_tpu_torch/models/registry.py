@@ -17,6 +17,7 @@ import torch
 
 from ..core.config import TextConfig, from_hf_config
 from ..core.param_loader import SafetensorsLoader
+from ..ops.quantize_model import check_mode
 from ..utils.runtime import default_device
 from .families import PRESETS
 from .loading import load_causal_lm
@@ -37,10 +38,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"mllm_tpu_torch does not port {what} yet: {item}")
 
 
-def build_model(cfg: TextConfig, loader, *, device, dtype=torch.bfloat16):
+def build_model(cfg: TextConfig, loader, *, device, dtype=torch.bfloat16, quant=None):
     """Dispatch on model_type to the function that builds the architecture."""
     if cfg.model_type in DENSE_TYPES:
-        return load_causal_lm(loader, cfg, device=device, dtype=dtype)
+        return load_causal_lm(loader, cfg, device=device, dtype=dtype, quant=quant)
     raise _not_ported(f"model_type {cfg.model_type!r}",
                       _LATER.get(cfg.model_type, "no ROADMAP item names it"))
 
@@ -67,10 +68,12 @@ def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[Tex
                with_tokenizer: bool = True, *, device=None, **overrides):
     """Load (model, tokenizer, cfg) from an HF-style model directory.
 
-    The tokenizer is not ported yet: with_tokenizer=True on a directory that
-    holds a tokenizer.json raises rather than returning None."""
+    quant="int8" | "int4" quantizes the float checkpoint's Linears at load;
+    other modes raise NotImplementedError. The tokenizer is not ported yet:
+    with_tokenizer=True on a directory that holds a tokenizer.json raises
+    rather than returning None."""
     if quant is not None:
-        raise _not_ported(f"quantized weights (quant={quant!r})", "ROADMAP Queue 1 item 8")
+        check_mode(quant)
     if config is None and os.path.isdir(path):
         cfg_json = os.path.join(path, "config.json")
         if os.path.exists(cfg_json):
@@ -81,5 +84,6 @@ def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[Tex
     cfg = config or auto_config(path, **overrides)
     if with_tokenizer and os.path.isdir(path) and os.path.exists(os.path.join(path, "tokenizer.json")):
         raise _not_ported("tokenizers", "ROADMAP Queue 1 item 6")
-    model = build_model(cfg, open_loader(path), device=device or default_device(), dtype=dtype)
+    model = build_model(cfg, open_loader(path), device=device or default_device(), dtype=dtype,
+                        quant=quant)
     return model, None, cfg

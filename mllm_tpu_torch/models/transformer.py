@@ -6,6 +6,10 @@ Module and attribute names match the JAX package (`embed_tokens`,
 `norm`, `lm_head`), so the state-dict keys read like `Module.parameters()`
 names there, with `blocks.{i}` in place of `blocks.mods.{i}`.
 
+`ops.quantize_model.fuse_projections` sets `attn.qkv_proj` (q||k||v) and
+`mlp.gateup_proj` (gate||up) in place of the split projections, as in the
+JAX package; `quantize_model` then swaps Linears for quantized layers.
+
 Not in this slice: stacked weights, ring attention and `loss`.
 """
 
@@ -52,6 +56,7 @@ class Attention(nn.Module):
         self.o_proj = Linear(h * hd, d, cfg.o_proj_bias, **kw)
         self.q_norm = RMSNorm(hd, cfg.rms_norm_eps, **kw) if cfg.qk_norm else None
         self.k_norm = RMSNorm(hd, cfg.rms_norm_eps, **kw) if cfg.qk_norm else None
+        self.qkv_proj = None  # fused q||k||v, set by fuse_projections
         self.cfg = cfg
         self.layer_idx = layer_idx
 
@@ -67,9 +72,15 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
-        q = self.q_proj(x).view(b, s, h, hd)
-        k = self.k_proj(x).view(b, s, hkv, hd)
-        v = self.v_proj(x).view(b, s, hkv, hd)
+        if self.qkv_proj is not None:  # one product, fewer launches
+            qkv = self.qkv_proj(x)
+            q = qkv[..., : h * hd].reshape(b, s, h, hd)
+            k = qkv[..., h * hd : (h + hkv) * hd].reshape(b, s, hkv, hd)
+            v = qkv[..., (h + hkv) * hd :].reshape(b, s, hkv, hd)
+        else:
+            q = self.q_proj(x).view(b, s, h, hd)
+            k = self.k_proj(x).view(b, s, hkv, hd)
+            v = self.v_proj(x).view(b, s, hkv, hd)
         if self.q_norm is not None:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -99,9 +110,14 @@ class MLP(nn.Module):
         self.gate_proj = Linear(d, i, cfg.mlp_bias, **kw)
         self.up_proj = Linear(d, i, cfg.mlp_bias, **kw)
         self.down_proj = Linear(i, d, cfg.mlp_bias, **kw)
+        self.gateup_proj = None  # fused gate||up, set by fuse_projections
         self.act = cfg.hidden_act
 
     def forward(self, x):
+        if self.gateup_proj is not None:
+            gu = self.gateup_proj(x)
+            ff = gu.shape[-1] // 2
+            return self.down_proj(ACT_FN[self.act](gu[..., :ff]) * gu[..., ff:])
         return self.down_proj(ACT_FN[self.act](self.gate_proj(x)) * self.up_proj(x))
 
 

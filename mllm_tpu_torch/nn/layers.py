@@ -7,6 +7,7 @@ Compute conventions, as in the JAX package:
   - every constructor takes an explicit `device` and `dtype`.
 
 Parameters do not require gradients: this slice is inference only.
+Quantized layers hold their integer weights, scales and bias as buffers.
 """
 
 from __future__ import annotations
@@ -78,6 +79,16 @@ class Linear(nn.Module):
         self.weight = _param(out_features, in_features, device=device, dtype=dtype)
         self.bias = _param(out_features, device=device, dtype=dtype) if bias else None
 
+    @staticmethod
+    def from_tensors(weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> "Linear":
+        """A Linear holding `weight` [out, in] and `bias` [out] (not copied)."""
+        lin = Linear(weight.shape[1], weight.shape[0], bias is not None, device="meta",
+                     dtype=weight.dtype)
+        lin.weight = nn.Parameter(weight, requires_grad=False)
+        if bias is not None:
+            lin.bias = nn.Parameter(bias, requires_grad=False)
+        return lin
+
     def reset_parameters(self, generator: torch.Generator) -> None:
         """U(-1/sqrt(in), 1/sqrt(in)) for weight and bias (as `mllm_tpu` Linear.init)."""
         s = 1.0 / math.sqrt(self.weight.shape[1])
@@ -87,6 +98,54 @@ class Linear(nn.Module):
 
     def forward(self, x):
         y = matmul_f32(x, self.weight)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+class QuantLinear(nn.Module):
+    """Linear over int8 weights: values int8 [in, out] (k-major) and f32
+    per-out-channel scales [out] (`mllm_tpu` nn/layers.py QuantLinear).
+    The product runs `ops.quant_matmul.int8_matmul` (f32 out); the bias is
+    added to it in f32 and the sum rounds once to x's dtype."""
+
+    def __init__(self, qweight_t: torch.Tensor, scales: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("qweight_t", qweight_t)
+        self.register_buffer("scales", scales)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x):
+        from ..ops.quant_matmul import int8_matmul
+
+        y = int8_matmul(x, self.qweight_t, self.scales)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+class Int4Linear(nn.Module):
+    """Linear over int4 group-quantized weights in the canonical planar layout
+    of `ops.quant_matmul.prepare_int4` (`mllm_tpu` nn/layers.py Int4Linear):
+    packed_t uint8 [khp, out], scales_t (and zeros_t, None when symmetric)
+    f32 [2*khp/G, out]. Decode shapes run the int4 kernel, prefill dequantizes
+    and runs one matmul (`int4_matmul`); the bias is added in f32 and the sum
+    rounds once to x's dtype."""
+
+    def __init__(self, packed_t: torch.Tensor, scales_t: torch.Tensor, group: int = 32,
+                 zeros_t: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("packed_t", packed_t)
+        self.register_buffer("scales_t", scales_t)
+        self.register_buffer("zeros_t", zeros_t)
+        self.register_buffer("bias", bias)
+        self.group = group
+
+    def forward(self, x):
+        from ..ops.quant_matmul import int4_matmul
+
+        y = int4_matmul(x, self.packed_t, self.scales_t, self.group, self.zeros_t)
         if self.bias is not None:
             y = y + self.bias.float()
         return y.to(x.dtype)

@@ -1,9 +1,10 @@
 """Builds the hand-written CUDA kernels and binds them with ctypes.
 
-At first use, `nvcc` compiles every `csrc/*.cu` into one shared library with a
-plain C interface, for `sm_90a` (Hopper). The library is named by a hash of
-the sources (`*.cu` and `*.cuh`), so an edited source builds anew and an
-unchanged one is loaded as it is. Importing this module builds nothing.
+At first use, `nvcc` compiles every `csrc/*.cu` for `sm_90a` (Hopper), one
+compiler process per source, all started together, and links the objects into
+one shared library with a plain C interface. The library is named by a hash of
+the sources (`*.cu` and `*.cuh`) and flags, so an edited source builds anew and
+an unchanged one is loaded as it is. Importing this module builds nothing.
 
 Each exported function takes device pointers and the stream as `void*`,
 launches on that stream without synchronising, and returns the CUDA error
@@ -19,12 +20,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 
 from ..utils.runtime import csrc_dir, kernel_build_dir
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +43,14 @@ SIGNATURES = {
     # kv_valid, window, scale_log2, stream
     "mllm_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _P],
+    # x, q, s, out, ws, M, K, N, splits, kt_per_split, mt, stream
+    "mllm_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, s, z, out, ws, M, K, N, khp, splits, groups_per_split, mt, stream
+    "mllm_int4_matmul_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, gq, gs, gz, uq, us, uz, dq, ds, dz, ws, out, M, d, khp_d, ff, d_out,
+    # block_f, act, mt, stream
+    "mllm_fused_int4_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -57,7 +68,7 @@ def source_hash() -> str:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -95,15 +106,29 @@ def build() -> tuple[str, str, float]:
             "mllm_tpu_torch are compiled from csrc/ at first use and need the CUDA toolkit")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as objdir:
+        jobs = []
+        for src in sources():
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for cmd, _, proc in jobs:  # each compiler's output is small: pipes do not fill
+            text = proc.communicate()[0]
+            log += text
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent reader never sees half a library
-    return out, log, seconds
+    return out, log, time.perf_counter() - t0
 
 
 @functools.cache

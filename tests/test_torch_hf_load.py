@@ -73,7 +73,7 @@ def test_unported_parts_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="tokenizer"):
         auto_model(str(d), dtype=torch.float32, device=CPU)
     with pytest.raises(NotImplementedError, match="item 8"):
-        auto_model(str(d), quant="int4", with_tokenizer=False, device=CPU)
+        auto_model(str(d), quant="int8-a8", with_tokenizer=False, device=CPU)
     cfg = json.loads((d / "config.json").read_text())
     (d / "config.json").write_text(json.dumps({**cfg, "model_type": "gemma2"}))
     with pytest.raises(NotImplementedError, match="gemma2"):

@@ -49,5 +49,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_sources_are_the_kernels():
     names = sorted(os.path.basename(p) for p in _build.sources())
-    assert names == ["decode_attention.cu", "flash_attention.cu"]
-    assert set(_build.SIGNATURES) == {"mllm_flash_attention_bf16", "mllm_decode_attention_bf16"}
+    assert names == ["decode_attention.cu", "flash_attention.cu", "fused_int4_mlp.cu",
+                     "int4_matmul.cu", "int8_matmul.cu", "split_k.cu"]
+    assert set(_build.SIGNATURES) == {"mllm_flash_attention_bf16", "mllm_decode_attention_bf16",
+                                      "mllm_int8_matmul_bf16", "mllm_int4_matmul_bf16",
+                                      "mllm_fused_int4_mlp_bf16"}
