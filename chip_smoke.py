@@ -14,19 +14,31 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      (int8_matmul, int4_matmul: f32 sums in another order) and <= 1e-2
      (fused_int4_mlp: the kernel rounds the hidden activation to bf16, the
      plain version keeps f32); each row also prints the weight bytes read
-     over the kernel time, against the H100's 3.35 TB/s.
+     over the kernel time, against the H100's 3.35 TB/s. The two megakernels
+     (28 layers, cache 2048, random int4 operand stacks): max |kernel - plain|
+     / max |plain| <= 1e-2 over y, k_new and v_new (bf16 rounding points
+     that flip differently, f32 sums in another order; observed <= 6.6e-3).
+     Every row carries its bound: the larger of its bytes over 3.35 TB/s and
+     its FLOPs over 989 TFLOP/s (bf16); the attention main rows also time
+     scaled_dot_product_attention on the same inputs (`library_ms`).
   4. slice: a Qwen2-VL-2B-geometry LM (28 layers, random bf16 weights from a
      seeded generator) through generate, ragged_batched_generate and a
      sampled generate.
   5. slice_int8 / slice_int4: the same bf16 model after fuse_projections +
      quantize_model("int8" / "int4", on_device=True) on the card, through the
      same entry points (ragged batch of 8 for int8, 4 for int4).
-  Every slice phase checks finite logits, tokens inside the vocabulary,
-  ragged-vs-alone prefill logits, the last greedy decode step's logits
-  against a fresh prefill of the same tokens (<= 0.1 x max |logit|), and
-  that each kernel of the path launched at least as often as the path needs;
-  the counters are set to 0 just before a phase drives its path and read
-  just after.
+  6. slice_mega: MegaDecodeLM.from_float of the bf16 model on the card, then
+     generate at b=1 (prompts 100 and 1500) and batched_generate at b=8
+     lockstep on the megakernel, and ragged_batched_generate through its int4
+     base; exact launch counts (one megakernel and one head int4_matmul a
+     step, no decode_attention or fused_int4_mlp), the last decode step and 8
+     teacher-forced steps against the base model (<= 0.1 x max |logit|).
+  Every slice phase checks finite logits and tokens inside the vocabulary;
+  phases 4-5 also ragged-vs-alone prefill logits, the last greedy decode
+  step's logits against a fresh prefill of the same tokens (<= 0.1 x max
+  |logit|), and that each kernel of the path launched at least as often as
+  the path needs. The counters are set to 0 just before a phase drives its
+  path and read just after.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or mllm_tpu.
 """
@@ -52,9 +64,10 @@ RAGGED_TOL = 1e-1  # x max |logit|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # the kernel-check rows whose times go into the {"kernels": ...} line: for
 # attention the shapes of the 1500-token prompt (its prefill, its last decode
-# step); for the products the headline shapes of their phases
+# step); for the products the headline shapes of their phases; for the
+# megakernels the b=1 step at ctx 1531 and the b=8 step at unequal positions
 MAIN_ROW = {"flash_attention": 5, "decode_attention": 1, "int8_matmul": 1, "int4_matmul": 4,
-            "fused_int4_mlp": 0}
+            "fused_int4_mlp": 0, "fused_decode_step": 2, "fused_decode_step_batched": 0}
 SOURCES = {
     "flash_attention": ("mllm_tpu_torch/csrc/flash_attention.cu",
                         "mllm_tpu/ops/flash_attention.py:230"),
@@ -63,7 +76,12 @@ SOURCES = {
     "int8_matmul": ("mllm_tpu_torch/csrc/int8_matmul.cu", "mllm_tpu/ops/quant_matmul.py:89"),
     "int4_matmul": ("mllm_tpu_torch/csrc/int4_matmul.cu", "mllm_tpu/ops/quant_matmul.py:322"),
     "fused_int4_mlp": ("mllm_tpu_torch/csrc/fused_int4_mlp.cu", "mllm_tpu/ops/fused_mlp.py:169"),
+    "fused_decode_step": ("mllm_tpu_torch/csrc/decode_step.cu", "mllm_tpu/ops/decode_step.py:300"),
+    "fused_decode_step_batched": ("mllm_tpu_torch/csrc/decode_step.cu",
+                                  "mllm_tpu/ops/decode_step.py:717"),
 }
+MEGA_TOL = 1e-2  # relative, on y and on k_new/v_new
+BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
 
 
 def emit(**kw):
@@ -89,16 +107,26 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def wrappers() -> dict:
     """Kernel name -> its wrapper (each counts its launches in `.launches`)."""
     from mllm_tpu_torch.ops.decode_attention import decode_attention
+    from mllm_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_batched
     from mllm_tpu_torch.ops.flash_attention import flash_attention
     from mllm_tpu_torch.ops.fused_mlp import fused_int4_mlp
     from mllm_tpu_torch.ops.quant_matmul import int4_matmul, int8_matmul
 
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "int8_matmul": int8_matmul, "int4_matmul": int4_matmul,
-            "fused_int4_mlp": fused_int4_mlp}
+            "fused_int4_mlp": fused_int4_mlp, "fused_decode_step": fused_decode_step,
+            "fused_decode_step_batched": fused_decode_step_batched}
 
 
 def phase_device() -> str:
@@ -124,6 +152,24 @@ def phase_build():
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
 
 
+def attention_bound(shape: dict) -> dict:
+    """Bytes and FLOPs an attention row needs: q and the output once, each K/V
+    row that some query sees once, and QK plus PV for every visible pair."""
+    b, h, d = shape["B"], shape["H"], shape["D"]
+    sq = shape.get("Sq", 1)
+    kvl = shape["kv_valid"] if isinstance(shape["kv_valid"], list) else [shape["kv_valid"]] * b
+    starts = shape["kv_start"] or [0] * b
+    window = shape["window"] or 0
+    pairs = rows = 0
+    for i in range(b):  # query positions: q_offset + t (flash), the last valid key (decode)
+        qpos = [shape["q_offset"] + t for t in range(sq)] if "Sq" in shape else [kvl[i] - 1]
+        lo = lambda p: max(starts[i], p - window + 1 if window else 0)  # noqa: E731
+        hi = lambda p: min(p, kvl[i] - 1)  # noqa: E731
+        pairs += sum(max(0, hi(p) - lo(p) + 1) for p in qpos)
+        rows += max(0, hi(qpos[-1]) - lo(qpos[0]) + 1)
+    return bound(2 * b * sq * h * d * 2 + rows * shape["Hkv"] * d * 2 * 2, 4 * pairs * h * d)
+
+
 def phase_kernels(dev) -> dict:
     from mllm_tpu_torch.ops.decode_attention import decode_attention, decode_attention_ref
     from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
@@ -136,19 +182,26 @@ def phase_kernels(dev) -> dict:
     def ivec(xs):
         return torch.tensor(xs, device=dev, dtype=torch.int32)
 
-    def check(name, kernel, plain, shape):
+    def check(name, kernel, plain, shape, library=None):
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         # every row is compared: both versions write zeros where a row sees no key
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out.float()).all())
         row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err,
-                   finite=finite, ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5))
+                   finite=finite, ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5),
+                   library_ms=time_ms(library, 20) if library is not None else None,
+                   **attention_bound(shape))
         emit(**row)
         if not finite or not err <= TOL:
             raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
                                  f"finite={finite}")
         return row
+
+    def sdpa(q, k, v, kvl, causal):
+        """The library call for a main row: one SDPA over the valid keys (GQA)."""
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl], is_causal=causal, enable_gqa=True)
 
     rows = {"flash_attention": [], "decode_attention": []}
     # flash: (B, Sq, q_offset, kv_valid, kv_start, window)
@@ -163,11 +216,12 @@ def phase_kernels(dev) -> dict:
         q, k, v = rnd(b, sq, H, D), rnd(b, HKV, S_CACHE, D), rnd(b, HKV, S_CACHE, D)
         kw = dict(q_offset=qoff, kv_valid_len=kvl,
                   kv_start=None if start is None else ivec(start), window=window)
+        main = len(rows["flash_attention"]) == MAIN_ROW["flash_attention"]
         rows["flash_attention"].append(check(
             "flash_attention", lambda: flash_attention(q, k, v, **kw),
             lambda: flash_attention_ref(q, k, v, **kw),
             dict(B=b, Sq=sq, H=H, Hkv=HKV, D=D, S=S_CACHE, q_offset=qoff, kv_valid=kvl,
-                 kv_start=start, window=window)))
+                 kv_start=start, window=window), sdpa(q, k, v, kvl, True) if main else None))
     # decode: (B, kv_valid per sequence, kv_start, window)
     for b, kvl, start, window in [
         (1, [2048], None, None),
@@ -180,12 +234,14 @@ def phase_kernels(dev) -> dict:
         q, k, v = rnd(b, 1, H, D), rnd(b, HKV, S_CACHE, D), rnd(b, HKV, S_CACHE, D)
         kw = dict(kv_valid_len=ivec(kvl), kv_start=None if start is None else ivec(start),
                   window=window)
+        main = len(rows["decode_attention"]) == MAIN_ROW["decode_attention"]
         rows["decode_attention"].append(check(
             "decode_attention", lambda: decode_attention(q, k, v, **kw),
             lambda: decode_attention_ref(q, k, v, **kw),
             dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=kvl, kv_start=start,
-                 window=window)))
+                 window=window), sdpa(q, k, v, kvl[0], False) if main else None))
     rows.update(quant_kernel_rows(dev, g))
+    rows.update(mega_kernel_rows(dev, g))
     return rows
 
 
@@ -206,6 +262,8 @@ def quant_kernel_rows(dev, g) -> dict:
         return torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
 
     def check(name, kernel, plain, shape, weight_bytes):
+        m, k, n = shape.get("m"), shape.get("K", shape.get("d")), shape.get("N", shape.get("d"))
+        weights = k * n if name != "fused_int4_mlp" else 3 * shape["d"] * shape["ff"]
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -215,7 +273,8 @@ def quant_kernel_rows(dev, g) -> dict:
         row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
                    tolerance=QUANT_TOL[name], finite=finite, ms=ms, plain_ms=time_ms(plain, 5),
                    weight_bytes=weight_bytes, weight_tb_per_s=weight_bytes / ms / 1e9,
-                   hbm_tb_per_s=HBM_BYTES_PER_S / 1e12)
+                   hbm_tb_per_s=HBM_BYTES_PER_S / 1e12, library_ms=None,
+                   **bound(weight_bytes + m * k * 2 + m * n * 4, 2 * m * weights))
         emit(**row)
         if not finite or not rel <= QUANT_TOL[name]:
             raise AssertionError(f"{name} {shape}: max |kernel - plain| / max |plain| {rel} "
@@ -271,6 +330,103 @@ def quant_kernel_rows(dev, g) -> dict:
             lambda: fused_int4_mlp_ref(x, *ops, act=act, block_f=block_f),
             dict(m=m, d=d, ff=ff, block_f=block_f, act=act, affine=affine),
             2 * int4_bytes(d, ff, affine) + int4_bytes(ff, d, affine)))
+    return rows
+
+
+def mega_operands(dev, g, cfg):
+    """Random operand stacks of the megakernel at cfg's geometry: uniform
+    nibbles, bf16 scales, small qkv bias, norms near 1. Returns (ops tuple,
+    bytes of the stacks). The scales keep the residual stream O(10) over 28
+    layers: with scales 4x larger this random trunk grows |y| to ~6e3 and
+    amplifies last-bit differences, so kernel and plain version, equal at
+    layer 0, part by up to 115 % at layer 6 (`tools/mega_amplification.py`,
+    PERF.md)."""
+    L, d, ff = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    n_q = cfg.num_attention_heads * D
+    n_qkv = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * D
+
+    def weight(k, n, group):
+        packed = torch.randint(0, 256, (L, k // 2, n), device=dev, dtype=torch.uint8, generator=g)
+        scales = torch.rand(L, k // group, n, device=dev, generator=g) * (0.5 / (4.6 * k**0.5))
+        return packed, scales.to(torch.bfloat16)
+
+    def norm():
+        return 1.0 + 0.1 * torch.randn(L, 1, d, device=dev, generator=g)
+
+    ops = ((*weight(d, n_qkv, 128), 0.1 * torch.randn(L, 1, n_qkv, device=dev, generator=g)),
+           weight(n_q, d, 128), weight(d, ff, 128), weight(d, ff, 128), weight(ff, d, 32),
+           norm(), norm())
+    nbytes = sum(t.numel() * t.element_size() for op in ops for t in (op if isinstance(op, tuple) else (op,)))
+    return ops, nbytes
+
+
+def mega_kernel_rows(dev, g) -> dict:
+    """Both megakernels against their plain versions at the full Qwen2-VL-2B
+    geometry (28 layers, cache 2048): error = max |kernel - plain| / max |plain|
+    over y, k_new and v_new; bytes = weight stacks + the visible KV rows + x,
+    y and the new K/V; the bound is the larger of bytes / 3.35 TB/s and
+    FLOPs / 989 TFLOP/s (bf16)."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.nn.layers import RotaryEmbedding
+    from mllm_tpu_torch.ops import decode_step as ds
+
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    ops, weight_bytes = mega_operands(dev, g, cfg)
+    rope = RotaryEmbedding.make(D, S_CACHE, cfg.rope_theta, device=dev)
+    kw = dict(n_heads=H, n_kv_heads=HKV, head_dim=D, act=cfg.hidden_act, eps=cfg.rms_norm_eps,
+              group_a=128, group_d=32, block_f=1280)
+    n_weights = 2 * sum(op[0].numel() for op in ops[:5])  # two int4 weights a packed byte
+
+    def check(name, kernel, plain, shape, b, keys):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max(((o.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                  for o, r in zip(out, ref))
+        abs_err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
+        finite = all(bool(torch.isfinite(o).all()) for o in out)
+        nbytes = weight_bytes + keys * L * HKV * D * 2 * 2 + b * d * 4 * 2 + 2 * L * b * HKV * D * 4
+        ms = time_ms(kernel, 20)
+        row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=abs_err, rel_err=err,
+                   tolerance=MEGA_TOL, finite=finite, ms=ms, plain_ms=time_ms(plain, 3),
+                   library_ms=None, tb_per_s=nbytes / ms / 1e9,
+                   hbm_tb_per_s=HBM_BYTES_PER_S / 1e12,
+                   **bound(nbytes, 2 * b * n_weights + 4 * keys * L * H * D))
+        emit(**row)
+        if not finite or not err <= MEGA_TOL:
+            raise AssertionError(f"{name} {shape}: max |kernel - plain| / max |plain| {err} "
+                                 f"(tolerance {MEGA_TOL}), finite={finite}")
+        return row
+
+    def cache(b):
+        return [torch.randn(L, b, HKV, S_CACHE, D, device=dev, generator=g).to(torch.bfloat16)
+                for _ in range(2)]
+
+    rows = {"fused_decode_step": [], "fused_decode_step_batched": []}
+    kv = cache(1)
+    for pos, start in [(0, 0), (100, 0), (1531, 200)]:
+        x = torch.randn(1, d, device=dev, generator=g)
+        rot = ds.rope_rotation_matrix(rope.sin[pos], rope.cos[pos])
+        args = (x, pos, rot, *ops, *kv)
+        rows["fused_decode_step"].append(check(
+            "fused_decode_step", lambda: ds.fused_decode_step(*args, kv_start=start, **kw),
+            lambda: ds.fused_decode_step_ref(*args, kv_start=start, **kw),
+            dict(b=1, pos=pos, kv_start=start, L=L, S=S_CACHE), 1, pos - start))
+    del kv
+    for pos, start in [([1, 17, 100, 511, 513, 1000, 1531, 2000], [0, 0, 5, 100, 0, 50, 0, 3]),
+                       ([200] * 32, None)]:
+        b = len(pos)
+        kv = cache(b)
+        x = torch.randn(b, d, device=dev, generator=g)
+        p = torch.tensor(pos, device=dev)
+        args = (x, pos, rope.sin[p], rope.cos[p], *ops, *kv)
+        keys = sum(pos) - (sum(start) if start else 0)
+        rows["fused_decode_step_batched"].append(check(
+            "fused_decode_step_batched",
+            lambda: ds.fused_decode_step_batched(*args, kv_start=start, **kw),
+            lambda: ds.fused_decode_step_batched_ref(*args, kv_start=start, **kw),
+            dict(b=b, pos=pos, kv_start=start, L=L, S=S_CACHE), b, keys))
+        del kv
     return rows
 
 
@@ -484,6 +640,156 @@ def phase_slice_quant(dev, mode: str) -> dict:
     return launches
 
 
+def unique_bytes(module) -> int:
+    """Bytes of the distinct storages behind a module's tensors (views count once)."""
+    storages = {}
+    for t in module.state_dict().values():
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
+
+
+def phase_slice_mega(dev) -> dict:
+    """MegaDecodeLM.from_float of the full-width random bf16 model on the card,
+    then the main path: generate at b=1 (prompts 100 and 1500) and
+    batched_generate at b=8 lockstep, every decode step one megakernel launch
+    and the int4 head; then ragged_batched_generate, which goes through the
+    int4 base model. Checks finite logits, tokens in the vocabulary, the last
+    b=1 decode step against a fresh base prefill, 8 teacher-forced steps of
+    mega against base (b=1, and 3 at b=8), and the exact launch counts."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation.generate import (batched_generate, generate, pad_to_bucket,
+                                                    prefill, ragged_batched_generate)
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.models.megadecode import MegaDecodeLM
+
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    model = init_model(cfg, dev)
+    bf16_bytes = state_bytes(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mega = MegaDecodeLM.from_float(model)
+    torch.cuda.synchronize()
+    from_float_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    stack_bytes = sum(t.numel() * t.element_size() for k, t in mega.state_dict().items()
+                      if not k.startswith("base."))
+    emit(phase="slice_mega_from_float", seconds=from_float_s, bf16_weight_bytes=bf16_bytes,
+         kernel_stack_bytes=stack_bytes, weight_bytes=unique_bytes(mega))
+
+    base = mega.base
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    last = {}
+    plain_logits = base.logits
+
+    def checked_logits(hidden):
+        nonlocal finite
+        out = plain_logits(hidden)
+        finite = finite & torch.isfinite(out).all()
+        last["logits"] = out
+        return out
+
+    base.logits = checked_logits
+    kernels = wrappers()
+    rng = np.random.default_rng(3)
+
+    def ratio(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    def timed_prefill(b, n):
+        ids = torch.as_tensor(pad_to_bucket(rng.integers(0, V, (b, n))), device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(mega, mega.init_cache(b, S_CACHE), ids, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    generate(mega, rng.integers(0, V, 100), mega.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=4))
+    prefill_b8_s = float(np.median([timed_prefill(8, 100) for _ in range(3)]))
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts set to 0 just before, read just after
+    for fn in kernels.values():
+        fn.launches = 0
+    prompt100 = rng.integers(0, V, 100)
+    res100, _ = generate(mega, prompt100, mega.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=64))
+    last_step = last["logits"][:, -1].float()
+    res1500, _ = generate(mega, rng.integers(0, V, 1500), mega.init_cache(1, S_CACHE),
+                          SamplingConfig(max_new_tokens=32))
+    ids8 = rng.integers(0, V, (8, 100))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks8, _ = batched_generate(mega, ids8, np.full(8, 100), mega.init_cache(8, S_CACHE),
+                                SamplingConfig(max_new_tokens=32))
+    torch.cuda.synchronize()
+    b8_s = time.perf_counter() - t
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    steps_b1 = len(res100.tokens) - 1 + len(res1500.tokens) - 1
+    steps_b8 = toks8.shape[1] - 1
+    prefills = 3
+    expected = {"flash_attention": L * prefills, "decode_attention": 0, "int8_matmul": 0,
+                "int4_matmul": steps_b1 + steps_b8 + prefills, "fused_int4_mlp": 0,
+                "fused_decode_step": steps_b1, "fused_decode_step_batched": steps_b8}
+
+    # ragged batch: left padding goes through the int4 base model
+    for fn in kernels.values():
+        fn.launches = 0
+    prompts = [rng.integers(0, V, n) for n in (17, 64, 128, 200)]
+    toks_r, _, _ = ragged_batched_generate(mega, prompts, mega.init_cache(4, S_CACHE),
+                                           SamplingConfig(max_new_tokens=16))
+    launches_r = {name: fn.launches for name, fn in kernels.items()}
+    steps_r = toks_r.shape[1] - 1
+    expected_r = {"flash_attention": L, "decode_attention": L * steps_r, "int8_matmul": 0,
+                  "int4_matmul": (2 * L + 1) * steps_r + 1, "fused_int4_mlp": L * steps_r,
+                  "fused_decode_step": 0, "fused_decode_step_batched": 0}
+
+    # the last b=1 decode step against a fresh base prefill of the same tokens
+    ids = np.concatenate([prompt100, res100.tokens[:-1]])
+    lg_fresh, _ = prefill(base, base.init_cache(1, S_CACHE),
+                          torch.as_tensor(pad_to_bucket(ids[None]), device=dev), len(ids))
+    vs_prefill = ratio(last_step, lg_fresh)
+    # teacher-forced: the same tokens through mega and base, step by step
+    teacher = 0.0
+    for b, toks, n_steps in ((1, np.array([res100.tokens]), 8), (8, toks8, 3)):
+        ids = torch.as_tensor(pad_to_bucket(np.asarray(prompt100 if b == 1 else ids8).reshape(b, -1)),
+                              device=dev)
+        _, cm = prefill(base, base.init_cache(b, S_CACHE), ids, 100)
+        _, cb = prefill(base, base.init_cache(b, S_CACHE), ids, 100)
+        for i in range(n_steps):
+            tok = torch.as_tensor(toks[:, i : i + 1], device=dev)
+            lm, cm = mega(tok, cm)
+            lb, cb = base(tok, cb)
+            teacher = max(teacher, ratio(lm, lb))
+    torch.cuda.synchronize()
+    base.logits = plain_logits
+    all_finite = bool(finite)
+    emit(phase="slice_mega", prompt_tokens=[100, 1500, "8 x 100", [17, 64, 128, 200]],
+         new_tokens=[len(res100.tokens), len(res1500.tokens), int(toks8.shape[1]), int(toks_r.shape[1])],
+         decode_tok_s_b1_ctx100=res100.decode_tps, decode_tok_s_b1_ctx1500=res1500.decode_tps,
+         decode_tok_s_b8_lockstep=8 * steps_b8 / (b8_s - prefill_b8_s),
+         ttft_ms_1500_tokens=res1500.ttft_s * 1e3,
+         max_memory_allocated_bytes=peak, last_decode_vs_prefill=vs_prefill,
+         teacher_forced_mega_vs_base=teacher, tolerance=RAGGED_TOL, logits_finite=all_finite,
+         launches=launches, launches_expected=expected, ragged_launches=launches_r,
+         ragged_launches_expected=expected_r)
+    if not all_finite:
+        raise AssertionError("slice_mega: non-finite logits")
+    outs = [np.array(res100.tokens), np.array(res1500.tokens), toks8, toks_r]
+    if not all(((0 <= o) & (o < V)).all() for o in outs):
+        raise AssertionError("slice_mega: token out of vocabulary")
+    if not (vs_prefill <= RAGGED_TOL and teacher <= RAGGED_TOL):
+        raise AssertionError(f"slice_mega: mega vs base {vs_prefill}, {teacher} > {RAGGED_TOL}")
+    if launches != expected or launches_r != expected_r:
+        raise AssertionError(f"slice_mega: launches {launches} / {launches_r}, expected {expected} / "
+                             f"{expected_r}")
+    del mega, base
+    torch.cuda.empty_cache()
+    return {name: launches[name] + launches_r[name] for name in launches}
+
+
 def main():
     kind = phase_device()
     dev = torch.device("cuda", 0)
@@ -491,7 +797,7 @@ def main():
     rows = phase_kernels(dev)
     launches = {name: 0 for name in SOURCES}
     for phase_launches in (phase_slice(dev), phase_slice_quant(dev, "int8"),
-                           phase_slice_quant(dev, "int4")):
+                           phase_slice_quant(dev, "int4"), phase_slice_mega(dev)):
         for name, n in phase_launches.items():
             launches[name] += n
     kernels = []
@@ -500,7 +806,8 @@ def main():
         kernel = dict(name=name, route="cuda", source=src, replaces=replaces,
                       launches=launches[name],
                       max_abs_err=max(r["max_abs_err"] for r in rows[name]),
-                      ms=main_row["ms"], plain_ms=main_row["plain_ms"])
+                      ms=main_row["ms"], plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+                      bound_by=main_row["bound_by"], library_ms=main_row["library_ms"])
         if "rel_err" in main_row:
             kernel["max_rel_err"] = max(r["rel_err"] for r in rows[name])
         kernels.append(kernel)

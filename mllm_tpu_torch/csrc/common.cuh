@@ -78,6 +78,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The gated MLP's activations, numbered as the wrappers pass them.
+enum Act { kSilu = 0, kGelu = 1, kGeluNew = 2, kRelu = 3 };
+
+__device__ __forceinline__ float gelu_tanh(float v) {
+  return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+}
+
+// The JAX package's `_ACT` map of fused_mlp.py: there `jax.nn.gelu` defaults to
+// the tanh form, so "gelu" and "gelu_new" are the same function.
+__device__ __forceinline__ float activation(float v, int act) {
+  switch (act) {
+    case kSilu: return v / (1.f + expf(-v));
+    case kGelu:
+    case kGeluNew: return gelu_tanh(v);
+    default: return fmaxf(v, 0.f);
+  }
+}
+
 // Four consecutive floats (16-byte aligned) into registers.
 __device__ __forceinline__ void load_f32x4(float (&d)[4], const float* p) {
   const float4 v = *reinterpret_cast<const float4*>(p);

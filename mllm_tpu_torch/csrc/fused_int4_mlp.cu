@@ -45,8 +45,6 @@ constexpr int kRows = 32;  // down packed rows per block: 2 * kRows hidden units
 constexpr int kUnits = 2 * kRows;
 constexpr int kThreads = 2 * kUnits;  // one (matrix, hidden unit) column per thread
 
-enum Act { kSilu = 0, kGelu = 1, kGeluNew = 2, kRelu = 3 };
-
 struct FusedParams {
   const bf16* x;             // [M, d]
   const uint8_t *gq, *uq;    // [khp_d, ff]
@@ -58,21 +56,6 @@ struct FusedParams {
   float* ws;                 // [ff / 64, M, d_out] partial products of the blocks
   int M, d, khp_d, ff, d_out, block_f, act;
 };
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-}
-
-// The JAX package's `_ACT` map of fused_mlp.py: there `jax.nn.gelu` defaults to
-// the tanh form, so "gelu" and "gelu_new" are the same function.
-__device__ __forceinline__ float activation(float v, int act) {
-  switch (act) {
-    case kSilu: return v / (1.f + expf(-v));
-    case kGelu:
-    case kGeluNew: return gelu_tanh(v);
-    default: return fmaxf(v, 0.f);
-  }
-}
 
 template <int MT>
 __device__ __forceinline__ void load_rows(float (&d)[MT], const float* p) {

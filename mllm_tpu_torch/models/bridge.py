@@ -14,6 +14,11 @@ The model may have gone through `fuse_projections` and/or `quantize_model`
 zeros stay f32; the other float arrays take `dtype`.
 RoPE tables (`rope.sin`, `rope.cos`) are rebuilt from the config, not copied.
 Loading is strict: a missing or unexpected name raises.
+
+`mega_decode_from_jax` takes the parameters of a JAX `MegaDecodeLM` (its
+operand stacks, norms and qkv bias, and its int4 `base` under `base.`) and
+gives the port's `MegaDecodeLM` with the same bytes: the kernel's bf16 scales
+stay bf16, the base's become f32.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ..core.config import TextConfig
 from ..nn.layers import Int4Linear, Linear, QuantLinear
 from ..ops.fused_mlp import pick_block_f
 from ..ops.quantize_model import FusedInt4MLP, Int4EmbedHead, Int4Operands, QuantEmbedHead
+from .megadecode import BLOCK_F_CAP, MegaDecodeLM
 from .transformer import CausalLM
 
 _F32_NAMES = ("scales", "scales_t", "zeros_t", "1", "2")  # last name parts kept in f32
@@ -114,3 +120,27 @@ def causal_lm_from_jax_params(params: dict[str, np.ndarray], cfg: TextConfig, de
                                            cfg.vocab_size)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _same_bits(arr: np.ndarray, device) -> torch.Tensor:
+    """numpy -> torch with the dtype and bits kept (bfloat16 included)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def mega_decode_from_jax(params: dict[str, np.ndarray], cfg: TextConfig, device,
+                         dtype=torch.float32) -> MegaDecodeLM:
+    """The port's MegaDecodeLM from a JAX MegaDecodeLM's `parameters()` as
+    numpy (built by the JAX `from_float` with its default block_f, which is
+    not a parameter there: `pick_block_f(ff, cap=1280)`)."""
+    base = causal_lm_from_jax_params(
+        {k[len("base."):]: v for k, v in params.items() if k.startswith("base.")}, cfg, device, dtype)
+    t = {k: _same_bits(v, device) for k, v in params.items() if not k.startswith("base.")}
+    ops = {name: tuple(t.get(f"{name}.{i}") for i in range(3))
+           for name in ("qkv_ops", "o_ops", "gate_ops", "up_ops", "down_ops")}
+    return MegaDecodeLM(base, ops["qkv_ops"], ops["o_ops"][:2], ops["gate_ops"][:2], ops["up_ops"][:2],
+                        ops["down_ops"][:2], t["norm1_w"], t["norm2_w"],
+                        pick_block_f(cfg.intermediate_size, cap=BLOCK_F_CAP),
+                        cfg.hidden_size // ops["qkv_ops"][1].shape[1])

@@ -33,6 +33,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+# the megakernel's shared tail: qkv_q, qkv_s, qkv_b, o_q, o_s, g_q, g_s, u_q, u_s,
+# d_q, d_s, n1, n2, k_cache, v_cache, y, k_new, v_new, ws, plan, L, d, ff, h, hkv,
+# S, group_a, group_d, block_f, act, eps, rm, scale, stream
+_MEGA_COMMON = [*[_P] * 20, *[_I] * 10, _F, _F, _F, _P]
+
 # name -> argtypes of the C entry points in csrc/
 SIGNATURES = {
     # q, k, v, out, kv_valid_vec, kv_start, B, Sq, H, Hkv, Skv, D,
@@ -51,6 +56,10 @@ SIGNATURES = {
     # block_f, act, mt, stream
     "mllm_fused_int4_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, rope_r, pos, kv_start, *_MEGA_COMMON
+    "mllm_fused_decode_step_bf16": [_P, _P, _I, _I, *_MEGA_COMMON],
+    # x, cos, sin, pos_vec, kvs_vec, pos, kv_start, b, *_MEGA_COMMON
+    "mllm_fused_decode_step_batched_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, *_MEGA_COMMON],
 }
 
 

@@ -15,8 +15,12 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    """The first CUDA card. Raises when there is none: a caller that wants the
+    CPU passes `device="cpu"`."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("mllm_tpu_torch runs on a CUDA card and found none "
+                           "(torch.cuda.is_available() is False); pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def csrc_dir() -> str:

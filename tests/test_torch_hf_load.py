@@ -78,3 +78,18 @@ def test_unported_parts_raise(tmp_path, monkeypatch):
     (d / "config.json").write_text(json.dumps({**cfg, "model_type": "gemma2"}))
     with pytest.raises(NotImplementedError, match="gemma2"):
         auto_model(str(d), with_tokenizer=False, device=CPU)
+
+
+def test_no_card_raises_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """No hidden CPU fallback: without a CUDA card, auto_model(device=None)
+    raises; device="cpu" loads."""
+    from mllm_tpu_torch.utils.runtime import default_device
+
+    d = _save_tiny(tmp_path, "qwen2", monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        default_device()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        auto_model(str(d), dtype=torch.float32, with_tokenizer=False)
+    model, _, _ = auto_model(str(d), dtype=torch.float32, with_tokenizer=False, device="cpu")
+    assert model.device.type == "cpu"
