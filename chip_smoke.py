@@ -18,6 +18,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      (28 layers, cache 2048, random int4 operand stacks): max |kernel - plain|
      / max |plain| <= 1e-2 over y, k_new and v_new (bf16 rounding points
      that flip differently, f32 sums in another order; observed <= 6.6e-3).
+     The quantized- and paged-cache attention kernels (int8 and int4 K/V
+     quantized by the caches' quantizer; a shuffled pool of 128-row blocks
+     with a retired -1 row): max |kernel - plain| <= 2e-2, as the bf16 ones;
+     no PyTorch call takes their layouts (`library_ms` null), and
+     `dense_sdpa_ms` times SDPA over the same keys in a dense bf16 cache, a
+     different function kept for context.
      Every row carries its bound: the larger of its bytes over 3.35 TB/s and
      its FLOPs over 989 TFLOP/s (bf16); the attention main rows also time
      scaled_dot_product_attention on the same inputs (`library_ms`).
@@ -27,14 +33,30 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   5. slice_int8 / slice_int4: the same bf16 model after fuse_projections +
      quantize_model("int8" / "int4", on_device=True) on the card, through the
      same entry points (ragged batch of 8 for int8, 4 for int4).
-  6. slice_mega: MegaDecodeLM.from_float of the bf16 model on the card, then
+  6. slice_kvq: the int8 model over int8 and int4 KV caches
+     (init_cache(kv_dtype=...)) through the same entry points, ragged batch
+     of 8; only the quantized attention kernels launch.
+  7. slice_engine: ContinuousEngine(slots=8, max_len=2048, decode_window=32,
+     pipeline=True) over the int8 model, once per slot cache (bf16 on the
+     loop thread, int8, int4, and a paged pool 4 blocks short of what the
+     first eight requests reserve, which must requeue): 12 requests of 17-300
+     prompt tokens, 48 new tokens each, 2 sampled (top-k 50, top-p 0.9);
+     every request returns 48 in-vocabulary tokens, 4 greedy ones lie within
+     0.1 x max |logit| of the top of a teacher-forced prefill over a cache of
+     the same type, and the launch counts are exact (28 prefill launches an
+     admission, 28 decode launches a step, none of the other attention
+     kernels). Each run prints tok/s over wall time, windows, decode steps,
+     KV-cache bytes and peak memory.
+  8. slice_mega: MegaDecodeLM.from_float of the bf16 model on the card, then
      generate at b=1 (prompts 100 and 1500) and batched_generate at b=8
      lockstep on the megakernel, and ragged_batched_generate through its int4
      base; exact launch counts (one megakernel and one head int4_matmul a
      step, no decode_attention or fused_int4_mlp), the last decode step and 8
-     teacher-forced steps against the base model (<= 0.1 x max |logit|).
+     teacher-forced steps against the base model (<= 0.1 x max |logit|);
+     then the slice_engine run on it over a bf16 slot cache, every decode
+     step one fused_decode_step_batched launch.
   Every slice phase checks finite logits and tokens inside the vocabulary;
-  phases 4-5 also ragged-vs-alone prefill logits, the last greedy decode
+  phases 4-6 also ragged-vs-alone prefill logits, the last greedy decode
   step's logits against a fresh prefill of the same tokens (<= 0.1 x max
   |logit|), and that each kernel of the path launched at least as often as
   the path needs. The counters are set to 0 just before a phase drives its
@@ -67,7 +89,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # step); for the products the headline shapes of their phases; for the
 # megakernels the b=1 step at ctx 1531 and the b=8 step at unequal positions
 MAIN_ROW = {"flash_attention": 5, "decode_attention": 1, "int8_matmul": 1, "int4_matmul": 4,
-            "fused_int4_mlp": 0, "fused_decode_step": 2, "fused_decode_step_batched": 0}
+            "fused_int4_mlp": 0, "fused_decode_step": 2, "fused_decode_step_batched": 0,
+            # int8 K/V: the 1536-token prefill; the engine's 8 slots at unequal lengths
+            "flash_attention_quant": 0, "decode_attention_quant": 1, "decode_attention_paged": 0}
 SOURCES = {
     "flash_attention": ("mllm_tpu_torch/csrc/flash_attention.cu",
                         "mllm_tpu/ops/flash_attention.py:230"),
@@ -79,6 +103,12 @@ SOURCES = {
     "fused_decode_step": ("mllm_tpu_torch/csrc/decode_step.cu", "mllm_tpu/ops/decode_step.py:300"),
     "fused_decode_step_batched": ("mllm_tpu_torch/csrc/decode_step.cu",
                                   "mllm_tpu/ops/decode_step.py:717"),
+    "flash_attention_quant": ("mllm_tpu_torch/csrc/flash_attention_quant.cu",
+                              "mllm_tpu/ops/flash_attention.py:309"),
+    "decode_attention_quant": ("mllm_tpu_torch/csrc/decode_attention_quant.cu",
+                               "mllm_tpu/ops/decode_attention.py:244"),
+    "decode_attention_paged": ("mllm_tpu_torch/csrc/decode_attention_paged.cu",
+                               "mllm_tpu/ops/decode_attention.py:461"),
 }
 MEGA_TOL = 1e-2  # relative, on y and on k_new/v_new
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
@@ -117,16 +147,20 @@ def bound(nbytes: float, flops: float) -> dict:
 
 def wrappers() -> dict:
     """Kernel name -> its wrapper (each counts its launches in `.launches`)."""
-    from mllm_tpu_torch.ops.decode_attention import decode_attention
+    from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
+                                                     decode_attention_quant)
     from mllm_tpu_torch.ops.decode_step import fused_decode_step, fused_decode_step_batched
-    from mllm_tpu_torch.ops.flash_attention import flash_attention
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_quant
     from mllm_tpu_torch.ops.fused_mlp import fused_int4_mlp
     from mllm_tpu_torch.ops.quant_matmul import int4_matmul, int8_matmul
 
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "int8_matmul": int8_matmul, "int4_matmul": int4_matmul,
             "fused_int4_mlp": fused_int4_mlp, "fused_decode_step": fused_decode_step,
-            "fused_decode_step_batched": fused_decode_step_batched}
+            "fused_decode_step_batched": fused_decode_step_batched,
+            "flash_attention_quant": flash_attention_quant,
+            "decode_attention_quant": decode_attention_quant,
+            "decode_attention_paged": decode_attention_paged}
 
 
 def phase_device() -> str:
@@ -152,9 +186,10 @@ def phase_build():
          ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
 
 
-def attention_bound(shape: dict) -> dict:
+def attention_bound(shape: dict, key_bytes=None) -> dict:
     """Bytes and FLOPs an attention row needs: q and the output once, each K/V
-    row that some query sees once, and QK plus PV for every visible pair."""
+    row that some query sees once (key_bytes a key and KV head, K and V
+    together; bf16 by default), and QK plus PV for every visible pair."""
     b, h, d = shape["B"], shape["H"], shape["D"]
     sq = shape.get("Sq", 1)
     kvl = shape["kv_valid"] if isinstance(shape["kv_valid"], list) else [shape["kv_valid"]] * b
@@ -167,7 +202,8 @@ def attention_bound(shape: dict) -> dict:
         hi = lambda p: min(p, kvl[i] - 1)  # noqa: E731
         pairs += sum(max(0, hi(p) - lo(p) + 1) for p in qpos)
         rows += max(0, hi(qpos[-1]) - lo(qpos[0]) + 1)
-    return bound(2 * b * sq * h * d * 2 + rows * shape["Hkv"] * d * 2 * 2, 4 * pairs * h * d)
+    key_bytes = d * 2 * 2 if key_bytes is None else key_bytes
+    return bound(2 * b * sq * h * d * 2 + rows * shape["Hkv"] * key_bytes, 4 * pairs * h * d)
 
 
 def phase_kernels(dev) -> dict:
@@ -240,8 +276,127 @@ def phase_kernels(dev) -> dict:
             lambda: decode_attention_ref(q, k, v, **kw),
             dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=kvl, kv_start=start,
                  window=window), sdpa(q, k, v, kvl[0], False) if main else None))
+    rows.update(kv_kernel_rows(dev, g))
     rows.update(quant_kernel_rows(dev, g))
     rows.update(mega_kernel_rows(dev, g))
+    return rows
+
+
+def kv_kernel_rows(dev, g) -> dict:
+    """The kernels of the quantized and paged caches against their plain
+    versions (H=12, H_kv=2, D=128; max |kernel - plain| <= TOL): the int8 and
+    int4 kernels on K/V quantized by the caches' own quantizer, the paged one
+    over a shuffled pool. Bytes: q, the output, and each visible key's K/V
+    bytes with its two f32 scales (paged: bf16 K/V). No single PyTorch call
+    takes these layouts (library_ms null); `dense_sdpa_ms` times SDPA over the
+    same keys in a dense bf16 cache, a different function kept for context."""
+    from mllm_tpu_torch.kv.cache import quantize_kv
+    from mllm_tpu_torch.ops.decode_attention import (decode_attention_paged, decode_attention_paged_ref,
+                                                     decode_attention_quant, decode_attention_quant_ref)
+    from mllm_tpu_torch.ops.flash_attention import flash_attention_quant, flash_attention_quant_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def ivec(xs):
+        return torch.tensor(xs, device=dev, dtype=torch.int32)
+
+    def quant_kv(b, s, bits):
+        """Random K/V quantized over D, and their dense bf16 dequantization."""
+        out = []
+        for _ in range(2):
+            x = torch.randn(b, HKV, s, D, device=dev, generator=g)
+            q, sc = quantize_kv(x, bits)
+            vals = q.float() if bits == 8 else torch.cat([(q & 15).float(), (q >> 4).float()], -1) - 8
+            out.append((q, sc, (vals * sc[..., None]).to(torch.bfloat16)))
+        return out
+
+    def mask(kvl, s, start=None, window=None):  # [B, 1, 1, S] keys one decode query sees
+        j = torch.arange(s, device=dev)
+        kv = ivec(kvl)[:, None]
+        ok = j[None] < kv
+        if start is not None:
+            ok &= j[None] >= ivec(start)[:, None]
+        if window:
+            ok &= j[None] > kv - 1 - window
+        return ok[:, None, None, :]
+
+    def check(name, kernel, plain, shape, key_bytes, dense):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(out.float()).all())
+        row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, finite=finite,
+                   ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5), library_ms=None,
+                   dense_sdpa_ms=time_ms(dense, 20), **attention_bound(shape, key_bytes))
+        emit(**row)
+        if not finite or not err <= TOL:
+            raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
+                                 f"finite={finite}")
+        return row
+
+    rows = {"flash_attention_quant": [], "decode_attention_quant": [], "decode_attention_paged": []}
+    for bits in (8, 4):
+        kb = 2 * (D if bits == 8 else D // 2) + 8
+        # flash: (B, Sq, Skv, q_offset, kv_valid, kv_start)
+        for b, sq, skv, qoff, kvl, start in [
+            (1, 1536, 1536, 0, 1536, None),              # the 1500-token prompt's prefill
+            (8, 128, 128, 0, 128, None),                 # a batched admission of 8 buckets
+            (1, 128, 1536, 1408, 1536, None),            # the last chunk of a chunked prefill
+            (4, 256, 256, 0, 256, [0, 17, 64, 150]),     # a left-padded ragged batch
+        ]:
+            q = torch.randn(b, sq, H, D, device=dev, generator=g).to(torch.bfloat16)
+            (kq, ks, kd), (vq, vs, vd) = quant_kv(b, skv, bits)
+            kw = dict(q_offset=qoff, kv_valid_len=kvl, kv_start=None if start is None else ivec(start))
+            rows["flash_attention_quant"].append(check(
+                "flash_attention_quant", lambda: flash_attention_quant(q, kq, vq, ks, vs, **kw),
+                lambda: flash_attention_quant_ref(q, kq, vq, ks, vs, **kw),
+                dict(B=b, Sq=sq, H=H, Hkv=HKV, D=D, S=skv, q_offset=qoff, kv_valid=kvl, kv_start=start,
+                     window=None, bits=bits), kb,
+                lambda: sdpa(q.transpose(1, 2), kd[:, :, :kvl], vd[:, :, :kvl], is_causal=qoff == 0,
+                             enable_gqa=True)))
+        # decode: (B, kv_valid per slot, kv_start, window); cache 2048
+        for b, kvl, start, window in [
+            (1, [1531], None, None),
+            (8, [17, 100, 511, 513, 1000, 1531, 2000, 777], None, None),  # the engine's 8 slots
+            (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256),
+            (4, [231, 231, 231, 231], [183, 136, 72, 0], None),          # a ragged batch's step
+            (2, [2083, 900], None, None),                                  # an idle slot past the cache
+        ]:
+            q = torch.randn(b, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
+            (kq, ks, kd), (vq, vs, vd) = quant_kv(b, S_CACHE, bits)
+            kw = dict(kv_valid_len=ivec(kvl), kv_start=None if start is None else ivec(start), window=window)
+            m = mask([min(n, S_CACHE) for n in kvl], S_CACHE, start, window)
+            rows["decode_attention_quant"].append(check(
+                "decode_attention_quant", lambda: decode_attention_quant(q, kq, vq, ks, vs, **kw),
+                lambda: decode_attention_quant_ref(q, kq, vq, ks, vs, **kw),
+                dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=[min(n, S_CACHE) for n in kvl],
+                     kv_valid_given=kvl, kv_start=start, window=window, bits=bits), kb,
+                lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True)))
+    # paged: MAXB 16 over a shuffled pool holding the blocks the lengths need plus 8 spare
+    maxb, page = 16, 128
+    for kvl, retired in [([17, 100, 511, 513, 1000, 1531, 2000, 777], None), ([300, 1200, 64, 600], 3)]:
+        b = len(kvl)
+        need = [-(-n // page) for n in kvl]
+        nb = sum(need) + 8
+        perm = torch.randperm(nb, device=dev, generator=g).tolist()
+        table = torch.full((b, maxb), -1, dtype=torch.int32)
+        for i, n in enumerate(need):
+            table[i, :n] = torch.tensor(perm[sum(need[:i]) : sum(need[: i + 1])])
+        if retired is not None:
+            table[retired] = -1  # a retired slot: -1 row, kv_valid > 0
+        table = table.to(dev)
+        kp, vp = (torch.randn(nb, HKV, page, D, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(b, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
+        kw = dict(kv_valid_len=ivec(kvl))
+        kd, vd = (p[table.long().clamp(0, nb - 1)].permute(0, 2, 1, 3, 4).reshape(b, HKV, maxb * page, D)
+                  for p in (kp, vp))
+        m = mask(kvl, maxb * page)
+        rows["decode_attention_paged"].append(check(
+            "decode_attention_paged", lambda: decode_attention_paged(q, kp, vp, table, **kw),
+            lambda: decode_attention_paged_ref(q, kp, vp, table, **kw),
+            dict(B=b, H=H, Hkv=HKV, D=D, S=maxb * page, kv_valid=kvl, kv_start=None, window=None,
+                 pool_blocks=nb, retired_slot=retired), None,
+            lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True)))
     return rows
 
 
@@ -430,9 +585,10 @@ def mega_kernel_rows(dev, g) -> dict:
     return rows
 
 
-def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
+def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str = "bf16") -> dict:
     """Run the main path of one slice phase through the user entry points and
-    check it. expected_per(prefills, steps) -> {kernel: least launches}."""
+    check it, over caches of `kv_dtype`. expected_per(prefills, steps) ->
+    {kernel: least launches}, where 0 means none at all."""
     from mllm_tpu_torch.generation.generate import (
         generate, left_pad, pad_to_bucket, prefill, ragged_batched_generate)
     from mllm_tpu_torch.generation.sampling import SamplingConfig
@@ -459,9 +615,12 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
         fn.launches = 0
     prefills, steps = 0, 0
 
+    def init_cache(b):
+        return model.init_cache(b, S_CACHE, kv_dtype=kv_dtype)
+
     def run_generate(prompt, scfg, seed=0):
         nonlocal prefills, steps
-        res, _ = generate(model, prompt, model.init_cache(1, S_CACHE), scfg, seed=seed)
+        res, _ = generate(model, prompt, init_cache(1), scfg, seed=seed)
         prefills += 1
         steps += len(res.tokens) - 1
         return res
@@ -474,7 +633,7 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
 
     # decode vs prefill: the last decode step against a fresh prefill of the same tokens
     ids = np.concatenate([prompt100, res100.tokens[:-1]])
-    lg_fresh, _ = prefill(model, model.init_cache(1, S_CACHE),
+    lg_fresh, _ = prefill(model, init_cache(1),
                           torch.as_tensor(pad_to_bucket(ids[None]), device=dev), len(ids))
     prefills += 1
     decode_vs_prefill = ((last_step - lg_fresh.float()).abs().max()
@@ -487,7 +646,7 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
 
     def timed_prefill(n):
         ids = torch.as_tensor(pad_to_bucket(rng.integers(0, cfg.vocab_size, (1, n))), device=dev)
-        cache = model.init_cache(1, S_CACHE)
+        cache = init_cache(1)
         torch.cuda.synchronize()
         t = time.perf_counter()
         prefill(model, cache, ids, n)
@@ -505,7 +664,7 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
     width = ids.shape[1]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    lg_ragged, _ = prefill(model, model.init_cache(b, S_CACHE), torch.as_tensor(ids, device=dev),
+    lg_ragged, _ = prefill(model, init_cache(b), torch.as_tensor(ids, device=dev),
                            width, torch.as_tensor(pad, device=dev))
     torch.cuda.synchronize()
     ragged_prefill_s = time.perf_counter() - t
@@ -513,7 +672,7 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
     worst = 0.0
     for i, p in enumerate(prompts):
         ids1 = torch.as_tensor(pad_to_bucket(p[None]), device=dev)
-        lg_alone, _ = prefill(model, model.init_cache(1, S_CACHE), ids1, len(p))
+        lg_alone, _ = prefill(model, init_cache(1), ids1, len(p))
         prefills += 1
         ratio = ((lg_ragged[i].float() - lg_alone[0].float()).abs().max()
                  / lg_alone[0].float().abs().max()).item()
@@ -525,7 +684,7 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    toks, _, _ = ragged_batched_generate(model, prompts, model.init_cache(b, S_CACHE),
+    toks, _, _ = ragged_batched_generate(model, prompts, init_cache(b),
                                          SamplingConfig(max_new_tokens=32))
     torch.cuda.synchronize()
     ragged_s = time.perf_counter() - t
@@ -561,8 +720,9 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per) -> dict:
     if not all_finite:
         raise AssertionError(f"{phase}: non-finite logits on the main path")
     for name, want in expected.items():
-        if launches[name] < want or launches[name] == 0:
-            raise AssertionError(f"{phase} {name}: {launches[name]} launches, expected >= {want}")
+        if launches[name] < want or (want == 0) != (launches[name] == 0):
+            raise AssertionError(f"{phase} {name}: {launches[name]} launches, expected "
+                                 f"{'none' if want == 0 else f'>= {want}'}")
     return {name: launches[name] for name in expected}
 
 
@@ -592,9 +752,10 @@ def phase_slice(dev) -> dict:
                                           "decode_attention": L * steps})
 
 
-def phase_slice_quant(dev, mode: str) -> dict:
+def phase_slice_quant(dev, mode: str, keep: bool = False):
     """fuse_projections + quantize_model(mode, on_device=True) of the bf16
-    model on the card, then the main path through the quantized model."""
+    model on the card, then the main path through the quantized model.
+    Returns the launches, and with keep=True the model too."""
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.generation.generate import pad_to_bucket, prefill
     from mllm_tpu_torch.ops.quantize_model import fuse_projections, quantize_model
@@ -635,8 +796,142 @@ def phase_slice_quant(dev, mode: str) -> dict:
                     "fused_int4_mlp": L * steps}
         lens = (17, 64, 128, 200)
     launches = drive(model, cfg, dev, f"slice_{mode}", lens, expected)
+    if keep:
+        return launches, model
     del model
     torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice_kvq(dev, model) -> dict:
+    """The int8-weight model over int8 and int4 KV caches
+    (`init_cache(kv_dtype=...)`): generate at b=1 (prompts 100 and 1500),
+    ragged_batched_generate at b=8 (left padding: kv_start reaches both
+    quantized kernels) and a sampled generate, with drive()'s checks. Every
+    prefill is 28 flash_attention_quant launches and every decode step 28
+    decode_attention_quant; the bf16 attention kernels never launch."""
+    L = model.cfg.num_hidden_layers
+    lens = (17, 40, 64, 90, 128, 150, 180, 200)
+
+    def expected(prefills, steps):
+        return {"flash_attention_quant": L * prefills, "decode_attention_quant": L * steps,
+                "int8_matmul": (4 * L + 1) * (prefills + steps), "flash_attention": 0,
+                "decode_attention": 0}
+
+    launches = {}
+    for kv in ("int8", "int4"):
+        for name, n in drive(model, model.cfg, dev, f"slice_kvq_{kv}", lens, expected, kv).items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+# the engine runs: 12 requests for 8 slots (slots are reused), prompts of
+# 17-300 tokens (those over one 128-token bucket are admitted one by one),
+# 48 new tokens each, requests 10 and 11 sampled
+ENGINE_LENS = (17, 40, 64, 100, 128, 150, 200, 256, 300, 90, 33, 180)
+ENGINE_NEW = 48
+ENGINE_KW = dict(slots=8, max_len=S_CACHE, prompt_bucket=128, decode_window=32, pipeline=True,
+                 eos_token_id=-2)
+
+
+def paged_blocks_short_of(lens, short: int) -> int:
+    """A pool `short` blocks smaller than the first eight requests reserve
+    together, counted as ContinuousEngine._paged_reserve counts them."""
+    need = [max(-(-(n + ENGINE_NEW) // 128), -(-n // 128)) for n in lens[:8]]
+    return sum(need) - short
+
+
+def serve(model, dev, name: str, engine_kw: dict, expected_per, start_thread=False) -> dict:
+    """One engine run of ENGINE_LENS through submit / step (or the loop thread)
+    / collect, checked: every request returns ENGINE_NEW in-vocabulary
+    tokens; 4 greedy requests' tokens lie within RAGGED_TOL x max |logit| of
+    the top logit of a teacher-forced single-stream prefill of prompt +
+    tokens over a cache of the same type; the launch counts are
+    expected_per(admissions, decode steps), 0 meaning none."""
+    from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, V, n) for n in ENGINE_LENS]
+    sampled = SamplingConfig(max_new_tokens=ENGINE_NEW, do_sample=True, top_k=50, top_p=0.9)
+    kernels = wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousEngine(model, start_thread=start_thread, **ENGINE_KW, **engine_kw)
+    cache_bytes = sum(t.numel() * t.element_size() for t in vars(eng.cache).values()
+                      if isinstance(t, torch.Tensor) and t.dim() >= 4)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    qs = [eng.submit(p, ENGINE_NEW, sampled if i >= 10 else None) for i, p in enumerate(prompts)]
+    if start_thread:
+        outs = [collect(q, timeout=600) for q in qs]
+        eng.stop()
+    else:
+        while any(r is not None for r in eng.req) or not eng.pending.empty() or eng._inflight is not None:
+            eng.step()
+        outs = [collect(q, timeout=5) for q in qs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    steps = eng.steps * eng.window
+    expected = expected_per(eng.admissions, steps)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(len(o) == ENGINE_NEW and all(0 <= t < V for t in o) for o in outs):
+        raise AssertionError(f"{name}: lengths {[len(o) for o in outs]} (expected {ENGINE_NEW} each) "
+                             "or a token out of the vocabulary")
+    kv_dtype = engine_kw.get("kv_dtype", "bf16") if "paged" not in engine_kw else "bf16"
+    gap = 0.0
+    for i in (0, 3, 7, 8):  # greedy; prompts of 17, 100, 256 and 300 tokens
+        ids = np.concatenate([prompts[i], outs[i][:-1]])
+        logits, _ = model(torch.as_tensor(ids[None], device=dev),
+                          model.init_cache(1, S_CACHE, kv_dtype=kv_dtype), last_only=False)
+        lg = logits[0, len(prompts[i]) - 1 :].float()
+        chosen = lg.gather(1, torch.as_tensor(outs[i], device=dev)[:, None])[:, 0]
+        gap = max(gap, ((lg.max(-1).values - chosen) / lg.abs().max(-1).values).max().item())
+    emit(phase="slice_engine", run=name, requests=len(prompts), new_tokens=ENGINE_NEW,
+         prompt_tokens=list(ENGINE_LENS), wall_s=wall, tok_s=len(prompts) * ENGINE_NEW / wall,
+         windows=eng.steps, decode_steps=steps, admissions=eng.admissions, requeued=eng.requeued,
+         kv_cache_bytes=cache_bytes, max_memory_allocated_bytes=peak,
+         teacher_forced_gap_over_max_logit=gap, tolerance=RAGGED_TOL, launches=launches,
+         launches_expected=expected, loop_thread=start_thread)
+    if not gap <= RAGGED_TOL:
+        raise AssertionError(f"{name}: an emitted greedy token sits {gap} x max |logit| below the "
+                             f"top of a teacher-forced prefill (tolerance {RAGGED_TOL})")
+    for k, want in expected.items():
+        if launches[k] != want:
+            raise AssertionError(f"{name} {k}: {launches[k]} launches, expected {want}")
+    if "paged" in engine_kw and eng.requeued == 0:
+        raise AssertionError(f"{name}: no request waited for pool blocks while a slot was free")
+    del eng
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in expected}
+
+
+def phase_slice_engine(dev, model) -> dict:
+    """ContinuousEngine over the int8-weight model, once per slot cache: bf16
+    SlotKVCache (on the loop thread), int8 and int4 SlotQuantKVCache, and a
+    PagedKVCache whose pool is 4 blocks short of what the first eight
+    requests reserve (admission has to requeue)."""
+    L = model.cfg.num_hidden_layers
+    runs = [
+        ("bf16", {}, ("flash_attention", "decode_attention"), True),
+        ("int8", {"kv_dtype": "int8"}, ("flash_attention_quant", "decode_attention_quant"), False),
+        ("int4", {"kv_dtype": "int4"}, ("flash_attention_quant", "decode_attention_quant"), False),
+        ("paged", {"paged": paged_blocks_short_of(ENGINE_LENS, 4)},
+         ("flash_attention", "decode_attention_paged"), False),
+    ]
+    launches = {}
+    for name, kw, (prefill_k, decode_k), thread in runs:
+        others = {"flash_attention", "decode_attention", "flash_attention_quant",
+                  "decode_attention_quant", "decode_attention_paged"} - {prefill_k, decode_k}
+
+        def expected(admissions, steps, prefill_k=prefill_k, decode_k=decode_k, others=others):
+            return {prefill_k: L * admissions, decode_k: L * steps, **{k: 0 for k in others}}
+
+        for k, n in serve(model, dev, f"engine_{name}", kw, expected, start_thread=thread).items():
+            launches[k] = launches.get(k, 0) + n
     return launches
 
 
@@ -730,9 +1025,10 @@ def phase_slice_mega(dev) -> dict:
     steps_b1 = len(res100.tokens) - 1 + len(res1500.tokens) - 1
     steps_b8 = toks8.shape[1] - 1
     prefills = 3
+    none = {k: 0 for k in ("flash_attention_quant", "decode_attention_quant", "decode_attention_paged")}
     expected = {"flash_attention": L * prefills, "decode_attention": 0, "int8_matmul": 0,
                 "int4_matmul": steps_b1 + steps_b8 + prefills, "fused_int4_mlp": 0,
-                "fused_decode_step": steps_b1, "fused_decode_step_batched": steps_b8}
+                "fused_decode_step": steps_b1, "fused_decode_step_batched": steps_b8, **none}
 
     # ragged batch: left padding goes through the int4 base model
     for fn in kernels.values():
@@ -744,7 +1040,7 @@ def phase_slice_mega(dev) -> dict:
     steps_r = toks_r.shape[1] - 1
     expected_r = {"flash_attention": L, "decode_attention": L * steps_r, "int8_matmul": 0,
                   "int4_matmul": (2 * L + 1) * steps_r + 1, "fused_int4_mlp": L * steps_r,
-                  "fused_decode_step": 0, "fused_decode_step_batched": 0}
+                  "fused_decode_step": 0, "fused_decode_step_batched": 0, **none}
 
     # the last b=1 decode step against a fresh base prefill of the same tokens
     ids = np.concatenate([prompt100, res100.tokens[:-1]])
@@ -785,9 +1081,14 @@ def phase_slice_mega(dev) -> dict:
     if launches != expected or launches_r != expected_r:
         raise AssertionError(f"slice_mega: launches {launches} / {launches_r}, expected {expected} / "
                              f"{expected_r}")
+    # serving on the batched megakernel: admissions through the int4 base,
+    # every decode step one launch with the slots at their own positions
+    launches_e = serve(mega, dev, "engine_int4mega", {}, lambda admissions, steps: {
+        "flash_attention": L * admissions, "fused_decode_step_batched": steps,
+        "fused_decode_step": 0, "decode_attention": 0})
     del mega, base
     torch.cuda.empty_cache()
-    return {name: launches[name] + launches_r[name] for name in launches}
+    return {name: launches[name] + launches_r[name] + launches_e.get(name, 0) for name in launches}
 
 
 def main():
@@ -796,8 +1097,13 @@ def main():
     phase_build()
     rows = phase_kernels(dev)
     launches = {name: 0 for name in SOURCES}
-    for phase_launches in (phase_slice(dev), phase_slice_quant(dev, "int8"),
-                           phase_slice_quant(dev, "int4"), phase_slice_mega(dev)):
+    results = [phase_slice(dev)]
+    int8_launches, model8 = phase_slice_quant(dev, "int8", keep=True)
+    results += [int8_launches, phase_slice_kvq(dev, model8), phase_slice_engine(dev, model8)]
+    del model8
+    torch.cuda.empty_cache()
+    results += [phase_slice_quant(dev, "int4"), phase_slice_mega(dev)]
+    for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n
     kernels = []
@@ -810,6 +1116,8 @@ def main():
                       bound_by=main_row["bound_by"], library_ms=main_row["library_ms"])
         if "rel_err" in main_row:
             kernel["max_rel_err"] = max(r["rel_err"] for r in rows[name])
+        if "dense_sdpa_ms" in main_row:
+            kernel["dense_sdpa_ms"] = main_row["dense_sdpa_ms"]
         kernels.append(kernel)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

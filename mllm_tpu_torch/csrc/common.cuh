@@ -29,6 +29,13 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_size));
 }
 
+// 4-byte global -> shared copy (a per-key scale); zero-filled when `valid` is false.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  const int src_size = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_size));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -1,5 +1,6 @@
 """Samplers: greedy / temperature / top-k / top-p, with a `torch.Generator`.
-Counterpart of `mllm_tpu/generation/sampling.py:sample_token`.
+Counterpart of `mllm_tpu/generation/sampling.py` (`sample_token`, and
+`sample_tokens_batched` for the serving engine's per-slot configs).
 
 `keep_mask` gives the set of tokens a config may draw; `sample_token` draws
 from the softmax of the temperature-scaled logits restricted to that set.
@@ -64,3 +65,41 @@ def sample_token(logits: torch.Tensor, cfg: SamplingConfig,
     masked = scaled.masked_fill(~keep_mask(logits, cfg), -math.inf)
     probs = torch.softmax(masked, dim=-1)
     return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
+
+
+def batched_keep_mask(logits: torch.Tensor, temperature: torch.Tensor, top_k: torch.Tensor,
+                      top_p: torch.Tensor) -> torch.Tensor:
+    """[B, V] bool: the tokens each slot may draw under its own (temperature,
+    top_k, top_p), where top_k <= 0 and top_p <= 0 turn a filter off. The JAX
+    `sample_tokens_batched` keep-set: scaled >= the k-th largest, and scaled
+    >= the smallest logit of the nucleus (exclusive cumulative probability
+    < p, so the first token is always kept)."""
+    v = logits.shape[-1]
+    scaled = logits.float() / temperature.float().clamp_min(1e-6)[:, None]
+    sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
+    kth = sorted_desc.gather(1, (top_k.long().clamp(1, v) - 1)[:, None])
+    keep = torch.where((top_k > 0)[:, None], scaled >= kth, True)
+    sp = torch.softmax(sorted_desc, dim=-1)
+    keep_sorted = (torch.cumsum(sp, dim=-1) - sp) < top_p.float()[:, None]
+    minkeep = torch.where(keep_sorted, sorted_desc, math.inf).amin(dim=-1, keepdim=True)
+    return keep & torch.where((top_p > 0)[:, None], scaled >= minkeep, True)
+
+
+def sample_tokens_batched(logits: torch.Tensor, temperature: torch.Tensor, top_k: torch.Tensor,
+                          top_p: torch.Tensor, generator: torch.Generator, *,
+                          all_greedy: bool = False) -> torch.Tensor:
+    """Per-slot sampling on the logits' device (JAX `sample_tokens_batched`):
+    logits [B, V]; temperature, top_k, top_p [B]; temperature <= 0 is greedy.
+    Returns int64 [B] without a host round trip. Draws are Gumbel-max, as
+    `jax.random.categorical`, from `generator`'s stream.
+
+    all_greedy: the caller knows every slot is greedy (from the requests'
+    configs, on the host) and skips the sort over the vocabulary."""
+    if all_greedy:
+        return greedy(logits)
+    scaled = logits.float() / temperature.float().clamp_min(1e-6)[:, None]
+    masked = scaled.masked_fill(~batched_keep_mask(logits, temperature, top_k, top_p), -math.inf)
+    u = torch.rand(masked.shape, generator=generator, device=masked.device)
+    gumbel = -torch.log(-torch.log(u))
+    sampled = torch.argmax(masked + gumbel, dim=-1)
+    return torch.where(temperature <= 0, greedy(logits), sampled)

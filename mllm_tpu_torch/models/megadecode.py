@@ -3,8 +3,9 @@ megakernel (`ops/decode_step.py`): one launch for all L decoder layers.
 
 Counterpart of `mllm_tpu/models/megadecode.py`. A decode step of b <= 32
 sequences on a dense `KVCache` is an embedding gather, one megakernel launch
-(`fused_decode_step` at b = 1, `fused_decode_step_batched` above), the write
-of the new K/V into the cache, the final norm and the int4 head. Prefill,
+(`fused_decode_step` at b = 1, `fused_decode_step_batched` above; over the serving
+engine's `SlotKVCache` always the batched one, each slot at its own position),
+the write of the new K/V into the cache, the final norm and the int4 head. Prefill,
 left-padded (ragged) batches and everything else go through `base`, an int4
 CausalLM built from the SAME quantized values the kernel streams; it is also
 the kernel's oracle in the tests.
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import TextConfig
-from ..kv.cache import KVCache
+from ..kv.cache import KVCache, SlotKVCache
 from ..nn.layers import Embedding, Int4Linear, Linear
 from ..ops import quant_matmul as qm
 from ..ops.decode_step import fused_decode_step, fused_decode_step_batched, rope_rotation_matrix
@@ -248,8 +249,8 @@ class MegaDecodeLM(nn.Module):
     def device(self) -> torch.device:
         return self.base.device
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> KVCache:
-        return self.base.init_cache(batch, max_len, dtype)
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, kv_dtype: str = "bf16"):
+        return self.base.init_cache(batch, max_len, dtype, kv_dtype)
 
     def hidden_states(self, *a, **k):
         return self.base.hidden_states(*a, **k)
@@ -258,15 +259,22 @@ class MegaDecodeLM(nn.Module):
         return self.base.logits(hidden)
 
     def _mega_eligible(self, input_ids, cache, inputs_embeds, pad_lens) -> bool:
-        if type(cache) is not KVCache or pad_lens is not None:
+        # SlotKVCache: the serving engine's per-slot write heads, which the
+        # batched kernel takes natively
+        if type(cache) not in (KVCache, SlotKVCache) or pad_lens is not None:
             return False
         shp = inputs_embeds.shape if inputs_embeds is not None else input_ids.shape
         return shp[1] == 1 and 1 <= shp[0] <= 32 and shp[0] == cache.k.shape[1]
 
     def forward(self, input_ids, cache, last_only: bool = True, inputs_embeds=None, pad_lens=None):
         """(logits [B, 1, V], cache advanced by one) on the megakernel when
-        eligible (dense KVCache, one token per sequence, B <= 32 equal to the
-        cache batch, no pad_lens); otherwise `base` runs the call."""
+        eligible (dense KVCache or SlotKVCache, one token per sequence, B <= 32
+        equal to the cache batch, no pad_lens); otherwise `base` runs the call.
+
+        Over a SlotKVCache every slot runs the batched kernel at its own
+        position, clamped to the last cache row as `kv/cache._slot_append`
+        clamps the append: only idle slots, whose outputs the engine
+        discards, reach it."""
         if not self._mega_eligible(input_ids, cache, inputs_embeds, pad_lens):
             return self.base(input_ids, cache, last_only=last_only, inputs_embeds=inputs_embeds,
                              pad_lens=pad_lens)
@@ -275,15 +283,24 @@ class MegaDecodeLM(nn.Module):
         if cfg.embedding_multiplier != 1.0:
             x = x * cfg.embedding_multiplier
         pos, b = cache.pos, x.shape[0]
-        if pos + 1 > cache.max_len:
-            raise ValueError(f"KV cache overflow: pos {pos} + 1 token > max_len {cache.max_len}")
         rope = self.base.rope
-        ops = (self.qkv_ops.astuple(), self.o_ops.astuple()[:2], self.gate_ops.astuple()[:2],
-               self.up_ops.astuple()[:2], self.down_ops.astuple()[:2], self.norm1_w, self.norm2_w,
-               cache.k, cache.v)
         kw = dict(n_heads=cfg.num_attention_heads, n_kv_heads=cfg.num_key_value_heads,
                   head_dim=cfg.head_dim_, act=cfg.hidden_act, eps=cfg.rms_norm_eps,
                   rm=cfg.residual_multiplier, block_f=self.block_f, group_a=self.group_a)
+        ops = (self.qkv_ops.astuple(), self.o_ops.astuple()[:2], self.gate_ops.astuple()[:2],
+               self.up_ops.astuple()[:2], self.down_ops.astuple()[:2], self.norm1_w, self.norm2_w,
+               cache.k, cache.v)
+        if isinstance(pos, torch.Tensor):  # SlotKVCache: a device head per slot
+            p = pos.clamp(max=cache.max_len - 1)
+            pl = p.long()
+            y, k_new, v_new = fused_decode_step_batched(x[:, 0], p, rope.sin[pl], rope.cos[pl], *ops, **kw)
+            slots = torch.arange(b, device=x.device)
+            cache.k[:, slots, :, pl] = k_new.transpose(0, 1).to(cache.k.dtype)
+            cache.v[:, slots, :, pl] = v_new.transpose(0, 1).to(cache.v.dtype)
+            hidden = self.base.norm(y[:, None].to(x.dtype))
+            return self.base.logits(hidden), cache.advance(1)
+        if pos + 1 > cache.max_len:
+            raise ValueError(f"KV cache overflow: pos {pos} + 1 token > max_len {cache.max_len}")
         if b == 1:
             rot = rope_rotation_matrix(rope.sin[pos], rope.cos[pos], cfg.head_dim_)
             y, k_new, v_new = fused_decode_step(x[0], pos, rot, *ops, **kw)

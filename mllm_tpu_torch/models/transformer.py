@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..core.config import TextConfig
-from ..kv.cache import KVCache
+from ..kv.cache import KVCache, Quant4KVCache, QuantKVCache
 from ..nn.attention import attend, attend_from_cache
 from ..nn.layers import ACT_FN, Embedding, Linear, RMSNorm, RotaryEmbedding
 
@@ -175,14 +175,25 @@ class CausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> KVCache:
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, kv_dtype: str = "bf16"):
+        """kv_dtype: "bf16" (a dense KVCache of `dtype`), "int8" / "q8" (a
+        QuantKVCache: half the bytes) or "int4" / "q4" (a Quant4KVCache: a
+        quarter); the quantized caches round max_len up to 128."""
         cfg = self.cfg
-        return KVCache.init(cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
-                            cfg.head_dim_, device=self.device, dtype=dtype)
+        args = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim_)
+        if kv_dtype in ("int4", "q4", "q4_0"):
+            return Quant4KVCache.init(*args, device=self.device)
+        if kv_dtype in ("int8", "q8", "q8_0"):
+            return QuantKVCache.init(*args, device=self.device)
+        return KVCache.init(*args, device=self.device, dtype=dtype)
 
     def hidden_states(self, input_ids, cache: Optional[KVCache], inputs_embeds=None,
                       pad_lens=None):
         """Run the trunk; returns (hidden [B,S,D], cache with pos advanced by S).
+
+        A cache with per-slot write heads (pos [B] on the device) gives each
+        sequence its own positions; attention then gets q_offset = pos and
+        kv_valid_len = pos + S as vectors, with no host round trip.
 
         pad_lens: [B] left-pad tokens per sequence (ragged batching); rope
         positions shift back by pad_lens (clamped at 0) and the pad prefix is
@@ -192,7 +203,12 @@ class CausalLM(nn.Module):
             x = x * self.cfg.embedding_multiplier
         s = x.shape[1]
         pos0 = cache.pos if cache is not None else 0
-        positions = pos0 + torch.arange(s, device=x.device)[None, :]  # [1, S]
+        positions = torch.arange(s, device=x.device)[None, :]  # [1, S]
+        if isinstance(pos0, torch.Tensor):  # per-slot write heads [B]: positions [B, S]
+            # idle slots run past the rope table; JAX's gather clamps the index
+            positions = (pos0[:, None] + positions).clamp(max=self.rope.sin.shape[0] - 1)
+        else:
+            positions = pos0 + positions
         kv_start = None
         if pad_lens is not None:
             pad = torch.as_tensor(pad_lens, device=x.device)

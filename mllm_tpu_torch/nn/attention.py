@@ -1,5 +1,6 @@
-"""Attention: plain `sdpa` and the `attend` dispatch to the CUDA kernels.
-Counterpart of `mllm_tpu/nn/attention.py` for the dense cache.
+"""Attention: plain `sdpa`, the `attend` dispatch to the CUDA kernels, and
+`attend_from_cache` for every cache type. Counterpart of
+`mllm_tpu/nn/attention.py`.
 
 Layouts: q is [B, Sq, H, D]; k/v are in cache layout [B, H_kv, Skv, D].
 
@@ -18,8 +19,8 @@ from typing import Optional
 
 import torch
 
-from ..ops.decode_attention import decode_attention
-from ..ops.flash_attention import flash_attention
+from ..ops.decode_attention import decode_attention, decode_attention_paged, decode_attention_quant
+from ..ops.flash_attention import flash_attention, flash_attention_quant
 
 NEG_INF = -1e30  # large-but-finite, as in mllm_tpu.nn.layers
 
@@ -95,11 +96,7 @@ def attend(
     The decode kernel measures a window from the last valid key, so it
     assumes the query sits at position kv_valid_len - 1 (as every decode
     step does)."""
-    if bias is not None or logit_softcap is not None:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "attention with an additive bias (tree speculation, ROADMAP Queue 1 item 12) "
-                "or a logit softcap (gemma2, item 14) has no CUDA kernel yet")
+    if not _no_kernel_extras(q, bias, logit_softcap):
         return sdpa(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start,
                     causal=causal, window=window, bias=bias, scale=scale,
                     logit_softcap=logit_softcap)
@@ -110,7 +107,52 @@ def attend(
                            kv_start=kv_start, causal=causal, window=window, scale=scale)
 
 
-def attend_from_cache(q, cache, layer_idx: int, **kw):
-    """Attention over one layer of the dense KV cache (`attend` arguments)."""
+def _no_kernel_extras(q, bias, logit_softcap) -> bool:
+    """True if the call has no bias or softcap; raises on a card if it has."""
+    if bias is None and logit_softcap is None:
+        return True
+    if q.is_cuda:
+        raise NotImplementedError(
+            "attention with an additive bias (tree speculation, ROADMAP Queue 1 item 12) "
+            "or a logit softcap (gemma2, item 14) has no CUDA kernel yet")
+    return False
+
+
+def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None, kv_start=None,
+                      causal=True, window=None, bias=None, scale=None, logit_softcap=None):
+    """Attention reading K/V straight from the cache object (JAX
+    `attend_from_cache`, without the TPU shape thresholds):
+
+      PagedKVCache, Sq == 1          -> decode_attention_paged over the pool
+      PagedKVCache, otherwise        -> the gathered dense view through `attend`
+      quantized cache, Sq == 1       -> decode_attention_quant on the stored K/V
+      quantized cache, Sq > 1        -> flash_attention_quant (a scalar kv_valid_len;
+                                        per-slot lengths have no kernel: the CPU
+                                        takes sdpa over the dequantized layer, a card raises)
+      dense caches                   -> `attend`
+
+    A quantized cache is never dequantized to memory on these paths."""
+    from ..kv.cache import PagedKVCache, QuantKVCache, SlotQuantKVCache
+
+    kw = dict(q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start, causal=causal,
+              window=window, bias=bias, scale=scale, logit_softcap=logit_softcap)
+    sq = q.shape[1]
+    if isinstance(cache, PagedKVCache):
+        if sq == 1 and kv_start is None and _no_kernel_extras(q, bias, logit_softcap):
+            return decode_attention_paged(q, cache.k[layer_idx], cache.v[layer_idx], cache.table,
+                                          kv_valid_len=kv_valid_len, scale=scale, window=window)
+    elif isinstance(cache, (QuantKVCache, SlotQuantKVCache)) and _no_kernel_extras(q, bias, logit_softcap):
+        kq, vq, ks, vs = cache.layer_quant(layer_idx)
+        if sq == 1:
+            return decode_attention_quant(q, kq, vq, ks, vs, kv_valid_len=kv_valid_len,
+                                          kv_start=kv_start, scale=scale, window=window)
+        if not isinstance(kv_valid_len, torch.Tensor) or kv_valid_len.dim() == 0:
+            return flash_attention_quant(q, kq, vq, ks, vs, q_offset=q_offset,
+                                         kv_valid_len=kv_valid_len, kv_start=kv_start,
+                                         causal=causal, window=window, scale=scale)
+        if q.is_cuda:
+            raise NotImplementedError("prefill over a quantized cache with per-slot lengths has no "
+                                      "CUDA kernel (the serving engine prefills into a small cache)")
+        return sdpa(q, *cache.layer(layer_idx), **kw)
     k, v = cache.layer(layer_idx)
     return attend(q, k, v, **kw)

@@ -48,6 +48,18 @@ SIGNATURES = {
     # kv_valid, window, scale_log2, stream
     "mllm_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _P],
+    # q, k, v, k_scale, v_scale, out, kv_valid_vec, kv_start, B, H, Hkv, S, D,
+    # bits, kv_valid, window, scale, stream
+    "mllm_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _P],
+    # q (pre-scaled), k, v, k_scale, v_scale, out, kv_start, B, Sq, H, Hkv, Skv,
+    # D, bits, q_offset, kv_valid, causal, window, stream
+    "mllm_flash_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _P],
+    # q, k_pool, v_pool, table, out, kv_valid_vec, B, H, Hkv, NB, MAXB, D,
+    # kv_valid, window, scale_log2, stream
+    "mllm_decode_attention_paged_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _F, _P],
     # x, q, s, out, ws, M, K, N, splits, kt_per_split, mt, stream
     "mllm_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, q, s, z, out, ws, M, K, N, khp, splits, groups_per_split, mt, stream

@@ -1,10 +1,16 @@
-"""Prefill attention: the `flash_attention` wrapper around the hand-written
-Hopper kernel in `csrc/flash_attention.cu`, and its plain PyTorch version.
+"""Prefill attention: the wrappers around the hand-written Hopper kernels,
+and their plain PyTorch versions.
 
-Counterpart of `mllm_tpu/ops/flash_attention.py:flash_attention`.
+  - `flash_attention`        over bf16 K/V          (`csrc/flash_attention.cu`)
+  - `flash_attention_quant`  over int8 / int4 K/V   (`csrc/flash_attention_quant.cu`)
+
+Counterparts of `mllm_tpu/ops/flash_attention.py` (`flash_attention`,
+`flash_attention_quant`).
 
 Layouts: q is [B, Sq, H, D] (model layout); k/v are [B, H_kv, Skv, D] (cache
-layout). GQA groups are contiguous: query head h reads KV head h // n_rep.
+layout; int8, or packed uint8 [B, H_kv, Skv, D/2] for int4, with f32 per-key
+scales [B, H_kv, Skv]). GQA groups are contiguous: query head h reads KV head
+h // n_rep.
 
 Masking (both versions): key j is visible from query row s of sequence b when
     kv_start[b] <= j < kv_valid_len[b]
@@ -12,7 +18,7 @@ and, if causal, j <= q_offset + s and j > q_offset + s - window.
 A row with no visible key is zeros.
 
 A CPU tensor takes `flash_attention_ref`; a CUDA tensor launches the kernel or
-raises. `flash_attention.launches` counts kernel launches.
+raises. Each wrapper counts its kernel launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import check_kernel_args, kv_len_arg, kv_start_arg, masked_softmax, visible_keys
+from ._common import (check_kernel_args, check_quant_kv_args, flash_visible_keys, kv_len_arg,
+                      kv_start_arg, masked_exp, masked_softmax)
 
 LOG2E = 1.4426950408889634
 
@@ -32,7 +39,7 @@ def flash_attention_ref(
     k: torch.Tensor,  # [B, H_kv, Skv, D]
     v: torch.Tensor,
     *,
-    q_offset: int = 0,
+    q_offset=0,  # int or [B]
     kv_valid_len=None,  # int or [B]; None = Skv
     kv_start: Optional[torch.Tensor] = None,  # [B] first valid key (left pad)
     causal: bool = True,
@@ -46,14 +53,8 @@ def flash_attention_ref(
     g = h // hkv
     if scale is None:
         scale = d**-0.5
-    q_pos = q_offset + torch.arange(sq, device=q.device)
-    ok = visible_keys(b, skv, kv_valid_len, kv_start, q.device)[:, None, :]  # [B, 1, Skv]
-    if causal:
-        k_pos = torch.arange(skv, device=q.device)
-        c = k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            c = c & (k_pos[None, :] > q_pos[:, None] - window)
-        ok = ok & c[None]  # [B, Sq, Skv]
+    ok = flash_visible_keys(b, sq, skv, q_offset, kv_valid_len, kv_start, causal, window,
+                            q.device)  # [B, Sq or 1, Skv]
     qg = q.reshape(b, sq, hkv, g, d).float()
     s = torch.einsum("bqkgd,bksd->bkgqs", qg, k.float()) * scale
     p = masked_softmax(s, ok[:, None, None])  # ok: [B, 1, 1, Sq, Skv]
@@ -100,3 +101,86 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_quant_ref(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # int8 [B, H_kv, Skv, D] or packed uint8 [B, H_kv, Skv, D/2]
+    v: torch.Tensor,
+    k_scale: torch.Tensor,  # f32 [B, H_kv, Skv]
+    v_scale: torch.Tensor,
+    *,
+    q_offset=0,
+    kv_valid_len=None,
+    kv_start: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain version of `flash_attention_quant`, at the Pallas kernel's
+    rounding points: q * (scale * log2 e) in q's dtype, each key row
+    dequantized as bf16(f32(stored) * scale), a base-2 softmax in f32,
+    probabilities rounded to bf16 before P V, f32 sums."""
+    from .decode_attention import stored_values
+
+    b, sq, h, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = d**-0.5
+    qt = q * torch.tensor(scale * LOG2E, dtype=q.dtype)
+    kd = (stored_values(k) * k_scale.float()[..., None]).to(torch.bfloat16)
+    vd = (stored_values(v) * v_scale.float()[..., None]).to(torch.bfloat16)
+    ok = flash_visible_keys(b, sq, skv, q_offset, kv_valid_len, kv_start, causal, window, q.device)
+    s = torch.einsum("bqkgd,bksd->bkgqs", qt.reshape(b, sq, hkv, g, d).float(), kd.float())
+    p, l = masked_exp(s, ok[:, None, None], exp=torch.exp2)
+    out = torch.einsum("bkgqs,bksd->bqkgd", p.to(torch.bfloat16).float(), vd.float())
+    return (out / l.permute(0, 3, 1, 2, 4)).reshape(b, sq, h, d).to(q.dtype)
+
+
+def flash_attention_quant(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    *,
+    q_offset: int = 0,
+    kv_valid_len=None,
+    kv_start: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Prefill attention over int8 or packed-int4 K/V; same signature and
+    arithmetic as `flash_attention_quant_ref`. On the card q_offset and
+    kv_valid_len are host ints, as the JAX wrapper's scalars."""
+    if q.device.type == "cpu":
+        return flash_attention_quant_ref(q, k, v, k_scale, v_scale, q_offset=q_offset,
+                                         kv_valid_len=kv_valid_len, kv_start=kv_start,
+                                         causal=causal, window=window, scale=scale)
+    name = "flash_attention_quant"
+    b, sq, h, d = q.shape
+    bits = check_quant_kv_args(name, q, k, v, k_scale, v_scale)
+    hkv, skv = k.shape[1], k.shape[2]
+    if not isinstance(q_offset, int) or isinstance(kv_valid_len, torch.Tensor):
+        raise TypeError(f"{name}: q_offset and kv_valid_len must be host ints (per-sequence "
+                        "lengths have no kernel here, as in the JAX wrapper)")
+    valid_int, _ = kv_len_arg(name, kv_valid_len, b, skv, q.device)
+    start_vec = kv_start_arg(name, kv_start, b, q.device)
+    if scale is None:
+        scale = d**-0.5
+    qt = (q * torch.tensor(scale * LOG2E, dtype=q.dtype)).contiguous()
+    out = torch.empty_like(q)
+    err = _build.library().mllm_flash_attention_quant(
+        qt.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), start_vec.data_ptr() if start_vec is not None else None,
+        b, sq, h, hkv, skv, d, bits, q_offset, valid_int, int(causal), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    flash_attention_quant.launches += 1
+    return out
+
+
+flash_attention_quant.launches = 0

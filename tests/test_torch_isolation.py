@@ -36,6 +36,27 @@ def test_port_imports_no_jax_and_builds_nothing():
     assert int(proc.stdout.split()[-1]) >= 20  # every module of the package was imported
 
 
+_SERVING_PROBE = """
+import sys
+from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
+from mllm_tpu_torch.kv.cache import PagedKVCache, SlotKVCache, SlotQuantKVCache
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib") or m == "mllm_tpu" or m.startswith("mllm_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_serving_modules_import_no_jax():
+    """The engine and the KV caches, imported on their own, pull in neither."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _SERVING_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "library_path", lambda: str(tmp_path / "libmissing.so"))
@@ -49,9 +70,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_sources_are_the_kernels():
     names = sorted(os.path.basename(p) for p in _build.sources())
-    assert names == ["decode_attention.cu", "decode_step.cu", "flash_attention.cu",
+    assert names == ["decode_attention.cu", "decode_attention_paged.cu", "decode_attention_quant.cu",
+                     "decode_step.cu", "flash_attention.cu", "flash_attention_quant.cu",
                      "fused_int4_mlp.cu", "int4_matmul.cu", "int8_matmul.cu", "split_k.cu"]
     assert set(_build.SIGNATURES) == {"mllm_flash_attention_bf16", "mllm_decode_attention_bf16",
+                                      "mllm_flash_attention_quant", "mllm_decode_attention_quant",
+                                      "mllm_decode_attention_paged_bf16",
                                       "mllm_int8_matmul_bf16", "mllm_int4_matmul_bf16",
                                       "mllm_fused_int4_mlp_bf16", "mllm_fused_decode_step_bf16",
                                       "mllm_fused_decode_step_batched_bf16"}
