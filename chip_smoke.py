@@ -26,7 +26,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      different function kept for context.
      Every row carries its bound: the larger of its bytes over 3.35 TB/s and
      its FLOPs over 989 TFLOP/s (bf16); the attention main rows also time
-     scaled_dot_product_attention on the same inputs (`library_ms`).
+     scaled_dot_product_attention on the same inputs (`library_ms`), and the
+     int8 / int4 product main rows torch._weight_int8pack_mm /
+     torch._weight_int4pack_mm on the same weights, repacked outside the
+     timed window (`library_ms`; the port never calls either). The bf16
+     attention rows (FLASH_ROWS, DECODE_ROWS) include the engine's batched
+     admission and rows whose K/V hold NaN and inf outside [kv_start,
+     kv_valid), as a slot may after an earlier request: the kernel's output
+     must be finite and within the tolerance of the plain version run on the
+     same tensors with those rows zeroed. `kernel_geometry` checks both
+     kernels at head_dim 64 and 128 with 8/8, 40/2 and 4/1 heads.
   4. slice: a Qwen2-VL-2B-geometry LM (28 layers, random bf16 weights from a
      seeded generator) through generate, ragged_batched_generate and a
      sampled generate.
@@ -68,6 +77,7 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import time
 
@@ -182,8 +192,26 @@ def phase_build():
 
     path, log, seconds = _build.build()
     _build.library()
-    emit(phase="build", seconds=round(seconds, 3), library=path,
-         ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
+    emit(phase="build", seconds=round(seconds, 3), library=path, ptxas=ptxas_summary(log))
+
+
+def ptxas_summary(log: str) -> list:
+    """[kernel, registers, spill stores, spill loads] for each kernel that
+    `nvcc -Xptxas -v` reports (the kernel named by its mangled source and
+    function, shortened)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            tail = re.split(r"_cu_[0-9a-f]{8}", m.group(1))[-1]
+            cur = [re.sub(r"^\d+", "", tail)[:48], None, None, None]
+            out.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            nums = re.findall(r"(\d+) bytes spill", ln)
+            cur[2], cur[3] = int(nums[0]), int(nums[1])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur[1] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def attention_bound(shape: dict, key_bytes=None) -> dict:
@@ -206,17 +234,81 @@ def attention_bound(shape: dict, key_bytes=None) -> dict:
     return bound(2 * b * sq * h * d * 2 + rows * shape["Hkv"] * key_bytes, 4 * pairs * h * d)
 
 
-def phase_kernels(dev) -> dict:
-    from mllm_tpu_torch.ops.decode_attention import decode_attention, decode_attention_ref
-    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+# flash: (B, Sq, q_offset, kv_valid (an int, or one per sequence), kv_start, window, poisoned)
+FLASH_ROWS = [
+    (1, 128, 0, 128, None, None, False),
+    (1, 200, 0, 200, None, None, False),
+    (1, 128, 256, 384, None, None, False),            # chunk of a chunked prefill
+    (4, 200, 0, 200, [0, 17, 64, 150], None, False),  # left-padded ragged batch
+    (1, 200, 0, 200, None, 64, False),                # sliding window
+    (1, 1536, 0, 1536, None, None, False),            # the 1500-token prompt's bucket
+    (8, 128, 0, [128, 17, 100, 64, 128, 90, 33, 120], None, None, False),  # the engine's batched admission
+    (4, 256, 0, [256, 200, 131, 250], [0, 17, 64, 150], None, True),     # stale NaN / inf rows
+]
+# decode: (B, kv_valid per sequence, kv_start, window, poisoned)
+DECODE_ROWS = [
+    (1, [2048], None, None, False),
+    (1, [1531], None, None, False),  # the 1500-token prompt's last decode step
+    (4, [1, 511, 513, 2048], None, None, False),
+    (4, [231, 231, 231, 231], [183, 136, 72, 0], None, False),  # the ragged batch's last step
+    (8, [1, 511, 513, 2048, 100, 1000, 1531, 777], [0, 0, 5, 100, 0, 50, 0, 3], None, False),
+    (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256, False),
+    (4, [0, 77, 2083, 1531], [0, 13, 100, 700], None, True),  # stale NaN / inf rows; a slot past the cache
+]
 
-    g = torch.Generator(device=dev).manual_seed(1234)
 
+def poison_outside(x, lo, hi):
+    """K or V [B, H_kv, S, D] with the rows outside [lo[b], hi[b]) filled with
+    NaN and inf (alternating), as an earlier request may leave them in a slot;
+    returns (poisoned, the same with those rows zeroed)."""
+    j = torch.arange(x.shape[2], device=x.device)
+    lo_t, hi_t = (torch.tensor(xs, device=x.device)[:, None] for xs in (lo, hi))
+    bad = ((j[None] < lo_t) | (j[None] >= hi_t))[:, None, :, None]
+    fill = torch.where(j % 2 == 0, float("nan"), float("inf")).to(x.dtype)[None, None, :, None]
+    return torch.where(bad, fill, x), torch.where(bad, torch.zeros_like(x), x)
+
+
+def attention_inputs(kind: str, row: tuple, dev, g):
+    """Random bf16 inputs of one row of FLASH_ROWS / DECODE_ROWS (H=12,
+    H_kv=2, D=128, cache S_CACHE): (q, k, v, k_plain, v_plain, kwargs, shape).
+    A poisoned row's kernel inputs hold NaN / inf outside [kv_start, kv_valid);
+    k_plain / v_plain have those rows zeroed (else they are k, v)."""
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
 
     def ivec(xs):
         return torch.tensor(xs, device=dev, dtype=torch.int32)
+
+    if kind == "flash_attention":
+        b, sq, qoff, kvl, start, window, poisoned = row
+        q = rnd(b, sq, H, D)
+        kw = dict(q_offset=qoff, kv_valid_len=ivec(kvl) if isinstance(kvl, list) else kvl,
+                  kv_start=None if start is None else ivec(start), window=window)
+        shape = dict(B=b, Sq=sq, H=H, Hkv=HKV, D=D, S=S_CACHE, q_offset=qoff, kv_valid=kvl,
+                     kv_start=start, window=window)
+    else:
+        b, kvl, start, window, poisoned = row
+        q = rnd(b, 1, H, D)
+        kw = dict(kv_valid_len=ivec(kvl), kv_start=None if start is None else ivec(start), window=window)
+        shape = dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=[min(n, S_CACHE) for n in kvl],
+                     kv_start=start, window=window)
+        if max(kvl) > S_CACHE:
+            shape["kv_valid_given"] = kvl
+    k, v = rnd(b, HKV, S_CACHE, D), rnd(b, HKV, S_CACHE, D)
+    kp, vp = k, v
+    if poisoned:
+        hi = kvl if isinstance(kvl, list) else [kvl] * b
+        lo = start or [0] * b
+        (k, kp), (v, vp) = poison_outside(k, lo, hi), poison_outside(v, lo, hi)
+        shape["poisoned"] = "NaN / inf outside [kv_start, kv_valid); plain version on the rows zeroed"
+    return q, k, v, kp, vp, kw, shape
+
+
+def phase_kernels(dev) -> dict:
+    from mllm_tpu_torch.ops.decode_attention import decode_attention, decode_attention_ref
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(1234)
 
     def check(name, kernel, plain, shape, library=None):
         out, ref = kernel(), plain()
@@ -240,46 +332,58 @@ def phase_kernels(dev) -> dict:
             q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl], is_causal=causal, enable_gqa=True)
 
     rows = {"flash_attention": [], "decode_attention": []}
-    # flash: (B, Sq, q_offset, kv_valid, kv_start, window)
-    for b, sq, qoff, kvl, start, window in [
-        (1, 128, 0, 128, None, None),
-        (1, 200, 0, 200, None, None),
-        (1, 128, 256, 384, None, None),            # chunk of a chunked prefill
-        (4, 200, 0, 200, [0, 17, 64, 150], None),  # left-padded ragged batch
-        (1, 200, 0, 200, None, 64),                # sliding window
-        (1, 1536, 0, 1536, None, None),            # the 1500-token prompt's bucket
-    ]:
-        q, k, v = rnd(b, sq, H, D), rnd(b, HKV, S_CACHE, D), rnd(b, HKV, S_CACHE, D)
-        kw = dict(q_offset=qoff, kv_valid_len=kvl,
-                  kv_start=None if start is None else ivec(start), window=window)
-        main = len(rows["flash_attention"]) == MAIN_ROW["flash_attention"]
-        rows["flash_attention"].append(check(
-            "flash_attention", lambda: flash_attention(q, k, v, **kw),
-            lambda: flash_attention_ref(q, k, v, **kw),
-            dict(B=b, Sq=sq, H=H, Hkv=HKV, D=D, S=S_CACHE, q_offset=qoff, kv_valid=kvl,
-                 kv_start=start, window=window), sdpa(q, k, v, kvl, True) if main else None))
-    # decode: (B, kv_valid per sequence, kv_start, window)
-    for b, kvl, start, window in [
-        (1, [2048], None, None),
-        (1, [1531], None, None),  # the 1500-token prompt's last decode step
-        (4, [1, 511, 513, 2048], None, None),
-        (4, [231, 231, 231, 231], [183, 136, 72, 0], None),  # the ragged batch's last step
-        (8, [1, 511, 513, 2048, 100, 1000, 1531, 777], [0, 0, 5, 100, 0, 50, 0, 3], None),
-        (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256),
-    ]:
-        q, k, v = rnd(b, 1, H, D), rnd(b, HKV, S_CACHE, D), rnd(b, HKV, S_CACHE, D)
-        kw = dict(kv_valid_len=ivec(kvl), kv_start=None if start is None else ivec(start),
-                  window=window)
-        main = len(rows["decode_attention"]) == MAIN_ROW["decode_attention"]
-        rows["decode_attention"].append(check(
-            "decode_attention", lambda: decode_attention(q, k, v, **kw),
-            lambda: decode_attention_ref(q, k, v, **kw),
-            dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=kvl, kv_start=start,
-                 window=window), sdpa(q, k, v, kvl[0], False) if main else None))
+    for kind, kernel, plain, row_list in (("flash_attention", flash_attention, flash_attention_ref, FLASH_ROWS),
+                                          ("decode_attention", decode_attention, decode_attention_ref,
+                                           DECODE_ROWS)):
+        for row in row_list:
+            q, k, v, kp, vp, kw, shape = attention_inputs(kind, row, dev, g)
+            main = len(rows[kind]) == MAIN_ROW[kind]
+            kvl = shape["kv_valid"] if kind == "flash_attention" else shape["kv_valid"][0]
+            rows[kind].append(check(
+                kind, lambda: kernel(q, k, v, **kw), lambda: plain(q, kp, vp, **kw), shape,
+                sdpa(q, k, v, kvl, kind == "flash_attention") if main else None))
+    attention_geometry_checks(dev, g)
     rows.update(kv_kernel_rows(dev, g))
     rows.update(quant_kernel_rows(dev, g))
     rows.update(mega_kernel_rows(dev, g))
     return rows
+
+
+def attention_geometry_checks(dev, g) -> None:
+    """The bf16 attention kernels away from the model's geometry, checked only
+    (no timing): head_dim 64 and 128, MHA (8/8), GQA with 20 query heads a KV
+    head (two head groups in decode) and MQA (4/1), over a 640-row cache:
+    decode with a slot past the cache and a window, causal flash over a left
+    pad, non-causal flash with per-sequence lengths. max |kernel - plain| <=
+    TOL, finite."""
+    from mllm_tpu_torch.ops.decode_attention import decode_attention, decode_attention_ref
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+
+    def ivec(xs):
+        return torch.tensor(xs, device=dev, dtype=torch.int32)
+
+    s_cache, worst = 640, 0.0
+    for d in (64, 128):
+        for h, hkv in ((8, 8), (40, 2), (4, 1)):
+            cases = [("decode", 3, 1, dict(kv_valid_len=ivec([640, 1, 333]))),
+                     ("decode", 2, 1, dict(kv_valid_len=ivec([700, 129]), kv_start=ivec([5, 64]), window=100)),
+                     ("flash", 2, 300, dict(kv_valid_len=300, kv_start=ivec([0, 40]))),
+                     ("flash", 2, 100, dict(kv_valid_len=ivec([100, 37]), causal=False))]
+            for kind, b, sq, kw in cases:
+                q, k, v = rnd(b, sq, h, d), rnd(b, hkv, s_cache, d), rnd(b, hkv, s_cache, d)
+                kernel, plain = ((decode_attention, decode_attention_ref) if kind == "decode"
+                                 else (flash_attention, flash_attention_ref))
+                out = kernel(q, k, v, **kw)
+                err = (out.float() - plain(q, k, v, **kw).float()).abs().max().item()
+                if not (err <= TOL and bool(torch.isfinite(out.float()).all())):
+                    raise AssertionError(f"{kind}_attention D={d} H={h} H_kv={hkv} {kw}: max |kernel - plain| "
+                                         f"{err} (tolerance {TOL}) or not finite")
+                worst = max(worst, err)
+    emit(phase="kernel_geometry", checks=24, head_dims=[64, 128], heads=[[8, 8], [40, 2], [4, 1]],
+         max_abs_err=worst, tolerance=TOL)
 
 
 def kv_kernel_rows(dev, g) -> dict:
@@ -400,6 +504,22 @@ def kv_kernel_rows(dev, g) -> dict:
     return rows
 
 
+def int4pack_call(x, packed_e8, scales_p, k):
+    """torch._weight_int4pack_mm on the same symmetric int4 weight (the
+    library yardstick of int4_matmul; the port never calls it): the canonical
+    operands repacked, outside the timed window, into its [N, K/2] nibble
+    pairs (innerKTiles 2, the fastest of 2, 4 and 8 on the H100) and bf16
+    (scale, zero = 0) pairs; it computes (q - 8) * scale, as the kernel."""
+    from mllm_tpu_torch.ops import quant_matmul as qm
+
+    kh, ng, ngh = k // 2, k // 2 // qm.GROUP, packed_e8.shape[0] // qm.GROUP
+    q = torch.cat([packed_e8[:kh] & 15, packed_e8[:kh] >> 4], 0).t()  # [N, K], values 0..15
+    packed = torch._convert_weight_to_int4pack(((q[:, ::2] << 4) | q[:, 1::2]).contiguous(), 2)
+    sc = torch.cat([scales_p[:ng], scales_p[ngh:ngh + ng]], 0)  # [K/G, N]
+    sz = torch.stack([sc, torch.zeros_like(sc)], -1).to(torch.bfloat16).contiguous()
+    return lambda: torch._weight_int4pack_mm(x, packed, qm.GROUP, sz)
+
+
 def quant_kernel_rows(dev, g) -> dict:
     """The quantized products against their plain versions, at the shapes of
     the int8 and int4 phases (Qwen2-VL-2B: qkv 1536->2048, o 1536->1536,
@@ -416,7 +536,7 @@ def quant_kernel_rows(dev, g) -> dict:
     def x_rows(m, k):
         return torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
 
-    def check(name, kernel, plain, shape, weight_bytes):
+    def check(name, kernel, plain, shape, weight_bytes, library=None):
         m, k, n = shape.get("m"), shape.get("K", shape.get("d")), shape.get("N", shape.get("d"))
         weights = k * n if name != "fused_int4_mlp" else 3 * shape["d"] * shape["ff"]
         out, ref = kernel(), plain()
@@ -425,10 +545,16 @@ def quant_kernel_rows(dev, g) -> dict:
         rel = err / ref.float().abs().max().item()
         finite = bool(torch.isfinite(out).all())
         ms = time_ms(kernel, 20)
+        lib = dict(library_ms=None)
+        if library is not None:  # (name, call): one PyTorch call of the same product
+            lib_out = library[1]().float()
+            lib = dict(library=library[0], library_ms=time_ms(library[1], 20),
+                       library_rel_err=((lib_out - ref.float()).abs().max()
+                                        / ref.float().abs().max()).item())
         row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
                    tolerance=QUANT_TOL[name], finite=finite, ms=ms, plain_ms=time_ms(plain, 5),
                    weight_bytes=weight_bytes, weight_tb_per_s=weight_bytes / ms / 1e9,
-                   hbm_tb_per_s=HBM_BYTES_PER_S / 1e12, library_ms=None,
+                   hbm_tb_per_s=HBM_BYTES_PER_S / 1e12, **lib,
                    **bound(weight_bytes + m * k * 2 + m * n * 4, 2 * m * weights))
         emit(**row)
         if not finite or not rel <= QUANT_TOL[name]:
@@ -441,10 +567,14 @@ def quant_kernel_rows(dev, g) -> dict:
                     (128, 1536, 2048), (1536, 1536, 17920)]:
         q, s = _q8_device(weight(n, k))
         x = x_rows(m, k)
+        library = None
+        if len(rows["int8_matmul"]) == MAIN_ROW["int8_matmul"]:
+            wq = q.t().contiguous()  # its [N, K] layout, made outside the timed window
+            library = ("torch._weight_int8pack_mm", lambda: torch._weight_int8pack_mm(x, wq, s))
         rows["int8_matmul"].append(check(
             "int8_matmul", lambda: qm.int8_matmul(x, q, s), lambda: qm.int8_matmul_ref(x, q, s),
-            dict(m=m, K=k, N=n), k * n + 4 * n))
-        del q, s
+            dict(m=m, K=k, N=n), k * n + 4 * n, library))
+        del q, s, library
 
     def int4_bytes(k, n, affine):
         return k // 2 * n + (2 if affine else 1) * (k // 32) * n * 4
@@ -464,11 +594,14 @@ def quant_kernel_rows(dev, g) -> dict:
         else:
             z = None
         x = x_rows(m, k)
+        library = None
+        if len(rows["int4_matmul"]) == MAIN_ROW["int4_matmul"]:
+            library = ("torch._weight_int4pack_mm", int4pack_call(x, p, s, k))
         rows["int4_matmul"].append(check(
             "int4_matmul", lambda: qm.int4_matmul(x, p, s, qm.GROUP, z),
             lambda: qm.int4_matmul_ref(x, p, s, qm.GROUP, z),
-            dict(m=m, K=k, N=n, affine=affine, khp=p.shape[0]), int4_bytes(k, n, affine)))
-        del p, s, z
+            dict(m=m, K=k, N=n, affine=affine, khp=p.shape[0]), int4_bytes(k, n, affine), library))
+        del p, s, z, library
 
     d, ff = QWEN2VL_2B_LM["hidden_size"], QWEN2VL_2B_LM["intermediate_size"]
     block_f = pick_block_f(ff)

@@ -45,9 +45,9 @@ SIGNATURES = {
     "mllm_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _P],
     # q, k, v, out, kv_valid_vec, kv_start, B, H, Hkv, S, D,
-    # kv_valid, window, scale_log2, stream
+    # kv_valid, window, scale_log2, splits, stream
     "mllm_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _P],
+                                   _I, _I, _F, _I, _P],
     # q, k, v, k_scale, v_scale, out, kv_valid_vec, kv_start, B, H, Hkv, S, D,
     # bits, kv_valid, window, scale, stream
     "mllm_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

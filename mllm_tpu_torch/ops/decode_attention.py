@@ -33,8 +33,39 @@ from . import _build
 from ._common import (KERNEL_HEAD_DIMS, check_kernel_args, check_quant_kv_args,
                       decode_visible_keys, kv_len_arg, kv_start_arg, masked_exp, masked_softmax)
 from .flash_attention import LOG2E
+from .quant_matmul import sm_count
 
 PAGE = 128  # rows of a pool block (PagedKVCache.BS)
+DECODE_TILE = 64  # keys a tile of `csrc/decode_attention.cu`
+DECODE_MAX_SPLITS = 8  # its largest cluster: the portable limit
+DECODE_HEADS = 16  # query heads one of its CTAs takes (the m16 of mma.sync)
+
+
+def decode_split_ranges(lo: int, hi: int, splits: int, tile: int = DECODE_TILE) -> list[tuple[int, int]]:
+    """The decode kernel's division of the keys [lo, hi) among the `splits`
+    CTAs of a cluster: the tiles [t0, hi) with t0 = lo rounded down to `tile`,
+    cut into runs of ceil(ntiles / splits) whole tiles, run r to rank r. Rank r
+    sees the keys [start, stop) of its run within [lo, hi); a rank with no
+    tile gets start == stop (its partial is empty: m = -inf, l = 0, acc = 0).
+    The ranks' partials are merged in rank order."""
+    t0 = (lo // tile) * tile
+    ntiles = -(-(hi - t0) // tile) if hi > lo else 0
+    per = -(-ntiles // splits)
+    out = []
+    for r in range(splits):
+        a = min(r * per, ntiles)
+        e = min(a + per, ntiles)
+        start, stop = max(lo, t0 + a * tile), min(hi, t0 + e * tile)
+        out.append((start, max(start, stop)))
+    return out
+
+
+def decode_splits(b: int, hkv: int, n_rep: int, s_max: int, sms: int) -> int:
+    """The decode kernel's cluster size: enough CTAs per (b, KV head) that the
+    grid fills the card's `sms` SMs, at most DECODE_MAX_SPLITS and at most the
+    cache's tiles. Depends on the shapes only, never on a device length."""
+    groups = b * hkv * -(-n_rep // DECODE_HEADS)
+    return max(1, min(DECODE_MAX_SPLITS, -(-sms // groups), -(-s_max // DECODE_TILE)))
 
 
 def unpack4_planar(p: torch.Tensor) -> torch.Tensor:
@@ -105,12 +136,13 @@ def decode_attention(
     start_vec = kv_start_arg("decode_attention", kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
+    splits = decode_splits(b, hkv, h // hkv, s_max, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     err = _build.library().mllm_decode_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         valid_vec.data_ptr() if valid_vec is not None else None,
         start_vec.data_ptr() if start_vec is not None else None,
-        b, h, hkv, s_max, d, valid_int, int(window or 0), scale * LOG2E,
+        b, h, hkv, s_max, d, valid_int, int(window or 0), scale * LOG2E, splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention: kernel launch failed with CUDA error {err}")

@@ -1,0 +1,184 @@
+"""Time variants of the bf16 attention kernels against each other on one card.
+
+    python3 tools/attention_tune.py --kernel decode \\
+        --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc \\
+        --variant stages2=mllm_tpu_torch/csrc:kStages=2 --variant c4=mllm_tpu_torch/csrc@4
+
+A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...][@SPLITS]: `csrc/flash_attention.cu`
+or `csrc/decode_attention.cu` of that directory, with each named
+`constexpr int CONSTANT = ...;` of the source set to VALUE (e.g. kTile,
+kStages, kBK) in a copy under build/kernels/tune, compiled alone with nvcc for
+sm_90a and called through its C entry point.
+`@SPLITS` fixes the decode kernel's cluster size instead of the wrapper's rule
+(`decode_splits`). A directory whose decode entry point takes no cluster size
+(the parent tree's kernel) is called without one. The variant named `sdpa`
+is PyTorch's scaled_dot_product_attention over the same keys (main rows).
+
+For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (or only the main row,
+`--rows main`), the variants run in turns, in order then in reverse, `--reps`
+times, each timed as chip_smoke.time_ms times a kernel (20 launches behind a
+GPU spin); one JSON line per row and variant gives every time, the median and
+max |kernel - plain version|. Prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from mllm_tpu_torch.ops import _build  # noqa: E402
+from mllm_tpu_torch.ops.decode_attention import (decode_attention_ref, decode_splits)  # noqa: E402
+from mllm_tpu_torch.ops.flash_attention import LOG2E, flash_attention_ref  # noqa: E402
+from mllm_tpu_torch.ops.quant_matmul import sm_count  # noqa: E402
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SOURCE = {"flash": "flash_attention.cu", "decode": "decode_attention.cu"}
+ENTRY = {"flash": "mllm_flash_attention_bf16", "decode": "mllm_decode_attention_bf16"}
+
+
+def parse_variant(spec: str) -> dict:
+    name, rest = spec.split("=", 1)
+    splits = None
+    if "@" in rest:
+        rest, splits = rest.rsplit("@", 1)
+        splits = int(splits)
+    csrc, _, constants = rest.partition(":")
+    return dict(name=name, csrc=csrc, constants=[c for c in constants.split(",") if c], splits=splits)
+
+
+def with_constants(text: str, constants: list) -> str:
+    """The source with each `constexpr int NAME = ...;` of `constants`
+    (NAME=VALUE strings) set to VALUE; raises on a name it does not define."""
+    for item in constants:
+        name, value = item.split("=")
+        text, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{int(value)};", text)
+        if n != 1:
+            raise ValueError(f"no single `constexpr int {name}` in the source")
+    return text
+
+
+def build_variant(kind: str, var: dict, out_dir: str) -> ctypes.CDLL:
+    with open(os.path.join(var["csrc"], SOURCE[kind])) as f:
+        text = with_constants(f.read(), var["constants"])
+    key = hashlib.sha256((text + var["csrc"]).encode()).hexdigest()[:12]
+    lib = os.path.join(out_dir, f"{kind}_{var['name']}_{key}.so")
+    src = os.path.join(out_dir, f"{kind}_{var['name']}_{key}.cu")
+    if not os.path.exists(lib):
+        with open(src, "w") as f:
+            f.write(text)
+        nvcc = _build.find_nvcc()
+        cmd = [nvcc, *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+               "-shared", "-I", os.path.abspath(var["csrc"]), "-o", lib, src]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+               if "registers" in ln or "spill" in ln or "warning" in ln or "error" in ln]
+        print(json.dumps(dict(build=var["name"], rc=proc.returncode, ptxas=log)), flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(proc.stdout + proc.stderr)
+    handle = ctypes.CDLL(lib)
+    fn = getattr(handle, ENTRY[kind])
+    var["with_splits"] = "int splits" in text
+    splits = [_I] if var["with_splits"] else []
+    if kind == "flash":
+        fn.argtypes = [_P] * 6 + [_I] * 10 + [_F] + splits + [_P]
+    else:
+        fn.argtypes = [_P] * 6 + [_I] * 7 + [_F] + splits + [_P]
+    fn.restype = ctypes.c_int
+    var["fn"] = fn
+    return handle
+
+
+def caller(kind: str, var: dict, q, k, v, kw):
+    """A no-argument call of the variant's kernel on these inputs (the
+    variant "sdpa": PyTorch's scaled_dot_product_attention over the same keys,
+    for rows with one length, no kv_start and no window)."""
+    if var["name"] == "sdpa":
+        kvl = kw["kv_valid_len"]
+        n = int(kvl[0]) if isinstance(kvl, torch.Tensor) else int(kvl)
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :, :n], v[:, :, :n], is_causal=kind == "flash", enable_gqa=True)
+    out = torch.empty_like(q)
+    b, sq, h, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    kvl = kw["kv_valid_len"]
+    vec = kvl if isinstance(kvl, torch.Tensor) else None
+    start = kw.get("kv_start")
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = d**-0.5 * LOG2E
+    window = int(kw.get("window") or 0)
+    if kind == "flash":
+        args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(vec), ptr(start), b, sq, h, hkv, skv, d,
+                kw["q_offset"], 0 if vec is not None else int(kvl), 1, window, scale,
+                *([var["splits"] or 1] if var["with_splits"] else []), stream)
+    else:
+        splits = var["splits"] or decode_splits(b, hkv, h // hkv, skv, sm_count(0))
+        args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(vec), ptr(start), b, h, hkv, skv, d, 0, window,
+                scale, *([splits] if var["with_splits"] else []), stream)
+
+    def run():
+        err = var["fn"](*args)
+        if err != 0:
+            raise RuntimeError(f"{var['name']}: launch failed with CUDA error {err}")
+        return out
+
+    return run
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--kernel", choices=("flash", "decode"), required=True)
+    ap.add_argument("--variant", action="append", required=True)
+    ap.add_argument("--rows", choices=("main", "all"), default="all")
+    ap.add_argument("--reps", type=int, default=2)
+    args = ap.parse_args()
+    chip_smoke.phase_device()
+    dev = torch.device("cuda", 0)
+    out_dir = os.path.join(os.path.dirname(_build.library_path()), "tune")
+    os.makedirs(out_dir, exist_ok=True)
+    variants = [parse_variant(s) for s in args.variant]
+    handles = [build_variant(args.kernel, var, out_dir) for var in variants  # noqa: F841
+               if var["name"] != "sdpa"]
+    kind = "flash_attention" if args.kernel == "flash" else "decode_attention"
+    row_list = chip_smoke.FLASH_ROWS if args.kernel == "flash" else chip_smoke.DECODE_ROWS
+    if args.rows == "main":
+        row_list = [row_list[chip_smoke.MAIN_ROW[kind]]]
+    plain = flash_attention_ref if args.kernel == "flash" else decode_attention_ref
+    g = torch.Generator(device=dev).manual_seed(1234)
+    for row in row_list:
+        q, k, v, kp, vp, kw, shape = chip_smoke.attention_inputs(kind, row, dev, g)
+        ref = plain(q, kp, vp, **kw).float()
+        runs = [caller(args.kernel, var, q, k, v, kw) for var in variants]
+        errs = []
+        for run in runs:
+            out = run()
+            torch.cuda.synchronize()
+            if out.shape != ref.shape:  # SDPA's [B, H, Sq, D]
+                out = out.transpose(1, 2)
+            errs.append((out.float() - ref).abs().max().item())
+        times = [[] for _ in variants]
+        for rep in range(args.reps):
+            order = range(len(variants)) if rep % 2 == 0 else reversed(range(len(variants)))
+            for i in order:
+                times[i].append(chip_smoke.time_ms(runs[i], 20))
+        for var, err, ts in zip(variants, errs, times):
+            print(json.dumps(dict(kernel=args.kernel, variant=var["name"], constants=var["constants"],
+                                  splits=var["splits"], shape=shape, max_abs_err=err,
+                                  ms_median=statistics.median(ts), ms=ts,
+                                  bound_ms=chip_smoke.attention_bound(shape)["bound_ms"])), flush=True)
+
+
+if __name__ == "__main__":
+    main()
