@@ -343,6 +343,7 @@ def phase_kernels(dev) -> dict:
                 kind, lambda: kernel(q, k, v, **kw), lambda: plain(q, kp, vp, **kw), shape,
                 sdpa(q, k, v, kvl, kind == "flash_attention") if main else None))
     attention_geometry_checks(dev, g)
+    sdpa_route_checks(dev, g)
     rows.update(kv_kernel_rows(dev, g))
     rows.update(quant_kernel_rows(dev, g))
     rows.update(mega_kernel_rows(dev, g))
@@ -384,6 +385,44 @@ def attention_geometry_checks(dev, g) -> None:
                 worst = max(worst, err)
     emit(phase="kernel_geometry", checks=24, head_dims=[64, 128], heads=[[8, 8], [40, 2], [4, 1]],
          max_abs_err=worst, tolerance=TOL)
+
+
+def sdpa_route_checks(dev, g) -> None:
+    """The attention calls the reference serves through XLA sdpa, run on the
+    card through the port's routes against the same calls on the CPU: an
+    additive bias, a logit softcap, and a prefill over an int8 cache with
+    per-slot lengths. max |card - CPU| <= TOL, finite."""
+    from mllm_tpu_torch.kv.cache import QuantKVCache
+    from mllm_tpu_torch.nn.attention import attend, attend_from_cache, attention_route
+
+    cpu = torch.device("cpu")
+    b, sq, skv = 2, 48, 320
+    q = torch.randn(b, sq, H, D, device=dev, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(b, HKV, skv, D, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+    bias = torch.randn(b, H, sq, skv, device=dev, generator=g)
+    cache = QuantKVCache.init(1, b, skv, HKV, D, device=dev)
+    cache.update_layer(0, *(torch.randn(b, skv, HKV, D, device=dev, generator=g) for _ in range(2)))
+    kvl = torch.tensor([skv, 201], device=dev, dtype=torch.int32)
+    calls = {
+        "bias": lambda t: attend(t(q), t(k), t(v), q_offset=skv - sq, kv_valid_len=skv, bias=t(bias)),
+        "softcap": lambda t: attend(t(q), t(k), t(v), q_offset=skv - sq, kv_valid_len=skv, logit_softcap=20.0),
+        "quant_cache_per_slot_prefill": lambda t: attend_from_cache(
+            t(q), QuantKVCache(*(t(x) for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)), cache.pos), 0,
+            q_offset=skv - sq, kv_valid_len=t(kvl)),
+    }
+    routes = {"bias": attention_route(sq, bias=bias), "softcap": attention_route(sq, logit_softcap=20.0),
+              "quant_cache_per_slot_prefill": attention_route(sq, cache="quant", kv_valid_len=kvl)}
+    for name, call in calls.items():
+        out = call(lambda x: x)
+        ref = call(lambda x: x.to(cpu))
+        torch.cuda.synchronize()
+        err = (out.float().cpu() - ref.float()).abs().max().item()
+        finite = bool(torch.isfinite(out.float()).all())
+        emit(phase="sdpa_route_check", call=name, route=routes[name], shape=dict(B=b, Sq=sq, Skv=skv, H=H, Hkv=HKV),
+             max_abs_err=err, tolerance=TOL, finite=finite, device=str(out.device))
+        if routes[name] != "sdpa" or out.device.type != "cuda" or not finite or not err <= TOL:
+            raise AssertionError(f"{name}: route {routes[name]}, max |card - CPU| {err} (tolerance {TOL}), "
+                                 f"finite={finite}")
 
 
 def kv_kernel_rows(dev, g) -> dict:
@@ -520,6 +559,39 @@ def int4pack_call(x, packed_e8, scales_p, k):
     return lambda: torch._weight_int4pack_mm(x, packed, qm.GROUP, sz)
 
 
+# int4_matmul: (m, K, N, affine): the int4 path's qkv, o, gate||up and down at
+# decode, the padded int4 lm_head at b = 1, 8 and 32 (the head of the b=1, b=8
+# and b=32 megakernel steps), affine rows, and K/2 = 480 padded to 512
+INT4_ROWS = [(1, 1536, 2048, False), (1, 1536, 1536, False), (8, 1536, 2048, False),
+             (32, 8960, 1536, False), (1, 1536, 152064, False), (1, 1536, 2048, True),
+             (4, 8960, 1536, True), (8, 960, 2048, False), (8, 1536, 152064, False),
+             (32, 1536, 152064, False)]
+
+
+def int4_bytes(k, n, affine):
+    """Weight bytes of an int4 product: the nibbles and the f32 scales (and zeros)."""
+    return k // 2 * n + (2 if affine else 1) * (k // 32) * n * 4
+
+
+def int4_operands(m, k, n, affine, dev, g):
+    """(packed, scales, zeros or None, x) of one INT4_ROWS row: a random weight
+    quantized on the card (symmetric), or random nibbles, scales and zeros
+    (affine; the padded rows stay zero); x random bf16 [m, K]."""
+    from mllm_tpu_torch.ops import quant_matmul as qm
+    from mllm_tpu_torch.ops.quantize_model import _q4_device
+
+    p, s, z = qm.prepare_int4(*_q4_device(torch.randn(n, k, device=dev, generator=g) * 0.02), qm.GROUP)
+    if affine:
+        live = s != 0
+        p = torch.randint(0, 256, p.shape, device=dev, generator=g, dtype=torch.uint8)
+        p[k // 2:] = 0
+        s = torch.rand(s.shape, device=dev, generator=g) * 0.02 * live
+        z = torch.randn(s.shape, device=dev, generator=g) * 0.05 * live
+    else:
+        z = None
+    return p, s, z, torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+
+
 def quant_kernel_rows(dev, g) -> dict:
     """The quantized products against their plain versions, at the shapes of
     the int8 and int4 phases (Qwen2-VL-2B: qkv 1536->2048, o 1536->1536,
@@ -547,10 +619,13 @@ def quant_kernel_rows(dev, g) -> dict:
         ms = time_ms(kernel, 20)
         lib = dict(library_ms=None)
         if library is not None:  # (name, call): one PyTorch call of the same product
-            lib_out = library[1]().float()
-            lib = dict(library=library[0], library_ms=time_ms(library[1], 20),
-                       library_rel_err=((lib_out - ref.float()).abs().max()
-                                        / ref.float().abs().max()).item())
+            try:
+                lib_out = library[1]().float()
+                lib = dict(library=library[0], library_ms=time_ms(library[1], 20),
+                           library_rel_err=((lib_out - ref.float()).abs().max()
+                                            / ref.float().abs().max()).item())
+            except RuntimeError as e:  # a yardstick only: the port never calls it
+                lib = dict(library=library[0], library_ms=None, library_error=str(e)[:200])
         row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
                    tolerance=QUANT_TOL[name], finite=finite, ms=ms, plain_ms=time_ms(plain, 5),
                    weight_bytes=weight_bytes, weight_tb_per_s=weight_bytes / ms / 1e9,
@@ -576,27 +651,9 @@ def quant_kernel_rows(dev, g) -> dict:
             dict(m=m, K=k, N=n), k * n + 4 * n, library))
         del q, s, library
 
-    def int4_bytes(k, n, affine):
-        return k // 2 * n + (2 if affine else 1) * (k // 32) * n * 4
-
-    for m, k, n, affine in [(1, 1536, 2048, False), (1, 1536, 1536, False),
-                            (8, 1536, 2048, False), (32, 8960, 1536, False),
-                            (1, 1536, 152064, False),  # the padded int4 lm_head
-                            (1, 1536, 2048, True), (4, 8960, 1536, True),
-                            (8, 960, 2048, False)]:  # K/2 = 480 padded to 512
-        p, s, z = qm.prepare_int4(*_q4_device(weight(n, k)), qm.GROUP)
-        if affine:  # random nibbles, scales and zeros; padded rows stay zero
-            live = s != 0
-            p = torch.randint(0, 256, p.shape, device=dev, generator=g, dtype=torch.uint8)
-            p[k // 2:] = 0
-            s = torch.rand(s.shape, device=dev, generator=g) * 0.02 * live
-            z = torch.randn(s.shape, device=dev, generator=g) * 0.05 * live
-        else:
-            z = None
-        x = x_rows(m, k)
-        library = None
-        if len(rows["int4_matmul"]) == MAIN_ROW["int4_matmul"]:
-            library = ("torch._weight_int4pack_mm", int4pack_call(x, p, s, k))
+    for m, k, n, affine in INT4_ROWS:
+        p, s, z, x = int4_operands(m, k, n, affine, dev, g)
+        library = None if affine else ("torch._weight_int4pack_mm", int4pack_call(x, p, s, k))
         rows["int4_matmul"].append(check(
             "int4_matmul", lambda: qm.int4_matmul(x, p, s, qm.GROUP, z),
             lambda: qm.int4_matmul_ref(x, p, s, qm.GROUP, z),
@@ -648,73 +705,91 @@ def mega_operands(dev, g, cfg):
     return ops, nbytes
 
 
+# the megakernel rows: (kernel, pos, kv_start); b=1 at pos 0 / 100 / 1531,
+# b=8 at unequal positions (the engine's shape), b=32 lockstep at 200
+MEGA_ROWS = [("fused_decode_step", 0, 0), ("fused_decode_step", 100, 0), ("fused_decode_step", 1531, 200),
+             ("fused_decode_step_batched", [1, 17, 100, 511, 513, 1000, 1531, 2000], [0, 0, 5, 100, 0, 50, 0, 3]),
+             ("fused_decode_step_batched", [200] * 32, None)]
+MEGA_MAIN_ROWS = (2, 3)  # fused_decode_step's and fused_decode_step_batched's main rows
+MEGA_KW = dict(n_heads=H, n_kv_heads=HKV, head_dim=D, group_a=128, group_d=32, block_f=1280)
+
+
+def mega_cache(cfg, b, dev, g):
+    return [torch.randn(cfg.num_hidden_layers, b, HKV, S_CACHE, D, device=dev, generator=g).to(torch.bfloat16)
+            for _ in range(2)]
+
+
+def mega_keys(pos, start) -> int:
+    """Cached keys the step's attention reads, over all slots (one layer)."""
+    if isinstance(pos, list):
+        return sum(pos) - (sum(start) if start else 0)
+    return pos - start
+
+
+def mega_call(name, x, pos, start, rope, ops, kv, cfg):
+    """(kernel wrapper, plain version, args, kwargs) of one MEGA_ROWS row."""
+    from mllm_tpu_torch.ops import decode_step as ds
+
+    kw = dict(kv_start=start, act=cfg.hidden_act, eps=cfg.rms_norm_eps, **MEGA_KW)
+    if name == "fused_decode_step":
+        rot = ds.rope_rotation_matrix(rope.sin[pos], rope.cos[pos])
+        return ds.fused_decode_step, ds.fused_decode_step_ref, (x, pos, rot, *ops, *kv), kw
+    p = torch.tensor(pos, device=x.device)
+    return (ds.fused_decode_step_batched, ds.fused_decode_step_batched_ref,
+            (x, pos, rope.sin[p], rope.cos[p], *ops, *kv), kw)
+
+
+def mega_bound(cfg, weight_bytes, b, keys) -> dict:
+    """Bytes: the weight stacks, the visible KV rows, x, y and the new K/V;
+    operations: 2 a weight and row of x, 4 a visible key, head dim and q head."""
+    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    n_weights = 2 * weight_bytes_int4(cfg)
+    nbytes = weight_bytes + keys * L * HKV * D * 2 * 2 + b * d * 4 * 2 + 2 * L * b * HKV * D * 4
+    return bound(nbytes, 2 * b * n_weights + 4 * keys * L * H * D)
+
+
+def weight_bytes_int4(cfg) -> int:
+    """Packed bytes of the megakernel's five weight stacks (two weights a byte)."""
+    d, ff = cfg.hidden_size, cfg.intermediate_size
+    n_q, n_qkv = cfg.num_attention_heads * D, (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * D
+    return cfg.num_hidden_layers * (d * n_qkv + n_q * d + 3 * d * ff) // 2
+
+
 def mega_kernel_rows(dev, g) -> dict:
     """Both megakernels against their plain versions at the full Qwen2-VL-2B
     geometry (28 layers, cache 2048): error = max |kernel - plain| / max |plain|
-    over y, k_new and v_new; bytes = weight stacks + the visible KV rows + x,
-    y and the new K/V; the bound is the larger of bytes / 3.35 TB/s and
-    FLOPs / 989 TFLOP/s (bf16)."""
+    over y, k_new and v_new; the bound is mega_bound's."""
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.nn.layers import RotaryEmbedding
-    from mllm_tpu_torch.ops import decode_step as ds
 
     cfg = TextConfig(**QWEN2VL_2B_LM)
-    L, d = cfg.num_hidden_layers, cfg.hidden_size
     ops, weight_bytes = mega_operands(dev, g, cfg)
     rope = RotaryEmbedding.make(D, S_CACHE, cfg.rope_theta, device=dev)
-    kw = dict(n_heads=H, n_kv_heads=HKV, head_dim=D, act=cfg.hidden_act, eps=cfg.rms_norm_eps,
-              group_a=128, group_d=32, block_f=1280)
-    n_weights = 2 * sum(op[0].numel() for op in ops[:5])  # two int4 weights a packed byte
-
-    def check(name, kernel, plain, shape, b, keys):
-        out, ref = kernel(), plain()
+    rows = {"fused_decode_step": [], "fused_decode_step_batched": []}
+    for name, pos, start in MEGA_ROWS:
+        b = len(pos) if isinstance(pos, list) else 1
+        kv = mega_cache(cfg, b, dev, g)
+        x = torch.randn(b, cfg.hidden_size, device=dev, generator=g)
+        kernel, plain, args, kw = mega_call(name, x, pos, start, rope, ops, kv, cfg)
+        out, ref = kernel(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
         err = max(((o.float() - r.float()).abs().max() / r.float().abs().max()).item()
                   for o, r in zip(out, ref))
         abs_err = max((o.float() - r.float()).abs().max().item() for o, r in zip(out, ref))
         finite = all(bool(torch.isfinite(o).all()) for o in out)
-        nbytes = weight_bytes + keys * L * HKV * D * 2 * 2 + b * d * 4 * 2 + 2 * L * b * HKV * D * 4
-        ms = time_ms(kernel, 20)
-        row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=abs_err, rel_err=err,
-                   tolerance=MEGA_TOL, finite=finite, ms=ms, plain_ms=time_ms(plain, 3),
-                   library_ms=None, tb_per_s=nbytes / ms / 1e9,
-                   hbm_tb_per_s=HBM_BYTES_PER_S / 1e12,
-                   **bound(nbytes, 2 * b * n_weights + 4 * keys * L * H * D))
+        ms = time_ms(lambda: kernel(*args, **kw), 20)
+        bnd = mega_bound(cfg, weight_bytes, b, mega_keys(pos, start))
+        row = dict(phase="kernel_check", kernel=name,
+                   shape=dict(b=b, pos=pos, kv_start=start, L=cfg.num_hidden_layers, S=S_CACHE),
+                   max_abs_err=abs_err, rel_err=err, tolerance=MEGA_TOL, finite=finite, ms=ms,
+                   plain_ms=time_ms(lambda: plain(*args, **kw), 3), library_ms=None,
+                   tb_per_s=bnd["bytes"] / ms / 1e9, hbm_tb_per_s=HBM_BYTES_PER_S / 1e12, **bnd)
         emit(**row)
         if not finite or not err <= MEGA_TOL:
-            raise AssertionError(f"{name} {shape}: max |kernel - plain| / max |plain| {err} "
+            raise AssertionError(f"{name} {row['shape']}: max |kernel - plain| / max |plain| {err} "
                                  f"(tolerance {MEGA_TOL}), finite={finite}")
-        return row
-
-    def cache(b):
-        return [torch.randn(L, b, HKV, S_CACHE, D, device=dev, generator=g).to(torch.bfloat16)
-                for _ in range(2)]
-
-    rows = {"fused_decode_step": [], "fused_decode_step_batched": []}
-    kv = cache(1)
-    for pos, start in [(0, 0), (100, 0), (1531, 200)]:
-        x = torch.randn(1, d, device=dev, generator=g)
-        rot = ds.rope_rotation_matrix(rope.sin[pos], rope.cos[pos])
-        args = (x, pos, rot, *ops, *kv)
-        rows["fused_decode_step"].append(check(
-            "fused_decode_step", lambda: ds.fused_decode_step(*args, kv_start=start, **kw),
-            lambda: ds.fused_decode_step_ref(*args, kv_start=start, **kw),
-            dict(b=1, pos=pos, kv_start=start, L=L, S=S_CACHE), 1, pos - start))
-    del kv
-    for pos, start in [([1, 17, 100, 511, 513, 1000, 1531, 2000], [0, 0, 5, 100, 0, 50, 0, 3]),
-                       ([200] * 32, None)]:
-        b = len(pos)
-        kv = cache(b)
-        x = torch.randn(b, d, device=dev, generator=g)
-        p = torch.tensor(pos, device=dev)
-        args = (x, pos, rope.sin[p], rope.cos[p], *ops, *kv)
-        keys = sum(pos) - (sum(start) if start else 0)
-        rows["fused_decode_step_batched"].append(check(
-            "fused_decode_step_batched",
-            lambda: ds.fused_decode_step_batched(*args, kv_start=start, **kw),
-            lambda: ds.fused_decode_step_batched_ref(*args, kv_start=start, **kw),
-            dict(b=b, pos=pos, kv_start=start, L=L, S=S_CACHE), b, keys))
-        del kv
+        rows[name].append(row)
+        del kv, out, ref
     return rows
 
 

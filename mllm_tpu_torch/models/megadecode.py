@@ -33,7 +33,7 @@ from ..ops import quant_matmul as qm
 from ..ops.decode_step import fused_decode_step, fused_decode_step_batched, rope_rotation_matrix
 from ..ops.fused_mlp import _ACT, pick_block_f, prepare_int4_ff
 from ..ops.quantize_model import FusedInt4MLP, Int4EmbedHead, Int4Operands, _q4_device
-from .transformer import MLP, CausalLM
+from .transformer import MLP, CausalLM, in_dtype
 
 GROUP_A = 128  # quant group of qkv/o/gate/up (AWQ's); down keeps the int4 kernels' 32
 BLOCK_F_CAP = 1280  # largest ff slab of the block-planar down layout (1280 at ff 8960)
@@ -281,7 +281,7 @@ class MegaDecodeLM(nn.Module):
         cfg = self.cfg
         x = inputs_embeds if inputs_embeds is not None else self.base.embed_tokens(input_ids)
         if cfg.embedding_multiplier != 1.0:
-            x = x * cfg.embedding_multiplier
+            x = x * in_dtype(cfg.embedding_multiplier, x.dtype)
         pos, b = cache.pos, x.shape[0]
         rope = self.base.rope
         kw = dict(n_heads=cfg.num_attention_heads, n_kv_heads=cfg.num_key_value_heads,

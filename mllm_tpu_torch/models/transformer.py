@@ -121,6 +121,14 @@ class MLP(nn.Module):
         return self.down_proj(ACT_FN[self.act](self.gate_proj(x)) * self.up_proj(x))
 
 
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to `dtype`, as the reference applies its scalar
+    multipliers (`jnp.asarray(rm, h.dtype)`): in bf16, 1.4 / sqrt(40) is
+    0.22168, not 0.22136. The product of two bf16 values is exact in f32, so
+    multiplying a bf16 tensor by the rounded float rounds once, as JAX does."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TextConfig, layer_idx: int, *, device, dtype):
         super().__init__()
@@ -134,9 +142,9 @@ class DecoderBlock(nn.Module):
     def forward(self, x, rope, cache, positions, kv_start=None):
         rm = self.residual_multiplier
         h, cache = self.attn(self.input_norm(x), rope, cache, positions, kv_start=kv_start)
-        x = x + (h if rm == 1.0 else h * rm)
+        x = x + (h if rm == 1.0 else h * in_dtype(rm, h.dtype))
         h = self.mlp(self.post_attn_norm(x))
-        x = x + (h if rm == 1.0 else h * rm)
+        x = x + (h if rm == 1.0 else h * in_dtype(rm, h.dtype))
         return x, cache
 
 
@@ -200,7 +208,7 @@ class CausalLM(nn.Module):
         masked in attention."""
         x = inputs_embeds if inputs_embeds is not None else self.embed_tokens(input_ids)
         if self.cfg.embedding_multiplier != 1.0:
-            x = x * self.cfg.embedding_multiplier
+            x = x * in_dtype(self.cfg.embedding_multiplier, x.dtype)
         s = x.shape[1]
         pos0 = cache.pos if cache is not None else 0
         positions = torch.arange(s, device=x.device)[None, :]  # [1, S]
@@ -222,7 +230,7 @@ class CausalLM(nn.Module):
     def logits(self, hidden):
         """f32 logits."""
         if self.cfg.logit_divisor != 1.0:  # MiniCPM hidden/dim_model_base
-            hidden = hidden / self.cfg.logit_divisor
+            hidden = hidden / in_dtype(self.cfg.logit_divisor, hidden.dtype)
         if self.lm_head is not None:
             out = self.lm_head(hidden).float()
         else:

@@ -8,9 +8,11 @@ Layouts: q is [B, Sq, H, D]; k/v are in cache layout [B, H_kv, Skv, D].
 every other query length to `ops.flash_attention`. Each wrapper runs its
 plain version on CPU tensors and its kernel on CUDA tensors; the TPU
 package's shape thresholds (D % 128, Sq % 128, batch/length switches) do not
-apply. An additive `bias` (tree speculation) or an attention `logit_softcap`
-(gemma2) goes through `sdpa` on the CPU and raises on a card, where no kernel
-takes them yet.
+apply. `attention_route` decides, the same on every device: an additive
+`bias` (tree speculation), an attention `logit_softcap` (gemma2) and a prefill
+over a quantized cache with per-slot lengths go through the port's own `sdpa`
+(on the card too), as the reference sends them to XLA `sdpa`: no Pallas
+kernel takes them there, so no Hopper kernel is owed.
 """
 
 from __future__ import annotations
@@ -87,35 +89,50 @@ def sdpa(
     return out.to(q.dtype)
 
 
+def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=None,
+                    kv_valid_len=None, kv_start=None) -> str:
+    """Which function serves an attention call: "sdpa", "decode", "flash",
+    "decode_paged", "decode_quant" or "flash_quant". `cache` is "dense",
+    "paged" or "quant". The route does not depend on the device: the kernels'
+    wrappers take their plain versions on CPU tensors and launch on CUDA ones,
+    and `sdpa` is plain PyTorch on both. Counterpart of the choice between XLA
+    `sdpa` and the Pallas kernels in `mllm_tpu/nn/attention.py:145-175,192-196`."""
+    if bias is not None or logit_softcap is not None:
+        return "sdpa"
+    if cache == "paged":
+        return "decode_paged" if sq == 1 and kv_start is None else _dense_route(sq)
+    if cache == "quant":
+        if sq == 1:
+            return "decode_quant"
+        per_slot = isinstance(kv_valid_len, torch.Tensor) and kv_valid_len.dim() > 0
+        return "sdpa" if per_slot else "flash_quant"
+    return _dense_route(sq)
+
+
+def _dense_route(sq: int) -> str:
+    return "decode" if sq == 1 else "flash"
+
+
 def attend(
     q, k, v, *, q_offset=0, kv_valid_len=None, kv_start=None, causal=True, window=None,
     bias=None, scale=None, logit_softcap=None,
 ):
-    """Dispatch: Sq == 1 -> decode kernel, otherwise the flash kernel.
+    """Dispatch (`attention_route`): Sq == 1 -> decode kernel, otherwise the
+    flash kernel; a bias or softcap -> `sdpa`.
 
     The decode kernel measures a window from the last valid key, so it
     assumes the query sits at position kv_valid_len - 1 (as every decode
     step does)."""
-    if not _no_kernel_extras(q, bias, logit_softcap):
+    route = attention_route(q.shape[1], bias=bias, logit_softcap=logit_softcap)
+    if route == "sdpa":
         return sdpa(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start,
                     causal=causal, window=window, bias=bias, scale=scale,
                     logit_softcap=logit_softcap)
-    if q.shape[1] == 1:
+    if route == "decode":
         return decode_attention(q, k, v, kv_valid_len=kv_valid_len, kv_start=kv_start,
                                 scale=scale, window=window)
     return flash_attention(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
                            kv_start=kv_start, causal=causal, window=window, scale=scale)
-
-
-def _no_kernel_extras(q, bias, logit_softcap) -> bool:
-    """True if the call has no bias or softcap; raises on a card if it has."""
-    if bias is None and logit_softcap is None:
-        return True
-    if q.is_cuda:
-        raise NotImplementedError(
-            "attention with an additive bias (tree speculation, ROADMAP Queue 1 item 12) "
-            "or a logit softcap (gemma2, item 14) has no CUDA kernel yet")
-    return False
 
 
 def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None, kv_start=None,
@@ -127,32 +144,33 @@ def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None
       PagedKVCache, otherwise        -> the gathered dense view through `attend`
       quantized cache, Sq == 1       -> decode_attention_quant on the stored K/V
       quantized cache, Sq > 1        -> flash_attention_quant (a scalar kv_valid_len;
-                                        per-slot lengths have no kernel: the CPU
-                                        takes sdpa over the dequantized layer, a card raises)
+                                        per-slot lengths: `sdpa` over the dequantized
+                                        layer, as the reference's XLA route)
       dense caches                   -> `attend`
 
-    A quantized cache is never dequantized to memory on these paths."""
+    A bias or a softcap takes `sdpa` over the layer (dequantized or gathered).
+
+    A quantized cache is never dequantized to memory on the kernel routes."""
     from ..kv.cache import PagedKVCache, QuantKVCache, SlotQuantKVCache
 
     kw = dict(q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start, causal=causal,
               window=window, bias=bias, scale=scale, logit_softcap=logit_softcap)
-    sq = q.shape[1]
-    if isinstance(cache, PagedKVCache):
-        if sq == 1 and kv_start is None and _no_kernel_extras(q, bias, logit_softcap):
-            return decode_attention_paged(q, cache.k[layer_idx], cache.v[layer_idx], cache.table,
-                                          kv_valid_len=kv_valid_len, scale=scale, window=window)
-    elif isinstance(cache, (QuantKVCache, SlotQuantKVCache)) and _no_kernel_extras(q, bias, logit_softcap):
+    kind = ("paged" if isinstance(cache, PagedKVCache)
+            else "quant" if isinstance(cache, (QuantKVCache, SlotQuantKVCache)) else "dense")
+    route = attention_route(q.shape[1], cache=kind, bias=bias, logit_softcap=logit_softcap,
+                            kv_valid_len=kv_valid_len, kv_start=kv_start)
+    if route == "decode_paged":
+        return decode_attention_paged(q, cache.k[layer_idx], cache.v[layer_idx], cache.table,
+                                      kv_valid_len=kv_valid_len, scale=scale, window=window)
+    if route in ("decode_quant", "flash_quant"):
         kq, vq, ks, vs = cache.layer_quant(layer_idx)
-        if sq == 1:
+        if route == "decode_quant":
             return decode_attention_quant(q, kq, vq, ks, vs, kv_valid_len=kv_valid_len,
                                           kv_start=kv_start, scale=scale, window=window)
-        if not isinstance(kv_valid_len, torch.Tensor) or kv_valid_len.dim() == 0:
-            return flash_attention_quant(q, kq, vq, ks, vs, q_offset=q_offset,
-                                         kv_valid_len=kv_valid_len, kv_start=kv_start,
-                                         causal=causal, window=window, scale=scale)
-        if q.is_cuda:
-            raise NotImplementedError("prefill over a quantized cache with per-slot lengths has no "
-                                      "CUDA kernel (the serving engine prefills into a small cache)")
-        return sdpa(q, *cache.layer(layer_idx), **kw)
+        return flash_attention_quant(q, kq, vq, ks, vs, q_offset=q_offset,
+                                     kv_valid_len=kv_valid_len, kv_start=kv_start,
+                                     causal=causal, window=window, scale=scale)
     k, v = cache.layer(layer_idx)
+    if route == "sdpa":
+        return sdpa(q, k, v, **kw)
     return attend(q, k, v, **kw)

@@ -62,8 +62,9 @@ SIGNATURES = {
                                          _I, _I, _F, _P],
     # x, q, s, out, ws, M, K, N, splits, kt_per_split, mt, stream
     "mllm_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, q, s, z, out, ws, M, K, N, khp, splits, groups_per_split, mt, stream
-    "mllm_int4_matmul_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, s, z, out, ws, counters, M, K, N, khp, full, splits, split_rows, chunk_rows, mt8,
+    # stream
+    "mllm_int4_matmul_bf16": [*[_P] * 7, *[_I] * 9, _P],
     # x, gq, gs, gz, uq, us, uz, dq, ds, dz, ws, out, M, d, khp_d, ff, d_out,
     # block_f, act, mt, stream
     "mllm_fused_int4_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

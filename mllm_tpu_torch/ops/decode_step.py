@@ -41,7 +41,6 @@ from .quant_matmul import check_operands, dequant_int4_canonical, launch_or_rais
 
 HEAD_DIM = 128
 MAX_BATCH = 32
-_MAX_ROWS = 512  # packed rows per product chunk in the kernel (csrc/decode_step.cu kMaxRows)
 
 
 def rope_rotation_matrix(sin_row: torch.Tensor, cos_row: torch.Tensor, hd: int = HEAD_DIM) -> torch.Tensor:
@@ -219,31 +218,79 @@ def fused_decode_step_batched_ref(x, pos, sin_rows, cos_rows, qkv_ops, o_ops, ga
 # ---------------------------------------------------------------------------
 
 
+STAGE_ROWS = 32  # packed rows a ring stage holds (csrc/int4_stream.cuh kStageRows)
+TILE_N = 512  # output columns a product item covers (csrc/decode_step.cu kTileN)
+SUB_N = 128  # the columns a finishing unit covers (kSub): one head
+X_STAGE_FLOATS = 8192  # the largest staged chunk of x the plan asks for, in u32 words
+# The plan's cost model (seconds; rates estimated from tools/mega_phases.py
+# runs on "NVIDIA H100 80GB HBM3, 700.00 W"): a block streams weights (a
+# packed row of a tile and its bf16 scales, ROW_BYTES) at about BLOCK_BPS,
+# the grid at about GRID_BPS; partials go through L2 at about L2_BPS; a
+# finishing block reads partials at about FINISH_BPS.
+ROW_BYTES, BLOCK_BPS, GRID_BPS, L2_BPS, FINISH_BPS = 544, 25e9, 3.0e12, 5e12, 40e9
+
+
+def mega_rows_of_x(b: int) -> int:
+    """8-row tiles of x the kernel instantiates for b rows (1, 2 or 4)."""
+    return pow2_rows(-(-b // 8), 4)
+
+
+def mega_grid(b: int, sms: int) -> int:
+    """The blocks the kernel expects to be resident: two an SM up to 16 rows
+    of x, one at 32 (registers)."""
+    return sms * (2 if mega_rows_of_x(b) <= 2 else 1)
+
+
+def product_rows(khalf: int, n: int, mats: int, b: int, grid: int) -> int:
+    """Packed rows per chunk of one product (`mats` matrices of `n` output
+    columns, in tiles of 512): the multiple of 32 dividing khalf, with one
+    item at most a block where one can be had (else the fewest items), that
+    the cost model above finds fastest. It counts
+    a block's weights and the grid's (the grid streams while the busiest
+    block's own stages are in flight, so the two add up), the partials
+    (b x 512 f32 an item, written and read back), and the finishing: the b x 4
+    (row, head) units of a tile spread over its chunks' blocks, each unit the
+    sum of one partial a chunk."""
+    tiles = mats * -(-n // TILE_N)
+    mt8 = mega_rows_of_x(b)
+    fits = [r for r in range(STAGE_ROWS, khalf + 1, STAGE_ROWS)
+            if khalf % r == 0 and (r // 16) * 2 * 64 * mt8 <= X_STAGE_FLOATS]
+    one_each = [r for r in fits if tiles * (khalf // r) <= grid]
+    if not one_each:  # more tiles than blocks: the fewest items
+        return fits[-1]
+    best = None
+    for r in one_each:
+        chunks = khalf // r
+        units = b * TILE_N // SUB_N
+        cost = (r * ROW_BYTES / BLOCK_BPS + tiles * khalf * ROW_BYTES / GRID_BPS
+                + tiles * chunks * b * TILE_N * 8 / L2_BPS
+                + -(-units // chunks) * chunks * SUB_N * 4 / FINISH_BPS)
+        if best is None or cost < best[0]:
+            best = (cost, r)
+    return best[1]
+
+
 def decode_step_plan(b: int, d: int, n_q: int, n_qkv: int, ff: int, h: int,
                      sms: int) -> tuple[int, int, int, int, int]:
     """(rows_qkv, rows_o, rows_gu, rows_d, nsplit): packed rows per product
-    chunk, grown from 64 while each product still has about two work items per
-    SM, and key splits per (slot, q head) for about two attention items per SM."""
-    target = 2 * sms
-    row_chunks = -(-b // pow2_rows(b, 8))
-
-    def rows(khalf: int, n: int) -> int:
-        r, tiles = 64, -(-n // 128)
-        while (khalf % (2 * r) == 0 and 2 * r <= _MAX_ROWS
-               and tiles * (khalf // (2 * r)) * row_chunks >= target):
-            r *= 2
-        return r
-
-    nsplit = max(1, min(32, -(-target // (b * h))))
-    return rows(d // 2, n_qkv), rows(n_q // 2, d), rows(d // 2, 2 * ff), rows(ff // 2, d), nsplit
+    chunk (`product_rows`) and the most key splits a slot may take (the
+    kernel deals the keys of all slots over about one (slot, q head, split)
+    item a block, `split_counts` in csrc/decode_step.cu): up to twice a slot's
+    share of the grid, at most 32."""
+    grid = mega_grid(b, sms)
+    nsplit = max(1, min(32, -(-2 * grid // (b * h))))
+    return (product_rows(d // 2, n_qkv, 1, b, grid), product_rows(n_q // 2, d, 1, b, grid),
+            product_rows(d // 2, ff, 2, b, grid), product_rows(ff // 2, d, 1, b, grid), nsplit)
 
 
 def decode_step_workspace(b: int, d: int, n_q: int, n_qkv: int, ff: int, h: int, plan) -> int:
     """f32 elements of the kernel's workspace (csrc/decode_step.cu `carve`)."""
     rq, ro, rgu, rd, ns = plan
-    pieces = [b * d, b * d, b * n_q, b * ff, (d // 2 // rq) * b * n_qkv, (n_q // 2 // ro) * b * d,
-              2 * (d // 2 // rgu) * b * ff, (ff // 2 // rd) * b * d, b * h * ns, b * h * ns,
-              b * h * ns * HEAD_DIM, 4]
+    tiles = lambda n: -(-n // TILE_N)  # noqa: E731
+    pieces = [b * d, b * (d // SUB_N), b * n_qkv, b * 2 * ff, (d // 2 // rq) * b * n_qkv,
+              (n_q // 2 // ro) * b * d, (d // 2 // rgu) * b * 2 * ff, (ff // 2 // rd) * b * d,
+              b * h * ns, b * h * ns, b * h * ns * HEAD_DIM, tiles(n_qkv), tiles(d), 2 * tiles(ff),
+              tiles(d), 4]
     return sum(-(-n // 4) * 4 for n in pieces)
 
 
@@ -265,10 +312,11 @@ def _launch(name, entry, lead_args, b, x, qkv_ops, o_ops, gate_ops, up_ops, down
         raise ValueError(f"{name}: activation {act!r} not in {sorted(_ACT_ID)}")
     if k_cache.shape[1] != b or v_cache.shape != k_cache.shape:
         raise ValueError(f"{name}: the cache batch {k_cache.shape[1]} must equal b {b}")
-    if not 1 <= b <= MAX_BATCH or d % 256 or ff % 128 or (block_f // 2) % group_d:
-        raise ValueError(f"{name}: the CUDA kernel needs 1 <= b <= 32, d % 256 == 0, ff % 128 == 0 and "
-                         f"group_d | block_f/2; got b {b}, d {d}, ff {ff}, block_f {block_f}, "
-                         f"group_d {group_d}")
+    if (not 1 <= b <= MAX_BATCH or d % 256 or ff % 128 or (block_f // 2) % group_d or group_a % 32
+            or group_d % 32 or (block_f // 2) % STAGE_ROWS):
+        raise ValueError(f"{name}: the CUDA kernel needs 1 <= b <= 32, d % 256 == 0, ff % 128 == 0, "
+                         f"groups that are multiples of 32, group_d | block_f/2 and 32 | block_f/2; got "
+                         f"b {b}, d {d}, ff {ff}, block_f {block_f}, group_a {group_a}, group_d {group_d}")
     plan = decode_step_plan(b, d, n_q, n_qkv, ff, h, sm_count(x.device.index or 0))
     ws = torch.empty(decode_step_workspace(b, d, n_q, n_qkv, ff, h, plan), device=x.device, dtype=f32)
     y = torch.empty(b, d, device=x.device, dtype=f32)
@@ -278,7 +326,7 @@ def _launch(name, entry, lead_args, b, x, qkv_ops, o_ops, gate_ops, up_ops, down
         err = entry(*lead_args, *(_ptr(t) for t in (
             qkv_ops[0], qkv_ops[1], qkv_b, o_ops[0], o_ops[1], gate_ops[0], gate_ops[1], up_ops[0],
             up_ops[1], down_ops[0], down_ops[1], norm1_w, norm2_w, k_cache, v_cache, y, k_new, v_new,
-            ws)), (ctypes.c_int * 5)(*plan), L, d, ff, h, hkv, s_max, group_a, group_d, block_f,
+            ws)), (ctypes.c_int * len(plan))(*plan), L, d, ff, h, hkv, s_max, group_a, group_d, block_f,
             _ACT_ID[act], eps, rm, scale, torch.cuda.current_stream(x.device).cuda_stream)
     launch_or_raise(name, err)
     return y, k_new, v_new

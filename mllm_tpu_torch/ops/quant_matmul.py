@@ -252,6 +252,69 @@ def int8_matmul(x: torch.Tensor, qweight_t: torch.Tensor, scales: torch.Tensor) 
 int8_matmul.launches = 0
 
 
+TILE_N = 512  # output columns a work item of int4_matmul covers (csrc/int4_matmul.cu kTileN)
+STAGE_ROWS = 32  # packed rows a ring stage holds (kStageRows)
+X_STAGE_BYTES = 48 * 1024  # shared memory for one staged chunk of x
+
+
+def int4_grid(mt8: int, sms: int, affine: bool = False) -> int:
+    """The blocks int4_matmul keeps resident: two an SM up to 16 rows of x,
+    one at 32 (registers) or for the affine law (its zeros make a ring of
+    four stages too large for two blocks' shared memory)."""
+    return sms * (2 if mt8 <= 2 and not affine else 1)
+
+
+# The split tiles' cost model (seconds), fitted to tools/int4_tune.py runs on
+# "NVIDIA H100 80GB HBM3, 700.00 W": a block streams weights at about
+# BLOCK_BPS, the grid at about GRID_BPS; finishing a split tile reads its
+# partials at about FINISH_BPS, after ITEM_S of arrival and counter latency.
+BLOCK_BPS, GRID_BPS, FINISH_BPS, ITEM_S = 12e9, 3.0e12, 40e9, 2e-6
+
+
+def int4_plan(m: int, k: int, n: int, sms: int, affine: bool = False) -> tuple[int, int, int, int, int]:
+    """(mt8, full, splits, split_rows, chunk_rows) of the int4_matmul kernel:
+    8-row tiles of x (1, 2 or 4); the first `full` column tiles of 512 done
+    whole, as many as fill whole waves of the grid; the tiles left over each
+    divided into `splits` splits of `split_rows` packed rows (multiples of 32)
+    whose blocks then add the splits in order, each a share of the tile: the
+    count that the cost model above finds fastest, one more wave at most (the
+    kernel's cooperative launch needs a resident block for each split item);
+    x staged `chunk_rows` packed rows at a time, as many as X_STAGE_BYTES hold
+    (the bf16 pairs of both halves for 8 mt8 rows)."""
+    khalf = k // 2
+    stages = -(-khalf // STAGE_ROWS)
+    mt8 = pow2_rows(-(-m // 8), 4)
+    tiles = -(-n // TILE_N)
+    grid = int4_grid(mt8, sms, affine)
+    full = tiles // grid * grid
+    rest = tiles - full
+    row_bytes = TILE_N + 2 * TILE_N * 4 // GROUP  # a packed row of a tile and its f32 scales
+
+    def cost(splits):
+        per = -(-stages // splits) * STAGE_ROWS * row_bytes
+        t = max(-(-rest * splits // grid) * per / BLOCK_BPS, rest * stages * STAGE_ROWS * row_bytes / GRID_BPS)
+        return t + (ITEM_S + m * TILE_N * 4 * splits / FINISH_BPS if splits > 1 else 0.0)
+
+    splits = min(range(1, min(max(1, grid // rest), stages) + 1), key=cost) if rest else 1
+    if splits == 1:
+        full = tiles
+    split_rows = -(-stages // splits) * STAGE_ROWS
+    splits = -(-khalf // split_rows)
+    cap = X_STAGE_BYTES // (64 * mt8) // STAGE_ROWS * STAGE_ROWS
+    return mt8, full, splits, split_rows, min(stages * STAGE_ROWS, cap)
+
+
+@functools.cache
+def _tile_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    """Zeroed u32 counters (two per split column tile) that the kernel leaves
+    zeroed after every call: the last block to finish with a tile resets its."""
+    return torch.zeros(tiles, device=device, dtype=torch.int32)
+
+
+def tile_counters(device: torch.device, tiles: int) -> torch.Tensor:
+    return _tile_counters(device, max(256, 1 << (tiles - 1).bit_length()))
+
+
 def int4_matmul(x: torch.Tensor, packed_e8: torch.Tensor, scales_p: torch.Tensor,
                 group: int = GROUP, zeros_p: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y[..., N] = x[..., K] @ dequant(canonical int4 operands), f32 out.
@@ -277,16 +340,19 @@ def int4_matmul(x: torch.Tensor, packed_e8: torch.Tensor, scales_p: torch.Tensor
     for t in (scales_p, zeros_p):
         if t is not None and t.shape != (2 * khp // GROUP, n):
             raise ValueError(f"int4_matmul: scales/zeros must be [2*khp/32, N], got {tuple(t.shape)}")
-    mt = pow2_rows(m)
-    base = -(-n // 256) * -(-m // mt)
-    splits, per = split_k(base, k // 2 // GROUP, x.device)
+    mt8, full, splits, split_rows, chunk_rows = int4_plan(m, k, n, sm_count(x.device.index or 0),
+                                                          zeros_p is not None)
+    rest = -(-n // TILE_N) - full
     out = torch.empty(m, n, device=x.device, dtype=torch.float32)
-    ws = torch.empty(splits, m, n, device=x.device, dtype=torch.float32) if splits > 1 else None
+    ws = torch.empty(splits, m, rest * TILE_N, device=x.device, dtype=torch.float32) if rest else None
+    counters = tile_counters(x.device, 2 * rest) if rest else None  # arrivals, departures
+    if x2.data_ptr() % 16:  # the kernel reads x in 16-byte pieces
+        x2 = x2.clone()
     err = _build.library().mllm_int4_matmul_bf16(
         x2.data_ptr(), packed_e8.data_ptr(), scales_p.data_ptr(),
         zeros_p.data_ptr() if zeros_p is not None else None, out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, m, k, n, khp, splits, per, mt,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        ws.data_ptr() if ws is not None else None, counters.data_ptr() if rest else None, m, k, n, khp,
+        full, splits, split_rows, chunk_rows, mt8, torch.cuda.current_stream(x.device).cuda_stream)
     launch_or_raise("int4_matmul", err)
     int4_matmul.launches += 1
     return out.reshape(*x.shape[:-1], n)

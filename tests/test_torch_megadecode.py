@@ -409,13 +409,15 @@ def test_ragged_batched_generate_goes_to_base(megas):
 @pytest.mark.parametrize("b", [1, 8, 32])
 def test_kernel_plan_at_full_width(b):
     """The kernel's work split at the Qwen2-VL-2B geometry on 132 SMs: chunks
-    of 64-512 packed rows, multiples of the kernel's 8 warps, dividing each
-    product's K/2; the workspace holds every piece."""
+    of packed rows that are multiples of the kernel's 32-row ring stage,
+    divide each product's K/2 and fit the staged-x buffer; the workspace holds
+    every piece."""
     d, ff, h, hkv = 1536, 8960, 12, 2
     n_q, n_qkv = h * 128, (h + 2 * hkv) * 128
     plan = tds.decode_step_plan(b, d, n_q, n_qkv, ff, h, 132)
     for rows, khalf in zip(plan[:4], (d // 2, n_q // 2, d // 2, ff // 2)):
-        assert 64 <= rows <= 512 and rows % 8 == 0 and khalf % rows == 0
+        assert 32 <= rows <= 512 and rows % 32 == 0 and khalf % rows == 0
+        assert (rows // 16) * 128 * tds.mega_rows_of_x(b) <= tds.X_STAGE_FLOATS
     assert 1 <= plan[4] <= 32 and (b * h * plan[4] >= 264 or plan[4] == 32)
     ws = tds.decode_step_workspace(b, d, n_q, n_qkv, ff, h, plan)
     assert ws % 4 == 0 and ws * 4 < 64 << 20
