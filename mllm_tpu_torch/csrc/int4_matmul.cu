@@ -20,12 +20,13 @@
 //  - A persistent grid (the SMs times the blocks that fit on one) walks work
 //    items of 512 columns, so each packed row is read as a 512-byte run; each
 //    block keeps 3 stages of 32 packed rows in flight (64 KB with their
-//    scales; two blocks an SM) through 16-byte cp.async.
+//    scales) through 16-byte cp.async; two blocks an SM below 32 rows of x,
+//    one at 32 rows or for the affine law (`int4_grid` in the plan).
 //  - Tensor cores (mma.sync m16n8k16) with the nibbles turned into bf16 by
 //    prmt / lop3 and one bf16x2 subtraction; up to 32 rows of x read each
 //    weight once.
-//  - x is staged once per chunk of packed rows (all of K for the head: the
-//    block keeps it while it walks its column tiles).
+//  - x is staged once per chunk of packed rows, 8 rows a 16-byte load (all
+//    of K for the head: the block keeps it while it walks its column tiles).
 //  - Whole column tiles fill as many full waves of the grid as they can; the
 //    tiles left over (the head: 297 tiles, 264 blocks, 33 left) are divided
 //    along K so that their splits spread over every block, not 33 of them.
