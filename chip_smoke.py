@@ -15,7 +15,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      (fused_int4_mlp: the kernel rounds the hidden activation to bf16, the
      plain version keeps f32); each row also prints the weight bytes read
      over the kernel time, against the H100's 3.35 TB/s. The two megakernels
-     (28 layers, cache 2048, random int4 operand stacks): max |kernel - plain|
+     (28 layers, cache 2048, random int4 operand stacks; then b=16 and b=32
+     at Qwen2-7B's widths, 4 layers, where blocks own several chunks of a
+     column tile): max |kernel - plain|
      / max |plain| <= 1e-2 over y, k_new and v_new (bf16 rounding points
      that flip differently, f32 sums in another order; observed <= 6.6e-3).
      The quantized- and paged-cache attention kernels (int8 and int4 K/V
@@ -560,12 +562,12 @@ def int4pack_call(x, packed_e8, scales_p, k):
 
 
 # int4_matmul: (m, K, N, affine): the int4 path's qkv, o, gate||up and down at
-# decode, the padded int4 lm_head at b = 1, 8 and 32 (the head of the b=1, b=8
-# and b=32 megakernel steps), affine rows, and K/2 = 480 padded to 512
+# decode, the padded int4 lm_head at b = 1, 8, 32 and 16 (the head of the b=1,
+# b=8, b=32 and b=16 megakernel steps), affine rows, and K/2 = 480 padded to 512
 INT4_ROWS = [(1, 1536, 2048, False), (1, 1536, 1536, False), (8, 1536, 2048, False),
              (32, 8960, 1536, False), (1, 1536, 152064, False), (1, 1536, 2048, True),
              (4, 8960, 1536, True), (8, 960, 2048, False), (8, 1536, 152064, False),
-             (32, 1536, 152064, False)]
+             (32, 1536, 152064, False), (16, 1536, 152064, False)]
 
 
 def int4_bytes(k, n, affine):
@@ -707,16 +709,36 @@ def mega_operands(dev, g, cfg):
 
 # the megakernel rows: (kernel, pos, kv_start); b=1 at pos 0 / 100 / 1531,
 # b=8 at unequal positions (the engine's shape), b=32 lockstep at 200
+# b=8 at unequal positions (the engine's shape), b=32 lockstep at 200, and
+# b=16 at unequal positions (the kernel's 9..16-row instance)
 MEGA_ROWS = [("fused_decode_step", 0, 0), ("fused_decode_step", 100, 0), ("fused_decode_step", 1531, 200),
              ("fused_decode_step_batched", [1, 17, 100, 511, 513, 1000, 1531, 2000], [0, 0, 5, 100, 0, 50, 0, 3]),
-             ("fused_decode_step_batched", [200] * 32, None)]
+             ("fused_decode_step_batched", [200] * 32, None),
+             ("fused_decode_step_batched", [40 + 125 * i for i in range(16)], [0, 7] * 8)]
 MEGA_MAIN_ROWS = (2, 3)  # fused_decode_step's and fused_decode_step_batched's main rows
-MEGA_KW = dict(n_heads=H, n_kv_heads=HKV, head_dim=D, group_a=128, group_d=32, block_f=1280)
+# The Qwen2-7B language model's widths (hidden 3584, ffn 18944, 28/4 heads),
+# depth cut to 4 layers: at b=16 its gate+up product has 296 work items for
+# 264 resident blocks, at b=32 518 for 132, so blocks own several chunks of
+# one column tile and meet at its barrier once (csrc/decode_step.cu).
+QWEN2_7B_LM_4L = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_hidden_layers=4,
+                      num_attention_heads=28, num_key_value_heads=4, head_dim=128,
+                      max_position_embeddings=32768, rope_theta=1e6)
+MEGA_WIDE_ROWS = [("fused_decode_step_batched", [40 + 125 * i for i in range(16)], None),
+                  ("fused_decode_step_batched", [300] * 32, None)]
+
+
+def mega_kw(cfg) -> dict:
+    """The megakernel's geometry arguments for cfg, as MegaDecodeLM.from_float lays it out."""
+    from mllm_tpu_torch.models.megadecode import BLOCK_F_CAP
+    from mllm_tpu_torch.ops.fused_mlp import pick_block_f
+
+    return dict(n_heads=cfg.num_attention_heads, n_kv_heads=cfg.num_key_value_heads, head_dim=D, group_a=128,
+                group_d=32, block_f=pick_block_f(cfg.intermediate_size, cap=BLOCK_F_CAP))
 
 
 def mega_cache(cfg, b, dev, g):
-    return [torch.randn(cfg.num_hidden_layers, b, HKV, S_CACHE, D, device=dev, generator=g).to(torch.bfloat16)
-            for _ in range(2)]
+    return [torch.randn(cfg.num_hidden_layers, b, cfg.num_key_value_heads, S_CACHE, D, device=dev,
+                        generator=g).to(torch.bfloat16) for _ in range(2)]
 
 
 def mega_keys(pos, start) -> int:
@@ -730,7 +752,7 @@ def mega_call(name, x, pos, start, rope, ops, kv, cfg):
     """(kernel wrapper, plain version, args, kwargs) of one MEGA_ROWS row."""
     from mllm_tpu_torch.ops import decode_step as ds
 
-    kw = dict(kv_start=start, act=cfg.hidden_act, eps=cfg.rms_norm_eps, **MEGA_KW)
+    kw = dict(kv_start=start, act=cfg.hidden_act, eps=cfg.rms_norm_eps, **mega_kw(cfg))
     if name == "fused_decode_step":
         rot = ds.rope_rotation_matrix(rope.sin[pos], rope.cos[pos])
         return ds.fused_decode_step, ds.fused_decode_step_ref, (x, pos, rot, *ops, *kv), kw
@@ -742,10 +764,10 @@ def mega_call(name, x, pos, start, rope, ops, kv, cfg):
 def mega_bound(cfg, weight_bytes, b, keys) -> dict:
     """Bytes: the weight stacks, the visible KV rows, x, y and the new K/V;
     operations: 2 a weight and row of x, 4 a visible key, head dim and q head."""
-    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    L, d, hkv = cfg.num_hidden_layers, cfg.hidden_size, cfg.num_key_value_heads
     n_weights = 2 * weight_bytes_int4(cfg)
-    nbytes = weight_bytes + keys * L * HKV * D * 2 * 2 + b * d * 4 * 2 + 2 * L * b * HKV * D * 4
-    return bound(nbytes, 2 * b * n_weights + 4 * keys * L * H * D)
+    nbytes = weight_bytes + keys * L * hkv * D * 2 * 2 + b * d * 4 * 2 + 2 * L * b * hkv * D * 4
+    return bound(nbytes, 2 * b * n_weights + 4 * keys * L * cfg.num_attention_heads * D)
 
 
 def weight_bytes_int4(cfg) -> int:
@@ -757,16 +779,25 @@ def weight_bytes_int4(cfg) -> int:
 
 def mega_kernel_rows(dev, g) -> dict:
     """Both megakernels against their plain versions at the full Qwen2-VL-2B
-    geometry (28 layers, cache 2048): error = max |kernel - plain| / max |plain|
-    over y, k_new and v_new; the bound is mega_bound's."""
+    geometry (28 layers, cache 2048), then the batched one at Qwen2-7B's
+    widths (4 layers): error = max |kernel - plain| / max |plain| over y,
+    k_new and v_new; the bound is mega_bound's."""
+    rows = {"fused_decode_step": [], "fused_decode_step_batched": []}
+    for lm, mrows in ((QWEN2VL_2B_LM, MEGA_ROWS), (QWEN2_7B_LM_4L, MEGA_WIDE_ROWS)):
+        for name, row in mega_geometry_rows(dev, g, lm, mrows):
+            rows[name].append(row)
+    return rows
+
+
+def mega_geometry_rows(dev, g, lm: dict, mrows):
+    """(kernel name, checked row) for each of mrows at the geometry lm."""
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.nn.layers import RotaryEmbedding
 
-    cfg = TextConfig(**QWEN2VL_2B_LM)
+    cfg = TextConfig(**lm)
     ops, weight_bytes = mega_operands(dev, g, cfg)
     rope = RotaryEmbedding.make(D, S_CACHE, cfg.rope_theta, device=dev)
-    rows = {"fused_decode_step": [], "fused_decode_step_batched": []}
-    for name, pos, start in MEGA_ROWS:
+    for name, pos, start in mrows:
         b = len(pos) if isinstance(pos, list) else 1
         kv = mega_cache(cfg, b, dev, g)
         x = torch.randn(b, cfg.hidden_size, device=dev, generator=g)
@@ -780,7 +811,8 @@ def mega_kernel_rows(dev, g) -> dict:
         ms = time_ms(lambda: kernel(*args, **kw), 20)
         bnd = mega_bound(cfg, weight_bytes, b, mega_keys(pos, start))
         row = dict(phase="kernel_check", kernel=name,
-                   shape=dict(b=b, pos=pos, kv_start=start, L=cfg.num_hidden_layers, S=S_CACHE),
+                   shape=dict(b=b, pos=pos, kv_start=start, L=cfg.num_hidden_layers, d=cfg.hidden_size,
+                   ff=cfg.intermediate_size, S=S_CACHE),
                    max_abs_err=abs_err, rel_err=err, tolerance=MEGA_TOL, finite=finite, ms=ms,
                    plain_ms=time_ms(lambda: plain(*args, **kw), 3), library_ms=None,
                    tb_per_s=bnd["bytes"] / ms / 1e9, hbm_tb_per_s=HBM_BYTES_PER_S / 1e12, **bnd)
@@ -788,9 +820,8 @@ def mega_kernel_rows(dev, g) -> dict:
         if not finite or not err <= MEGA_TOL:
             raise AssertionError(f"{name} {row['shape']}: max |kernel - plain| / max |plain| {err} "
                                  f"(tolerance {MEGA_TOL}), finite={finite}")
-        rows[name].append(row)
         del kv, out, ref
-    return rows
+        yield name, row
 
 
 def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str = "bf16") -> dict:

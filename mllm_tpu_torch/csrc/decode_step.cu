@@ -27,8 +27,9 @@
 // order; down block-planar over ff (`prepare_int4_ff`: in slab s of block_f
 // units, packed row s*F/2 + i holds f = s*F + i low and f = s*F + F/2 + i high),
 // bf16 scales [L, ff/Gd, N]. Every product runs the int4 stream of
-// int4_stream.cuh: each group's integer product summed in f32, then scaled, so
-// the Pallas kernel's bf16 group sum of x has no counterpart here.
+// int4_stream.cuh: each 32-row stage's integer product summed in f32 on the
+// tensor core, then scaled once (a stage lies inside one group), so the
+// Pallas kernel's bf16 group sum of x has no counterpart here.
 //
 // What bounds it on this card: the weight stream. At the Qwen2-VL-2B geometry
 // a step reads 694 MB of int4 weights and bf16 scales (24.8 MB a layer) for
@@ -46,9 +47,11 @@
 //    gate+up | down. A product's work item is (512 output columns, so each
 //    packed row is read as a 512-byte run; a chunk of packed rows; all b rows
 //    of x: b <= 32 reads every weight once); the plan gives a block one item
-//    at most. Its partial goes to a workspace; the blocks of a column tile
-//    meet at the tile's integer counter, and each then finishes some of the
-//    tile's (row of x, head) units, adding the unit's partials in chunk order
+//    where the grid allows (`item_begin`). Its partial goes to a workspace;
+//    the blocks of a column tile meet at the tile's integer counter (a block
+//    arrives once for all of its chunks of the tile), and each then finishes
+//    its chunks' share of the tile's (row of x, head) units, adding the
+//    unit's partials in chunk order
 //    (no float atomics, so results repeat exactly): qkv adds the bias,
 //    applies RoPE and the q scale and writes k_new / v_new; o and down update
 //    the residual stream and each head's sum of squares; gate and up are kept
@@ -325,9 +328,13 @@ __device__ __forceinline__ int khi_off(const Prod& P) { return P.block_f == 0 ? 
 
 // The first of block blk's items: each block takes a contiguous run of the
 // tile-major items (item it is chunk it % chunks of tile it / chunks). The
-// plan gives a block one item at most; with more, a block that waits at a
-// tile's barrier only waits for items that come before its own in every
-// block's run, so the runs cannot deadlock.
+// plan gives a block one item where the grid allows; where it does not (more
+// items than blocks), a block may own several chunks of one tile, and it
+// arrives at that tile's barrier once, after the last of them. A block then
+// waits at tile t only after its arrivals at every tile it owns before t, and
+// only for the blocks that own chunks of t, each of which has waited at
+// earlier tiles alone: so every barrier is reached (by induction over the
+// tiles), and no block waits for an item of its own.
 __device__ __forceinline__ int item_begin(const Prod& P, int blk) {
   return (int)((long)blk * P.tiles * P.chunks / gridDim.x);
 }
@@ -470,16 +477,16 @@ __device__ void stage_rows(const MegaParams& p, const Prod& P, const ProdSmem& s
   }
 }
 
-// The tile's barrier: every block of column tile `tile` arrives once its
-// partial is written, and waits until all `chunks` have. The counters only
-// grow (zeroed before the first layer), so layer l waits for chunks x (l + 1)
-// arrivals.
-__device__ void tile_sync(const MegaParams& p, const Prod& P, int tile) {
+// The tile's barrier: every block of column tile `tile` arrives once, when the
+// partials of its `mine` chunks of the tile are written, adding `mine`, and
+// waits until all `chunks` have arrived. The counters only grow (zeroed before
+// the first layer), so layer l waits for chunks x (l + 1).
+__device__ void tile_sync(const MegaParams& p, const Prod& P, int tile, int mine) {
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned* c = p.counters[P.kind] + tile;
     __threadfence();  // after the block's barrier: cumulative over its writes
-    atomicAdd(c, 1u);
+    atomicAdd(c, (unsigned)mine);
     i4s::wait_count(c, (unsigned)(P.chunks * (P.l + 1)));
   }
   __syncthreads();
@@ -614,8 +621,8 @@ __device__ void product_setup(const MegaParams& p, const Prod& P, const ProdSmem
 // Runs product P (its first stages already issued by prime()).
 template <int MT8>
 __device__ void product(const MegaParams& p, const Prod& P, Ring& R, const ProdSmem& sm, int seq) {
-  const int end = item_begin(P, blockIdx.x + 1);
-  Cursor cons{item_begin(P, blockIdx.x), 0};
+  const int begin = item_begin(P, blockIdx.x), end = item_begin(P, blockIdx.x + 1);
+  Cursor cons{begin, 0};
   if (cons.it >= end) return;  // no item: nothing to set up
   product_setup(p, P, sm);
   MEGA_MARK(seq, 0);
@@ -635,7 +642,7 @@ __device__ void product(const MegaParams& p, const Prod& P, Ring& R, const ProdS
     }
     i4s::consume_stage<MT8, bf16, false, kTileN>(R.buf + (R.consumed++ % kStages) * kStageBytes, sm.xs,
                                                  cons.st * 2, acc);
-    if (++cons.st == nst) {  // the item's last stage: its partial, the tile's barrier, its units
+    if (++cons.st == nst) {  // the item's last stage: its partial
       MEGA_MARK(seq, 2);
       const int2 tc = tile_cols(P, tile);
       float* ws = p.ws[P.kind] + (long)chunk * p.b * ncols + tc.y + tc.x;
@@ -643,25 +650,31 @@ __device__ void product(const MegaParams& p, const Prod& P, Ring& R, const ProdS
       i4s::store_acc<MT8, kTileN>(acc, [&](int m, int col, float4 v) {
         if (m < p.b && col < valid) *reinterpret_cast<float4*>(ws + (long)m * ncols + col) = v;
       });
-      // The b = 1 rotation, for a block that finishes q or k heads after its
-      // last item: copied into the ring (every stage of it consumed, none in
-      // flight) while the block waits at the tile's barrier.
-      const bool stage_r = P.kind == kQKV && p.rope_r != nullptr && cons.it + 1 == end &&
-                           chunk < p.b * (min(kTileN, valid) / kSub);
-      if (stage_r) {
-        __syncthreads();  // every warp is done with the ring's last stage
-        for (int i = threadIdx.x; i < kHd * kHd / 4; i += kThreads)
-          cp_async_16(R.buf + i * 16, p.rope_r + i * 4, true);
-        cp_async_commit();
+      if (cons.it + 1 == end || (cons.it + 1) / P.chunks != tile) {
+        // The block's last item of this tile: the tile's barrier, for all of
+        // the block's chunks of it at once, then their units.
+        const int first = max(begin, tile * P.chunks) - tile * P.chunks;  // its first chunk of the tile
+        // The b = 1 rotation, for a block that finishes q or k heads after
+        // its last item: copied into the ring (every stage of it consumed,
+        // none in flight) while the block waits at the tile's barrier.
+        const bool stage_r = P.kind == kQKV && p.rope_r != nullptr && cons.it + 1 == end &&
+                             first < p.b * (min(kTileN, valid) / kSub);
+        if (stage_r) {
+          __syncthreads();  // every warp is done with the ring's last stage
+          for (int i = threadIdx.x; i < kHd * kHd / 4; i += kThreads)
+            cp_async_16(R.buf + i * 16, p.rope_r + i * 4, true);
+          cp_async_commit();
+        }
+        tile_sync(p, P, tile, chunk - first + 1);
+        if (stage_r) {
+          cp_async_wait<0>();
+          __syncthreads();
+        }
+        MEGA_MARK(seq, 3);
+        for (int c = first; c <= chunk; ++c)
+          finish_units(p, P, sm, tile, c, stage_r ? reinterpret_cast<const float*>(R.buf) : nullptr);
+        MEGA_MARK(seq, 4);
       }
-      tile_sync(p, P, tile);
-      if (stage_r) {
-        cp_async_wait<0>();
-        __syncthreads();
-      }
-      MEGA_MARK(seq, 3);
-      finish_units(p, P, sm, tile, chunk, stage_r ? reinterpret_cast<const float*>(R.buf) : nullptr);
-      MEGA_MARK(seq, 4);
       cons.st = 0;
       ++cons.it;
     }

@@ -6,11 +6,14 @@
 // k = K/2 + j for the planar products; two k half a slab apart for the
 // block-planar down projection). The two lie in different scale groups, so
 // the low nibbles of a byte feed one product and the high nibbles another,
-// each with its own f32 partial; the scale multiplies each partial at the end
-// of its group (and z times the group sum of x is added for the affine law).
-// The integers are exact in bf16, so every product of x and an integer is
-// exact and only the f32 sums round: the TPU kernel's order, without its bf16
-// group sum of x.
+// each accumulated on the tensor core in f32 over a ring stage of 32 packed
+// rows; the scale multiplies each stage's partial once (and z times the
+// stage's sum of x is added for the affine law). At group 32 a stage is a
+// group; a larger group takes one scaled partial per stage, since holding one
+// accumulator per group across stages would double the registers of the
+// accumulators. The integers are exact in bf16, so every product of x and an
+// integer is exact and only the f32 sums round: the TPU kernel's order,
+// without its bf16 group sum of x.
 //
 // A block is kThreads = 256 threads, 8 warps, and works on a tile of TN output
 // columns (a template argument: 512 in both kernels), so every packed row of a
@@ -256,9 +259,11 @@ __device__ __forceinline__ void zero_acc(Acc<MT8, TN>& acc) {
       for (int mt = 0; mt < MT8; ++mt) acc[sp][T][mt][0] = acc[sp][T][mt][1] = acc[sp][T][mt][2] = acc[sp][T][mt][3] = 0.f;
 }
 
-// One stage for this warp: both of its 16-row k-steps (k-steps ks0 and ks0 + 1
-// of the staged x), both halves, its strips; each k-step's product scaled
-// (and z times the k-step's sum of x added) as it ends.
+// One stage for this warp: its 32 packed rows (k-steps ks0 and ks0 + 1 of the
+// staged x), both halves, its strips. The two k-steps of a half accumulate on
+// the tensor core, and the stage's f32 product is scaled once (and z times the
+// stage's sum of x added): a stage never crosses a scale group, so at group 32
+// that is once a group.
 template <int MT8, typename S, bool kAffine, int TN>
 __device__ __forceinline__ void consume_stage(const uint8_t* stage, const uint32_t* xs, int ks0,
                                               Acc<MT8, TN>& acc) {
@@ -268,64 +273,64 @@ __device__ __forceinline__ void consume_stage(const uint8_t* stage, const uint32
 #pragma unroll
   for (int sp = 0; sp < TN / 256; ++sp) {
     const int col = (warp + 8 * sp) * 32 + 4 * g;
-    float s[2][4], z[2][4];
+    uint32_t w[2][4];  // [k-step][rows t, 4 + t, 8 + t, 12 + t]
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[ks][i] = *reinterpret_cast<const uint32_t*>(stage + (ks * 16 + 4 * i + t) * RB + col);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      load_s4<S>(s[h], sc + h * TN + col);
-      if (kAffine) load_s4<S>(z[h], sc + (2 + h) * TN + col);
-    }
+      float s[4], z[4];
+      load_s4<S>(s, sc + h * TN + col);
+      if (kAffine) load_s4<S>(z, sc + (2 + h) * TN + col);
+      uint32_t a[2][2][4];  // [k-step][T][reg] of this half
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const uint8_t* rowp = stage + (ks * 16 + t) * RB + col;
-      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(rowp);
-      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(rowp + 4 * RB);
-      const uint32_t w2 = *reinterpret_cast<const uint32_t*>(rowp + 8 * RB);
-      const uint32_t w3 = *reinterpret_cast<const uint32_t*>(rowp + 12 * RB);
-      uint32_t a[2][2][4];  // [half][T][reg]
+      for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-      for (int P = 0; P < 2; ++P) {
-        const uint32_t lo = P == 0 ? w0 : w2, hi = P == 0 ? w1 : w3;
-#pragma unroll
-        for (int T = 0; T < 2; ++T) {
-          const uint32_t v = prmt(lo, hi, T == 0 ? 0x5410u : 0x7632u);
-          a[0][T][2 * P] = nibbles_to_bf16x2<kAffine>(v);
-          a[1][T][2 * P] = nibbles_to_bf16x2<kAffine>(v >> 4);
-          a[0][T][2 * P + 1] = nibbles_to_bf16x2<kAffine>(v >> 8);
-          a[1][T][2 * P + 1] = nibbles_to_bf16x2<kAffine>(v >> 12);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT8; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint2 b =
-              *reinterpret_cast<const uint2*>(xs + (((ks0 + ks) * 2 + h) * M + mt * 8 + g) * 8 + 2 * t);
-          float gs0 = 0.f, gs1 = 0.f;  // k-step sums of x for rows 8 mt + 2t, + 1 (affine)
-          if (kAffine) {
-            const __nv_bfloat162 p0 = *reinterpret_cast<const __nv_bfloat162*>(&b.x);
-            const __nv_bfloat162 p1 = *reinterpret_cast<const __nv_bfloat162*>(&b.y);
-            float part = (__low2float(p0) + __high2float(p0)) + (__low2float(p1) + __high2float(p1));
-            part += __shfl_xor_sync(0xffffffffu, part, 1);
-            part += __shfl_xor_sync(0xffffffffu, part, 2);  // row 8 mt + g, in all 4 lanes of g
-            gs0 = __shfl_sync(0xffffffffu, part, (2 * t) * 4);
-            gs1 = __shfl_sync(0xffffffffu, part, (2 * t + 1) * 4);
-          }
+        for (int P = 0; P < 2; ++P)
 #pragma unroll
           for (int T = 0; T < 2; ++T) {
-            float c[4];
-            mma_16816(c, a[h][T], b.x, b.y);
-            float* d = acc[sp][T][mt];
-            // c[0], c[1]: column 4g + 2T; c[2], c[3]: column 4g + 2T + 1
-            d[0] = fmaf(c[0], s[h][2 * T], d[0]);
-            d[1] = fmaf(c[1], s[h][2 * T], d[1]);
-            d[2] = fmaf(c[2], s[h][2 * T + 1], d[2]);
-            d[3] = fmaf(c[3], s[h][2 * T + 1], d[3]);
-            if (kAffine) {
-              d[0] = fmaf(gs0, z[h][2 * T], d[0]);
-              d[1] = fmaf(gs1, z[h][2 * T], d[1]);
-              d[2] = fmaf(gs0, z[h][2 * T + 1], d[2]);
-              d[3] = fmaf(gs1, z[h][2 * T + 1], d[3]);
-            }
+            const uint32_t v = prmt(w[ks][2 * P], w[ks][2 * P + 1], T == 0 ? 0x5410u : 0x7632u);
+            a[ks][T][2 * P] = nibbles_to_bf16x2<kAffine>(v >> (4 * h));
+            a[ks][T][2 * P + 1] = nibbles_to_bf16x2<kAffine>(v >> (8 + 4 * h));
+          }
+#pragma unroll
+      for (int mt = 0; mt < MT8; ++mt) {
+        uint2 b[2];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+          b[ks] = *reinterpret_cast<const uint2*>(xs + (((ks0 + ks) * 2 + h) * M + mt * 8 + g) * 8 + 2 * t);
+        float gs0 = 0.f, gs1 = 0.f;  // the stage's sums of x for rows 8 mt + 2t, + 1 (affine)
+        if (kAffine) {
+          float part = 0.f;
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const __nv_bfloat162 p0 = *reinterpret_cast<const __nv_bfloat162*>(&b[ks].x);
+            const __nv_bfloat162 p1 = *reinterpret_cast<const __nv_bfloat162*>(&b[ks].y);
+            part += (__low2float(p0) + __high2float(p0)) + (__low2float(p1) + __high2float(p1));
+          }
+          part += __shfl_xor_sync(0xffffffffu, part, 1);
+          part += __shfl_xor_sync(0xffffffffu, part, 2);  // row 8 mt + g, in all 4 lanes of g
+          gs0 = __shfl_sync(0xffffffffu, part, (2 * t) * 4);
+          gs1 = __shfl_sync(0xffffffffu, part, (2 * t + 1) * 4);
+        }
+#pragma unroll
+        for (int T = 0; T < 2; ++T) {
+          float c[4];
+          mma_16816(c, a[0][T], b[0].x, b[0].y);
+          mma_bf16_16816(c, a[1][T], b[1].x, b[1].y);
+          float* d = acc[sp][T][mt];
+          // c[0], c[1]: column 4g + 2T; c[2], c[3]: column 4g + 2T + 1
+          d[0] = fmaf(c[0], s[2 * T], d[0]);
+          d[1] = fmaf(c[1], s[2 * T], d[1]);
+          d[2] = fmaf(c[2], s[2 * T + 1], d[2]);
+          d[3] = fmaf(c[3], s[2 * T + 1], d[3]);
+          if (kAffine) {
+            d[0] = fmaf(gs0, z[2 * T], d[0]);
+            d[1] = fmaf(gs1, z[2 * T], d[1]);
+            d[2] = fmaf(gs0, z[2 * T + 1], d[2]);
+            d[3] = fmaf(gs1, z[2 * T + 1], d[3]);
           }
         }
       }

@@ -244,8 +244,10 @@ def mega_grid(b: int, sms: int) -> int:
 def product_rows(khalf: int, n: int, mats: int, b: int, grid: int) -> int:
     """Packed rows per chunk of one product (`mats` matrices of `n` output
     columns, in tiles of 512): the multiple of 32 dividing khalf, with one
-    item at most a block where one can be had (else the fewest items), that
-    the cost model above finds fastest. It counts
+    item at most a block where one can be had (else the fewest items: a
+    block then owns several chunks of a tile, and the kernel has it arrive
+    at the tile's barrier once, after the last), that the cost model above
+    finds fastest. It counts
     a block's weights and the grid's (the grid streams while the busiest
     block's own stages are in flight, so the two add up), the partials
     (b x 512 f32 an item, written and read back), and the finishing: the b x 4

@@ -2,10 +2,11 @@
 (csrc/int4_stream.cuh) that int4_matmul.cu and decode_step.cu share, on the CPU.
 
 The kernels run only on the card; these tests hold what surrounds them:
-- a torch emulation of the kernels' order (each 16-row k-step of each half:
-  the integer product of x and the nibbles in f32, then times its scale, plus
-  z times the k-step's sum of x for the affine law, added to the item's sum
-  k-step after k-step; splits or chunks added in order) against the
+- a torch emulation of the kernels' order (each 32-row ring stage of each
+  half, which lies inside one scale group: the integer product of x and the
+  nibbles in f32, then times its scale, plus z times the stage's sum of x for
+  the affine law, added to the item's sum stage after stage; splits or chunks
+  added in order; at group 32 a stage is a group) against the
   plain versions at 1e-5 of max |ref| (f32 on both sides, other summation
   orders), and against the JAX Pallas int4_matmul in interpret mode at 1e-5
   (x with exact bf16 group sums, as tests/test_torch_quant.py feeds it);
@@ -16,7 +17,10 @@ The kernels run only on the card; these tests hold what surrounds them:
 - every host-side plan: each (column tile, k chunk, row chunk) is covered
   exactly once, no padded row is read, staged x fits its buffer, and the
   ring's issue / consume sequence uses each stage once, in the slot it was
-  issued to, never overwritten before it is consumed.
+  issued to, never overwritten before it is consumed;
+- the megakernel's tile barriers: with the blocks' item runs and their
+  arrivals (one a tile, after a block's last chunk of it), every barrier is
+  reached, also where a product has more items than blocks.
 """
 
 import jax.numpy as jnp
@@ -47,8 +51,8 @@ def _rel(a, b):
 # ---------------------------------------------------------------------------
 
 
-def _kstep(xlo, xhi, qbytes, s_lo, s_hi, z_lo=None, z_hi=None):
-    """One 16-row k-step of both halves: x [m, 16] each, qbytes [16, N] u8."""
+def _stage(xlo, xhi, qbytes, s_lo, s_hi, z_lo=None, z_hi=None):
+    """One 32-row ring stage of both halves: x [m, 32] each, qbytes [32, N] u8."""
     out = 0.0
     for xs, q, s, z in ((xlo, (qbytes & 15), s_lo, z_lo), (xhi, (qbytes >> 4), s_hi, z_hi)):
         q = q.float() if z is not None else q.float() - 8.0
@@ -73,8 +77,8 @@ def int4_items(m, k, n, sms, affine=False):
 
 
 def stream_int4_matmul(x, packed, scales, zeros, sms):
-    """int4_matmul in the kernel's order, over its plan: a whole tile k-step
-    after k-step, a split tile's splits so and then added in split order."""
+    """int4_matmul in the kernel's order, over its plan: a whole tile stage
+    after stage, a split tile's splits so and then added in split order."""
     m, k = x.shape
     khalf, n = k // 2, packed.shape[1]
     ngh = packed.shape[0] // 32
@@ -86,12 +90,10 @@ def stream_int4_matmul(x, packed, scales, zeros, sms):
         acc = torch.zeros(m, cols.stop - cols.start)
         for j0 in range(r0, r1, STAGE):
             g = j0 // 32
-            for ks in range(2):
-                r = slice(j0 + 16 * ks, j0 + 16 * ks + 16)
-                zl = zeros[g, cols] if zeros is not None else None
-                zh = zeros[ngh + g, cols] if zeros is not None else None
-                acc = acc + _kstep(xb[:, r], xb[:, khalf + r.start:khalf + r.stop], packed[r, cols],
-                                   scales[g, cols], scales[ngh + g, cols], zl, zh)
+            zl = zeros[g, cols] if zeros is not None else None
+            zh = zeros[ngh + g, cols] if zeros is not None else None
+            acc = acc + _stage(xb[:, j0:j0 + STAGE], xb[:, khalf + j0:khalf + j0 + STAGE],
+                               packed[j0:j0 + STAGE, cols], scales[g, cols], scales[ngh + g, cols], zl, zh)
         if sp < 0:
             out[:, cols] = acc
         else:
@@ -107,7 +109,7 @@ def stream_int4_matmul(x, packed, scales, zeros, sms):
 
 def stream_product(xin, packed, scales, group, block_f, rows):
     """A megakernel product in the kernel's order: chunks of `rows` packed
-    rows, k-step after k-step, the chunks added in order."""
+    rows, stage after stage, the chunks added in order."""
     khalf, n = packed.shape
     fh = block_f // 2 if block_f else khalf
     scales = scales.float()
@@ -119,11 +121,9 @@ def stream_product(xin, packed, scales, group, block_f, rows):
     for c0 in range(0, khalf, rows):
         acc = torch.zeros(xin.shape[0], n)
         for j0 in range(c0, c0 + rows, STAGE):
-            for ks in range(2):
-                j = j0 + 16 * ks
-                lo, hi = klo(j), klo(j) + fh
-                acc = acc + _kstep(xin[:, lo:lo + 16], xin[:, hi:hi + 16], packed[j:j + 16],
-                                   scales[klo(j0) // group], scales[(klo(j0) + fh) // group])
+            lo, hi = klo(j0), klo(j0) + fh
+            acc = acc + _stage(xin[:, lo:lo + STAGE], xin[:, hi:hi + STAGE], packed[j0:j0 + STAGE],
+                               scales[lo // group], scales[hi // group])
         total = total + acc
     return total
 
@@ -259,7 +259,12 @@ CFG_KW = dict(vocab_size=512, hidden_size=512, intermediate_size=512, num_hidden
 GEOMETRIES = [  # (b, d, n_q, n_qkv, ff, h, block_f)
     (1, 1536, 1536, 2048, 8960, 12, 1280), (8, 1536, 1536, 2048, 8960, 12, 1280),
     (32, 1536, 1536, 2048, 8960, 12, 1280), (4, 512, 512, 1024, 512, 4, 512),
-    (17, 2048, 2048, 2560, 5632, 16, 512), (3, 3584, 3584, 4608, 18944, 28, 2368 * 2)]
+    (17, 2048, 2048, 2560, 5632, 16, 512), (3, 3584, 3584, 4608, 18944, 28, 2368 * 2),
+    # more items than blocks on the H100's 132 SMs: gate_up 296 items on 264
+    # blocks at b=16 and 518 on 132 at b=32 (Qwen2-7B), 176 on 132 at b=32
+    # (a 16-head d=2048 model)
+    (16, 3584, 3584, 4608, 18944, 28, 512), (32, 3584, 3584, 4608, 18944, 28, 512),
+    (32, 2048, 2048, 6144, 11008, 16, 256)]
 
 
 @pytest.fixture(scope="module")
@@ -341,6 +346,63 @@ def test_mega_plan_covers_each_chunk_once(geo, sms):
             assert (done == 1).all(), name
     ws = tds.decode_step_workspace(b, d, n_q, n_qkv, ff, h, plan)
     assert ws >= b * (2 * d + n_qkv + 2 * ff) + (d // 2 // rq) * b * n_qkv
+
+
+def tile_arrivals(tiles, chunks, grid):
+    """Each block's arrivals at the tile barriers of one product, in its order
+    (`product` in csrc/decode_step.cu): over the block's contiguous run of the
+    tile-major items, one arrival a tile, after its last chunk of the tile,
+    adding its chunks of it: [tile, chunks added]."""
+    out = []
+    for blk in range(grid):
+        arr = []
+        for it in range(blk * tiles * chunks // grid, (blk + 1) * tiles * chunks // grid):
+            if arr and arr[-1][0] == it // chunks:
+                arr[-1][1] += 1
+            else:
+                arr.append([it // chunks, 1])
+        out.append(arr)
+    return out
+
+
+def barriers_reached(arrivals, tiles, chunks):
+    """Runs the blocks until none can move: a block adds its count at its next
+    tile, then waits there until the tile's count is `chunks`. True when every
+    block passed every barrier of its list."""
+    count, at, waiting = [0] * tiles, [0] * len(arrivals), [False] * len(arrivals)
+    moved = True
+    while moved:
+        moved = False
+        for blk, arr in enumerate(arrivals):
+            if at[blk] == len(arr):
+                continue
+            tile, n = arr[at[blk]]
+            if not waiting[blk]:
+                count[tile] += n
+                waiting[blk] = moved = True
+            if count[tile] == chunks:
+                at[blk] += 1
+                waiting[blk], moved = False, True
+    return all(a == len(arr) for a, arr in zip(at, arrivals)) and count == [chunks] * tiles
+
+
+@pytest.mark.parametrize("geo", GEOMETRIES, ids=[f"b{g[0]}_d{g[1]}" for g in GEOMETRIES])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_mega_tile_barriers_are_reached(geo, sms):
+    """Every tile barrier of every product is reached with the plan's item
+    runs, also where a block owns several chunks of one tile (more items than
+    blocks), which an arrival (and wait) after each item would deadlock."""
+    b, d, n_q, n_qkv, ff, h, _ = geo
+    grid = tds.mega_grid(b, sms)
+    plan = tds.decode_step_plan(b, d, n_q, n_qkv, ff, h, sms)
+    for name, khalf, ncols, mats, rows in [("qkv", d // 2, n_qkv, 1, plan[0]), ("o", n_q // 2, d, 1, plan[1]),
+                                           ("gate_up", d // 2, ff, 2, plan[2]), ("down", ff // 2, d, 1, plan[3])]:
+        tiles, chunks = mats * -(-ncols // tds.TILE_N), khalf // rows
+        arrivals = tile_arrivals(tiles, chunks, grid)
+        assert barriers_reached(arrivals, tiles, chunks), name
+        per_item = [[[t, 1] for t, n in arr for _ in range(n)] for arr in arrivals]
+        shared = any(n > 1 for arr in arrivals for _, n in arr)
+        assert barriers_reached(per_item, tiles, chunks) != shared, name
 
 
 def test_ring_issues_and_consumes_each_stage_once():

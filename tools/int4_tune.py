@@ -12,16 +12,15 @@ A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...]: `int4_matmul.cu` (with
 a constant of the host plan in ops/quant_matmul.py / ops/decode_step.py set
 while the variant runs) in a copy under
 build/kernels/tune (headers from CSRC_DIR), compiled with nvcc for sm_90a and
-called through its C entry point. A directory whose int4 entry point takes
-`groups_per_split` (the earlier CUDA-core kernel) is called with that
-kernel's own plan; a megakernel source without `int4_stream.cuh` (the earlier
-nine-phase kernel) with
-its row-chunk plan and workspace. The variant `library` times
-torch._weight_int4pack_mm on the same weights (symmetric int4 rows).
+launched by the wrappers of the package that holds CSRC_DIR (another tree's
+`mllm_tpu_torch`, such as the parent's, is imported under a name of its own),
+so each kernel runs with its own host plan, workspace and C signature. The
+variant `library` times torch._weight_int4pack_mm on the same weights
+(symmetric int4 rows).
 
 Rows: chip_smoke.INT4_ROWS (every int4_matmul row of the smoke) or
 chip_smoke.MEGA_ROWS (b=1 at pos 0 / 100 / 1531, b=8 at unequal positions,
-b=32 at 200), at full width; `--rows main` keeps the smoke's main row. Each
+b=32 at 200, b=16 at unequal positions), at full width; `--rows main` keeps the smoke's main row. Each
 row runs the variants in order, then in reverse, `--reps` times, each timed as
 chip_smoke.time_ms times a kernel (20 launches behind a GPU spin; 10 for the
 megakernel); one JSON line per row and variant gives every time, the median,
@@ -34,6 +33,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import importlib
+import importlib.util
 import json
 import os
 import shutil
@@ -51,7 +52,6 @@ from mllm_tpu_torch.ops import _build  # noqa: E402
 from mllm_tpu_torch.ops import decode_step as ds  # noqa: E402
 from mllm_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {"int4": ("int4_matmul.cu", "split_k.cu"), "mega": ("decode_step.cu",)}
 
 
@@ -64,14 +64,14 @@ def parse_variant(spec: str) -> dict:
     items = [c for c in constants.split(",") if c]
     host = [c.split("=") for c in items if c.startswith(("qm.", "ds."))]
     return dict(name=name, csrc=csrc, constants=[c for c in items if not c.startswith(("qm.", "ds."))],
-                host=[({"qm": qm, "ds": ds}[k.split(".")[0]], k.split(".", 1)[1], float(v)) for k, v in host])
+                host=[(*k.split(".", 1), float(v)) for k, v in host])
 
 
 class host_constants:
     """Sets a variant's host-plan constants while a call runs."""
 
     def __init__(self, var):
-        self.host = var.get("host", [])
+        self.host = [(var[mod], nm, v) for mod, nm, v in var.get("host", [])]
 
     def __enter__(self):
         self.saved = [(mod, nm, getattr(mod, nm)) for mod, nm, _ in self.host]
@@ -83,10 +83,41 @@ class host_constants:
             setattr(mod, nm, v)
 
 
+def tree_modules(csrc: str) -> dict:
+    """{"qm", "ds", "build"}: ops/quant_matmul.py, ops/decode_step.py and
+    ops/_build.py of the package that holds csrc: this one's, or another
+    tree's imported under a name of its own (its imports are relative)."""
+    pkg = os.path.dirname(os.path.abspath(csrc))
+    if pkg == os.path.dirname(os.path.dirname(os.path.abspath(qm.__file__))):
+        return dict(qm=qm, ds=ds, build=_build)
+    name = "tree_" + hashlib.sha256(pkg.encode()).hexdigest()[:12]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                      submodule_search_locations=[pkg])
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return {key: importlib.import_module(f"{name}.ops.{mod}")
+            for key, mod in (("qm", "quant_matmul"), ("ds", "decode_step"), ("build", "_build"))}
+
+
+class tree_library:
+    """Points the variant's package at the variant's library while a call runs."""
+
+    def __init__(self, var):
+        self.var = var
+
+    def __enter__(self):
+        self.saved = self.var["build"].library
+        self.var["build"].library = lambda: self.var["lib"]
+
+    def __exit__(self, *exc):
+        self.var["build"].library = self.saved
+
+
 def build_variant(kind: str, var: dict, out_dir: str) -> None:
-    """Compile the variant's sources (constants set) into one library and
-    bind its entry points into var["lib"]; var["legacy"] marks the parent's
-    kernels (their own plans and C signatures)."""
+    """Compile the variant's sources (constants set) into one library, bind
+    its entry points with its package's C signatures into var["lib"], and
+    its package's modules into var."""
     texts = []
     for src in SOURCES[kind]:
         with open(os.path.join(var["csrc"], src)) as f:
@@ -111,103 +142,31 @@ def build_variant(kind: str, var: dict, out_dir: str) -> None:
                               ptxas=chip_smoke.ptxas_summary(proc.stdout + proc.stderr))), flush=True)
         if proc.returncode != 0:
             raise RuntimeError(proc.stdout + proc.stderr)
-    handle = ctypes.CDLL(lib)
-    var["lib"] = handle
-    if kind == "int4":
-        var["legacy"] = "groups_per_split" in texts[0]
-        fn = handle.mllm_int4_matmul_bf16
-        fn.argtypes = ([_P] * 6 + [_I] * 7 + [_P]) if var["legacy"] else _build.SIGNATURES["mllm_int4_matmul_bf16"]
-    else:
-        var["legacy"] = "int4_stream.cuh" not in texts[0]
-        for name in ("mllm_fused_decode_step_bf16", "mllm_fused_decode_step_batched_bf16"):
-            getattr(handle, name).argtypes = _build.SIGNATURES[name]
-    for name in ("mllm_int4_matmul_bf16", "mllm_fused_decode_step_bf16", "mllm_fused_decode_step_batched_bf16"):
-        if hasattr(handle, name):
-            getattr(handle, name).restype = ctypes.c_int
+    var.update(tree_modules(var["csrc"]))
+    var["lib"] = ctypes.CDLL(lib)
+    for name, argtypes in var["build"].SIGNATURES.items():
+        if hasattr(var["lib"], name):
+            fn = getattr(var["lib"], name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
 
 
-def legacy_int4_call(var, x, p, s, z, m, k, n):
-    """The earlier CUDA-core kernel with its own plan (ops/quant_matmul.py of
-    that tree: 16-row tiles, split-K to two blocks an SM, sum_splits)."""
-    mt = qm.pow2_rows(m)
-    base = -(-n // 256) * -(-m // mt)
-    k_units = k // 2 // qm.GROUP
-    want = -(-2 * qm.sm_count(0) // max(base, 1))
-    per = -(-k_units // max(1, min(want, k_units)))
-    splits = -(-k_units // per)
-    out = torch.empty(m, n, device=x.device, dtype=torch.float32)
-    ws = torch.empty(splits, m, n, device=x.device, dtype=torch.float32) if splits > 1 else None
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (x.data_ptr(), p.data_ptr(), s.data_ptr(), z.data_ptr() if z is not None else None, out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, m, k, n, p.shape[0], splits, per, mt, stream)
-
-    def run():
-        if var["lib"].mllm_int4_matmul_bf16(*args) != 0:
-            raise RuntimeError(f"{var['name']}: launch failed")
-        return out
-
-    return run
-
-
-def int4_caller(var, x, p, s, z, m, k, n):
+def int4_caller(var, x, p, s, z, k):
     if var["name"] == "library":
         return chip_smoke.int4pack_call(x, p, s, k)
-    if var["legacy"]:
-        return legacy_int4_call(var, x, p, s, z, m, k, n)
-    lib = var["lib"]
 
     def run():
-        saved = _build.library
-        _build.library = lambda: lib
-        try:
-            with host_constants(var):
-                return qm.int4_matmul(x, p, s, qm.GROUP, z)
-        finally:
-            _build.library = saved
+        with tree_library(var), host_constants(var):
+            return var["qm"].int4_matmul(x, p, s, var["qm"].GROUP, z)
 
     return run
 
 
-def legacy_mega_plan(b, d, n_q, n_qkv, ff, h, sms):
-    """The nine-phase kernel's plan: packed rows per product chunk grown from 64 while each
-    product keeps about two items an SM (8-row chunks of b); key splits."""
-    target = 2 * sms
-    row_chunks = -(-b // qm.pow2_rows(b, 8))
-
-    def rows(khalf, n):
-        r, tiles = 64, -(-n // 128)
-        while khalf % (2 * r) == 0 and 2 * r <= 512 and tiles * (khalf // (2 * r)) * row_chunks >= target:
-            r *= 2
-        return r
-
-    nsplit = max(1, min(32, -(-target // (b * h))))
-    return rows(d // 2, n_qkv), rows(n_q // 2, d), rows(d // 2, 2 * ff), rows(ff // 2, d), nsplit
-
-
-def legacy_mega_workspace(b, d, n_q, n_qkv, ff, h, plan):
-    rq, ro, rgu, rd, ns = plan
-    pieces = [b * d, b * d, b * n_q, b * ff, (d // 2 // rq) * b * n_qkv, (n_q // 2 // ro) * b * d,
-              2 * (d // 2 // rgu) * b * ff, (ff // 2 // rd) * b * d, b * h * ns, b * h * ns,
-              b * h * ns * ds.HEAD_DIM, 4]
-    return sum(-(-n // 4) * 4 for n in pieces)
-
-
-def mega_caller(var, call):
-    """call() runs the wrapper; the variant's library (and, for the nine-phase kernel,
-    its plan and workspace size) stand in for the package's while it runs."""
-    lib = var["lib"]
+def mega_caller(var, kernel_name, args, kw):
+    """The variant's package's wrapper `kernel_name`, launching the variant's library."""
 
     def run():
-        saved = (_build.library, ds.decode_step_plan, ds.decode_step_workspace)
-        _build.library = lambda: lib
-        if var["legacy"]:
-            ds.decode_step_plan = legacy_mega_plan
-            ds.decode_step_workspace = legacy_mega_workspace
-        try:
-            with host_constants(var):
-                return call()
-        finally:
-            _build.library, ds.decode_step_plan, ds.decode_step_workspace = saved
+        with tree_library(var), host_constants(var):
+            return getattr(var["ds"], kernel_name)(*args, **kw)
 
     return run
 
@@ -247,7 +206,7 @@ def int4_rows(args, variants, dev, g):
         rows = [rows[chip_smoke.MAIN_ROW["int4_matmul"]]]
     for m, k, n, affine in rows:
         p, s, z, x = chip_smoke.int4_operands(m, k, n, affine, dev, g)
-        calls = {v["name"]: int4_caller(v, x, p, s, z, m, k, n) for v in variants
+        calls = {v["name"]: int4_caller(v, x, p, s, z, k) for v in variants
                  if v["name"] != "library" or not affine}
         wb = chip_smoke.int4_bytes(k, n, affine)
         yield (dict(m=m, K=k, N=n, affine=affine, khp=p.shape[0]), calls,
@@ -269,8 +228,8 @@ def mega_rows(args, variants, dev, g):
         b = len(pos) if isinstance(pos, list) else 1
         kv = chip_smoke.mega_cache(cfg, b, dev, g)
         x = torch.randn(b, cfg.hidden_size, device=dev, generator=g)
-        fn, plain, call_args, kw = chip_smoke.mega_call(kernel_name, x, pos, start, rope, ops, kv, cfg)
-        calls = {v["name"]: mega_caller(v, lambda: fn(*call_args, **kw)) for v in variants
+        _, plain, call_args, kw = chip_smoke.mega_call(kernel_name, x, pos, start, rope, ops, kv, cfg)
+        calls = {v["name"]: mega_caller(v, kernel_name, call_args, kw) for v in variants
                  if v["name"] != "library"}
         yield (dict(b=b, pos=pos, kv_start=start), calls, lambda: plain(*call_args, **kw),
                chip_smoke.mega_bound(cfg, weight_bytes, b, chip_smoke.mega_keys(pos, start)))

@@ -36,8 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from mllm_tpu_torch.ops import _build  # noqa: E402
-from mllm_tpu_torch.ops import decode_step as ds  # noqa: E402
-from int4_tune import legacy_mega_plan, legacy_mega_workspace  # noqa: E402
+from int4_tune import tree_modules  # noqa: E402
 
 # the phases of a layer, by the barriers a layer has
 PHASES = {
@@ -51,7 +50,7 @@ ROWS = {
 }
 
 
-def build(csrc: str) -> "ctypes.CDLL":
+def build(csrc: str, signatures: dict) -> "ctypes.CDLL":
     import ctypes
 
     out_dir = os.path.join(os.path.dirname(_build.library_path()), "tune")
@@ -66,7 +65,7 @@ def build(csrc: str) -> "ctypes.CDLL":
     handle = ctypes.CDLL(lib)
     for name in ("mllm_fused_decode_step_bf16", "mllm_fused_decode_step_batched_bf16"):
         fn = getattr(handle, name)
-        fn.argtypes = _build.SIGNATURES[name]
+        fn.argtypes = signatures[name]
         fn.restype = ctypes.c_int
     handle.mllm_mega_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     handle.mllm_mega_stamps.restype = ctypes.c_int
@@ -116,11 +115,10 @@ def main():
     args = ap.parse_args()
     chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
-    lib = build(args.csrc)
-    _build.library = lambda: lib  # the wrappers launch the stamped build
-    with open(os.path.join(args.csrc, "decode_step.cu")) as f:
-        if "int4_stream.cuh" not in f.read():  # the nine-phase kernel: its own plan and workspace
-            ds.decode_step_plan, ds.decode_step_workspace = legacy_mega_plan, legacy_mega_workspace
+    tree = tree_modules(args.csrc)  # the wrappers, plan and workspace of the package that holds --csrc
+    ds = tree["ds"]
+    lib = build(args.csrc, tree["build"].SIGNATURES)
+    tree["build"].library = lambda: lib  # its wrappers launch the stamped build
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.nn.layers import RotaryEmbedding
 
