@@ -26,12 +26,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      no PyTorch call takes their layouts (`library_ms` null), and
      `dense_sdpa_ms` times SDPA over the same keys in a dense bf16 cache, a
      different function kept for context.
+     The quantized decode rows (QUANT_DECODE_ROWS) include rows whose
+     integers and scales outside [kv_start, kv_valid) hold 127 and NaN / inf
+     (plain version on them zeroed), and time the bf16 decode_attention
+     kernel over the same keys dequantized (`bf16_decode_ms`, the yardstick).
      Every row carries its bound: the larger of its bytes over 3.35 TB/s and
      its FLOPs over 989 TFLOP/s (bf16); the attention main rows also time
-     scaled_dot_product_attention on the same inputs (`library_ms`), and the
-     int8 / int4 product main rows torch._weight_int8pack_mm /
+     scaled_dot_product_attention on the same inputs (`library_ms`), every
+     int8 row torch._weight_int8pack_mm and the int4 main rows
      torch._weight_int4pack_mm on the same weights, repacked outside the
-     timed window (`library_ms`; the port never calls either). The bf16
+     timed window (`library_ms`; the port never calls either), and the int8
+     prefill rows torch.mm on the weight already in bf16 (`cublas_bf16_ms`,
+     a yardstick of another function). The bf16
      attention rows (FLASH_ROWS, DECODE_ROWS) include the engine's batched
      admission and rows whose K/V hold NaN and inf outside [kv_start,
      kv_valid), as a slot may after an earlier request: the kernel's output
@@ -427,6 +433,61 @@ def sdpa_route_checks(dev, g) -> None:
                                  f"finite={finite}")
 
 
+# quantized decode: (B, kv_valid per slot, kv_start, window, poisoned); cache S_CACHE
+QUANT_DECODE_ROWS = [
+    (1, [1531], None, None, False),
+    (8, [17, 100, 511, 513, 1000, 1531, 2000, 777], None, None, False),  # the engine's 8 slots
+    (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256, False),
+    (4, [231, 231, 231, 231], [183, 136, 72, 0], None, False),          # a ragged batch's step
+    (2, [2083, 900], None, None, False),                                  # an idle slot past the cache
+    # stale rows: integers and scales outside [kv_start, kv_valid) hold 127 and NaN / inf
+    (4, [0, 77, 2083, 1531], [0, 13, 100, 700], None, True),
+    (8, [17, 100, 511, 513, 1000, 1531, 2000, 777], [0, 5, 100, 0, 50, 0, 3, 9], 300, True),
+]
+
+
+def quant_kv(b, s, bits, dev, g):
+    """Random K and V [B, H_kv, s, D] quantized over D by the caches' own
+    quantizer: [(integers, scales, dense bf16 dequantization)] for K and V."""
+    from mllm_tpu_torch.kv.cache import quantize_kv
+
+    out = []
+    for _ in range(2):
+        x = torch.randn(b, HKV, s, D, device=dev, generator=g)
+        q, sc = quantize_kv(x, bits)
+        vals = q.float() if bits == 8 else torch.cat([(q & 15).float(), (q >> 4).float()], -1) - 8
+        out.append((q, sc, (vals * sc[..., None]).to(torch.bfloat16)))
+    return out
+
+
+def quant_decode_inputs(row, bits, dev, g):
+    """One QUANT_DECODE_ROWS row at `bits`: (q, kernel operands (k, v, k_scale,
+    v_scale), plain operands, kwargs, shape, dense bf16 K and V of the plain
+    operands). A poisoned row's kernel operands hold 127 and NaN / inf scales
+    outside [kv_start, kv_valid); its plain operands have those integers and
+    scales zeroed (else they are the kernel's)."""
+    b, kvl, start, window, poisoned = row
+    q = torch.randn(b, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
+    (kq, ks, kd), (vq, vs, vd) = quant_kv(b, S_CACHE, bits, dev, g)
+    ivec = lambda xs: torch.tensor(xs, device=dev, dtype=torch.int32)  # noqa: E731
+    kw = dict(kv_valid_len=ivec(kvl), kv_start=None if start is None else ivec(start), window=window)
+    shape = dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=[min(n, S_CACHE) for n in kvl],
+                 kv_valid_given=kvl, kv_start=start, window=window, bits=bits)
+    kernel_ops = plain_ops = (kq, vq, ks, vs)
+    if poisoned:
+        j = torch.arange(S_CACHE, device=dev)
+        lo, hi = ivec(start or [0] * b)[:, None], ivec(kvl)[:, None]
+        bad = ((j[None] < lo) | (j[None] >= hi))[:, None, :]  # [B, 1, S]
+        fill = torch.where(j % 2 == 0, float("nan"), float("inf"))[None, None, :]
+        kernel_ops = tuple(torch.where(bad[..., None], torch.full_like(t, 127), t) for t in (kq, vq)) + tuple(
+            torch.where(bad, fill, t) for t in (ks, vs))
+        plain_ops = tuple(torch.where(bad[..., None], torch.zeros_like(t), t) for t in (kq, vq)) + tuple(
+            torch.where(bad, torch.zeros_like(t), t) for t in (ks, vs))
+        kd, vd = (torch.where(bad[..., None], torch.zeros_like(t), t) for t in (kd, vd))
+        shape["poisoned"] = "127 and NaN / inf scales outside [kv_start, kv_valid); plain version on them zeroed"
+    return q, kernel_ops, plain_ops, kw, shape, (kd, vd)
+
+
 def kv_kernel_rows(dev, g) -> dict:
     """The kernels of the quantized and paged caches against their plain
     versions (H=12, H_kv=2, D=128; max |kernel - plain| <= TOL): the int8 and
@@ -434,26 +495,18 @@ def kv_kernel_rows(dev, g) -> dict:
     over a shuffled pool. Bytes: q, the output, and each visible key's K/V
     bytes with its two f32 scales (paged: bf16 K/V). No single PyTorch call
     takes these layouts (library_ms null); `dense_sdpa_ms` times SDPA over the
-    same keys in a dense bf16 cache, a different function kept for context."""
-    from mllm_tpu_torch.kv.cache import quantize_kv
-    from mllm_tpu_torch.ops.decode_attention import (decode_attention_paged, decode_attention_paged_ref,
-                                                     decode_attention_quant, decode_attention_quant_ref)
+    same keys in a dense bf16 cache, a different function kept for context,
+    and on the quantized decode rows `bf16_decode_ms` the bf16 decode_attention
+    kernel over that dense cache (twice the bytes at int8), its yardstick."""
+    from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
+                                                     decode_attention_paged_ref, decode_attention_quant,
+                                                     decode_attention_quant_ref)
     from mllm_tpu_torch.ops.flash_attention import flash_attention_quant, flash_attention_quant_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def ivec(xs):
         return torch.tensor(xs, device=dev, dtype=torch.int32)
-
-    def quant_kv(b, s, bits):
-        """Random K/V quantized over D, and their dense bf16 dequantization."""
-        out = []
-        for _ in range(2):
-            x = torch.randn(b, HKV, s, D, device=dev, generator=g)
-            q, sc = quantize_kv(x, bits)
-            vals = q.float() if bits == 8 else torch.cat([(q & 15).float(), (q >> 4).float()], -1) - 8
-            out.append((q, sc, (vals * sc[..., None]).to(torch.bfloat16)))
-        return out
 
     def mask(kvl, s, start=None, window=None):  # [B, 1, 1, S] keys one decode query sees
         j = torch.arange(s, device=dev)
@@ -465,14 +518,15 @@ def kv_kernel_rows(dev, g) -> dict:
             ok &= j[None] > kv - 1 - window
         return ok[:, None, None, :]
 
-    def check(name, kernel, plain, shape, key_bytes, dense):
+    def check(name, kernel, plain, shape, key_bytes, dense, extra=None):
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out.float()).all())
         row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, finite=finite,
                    ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5), library_ms=None,
-                   dense_sdpa_ms=time_ms(dense, 20), **attention_bound(shape, key_bytes))
+                   dense_sdpa_ms=time_ms(dense, 20), **{k: time_ms(f, 20) for k, f in (extra or {}).items()},
+                   **attention_bound(shape, key_bytes))
         emit(**row)
         if not finite or not err <= TOL:
             raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
@@ -490,7 +544,7 @@ def kv_kernel_rows(dev, g) -> dict:
             (4, 256, 256, 0, 256, [0, 17, 64, 150]),     # a left-padded ragged batch
         ]:
             q = torch.randn(b, sq, H, D, device=dev, generator=g).to(torch.bfloat16)
-            (kq, ks, kd), (vq, vs, vd) = quant_kv(b, skv, bits)
+            (kq, ks, kd), (vq, vs, vd) = quant_kv(b, skv, bits, dev, g)
             kw = dict(q_offset=qoff, kv_valid_len=kvl, kv_start=None if start is None else ivec(start))
             rows["flash_attention_quant"].append(check(
                 "flash_attention_quant", lambda: flash_attention_quant(q, kq, vq, ks, vs, **kw),
@@ -499,24 +553,14 @@ def kv_kernel_rows(dev, g) -> dict:
                      window=None, bits=bits), kb,
                 lambda: sdpa(q.transpose(1, 2), kd[:, :, :kvl], vd[:, :, :kvl], is_causal=qoff == 0,
                              enable_gqa=True)))
-        # decode: (B, kv_valid per slot, kv_start, window); cache 2048
-        for b, kvl, start, window in [
-            (1, [1531], None, None),
-            (8, [17, 100, 511, 513, 1000, 1531, 2000, 777], None, None),  # the engine's 8 slots
-            (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256),
-            (4, [231, 231, 231, 231], [183, 136, 72, 0], None),          # a ragged batch's step
-            (2, [2083, 900], None, None),                                  # an idle slot past the cache
-        ]:
-            q = torch.randn(b, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
-            (kq, ks, kd), (vq, vs, vd) = quant_kv(b, S_CACHE, bits)
-            kw = dict(kv_valid_len=ivec(kvl), kv_start=None if start is None else ivec(start), window=window)
-            m = mask([min(n, S_CACHE) for n in kvl], S_CACHE, start, window)
+        for row in QUANT_DECODE_ROWS:
+            q, kops, pops, kw, shape, (kd, vd) = quant_decode_inputs(row, bits, dev, g)
+            m = mask(shape["kv_valid"], S_CACHE, row[2], row[3])
             rows["decode_attention_quant"].append(check(
-                "decode_attention_quant", lambda: decode_attention_quant(q, kq, vq, ks, vs, **kw),
-                lambda: decode_attention_quant_ref(q, kq, vq, ks, vs, **kw),
-                dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=[min(n, S_CACHE) for n in kvl],
-                     kv_valid_given=kvl, kv_start=start, window=window, bits=bits), kb,
-                lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True)))
+                "decode_attention_quant", lambda: decode_attention_quant(q, *kops, **kw),
+                lambda: decode_attention_quant_ref(q, *pops, **kw), shape, kb,
+                lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True),
+                {"bf16_decode_ms": lambda: decode_attention(q, kd, vd, **kw)}))
     # paged: MAXB 16 over a shuffled pool holding the blocks the lengths need plus 8 spare
     maxb, page = 16, 128
     for kvl, retired in [([17, 100, 511, 513, 1000, 1531, 2000, 777], None), ([300, 1200, 64, 600], 3)]:
@@ -559,6 +603,29 @@ def int4pack_call(x, packed_e8, scales_p, k):
     sc = torch.cat([scales_p[:ng], scales_p[ngh:ngh + ng]], 0)  # [K/G, N]
     sz = torch.stack([sc, torch.zeros_like(sc)], -1).to(torch.bfloat16).contiguous()
     return lambda: torch._weight_int4pack_mm(x, packed, qm.GROUP, sz)
+
+
+# int8_matmul: (m, K, N): the int8 path's qkv, gate||up (main row), down and
+# head at decode (b = 1, 8), prefill (the wgmma kernel): 128 tokens of qkv
+# and the 1536-token gate||up, then gate||up at m = 16 and 32 (the largest
+# stream rows), the b=1 head, and the 1536-token down projection (K split
+# over clusters that each take two tiles)
+INT8_ROWS = [(1, 1536, 2048), (8, 1536, 17920), (8, 8960, 1536), (8, 1536, 151936),
+             (128, 1536, 2048), (1536, 1536, 17920), (16, 1536, 17920), (32, 1536, 17920),
+             (1, 1536, 151936), (1536, 8960, 1536)]
+
+
+def int8_library_calls(x, q, s):
+    """(library, cublas) for an int8 row: ("torch._weight_int8pack_mm", call)
+    on the same weight in its [N, K] layout (the same function; the port never
+    calls it), and torch.mm of x against the weight already dequantized to
+    bf16 [K, N] with f32 output (cuBLAS, a yardstick of another function:
+    its weight bytes are twice as many). Both operands are made outside the
+    timed window."""
+    wq = q.t().contiguous()
+    wb = (q.float() * s).to(torch.bfloat16)
+    return (("torch._weight_int8pack_mm", lambda: torch._weight_int8pack_mm(x, wq, s)),
+            lambda: torch.mm(x, wb, out_dtype=torch.float32))
 
 
 # int4_matmul: (m, K, N, affine): the int4 path's qkv, o, gate||up and down at
@@ -610,7 +677,7 @@ def quant_kernel_rows(dev, g) -> dict:
     def x_rows(m, k):
         return torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
 
-    def check(name, kernel, plain, shape, weight_bytes, library=None):
+    def check(name, kernel, plain, shape, weight_bytes, library=None, cublas=None):
         m, k, n = shape.get("m"), shape.get("K", shape.get("d")), shape.get("N", shape.get("d"))
         weights = k * n if name != "fused_int4_mlp" else 3 * shape["d"] * shape["ff"]
         out, ref = kernel(), plain()
@@ -628,6 +695,8 @@ def quant_kernel_rows(dev, g) -> dict:
                                             / ref.float().abs().max()).item())
             except RuntimeError as e:  # a yardstick only: the port never calls it
                 lib = dict(library=library[0], library_ms=None, library_error=str(e)[:200])
+        if cublas is not None:  # a yardstick of another function: bf16 weights already in memory
+            lib["cublas_bf16_ms"] = time_ms(cublas, 20)
         row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
                    tolerance=QUANT_TOL[name], finite=finite, ms=ms, plain_ms=time_ms(plain, 5),
                    weight_bytes=weight_bytes, weight_tb_per_s=weight_bytes / ms / 1e9,
@@ -640,18 +709,15 @@ def quant_kernel_rows(dev, g) -> dict:
         return row
 
     rows = {"int8_matmul": [], "int4_matmul": [], "fused_int4_mlp": []}
-    for m, k, n in [(1, 1536, 2048), (8, 1536, 17920), (8, 8960, 1536), (8, 1536, 151936),
-                    (128, 1536, 2048), (1536, 1536, 17920)]:
+    for m, k, n in INT8_ROWS:
         q, s = _q8_device(weight(n, k))
         x = x_rows(m, k)
-        library = None
-        if len(rows["int8_matmul"]) == MAIN_ROW["int8_matmul"]:
-            wq = q.t().contiguous()  # its [N, K] layout, made outside the timed window
-            library = ("torch._weight_int8pack_mm", lambda: torch._weight_int8pack_mm(x, wq, s))
+        library, cublas = int8_library_calls(x, q, s)
         rows["int8_matmul"].append(check(
             "int8_matmul", lambda: qm.int8_matmul(x, q, s), lambda: qm.int8_matmul_ref(x, q, s),
-            dict(m=m, K=k, N=n), k * n + 4 * n, library))
-        del q, s, library
+            dict(m=m, K=k, N=n), k * n + 4 * n, library,
+            cublas if m > qm.INT8_STREAM_MAX_M else None))
+        del q, s, library, cublas
 
     for m, k, n, affine in INT4_ROWS:
         p, s, z, x = int4_operands(m, k, n, affine, dev, g)
@@ -1355,8 +1421,9 @@ def main():
                       bound_by=main_row["bound_by"], library_ms=main_row["library_ms"])
         if "rel_err" in main_row:
             kernel["max_rel_err"] = max(r["rel_err"] for r in rows[name])
-        if "dense_sdpa_ms" in main_row:
-            kernel["dense_sdpa_ms"] = main_row["dense_sdpa_ms"]
+        for extra in ("dense_sdpa_ms", "bf16_decode_ms"):
+            if extra in main_row:
+                kernel[extra] = main_row[extra]
         kernels.append(kernel)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

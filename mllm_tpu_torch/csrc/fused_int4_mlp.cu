@@ -192,7 +192,7 @@ cudaError_t launch(const FusedParams& p, float* out, cudaStream_t stream) {
   fused_mlp_kernel<MT, kAffine><<<grid, kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return sum_splits(p.ws, nullptr, out, p.M, p.d_out, chunks, stream);
+  return sum_splits(p.ws, out, p.M, p.d_out, chunks, stream);
 }
 
 template <bool kAffine>

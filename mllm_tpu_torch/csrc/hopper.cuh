@@ -40,6 +40,18 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+// Adds `bytes` to the transaction count that copies must complete, without arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// This thread's arrival, made when its earlier cp.async copies have landed
+// (the barrier's expected count already holds it).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -92,6 +104,14 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
 
 // One box of a tensor map (coordinates innermost first). Elements outside the
 // tensor are written as zeros; the barrier counts the whole box's bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1) : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2) {
   asm volatile(
@@ -121,6 +141,15 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The two halves of cluster_sync, for work between them: arrive releases
+// this thread's earlier shared-memory writes, wait acquires the others'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // The shared::cluster address of `p` (an address in this CTA's shared memory)
 // in the CTA of cluster rank `rank`.
 __device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
@@ -132,6 +161,13 @@ __device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
 __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
   return v;
 }
 
@@ -241,6 +277,48 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x 256] (+)= A[64 x 16] (registers) B[16 x 256], B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : MLLM_ACC8(0), MLLM_ACC8(8), MLLM_ACC8(16), MLLM_ACC8(24),
+        MLLM_ACC8(32), MLLM_ACC8(40), MLLM_ACC8(48), MLLM_ACC8(56),
+        MLLM_ACC8(64), MLLM_ACC8(72), MLLM_ACC8(80), MLLM_ACC8(88),
+        MLLM_ACC8(96), MLLM_ACC8(104), MLLM_ACC8(112), MLLM_ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] (registers) B[16 x 128], B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128_kb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : MLLM_ACC8(0), MLLM_ACC8(8), MLLM_ACC8(16), MLLM_ACC8(24),
+        MLLM_ACC8(32), MLLM_ACC8(40), MLLM_ACC8(48), MLLM_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 #undef MLLM_ACC8
 
 // The width N of the product follows the accumulator: 32 floats a thread is
@@ -256,6 +334,49 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_n128(d, a, b);
+}
+// A from registers, B K-major; N follows the accumulator (64 floats: 128, 128: 256).
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  wgmma_rs_n128_kb(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  wgmma_rs_n256(d, a, b, accumulate);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor maps (host)
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime's entry-point
+// query (nothing links libcuda); null when the driver lacks it.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A tiled map of `rank` dimensions (innermost first; strides in bytes of
+// dimensions 1..rank-1); elements outside the tensor load as zeros.
+inline bool encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                              CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace mllm

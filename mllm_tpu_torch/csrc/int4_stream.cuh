@@ -83,6 +83,19 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
   return d;
 }
 
+// Two int8 values (bits 0-7 and 16-23 of v; the other bits are ignored) ->
+// bf16x2, exactly and without I2F: bf16 has an 8-bit significand, so the
+// nibble trick above takes the low 7 bits, 0x4300 | (b & 0x7f) = 128 + (b & 0x7f),
+// and the sign bit selects what is subtracted, 0x4300 | (b & 0x80) = 128 or
+// 256 (the sign bit is bit 7 of both): b - 128 * sign, which every result is.
+__device__ __forceinline__ uint32_t int8_to_bf16x2(uint32_t v) {
+  const uint32_t magic = (v & 0x007F007Fu) | 0x43004300u;
+  const uint32_t bias = (v & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(magic), "r"(bias));
+  return d;
+}
+
 // ---------------------------------------------------------------------------
 // Producer: one ring stage by 16-byte (or, for N % 16 != 0, 4-byte) cp.async
 // ---------------------------------------------------------------------------

@@ -49,9 +49,9 @@ SIGNATURES = {
     "mllm_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _P],
     # q, k, v, k_scale, v_scale, out, kv_valid_vec, kv_start, B, H, Hkv, S, D,
-    # bits, kv_valid, window, scale, stream
+    # bits, kv_valid, window, scale, splits, stream
     "mllm_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _F, _P],
+                                    _I, _I, _I, _F, _I, _P],
     # q (pre-scaled), k, v, k_scale, v_scale, out, kv_start, B, Sq, H, Hkv, Skv,
     # D, bits, q_offset, kv_valid, causal, window, stream
     "mllm_flash_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -60,8 +60,12 @@ SIGNATURES = {
     # kv_valid, window, scale_log2, stream
     "mllm_decode_attention_paged_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _F, _P],
-    # x, q, s, out, ws, M, K, N, splits, kt_per_split, mt, stream
-    "mllm_int8_matmul_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, q, s, out, M, K, N, tn, cluster, rows_per, clusters, mt8, stream
+    "mllm_int8_matmul_bf16": [*[_P] * 4, *[_I] * 8, _P],
+    # x, q, s, out, M, K, N, bm, cluster, kper, clusters, stream
+    "mllm_int8_gemm_bf16": [*[_P] * 4, *[_I] * 7, _P],
+    # gemm (rows of x a wgmma tile, 0: the stream), mt8, tn, cluster, rows_per, out (int*)
+    "mllm_int8_max_clusters": [*[_I] * 5, _P],
     # x, q, s, z, out, ws, counters, M, K, N, khp, full, splits, split_rows, chunk_rows, mt8,
     # stream
     "mllm_int4_matmul_bf16": [*[_P] * 7, *[_I] * 9, _P],

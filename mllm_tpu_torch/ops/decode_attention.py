@@ -42,12 +42,13 @@ DECODE_HEADS = 16  # query heads one of its CTAs takes (the m16 of mma.sync)
 
 
 def decode_split_ranges(lo: int, hi: int, splits: int, tile: int = DECODE_TILE) -> list[tuple[int, int]]:
-    """The decode kernel's division of the keys [lo, hi) among the `splits`
-    CTAs of a cluster: the tiles [t0, hi) with t0 = lo rounded down to `tile`,
-    cut into runs of ceil(ntiles / splits) whole tiles, run r to rank r. Rank r
-    sees the keys [start, stop) of its run within [lo, hi); a rank with no
-    tile gets start == stop (its partial is empty: m = -inf, l = 0, acc = 0).
-    The ranks' partials are merged in rank order."""
+    """The decode kernels' division of the keys [lo, hi) among the `splits`
+    CTAs of a cluster (`csrc/decode_attention.cu`, `decode_attention_quant.cu`):
+    the tiles [t0, hi) with t0 = lo rounded down to `tile`, cut into runs of
+    ceil(ntiles / splits) whole tiles, run r to rank r. Rank r sees the keys
+    [start, stop) of its run within [lo, hi); a rank with no tile gets start
+    == stop (its partial is empty: m = -inf, l = 0, acc = 0). The ranks'
+    partials are merged in rank order."""
     t0 = (lo // tile) * tile
     ntiles = -(-(hi - t0) // tile) if hi > lo else 0
     per = -(-ntiles // splits)
@@ -213,6 +214,7 @@ def decode_attention_quant(
     start_vec = kv_start_arg(name, kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
+    splits = decode_splits(b, hkv, h // hkv, s_max, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     err = _build.library().mllm_decode_attention_quant(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
@@ -220,7 +222,7 @@ def decode_attention_quant(
         start_vec.data_ptr() if start_vec is not None else None,
         # the scale rounded to q's dtype, as JAX multiplies a weakly typed scalar
         b, h, hkv, s_max, d, bits, valid_int, int(window or 0), float(torch.tensor(scale, dtype=q.dtype)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        splits, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     decode_attention_quant.launches += 1

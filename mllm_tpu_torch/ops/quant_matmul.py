@@ -18,8 +18,10 @@ Counterpart of `mllm_tpu/ops/quant_matmul.py`. Layouts, as there:
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. `int4_matmul` keeps the JAX package's rule: m <= 32 runs the kernel,
 m > 32 dequantizes to bf16 and runs one `torch.mm` (the large product sits
-outside the Pallas kernel in JAX too). `int8_matmul` runs its kernel at every
-m. Each wrapper counts its kernel launches in `.launches`.
+outside the Pallas kernel in JAX too). `int8_matmul` runs a kernel at every
+m, as the Pallas kernel serves every m: a weight stream up to
+INT8_STREAM_MAX_M rows of x, TMA + wgmma above. Each wrapper counts its kernel
+launches in `.launches`.
 
 Not ported: `int8_matmul_a8`, the n-axis int4 layout and the ggml repackers
 (ROADMAP Queue 1 item 8).
@@ -27,6 +29,7 @@ Not ported: `int8_matmul_a8`, the n-axis int4 layout and the ggml repackers
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -175,15 +178,6 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(base_blocks: int, k_units: int, device: torch.device) -> tuple[int, int]:
-    """(splits, k units per split): split the K axis until the grid holds
-    about two blocks per SM. The partial products are added in split order
-    by a second kernel, so the result does not depend on the schedule."""
-    want = -(-2 * sm_count(device.index or 0) // max(base_blocks, 1))
-    per = -(-k_units // max(1, min(want, k_units)))
-    return -(-k_units // per), per
-
-
 def bf16_rows(name: str, x: torch.Tensor, k: int) -> torch.Tensor:
     """x [..., K] -> contiguous, 16-byte aligned bf16 [m, K] on its card."""
     x2 = x.reshape(-1, k).to(torch.bfloat16).contiguous()
@@ -221,11 +215,15 @@ def pow2_rows(m: int, cap: int = 16) -> int:
     return mt
 
 
+INT8_STREAM_MAX_M = 32  # int8_matmul streams the weight up to this m, above it runs the wgmma kernel
+
+
 def int8_matmul(x: torch.Tensor, qweight_t: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """y[..., N] = x[..., K] @ (qweight_t[K, N] * scales[None, :]), f32 out.
 
-    On the card x is rounded to bf16 (as the JAX wrapper does) and every m
-    runs the kernel, prefill included."""
+    On the card x is rounded to bf16 (as the JAX wrapper does); m <=
+    INT8_STREAM_MAX_M runs the weight-stream kernel (plan `int8_plan`), larger
+    m the TMA + wgmma kernel (plan `int8_gemm_plan`), prefill included."""
     if x.device.type == "cpu":
         return int8_matmul_ref(x, qweight_t, scales)
     k, n = qweight_t.shape
@@ -235,15 +233,24 @@ def int8_matmul(x: torch.Tensor, qweight_t: torch.Tensor, scales: torch.Tensor) 
         raise ValueError(f"int8_matmul: the CUDA kernel needs N % 16 == 0 and scales [N], got "
                          f"N = {n}, scales {tuple(scales.shape)}")
     m = x2.shape[0]
-    mt = 1 if m <= 16 else 4  # 16 or 64 rows per block
-    base = -(-n // 128) * -(-m // (16 * mt))
-    splits, per = split_k(base, -(-k // 64), x.device)
     out = torch.empty(m, n, device=x.device, dtype=torch.float32)
-    ws = torch.empty(splits, m, n, device=x.device, dtype=torch.float32) if splits > 1 else None
-    err = _build.library().mllm_int8_matmul_bf16(
-        x2.data_ptr(), qweight_t.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, m, k, n, splits, per, mt,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if m == 0:
+        return out.reshape(*x.shape[:-1], n)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if m > INT8_STREAM_MAX_M:
+        dev = x.device.index or 0
+        bm, cluster, kper, clusters = int8_gemm_plan(m, k, n, sm_count(dev),
+                                                     lambda bm, c: max_clusters(dev, bm, 0, 0, c, 0))
+        err = _build.library().mllm_int8_gemm_bf16(x2.data_ptr(), qweight_t.data_ptr(), scales.data_ptr(),
+                                                   out.data_ptr(), m, k, n, bm, cluster, kper, clusters, stream)
+    else:
+        dev = x.device.index or 0
+        mt8 = pow2_rows(-(-m // 8), 4)
+        mt8, tn, cluster, rows_per, clusters = int8_plan(
+            m, k, n, sm_count(dev), lambda tn, c, rows: max_clusters(dev, 0, mt8, tn, c, rows))
+        err = _build.library().mllm_int8_matmul_bf16(
+            x2.data_ptr(), qweight_t.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n, tn, cluster,
+            rows_per, clusters, mt8, stream)
     launch_or_raise("int8_matmul", err)
     int8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], n)
@@ -302,6 +309,123 @@ def int4_plan(m: int, k: int, n: int, sms: int, affine: bool = False) -> tuple[i
     splits = -(-khalf // split_rows)
     cap = X_STAGE_BYTES // (64 * mt8) // STAGE_ROWS * STAGE_ROWS
     return mt8, full, splits, split_rows, min(stages * STAGE_ROWS, cap)
+
+
+INT8_STAGES = 4  # ring stages of 32 k-rows (csrc/int8_matmul.cu kStages)
+INT8_MAX_CLUSTER = 16  # K splits of a column tile: the H100's largest (non-portable) cluster
+SMEM_PER_SM, SMEM_PER_BLOCK = 233472, 232448  # H100: bytes an SM holds, a block may take
+# int8_matmul's stream model (seconds), fitted to tools/int4_tune.py --kernel
+# int8 runs on "NVIDIA H100 80GB HBM3, 700.00 W": an SM streams weights at
+# about SM_BPS with two blocks on it, SM_BPS_ONE with one; the card at about
+# GRID_BPS; a round of a cluster's column tiles costs ROUND_S, a cluster's
+# reduction through DSMEM REDUCE_S.
+SM_BPS, SM_BPS_ONE, ROUND_S, REDUCE_S = 24e9, 20e9, 0.2e-6, 3.5e-6
+
+
+def int8_blocks_per_sm(mt8: int) -> int:
+    """Blocks of int8_matmul's stream an SM holds: two up to 16 rows of x, one
+    at 32 (registers)."""
+    return 2 if mt8 <= 2 else 1
+
+
+def int8_x_rows_cap(mt8: int, tn: int) -> int:
+    """The most k-rows of x (a multiple of 32) one block of the stream can
+    stage beside its ring and its partial tile, at int8_blocks_per_sm(mt8)
+    blocks an SM (1 KB an SM is the system's)."""
+    per = int8_blocks_per_sm(mt8)
+    budget = min(SMEM_PER_BLOCK, SMEM_PER_SM // per - 1024)
+    budget -= INT8_STAGES * STAGE_ROWS * (tn + 32) + 8 * mt8 * tn * 4 + tn * 4 + 1024
+    return max(0, budget // (16 * mt8)) // STAGE_ROWS * STAGE_ROWS
+
+
+def int8_plan(m: int, k: int, n: int, sms: int, capacity=None) -> tuple[int, int, int, int, int]:
+    """(mt8, tn, cluster, rows_per, clusters) of int8_matmul's stream (m <=
+    INT8_STREAM_MAX_M): 8-row tiles of x (1, 2 or 4); column tiles of tn (256
+    or 512) owned by clusters of `cluster` CTAs, rank r of a cluster streaming
+    the k-rows [r rows_per, (r + 1) rows_per) of each (rows_per a multiple of
+    32, x for them staged once, every rank some rows); `clusters` clusters, at
+    most as many as the tiles and as the card keeps resident at once
+    (`capacity(tn, cluster, rows_per)`, the kernel's occupancy query on the
+    card; by default the blocks the SMs hold, which ignores how clusters pack
+    into GPCs), each taking tiles cid, cid + clusters, ... The pair (tn,
+    cluster) is the one the model above finds fastest: the bytes the busiest
+    SM streams in each round, the bytes of the whole product at GRID_BPS, and
+    the rounds and reductions."""
+    mt8 = pow2_rows(-(-m // 8), 4)
+    per_sm = int8_blocks_per_sm(mt8)
+    stages = -(-k // STAGE_ROWS)
+    best = None
+    for tn in (512, 256):
+        tiles = -(-n // tn)
+        cap = int8_x_rows_cap(mt8, tn)
+        for cluster in range(1, INT8_MAX_CLUSTER + 1):
+            rows_per = -(-stages // cluster) * STAGE_ROWS
+            if rows_per > cap or (cluster - 1) * rows_per >= k:
+                continue
+            resident = capacity(tn, cluster, rows_per) if capacity else sms * per_sm // cluster
+            if resident < 1:
+                continue
+            clusters = min(tiles, resident)
+            rounds = -(-tiles // clusters)
+            on_sm = -(-clusters * cluster // sms)  # blocks sharing the busiest SM
+            rate = SM_BPS if on_sm > 1 else SM_BPS_ONE
+            t = max(rounds * on_sm * rows_per * tn / rate, k * n / GRID_BPS)
+            t += rounds * ROUND_S + (REDUCE_S * rounds if cluster > 1 else 0.0)
+            if best is None or t < best[0]:
+                best = (t, (mt8, tn, cluster, rows_per, clusters))
+    if best is None:
+        raise ValueError(f"int8_matmul: no stream plan for m={m}, K={k}, N={n}")
+    return best[1]
+
+
+@functools.cache
+def max_clusters(device_index: int, gemm: int, mt8: int, tn: int, cluster: int, rows_per: int) -> int:
+    """The clusters of `cluster` CTAs of an int8_matmul kernel the card keeps
+    resident at once (cudaOccupancyMaxActiveClusters): the wgmma kernel with
+    tiles of `gemm` rows of x (128 or 256), or (gemm 0) the stream <mt8, tn>
+    with rows_per k-rows of x staged."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.library().mllm_int8_max_clusters(gemm, mt8, tn, cluster, rows_per, ctypes.addressof(out))
+    launch_or_raise("int8_matmul (occupancy)", err)
+    return out.value
+
+
+GEMM_BN, GEMM_BK = 128, 64  # int8_matmul's wgmma tile: columns and k-depth (csrc/int8_matmul.cu gemm::kBN, kBK)
+GEMM_MAX_CLUSTER = 8  # K splits of a tile: the portable cluster size
+# its model (seconds), from tools/int4_tune.py --kernel int8 runs on "NVIDIA
+# H100 80GB HBM3, 700.00 W": a k-tile of a 256 x 128 tile (half that at 128
+# rows), a tile's epilogue, a K-split tile's reduction through DSMEM
+GEMM_KTILE_S, GEMM_TILE_S, GEMM_REDUCE_S = 0.6e-6, 1.5e-6, 2e-6
+
+
+def int8_gemm_plan(m: int, k: int, n: int, sms: int, capacity=None) -> tuple[int, int, int, int]:
+    """(bm, cluster, kper, clusters) of int8_matmul's wgmma kernel (m >
+    INT8_STREAM_MAX_M): output tiles of bm rows (wgmma n256, or n128 when m <=
+    128) x 128 columns walked by `clusters` clusters of `cluster` CTAs (one
+    CTA an SM; at most `capacity(bm, cluster)` clusters, the occupancy query
+    on the card, by default sms // cluster), rank r of a cluster taking the
+    k-tiles [r kper, (r + 1) kper) of 64 and the ranks' partials added through
+    DSMEM: the cluster size the model above finds fastest (K splits fill the
+    card when the tiles are few; every rank gets k-tiles)."""
+    bm = 128 if m <= 128 else 256
+    tiles = -(-m // bm) * -(-n // GEMM_BN)
+    ktiles = -(-k // GEMM_BK)
+    kt_s = GEMM_KTILE_S * bm / 256
+    best = None
+    for cluster in range(1, GEMM_MAX_CLUSTER + 1):
+        kper = -(-ktiles // cluster)
+        if (cluster - 1) * kper >= ktiles:
+            continue
+        resident = capacity(bm, cluster) if capacity else sms // cluster
+        if resident < 1:
+            continue
+        clusters = min(tiles, resident)
+        waves = -(-tiles // clusters)
+        t = waves * (kper * kt_s + GEMM_TILE_S + (GEMM_REDUCE_S if cluster > 1 else 0.0))
+        if best is None or t < best[0]:
+            best = (t, (bm, cluster, kper, clusters))
+    return best[1]
 
 
 @functools.cache

@@ -76,6 +76,7 @@ def test_sources_are_the_kernels():
     assert set(_build.SIGNATURES) == {"mllm_flash_attention_bf16", "mllm_decode_attention_bf16",
                                       "mllm_flash_attention_quant", "mllm_decode_attention_quant",
                                       "mllm_decode_attention_paged_bf16",
-                                      "mllm_int8_matmul_bf16", "mllm_int4_matmul_bf16",
+                                      "mllm_int8_matmul_bf16", "mllm_int8_gemm_bf16", "mllm_int8_max_clusters",
+                                      "mllm_int4_matmul_bf16",
                                       "mllm_fused_int4_mlp_bf16", "mllm_fused_decode_step_bf16",
                                       "mllm_fused_decode_step_batched_bf16"}

@@ -1,18 +1,23 @@
-"""Time variants of the bf16 attention kernels against each other on one card.
+"""Time variants of the attention kernels against each other on one card.
 
     python3 tools/attention_tune.py --kernel decode \\
         --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc \\
         --variant stages2=mllm_tpu_torch/csrc:kStages=2 --variant c4=mllm_tpu_torch/csrc@4
+    python3 tools/attention_tune.py --kernel decode_quant \\
+        --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc --variant bf16=x
 
 A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...][@SPLITS]: `csrc/flash_attention.cu`
 or `csrc/decode_attention.cu` of that directory, with each named
 `constexpr int CONSTANT = ...;` of the source set to VALUE (e.g. kTile,
 kStages, kBK) in a copy under build/kernels/tune, compiled alone with nvcc for
 sm_90a and called through its C entry point.
-`@SPLITS` fixes the decode kernel's cluster size instead of the wrapper's rule
+`@SPLITS` fixes the decode kernels' cluster size instead of the wrapper's rule
 (`decode_splits`). A directory whose decode entry point takes no cluster size
-(the parent tree's kernel) is called without one. The variant named `sdpa`
-is PyTorch's scaled_dot_product_attention over the same keys (main rows).
+(an older tree's kernel) is called without one. The variant named `sdpa`
+is PyTorch's scaled_dot_product_attention over the same keys (main rows);
+with `--kernel decode_quant` (`csrc/decode_attention_quant.cu`, rows
+chip_smoke.QUANT_DECODE_ROWS at int8 and then int4) the variant named `bf16`
+is this tree's bf16 decode_attention over the same keys dequantized to bf16.
 
 For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (or only the main row,
 `--rows main`), the variants run in turns, in order then in reverse, `--reps`
@@ -44,8 +49,10 @@ from mllm_tpu_torch.ops.flash_attention import LOG2E, flash_attention_ref  # noq
 from mllm_tpu_torch.ops.quant_matmul import sm_count  # noqa: E402
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SOURCE = {"flash": "flash_attention.cu", "decode": "decode_attention.cu"}
-ENTRY = {"flash": "mllm_flash_attention_bf16", "decode": "mllm_decode_attention_bf16"}
+SOURCE = {"flash": "flash_attention.cu", "decode": "decode_attention.cu",
+          "decode_quant": "decode_attention_quant.cu"}
+ENTRY = {"flash": "mllm_flash_attention_bf16", "decode": "mllm_decode_attention_bf16",
+         "decode_quant": "mllm_decode_attention_quant"}
 
 
 def parse_variant(spec: str) -> dict:
@@ -93,8 +100,10 @@ def build_variant(kind: str, var: dict, out_dir: str) -> ctypes.CDLL:
     splits = [_I] if var["with_splits"] else []
     if kind == "flash":
         fn.argtypes = [_P] * 6 + [_I] * 10 + [_F] + splits + [_P]
-    else:
+    elif kind == "decode":
         fn.argtypes = [_P] * 6 + [_I] * 7 + [_F] + splits + [_P]
+    else:
+        fn.argtypes = [_P] * 8 + [_I] * 8 + [_F] + splits + [_P]
     fn.restype = ctypes.c_int
     var["fn"] = fn
     return handle
@@ -137,9 +146,74 @@ def caller(kind: str, var: dict, q, k, v, kw):
     return run
 
 
+def quant_caller(var: dict, q, ops, kw, dense):
+    """A no-argument call of the variant's quantized decode kernel on (q, k,
+    v, k_scale, v_scale) (the variant "bf16": the bf16 decode_attention kernel
+    of this tree over the same keys dequantized, `dense`)."""
+    if var["name"] == "bf16":
+        from mllm_tpu_torch.ops.decode_attention import decode_attention
+
+        return lambda: decode_attention(q, *dense, **kw)
+    k, v, ks, vs = ops
+    out = torch.empty_like(q)
+    b, _, h, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    splits = var["splits"] or decode_splits(b, hkv, h // hkv, skv, sm_count(0))
+    args = (ptr(q), ptr(k), ptr(v), ptr(ks), ptr(vs), ptr(out), ptr(kw["kv_valid_len"]), ptr(kw["kv_start"]),
+            b, h, hkv, skv, d, 8 if k.dtype == torch.int8 else 4, 0, int(kw["window"] or 0),
+            float(torch.tensor(d**-0.5, dtype=q.dtype)), *([splits] if var["with_splits"] else []),
+            torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        err = var["fn"](*args)
+        if err != 0:
+            raise RuntimeError(f"{var['name']}: launch failed with CUDA error {err}")
+        return out
+
+    return run
+
+
+def time_variants(args, variants, runs, ref, shape, bound_ms):
+    errs = []
+    for run in runs:
+        out = run()
+        torch.cuda.synchronize()
+        if out.shape != ref.shape:  # SDPA's [B, H, Sq, D]
+            out = out.transpose(1, 2)
+        errs.append((out.float() - ref).abs().max().item())
+    times = [[] for _ in variants]
+    for rep in range(args.reps):
+        order = range(len(variants)) if rep % 2 == 0 else reversed(range(len(variants)))
+        for i in order:
+            times[i].append(chip_smoke.time_ms(runs[i], 20))
+    for var, err, ts in zip(variants, errs, times):
+        print(json.dumps(dict(kernel=args.kernel, variant=var["name"], constants=var["constants"],
+                              splits=var["splits"], shape=shape, max_abs_err=err,
+                              ms_median=statistics.median(ts), ms=ts, bound_ms=bound_ms)), flush=True)
+
+
+def main_quant(args, variants, dev):
+    """--kernel decode_quant: every row of chip_smoke.QUANT_DECODE_ROWS at int8
+    and int4 (or the main row at both), against decode_attention_quant_ref."""
+    from mllm_tpu_torch.ops.decode_attention import decode_attention_quant_ref
+
+    rows = chip_smoke.QUANT_DECODE_ROWS
+    if args.rows == "main":
+        rows = [rows[chip_smoke.MAIN_ROW["decode_attention_quant"]]]
+    g = torch.Generator(device=dev).manual_seed(1234)
+    for bits in (8, 4):
+        for row in rows:
+            q, kops, pops, kw, shape, dense = chip_smoke.quant_decode_inputs(row, bits, dev, g)
+            ref = decode_attention_quant_ref(q, *pops, **kw).float()
+            runs = [quant_caller(var, q, kops, kw, dense) for var in variants]
+            kb = 2 * (chip_smoke.D if bits == 8 else chip_smoke.D // 2) + 8
+            time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape, kb)["bound_ms"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--kernel", choices=("flash", "decode"), required=True)
+    ap.add_argument("--kernel", choices=("flash", "decode", "decode_quant"), required=True)
     ap.add_argument("--variant", action="append", required=True)
     ap.add_argument("--rows", choices=("main", "all"), default="all")
     ap.add_argument("--reps", type=int, default=2)
@@ -150,7 +224,9 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     variants = [parse_variant(s) for s in args.variant]
     handles = [build_variant(args.kernel, var, out_dir) for var in variants  # noqa: F841
-               if var["name"] != "sdpa"]
+               if var["name"] not in ("sdpa", "bf16")]
+    if args.kernel == "decode_quant":
+        return main_quant(args, variants, dev)
     kind = "flash_attention" if args.kernel == "flash" else "decode_attention"
     row_list = chip_smoke.FLASH_ROWS if args.kernel == "flash" else chip_smoke.DECODE_ROWS
     if args.rows == "main":
@@ -161,23 +237,7 @@ def main():
         q, k, v, kp, vp, kw, shape = chip_smoke.attention_inputs(kind, row, dev, g)
         ref = plain(q, kp, vp, **kw).float()
         runs = [caller(args.kernel, var, q, k, v, kw) for var in variants]
-        errs = []
-        for run in runs:
-            out = run()
-            torch.cuda.synchronize()
-            if out.shape != ref.shape:  # SDPA's [B, H, Sq, D]
-                out = out.transpose(1, 2)
-            errs.append((out.float() - ref).abs().max().item())
-        times = [[] for _ in variants]
-        for rep in range(args.reps):
-            order = range(len(variants)) if rep % 2 == 0 else reversed(range(len(variants)))
-            for i in order:
-                times[i].append(chip_smoke.time_ms(runs[i], 20))
-        for var, err, ts in zip(variants, errs, times):
-            print(json.dumps(dict(kernel=args.kernel, variant=var["name"], constants=var["constants"],
-                                  splits=var["splits"], shape=shape, max_abs_err=err,
-                                  ms_median=statistics.median(ts), ms=ts,
-                                  bound_ms=chip_smoke.attention_bound(shape)["bound_ms"])), flush=True)
+        time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape)["bound_ms"])
 
 
 if __name__ == "__main__":

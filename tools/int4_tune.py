@@ -1,13 +1,15 @@
-"""Time variants of int4_matmul and of the decode megakernel against each other
-on one card, in turns.
+"""Time variants of int4_matmul, of int8_matmul and of the decode megakernel
+against each other on one card, in turns.
 
     python3 tools/int4_tune.py --kernel int4 \\
         --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc \\
         --variant s4=mllm_tpu_torch/csrc:kStages=4 [--rows main] [--reps 3]
     python3 tools/int4_tune.py --kernel mega --variant new=... --variant parent=...
+    python3 tools/int4_tune.py --kernel int8 --variant new=... --variant parent=... \\
+        --variant gemm=mllm_tpu_torch/csrc:qm.INT8_STREAM_MAX_M=0 --variant library --variant cublas
 
-A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...]: `int4_matmul.cu` (with
-`split_k.cu`) or `decode_step.cu` of that directory, with each named
+A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...]: `int4_matmul.cu` or
+`int8_matmul.cu` (each with `split_k.cu`) or `decode_step.cu` of that directory, with each named
 `constexpr int CONSTANT = ...;` set to VALUE (or, for `qm.NAME` / `ds.NAME`,
 a constant of the host plan in ops/quant_matmul.py / ops/decode_step.py set
 while the variant runs) in a copy under
@@ -16,9 +18,12 @@ launched by the wrappers of the package that holds CSRC_DIR (another tree's
 `mllm_tpu_torch`, such as the parent's, is imported under a name of its own),
 so each kernel runs with its own host plan, workspace and C signature. The
 variant `library` times torch._weight_int4pack_mm on the same weights
-(symmetric int4 rows).
+(symmetric int4 rows), or torch._weight_int8pack_mm (int8); `cublas` (int8)
+times torch.mm on the weight already dequantized to bf16, a yardstick of
+another function.
 
-Rows: chip_smoke.INT4_ROWS (every int4_matmul row of the smoke) or
+Rows: chip_smoke.INT4_ROWS (every int4_matmul row of the smoke),
+chip_smoke.INT8_ROWS (every int8_matmul row), or
 chip_smoke.MEGA_ROWS (b=1 at pos 0 / 100 / 1531, b=8 at unequal positions,
 b=32 at 200, b=16 at unequal positions), at full width; `--rows main` keeps the smoke's main row. Each
 row runs the variants in order, then in reverse, `--reps` times, each timed as
@@ -52,7 +57,8 @@ from mllm_tpu_torch.ops import _build  # noqa: E402
 from mllm_tpu_torch.ops import decode_step as ds  # noqa: E402
 from mllm_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 
-SOURCES = {"int4": ("int4_matmul.cu", "split_k.cu"), "mega": ("decode_step.cu",)}
+SOURCES = {"int4": ("int4_matmul.cu", "split_k.cu"), "mega": ("decode_step.cu",),
+           "int8": ("int8_matmul.cu", "split_k.cu")}
 
 
 def parse_variant(spec: str) -> dict:
@@ -161,6 +167,37 @@ def int4_caller(var, x, p, s, z, k):
     return run
 
 
+def int8_caller(var, x, q, s, library_calls):
+    """The variant's package's int8_matmul (its own plan and C signature) on
+    its library; `library` is torch._weight_int8pack_mm and `cublas` torch.mm
+    on the weight already in bf16 (chip_smoke.int8_library_calls)."""
+    if var["name"] == "library":
+        return library_calls[0][1]
+    if var["name"] == "cublas":
+        return library_calls[1]
+
+    def run():
+        with tree_library(var), host_constants(var):
+            return var["qm"].int8_matmul(x, q, s)
+
+    return run
+
+
+def int8_rows(args, variants, dev, g):
+    from mllm_tpu_torch.ops.quantize_model import _q8_device
+
+    rows = chip_smoke.INT8_ROWS
+    if args.rows == "main":
+        rows = [rows[chip_smoke.MAIN_ROW["int8_matmul"]]]
+    for m, k, n in rows:
+        q, s = _q8_device(torch.randn(n, k, device=dev, generator=g) * 0.02)
+        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+        lib = chip_smoke.int8_library_calls(x, q, s)
+        calls = {v["name"]: int8_caller(v, x, q, s, lib) for v in variants}
+        yield (dict(m=m, K=k, N=n), calls, lambda: qm.int8_matmul_ref(x, q, s),
+               chip_smoke.bound(k * n + 4 * n + m * k * 2 + m * n * 4, 2 * m * k * n))
+
+
 def mega_caller(var, kernel_name, args, kw):
     """The variant's package's wrapper `kernel_name`, launching the variant's library."""
 
@@ -185,14 +222,22 @@ def time_rows(args, variants, rows):
         errs = {}
         for var in variants:
             if var["name"] in calls:
-                out = calls[var["name"]]()
+                try:
+                    out = calls[var["name"]]()
+                except RuntimeError as e:  # a library call that does not run at this shape
+                    if var["name"] not in ("library", "cublas"):
+                        raise
+                    print(json.dumps(dict(kernel=args.kernel, variant=var["name"], shape=shape,
+                                          error=str(e)[:200])), flush=True)
+                    del calls[var["name"]]
+                    continue
                 torch.cuda.synchronize()
                 errs[var["name"]] = rel_err(out, ref)
         names = [v["name"] for v in variants if v["name"] in calls]
         times = {nm: [] for nm in names}
         for rep in range(args.reps):
             for nm in (names if rep % 2 == 0 else names[::-1]):
-                times[nm].append(chip_smoke.time_ms(calls[nm], 20 if args.kernel == "int4" else 10))
+                times[nm].append(chip_smoke.time_ms(calls[nm], 10 if args.kernel == "mega" else 20))
         for nm in names:
             print(json.dumps(dict(kernel=args.kernel, variant=nm, shape=shape, rel_err=errs[nm],
                                   ms_median=statistics.median(times[nm]), ms=times[nm], **bnd)), flush=True)
@@ -238,7 +283,7 @@ def mega_rows(args, variants, dev, g):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--kernel", choices=("int4", "mega"), required=True)
+    ap.add_argument("--kernel", choices=("int4", "mega", "int8"), required=True)
     ap.add_argument("--variant", action="append", required=True)
     ap.add_argument("--rows", choices=("main", "all"), default="all")
     ap.add_argument("--reps", type=int, default=3)
@@ -249,10 +294,10 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     variants = [parse_variant(s) for s in args.variant]
     for var in variants:
-        if var["name"] != "library":
+        if var["name"] not in ("library", "cublas"):
             build_variant(args.kernel, var, out_dir)
     g = torch.Generator(device=dev).manual_seed(1234)
-    rows = int4_rows(args, variants, dev, g) if args.kernel == "int4" else mega_rows(args, variants, dev, g)
+    rows = {"int4": int4_rows, "mega": mega_rows, "int8": int8_rows}[args.kernel](args, variants, dev, g)
     time_rows(args, variants, rows)
 
 
