@@ -35,10 +35,11 @@
 //
 //  int8_gemm_kernel (m > 32) computes y^T = q^T x^T: persistent and
 //  warp-specialised, one producer thread keeps 5 stages of a 256-row x tile
-//  (bf16, 128-byte swizzle) and a 64 x 128 int8 weight tile (128-byte
-//  swizzle) in flight by TMA; each of two consumer warpgroups builds the
-//  weight operand for its 64 output columns in registers (16-bit shared
-//  loads, prmt, int8_to_bf16x2) and issues wgmma m64n256k16 with A from
+//  (128 rows when m <= 128; bf16, 128-byte swizzle) and a 64 x 128 int8
+//  weight tile (128-byte swizzle) in flight by TMA; each of two consumer
+//  warpgroups builds the weight operand for its 64 output columns in
+//  registers (16-bit shared loads, prmt, int8_to_bf16x2) and issues wgmma
+//  m64n256k16 (m64n128k16 for 128-row tiles) with A from
 //  registers and x as the K-major B from shared memory, f32 accumulators, the
 //  column scale in the epilogue. Converting in registers keeps the int8 tile
 //  out of any bf16 staging buffer: shared memory's bandwidth, which wgmma's
