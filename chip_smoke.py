@@ -21,11 +21,19 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      / max |plain| <= 1e-2 over y, k_new and v_new (bf16 rounding points
      that flip differently, f32 sums in another order; observed <= 6.6e-3).
      The quantized- and paged-cache attention kernels (int8 and int4 K/V
-     quantized by the caches' quantizer; a shuffled pool of 128-row blocks
-     with a retired -1 row): max |kernel - plain| <= 2e-2, as the bf16 ones;
-     no PyTorch call takes their layouts (`library_ms` null), and
+     quantized by the caches' quantizer; a shuffled pool of 128-row blocks,
+     PAGED_ROWS: the engine's 8 slots, a retired -1 row, one 1531-key slot, a
+     window, and a pool with NaN / inf in every row no slot sees and in its
+     spare blocks): max |kernel - plain| <= 2e-2, as the bf16 ones; no
+     PyTorch call takes their layouts (`library_ms` null), and
      `dense_sdpa_ms` times SDPA over the same keys in a dense bf16 cache, a
-     different function kept for context.
+     different function kept for context; the paged rows also time the dense
+     decode_attention kernel over the dense view of the same blocks
+     (`dense_decode_ms`, the yardstick of the paged kernel).
+     The fused MLP rows (FUSED_MLP_ROWS: Qwen2-VL-2B's MLP at m = 1, 4
+     affine, 8, 16, 32, gelu_new, and TinyLlama's at m = 1) also time the
+     unfused route through the port's kernels (`unfused_ms`: int4_matmul on
+     gate and up, the activation, int4_matmul on down).
      The quantized decode rows (QUANT_DECODE_ROWS) include rows whose
      integers and scales outside [kv_start, kv_valid) hold 127 and NaN / inf
      (plain version on them zeroed), and time the bf16 decode_attention
@@ -488,6 +496,60 @@ def quant_decode_inputs(row, bits, dev, g):
     return q, kernel_ops, plain_ops, kw, shape, (kd, vd)
 
 
+# paged: (kv_valid per slot, retired slot or None, window or None, poisoned),
+# MAXB 16 over a shuffled pool holding the blocks the lengths need plus 8 spare
+PAGED_ROWS = [
+    ([17, 100, 511, 513, 1000, 1531, 2000, 777], None, None, False),  # the engine's 8 slots
+    ([300, 1200, 64, 600], 3, None, False),                           # a retired slot: -1 row, kv_valid > 0
+    ([1531], None, None, False),                                      # the 1500-token prompt's last step
+    ([1, 511, 513, 2048], None, 256, False),
+    # stale rows: NaN / inf in the pool rows outside each slot's visible keys and in the spare blocks
+    ([17, 100, 511, 513, 1000, 1531, 2000, 777], None, 700, True),
+]
+PAGED_MAXB = 16
+
+
+def paged_inputs(row, dev, g):
+    """One PAGED_ROWS row: (q, k_pool, v_pool, table, kwargs, shape, (plain
+    k_pool, plain v_pool), (dense K, dense V)). A poisoned row's pools hold
+    NaN and inf (alternating by row) in every row no slot sees and in the
+    spare blocks; its plain pools have them zeroed (else they are the
+    kernel's). The dense views are the plain pools through `gather_pages`
+    (bf16 [B, H_kv, MAXB * 128, D]), made here, outside any timed window."""
+    from mllm_tpu_torch.ops.decode_attention import PAGE, gather_pages
+
+    kvl, retired, window, poisoned = row
+    b = len(kvl)
+    need = [-(-n // PAGE) for n in kvl]
+    nb = sum(need) + 8
+    perm = torch.randperm(nb, device=dev, generator=g).tolist()
+    table = torch.full((b, PAGED_MAXB), -1, dtype=torch.int32)
+    for i, n in enumerate(need):
+        table[i, :n] = torch.tensor(perm[sum(need[:i]) : sum(need[: i + 1])])
+    if retired is not None:
+        table[retired] = -1  # a retired slot: -1 row, kv_valid > 0
+    kp, vp = (torch.randn(nb, HKV, PAGE, D, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+    kpp, vpp = kp, vp
+    shape = dict(B=b, H=H, Hkv=HKV, D=D, S=PAGED_MAXB * PAGE, kv_valid=kvl, kv_start=None, window=window,
+                 pool_blocks=nb, retired_slot=retired)
+    if poisoned:
+        bad = torch.ones(nb, PAGE, dtype=torch.bool)  # [block, row]: seen by no slot
+        for i, n in enumerate(kvl):
+            lo = max(n - window, 0) if window else 0
+            for j in range(lo, n):
+                bad[table[i, j // PAGE], j % PAGE] = False
+        bad = bad.to(dev)[:, None, :, None]
+        fill = torch.where(torch.arange(PAGE, device=dev) % 2 == 0, float("nan"), float("inf"))
+        fill = fill.to(torch.bfloat16)[None, None, :, None]
+        kp, vp, kpp, vpp = (torch.where(bad, fill, kp), torch.where(bad, fill, vp),
+                            torch.where(bad, torch.zeros_like(kp), kp), torch.where(bad, torch.zeros_like(vp), vp))
+        shape["poisoned"] = "NaN / inf in every pool row no slot sees and in the spare blocks; plain version on them zeroed"
+    table = table.to(dev)
+    q = torch.randn(b, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
+    kw = dict(kv_valid_len=torch.tensor(kvl, device=dev, dtype=torch.int32), window=window)
+    return q, kp, vp, table, kw, shape, (kpp, vpp), (gather_pages(kpp, table), gather_pages(vpp, table))
+
+
 def kv_kernel_rows(dev, g) -> dict:
     """The kernels of the quantized and paged caches against their plain
     versions (H=12, H_kv=2, D=128; max |kernel - plain| <= TOL): the int8 and
@@ -497,7 +559,9 @@ def kv_kernel_rows(dev, g) -> dict:
     takes these layouts (library_ms null); `dense_sdpa_ms` times SDPA over the
     same keys in a dense bf16 cache, a different function kept for context,
     and on the quantized decode rows `bf16_decode_ms` the bf16 decode_attention
-    kernel over that dense cache (twice the bytes at int8), its yardstick."""
+    kernel over that dense cache (twice the bytes at int8), its yardstick; on
+    the paged rows `dense_decode_ms` the same kernel over the dense view of the
+    slots' blocks (the same bytes), the paged kernel's yardstick."""
     from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
                                                      decode_attention_paged_ref, decode_attention_quant,
                                                      decode_attention_quant_ref)
@@ -561,31 +625,14 @@ def kv_kernel_rows(dev, g) -> dict:
                 lambda: decode_attention_quant_ref(q, *pops, **kw), shape, kb,
                 lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True),
                 {"bf16_decode_ms": lambda: decode_attention(q, kd, vd, **kw)}))
-    # paged: MAXB 16 over a shuffled pool holding the blocks the lengths need plus 8 spare
-    maxb, page = 16, 128
-    for kvl, retired in [([17, 100, 511, 513, 1000, 1531, 2000, 777], None), ([300, 1200, 64, 600], 3)]:
-        b = len(kvl)
-        need = [-(-n // page) for n in kvl]
-        nb = sum(need) + 8
-        perm = torch.randperm(nb, device=dev, generator=g).tolist()
-        table = torch.full((b, maxb), -1, dtype=torch.int32)
-        for i, n in enumerate(need):
-            table[i, :n] = torch.tensor(perm[sum(need[:i]) : sum(need[: i + 1])])
-        if retired is not None:
-            table[retired] = -1  # a retired slot: -1 row, kv_valid > 0
-        table = table.to(dev)
-        kp, vp = (torch.randn(nb, HKV, page, D, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
-        q = torch.randn(b, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
-        kw = dict(kv_valid_len=ivec(kvl))
-        kd, vd = (p[table.long().clamp(0, nb - 1)].permute(0, 2, 1, 3, 4).reshape(b, HKV, maxb * page, D)
-                  for p in (kp, vp))
-        m = mask(kvl, maxb * page)
+    for row in PAGED_ROWS:
+        q, kp, vp, table, kw, shape, (kpp, vpp), (kd, vd) = paged_inputs(row, dev, g)
+        m = mask(kw["kv_valid_len"].tolist(), kd.shape[2], window=row[2])
         rows["decode_attention_paged"].append(check(
             "decode_attention_paged", lambda: decode_attention_paged(q, kp, vp, table, **kw),
-            lambda: decode_attention_paged_ref(q, kp, vp, table, **kw),
-            dict(B=b, H=H, Hkv=HKV, D=D, S=maxb * page, kv_valid=kvl, kv_start=None, window=None,
-                 pool_blocks=nb, retired_slot=retired), None,
-            lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True)))
+            lambda: decode_attention_paged_ref(q, kpp, vpp, table, **kw), shape, None,
+            lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True),
+            {"dense_decode_ms": lambda: decode_attention(q, kd, vd, **kw)}))
     return rows
 
 
@@ -665,11 +712,11 @@ def quant_kernel_rows(dev, g) -> dict:
     """The quantized products against their plain versions, at the shapes of
     the int8 and int4 phases (Qwen2-VL-2B: qkv 1536->2048, o 1536->1536,
     gate||up 1536->17920, down 8960->1536, head 1536->151936 (int4: padded
-    to 152064); m = decode batch, or prefill tokens for int8)."""
+    to 152064); m = decode batch, or prefill tokens for int8), and the fused
+    int4 MLP at FUSED_MLP_ROWS."""
     from mllm_tpu_torch.ops import quant_matmul as qm
-    from mllm_tpu_torch.ops.fused_mlp import (fused_int4_mlp, fused_int4_mlp_ref,
-                                              pick_block_f, prepare_int4_ff)
-    from mllm_tpu_torch.ops.quantize_model import _q4_device, _q8_device
+    from mllm_tpu_torch.ops.fused_mlp import pick_block_f
+    from mllm_tpu_torch.ops.quantize_model import _q8_device
 
     def weight(n, k):
         return torch.randn(n, k, device=dev, generator=g) * 0.02
@@ -677,7 +724,7 @@ def quant_kernel_rows(dev, g) -> dict:
     def x_rows(m, k):
         return torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
 
-    def check(name, kernel, plain, shape, weight_bytes, library=None, cublas=None):
+    def check(name, kernel, plain, shape, weight_bytes, library=None, cublas=None, extra=None):
         m, k, n = shape.get("m"), shape.get("K", shape.get("d")), shape.get("N", shape.get("d"))
         weights = k * n if name != "fused_int4_mlp" else 3 * shape["d"] * shape["ff"]
         out, ref = kernel(), plain()
@@ -697,6 +744,8 @@ def quant_kernel_rows(dev, g) -> dict:
                 lib = dict(library=library[0], library_ms=None, library_error=str(e)[:200])
         if cublas is not None:  # a yardstick of another function: bf16 weights already in memory
             lib["cublas_bf16_ms"] = time_ms(cublas, 20)
+        for key, call in (extra or {}).items():  # the same function by another route of the port
+            lib[key] = time_ms(call, 20)
         row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
                    tolerance=QUANT_TOL[name], finite=finite, ms=ms, plain_ms=time_ms(plain, 5),
                    weight_bytes=weight_bytes, weight_tb_per_s=weight_bytes / ms / 1e9,
@@ -728,22 +777,63 @@ def quant_kernel_rows(dev, g) -> dict:
             dict(m=m, K=k, N=n, affine=affine, khp=p.shape[0]), int4_bytes(k, n, affine), library))
         del p, s, z, library
 
-    d, ff = QWEN2VL_2B_LM["hidden_size"], QWEN2VL_2B_LM["intermediate_size"]
-    block_f = pick_block_f(ff)
-    gate = tuple(qm.prepare_int4(*_q4_device(weight(ff, d)), qm.GROUP)[:2])
-    up = tuple(qm.prepare_int4(*_q4_device(weight(ff, d)), qm.GROUP)[:2])
-    down = tuple(prepare_int4_ff(*_q4_device(weight(d, ff)), None, block_f)[:2])
-    for m, act, affine in [(1, "silu", False), (8, "silu", False), (32, "silu", False),
-                           (4, "silu", True), (1, "gelu_new", False)]:
-        # affine: the same weights with their zeros stored (-8 * scales)
-        ops = [op + ((-8.0 * op[1]) if affine else None,) for op in (gate, up, down)]
+    operands = {}
+    for m, act, affine, (d, ff) in FUSED_MLP_ROWS:
+        if (d, ff) not in operands:
+            operands = {(d, ff): fused_mlp_operands(d, ff, dev, g)}  # one width's weights at a time
+        block_f = pick_block_f(ff)
         x = x_rows(m, d)
+        kernel, plain, unfused = fused_mlp_calls(x, operands[(d, ff)], act, affine, block_f)
         rows["fused_int4_mlp"].append(check(
-            "fused_int4_mlp", lambda: fused_int4_mlp(x, *ops, act=act, block_f=block_f),
-            lambda: fused_int4_mlp_ref(x, *ops, act=act, block_f=block_f),
-            dict(m=m, d=d, ff=ff, block_f=block_f, act=act, affine=affine),
-            2 * int4_bytes(d, ff, affine) + int4_bytes(ff, d, affine)))
+            "fused_int4_mlp", kernel, plain, dict(m=m, d=d, ff=ff, block_f=block_f, act=act, affine=affine),
+            2 * int4_bytes(d, ff, affine) + int4_bytes(ff, d, affine), extra={"unfused_ms": unfused}))
     return rows
+
+
+# fused_int4_mlp: (m, act, affine, (d, ff)): the int4 decode step's MLP at
+# b = 1, 8, 32, an affine row, gelu_new, b = 16, and TinyLlama's widths (its
+# own pick_block_f, 512: a second plan)
+QWEN2VL_2B_MLP, TINYLLAMA_MLP = (1536, 8960), (2048, 5632)
+FUSED_MLP_ROWS = [(1, "silu", False, QWEN2VL_2B_MLP), (8, "silu", False, QWEN2VL_2B_MLP),
+                  (32, "silu", False, QWEN2VL_2B_MLP), (4, "silu", True, QWEN2VL_2B_MLP),
+                  (1, "gelu_new", False, QWEN2VL_2B_MLP), (16, "silu", False, QWEN2VL_2B_MLP),
+                  (1, "silu", False, TINYLLAMA_MLP)]
+
+
+def fused_mlp_operands(d, ff, dev, g):
+    """Random gate, up and down weights quantized on the card (symmetric,
+    group 32): (gate, up, down, down_planar), each (packed, scales): gate and
+    up canonical over K = d, down block-planar over K = ff (pick_block_f) and
+    the same down canonical over K = ff, for the unfused route."""
+    from mllm_tpu_torch.ops import quant_matmul as qm
+    from mllm_tpu_torch.ops.fused_mlp import pick_block_f, prepare_int4_ff
+    from mllm_tpu_torch.ops.quantize_model import _q4_device
+
+    gate, up = (tuple(qm.prepare_int4(*_q4_device(torch.randn(ff, d, device=dev, generator=g) * 0.02),
+                                      qm.GROUP)[:2]) for _ in range(2))
+    planar = _q4_device(torch.randn(d, ff, device=dev, generator=g) * 0.02)
+    return (gate, up, tuple(prepare_int4_ff(*planar, None, pick_block_f(ff))[:2]),
+            tuple(qm.prepare_int4(*planar, qm.GROUP)[:2]))
+
+
+def fused_mlp_calls(x, operands, act, affine, block_f):
+    """(kernel, plain, unfused) no-argument calls of one fused MLP row; affine
+    rows take the same weights with their zeros stored (-8 * scales). The
+    unfused route is the same function through the port's own kernels:
+    int4_matmul on gate and on up, the activation, h rounded to bf16,
+    int4_matmul on down (canonical over K = ff)."""
+    from mllm_tpu_torch.ops import quant_matmul as qm
+    from mllm_tpu_torch.ops.fused_mlp import _ACT, fused_int4_mlp, fused_int4_mlp_ref
+
+    gate, up, down, down_planar = ((*op, (-8.0 * op[1]) if affine else None) for op in operands)
+
+    def unfused():
+        h = _ACT[act](qm.int4_matmul(x, gate[0], gate[1], qm.GROUP, gate[2])) * qm.int4_matmul(
+            x, up[0], up[1], qm.GROUP, up[2])
+        return qm.int4_matmul(h.to(torch.bfloat16), down_planar[0], down_planar[1], qm.GROUP, down_planar[2])
+
+    return (lambda: fused_int4_mlp(x, gate, up, down, act=act, block_f=block_f),
+            lambda: fused_int4_mlp_ref(x, gate, up, down, act=act, block_f=block_f), unfused)
 
 
 def mega_operands(dev, g, cfg):
@@ -1421,7 +1511,7 @@ def main():
                       bound_by=main_row["bound_by"], library_ms=main_row["library_ms"])
         if "rel_err" in main_row:
             kernel["max_rel_err"] = max(r["rel_err"] for r in rows[name])
-        for extra in ("dense_sdpa_ms", "bf16_decode_ms"):
+        for extra in ("dense_sdpa_ms", "bf16_decode_ms", "dense_decode_ms", "unfused_ms"):
             if extra in main_row:
                 kernel[extra] = main_row[extra]
         kernels.append(kernel)

@@ -112,9 +112,4 @@ __device__ __forceinline__ void load_f32x4(float (&d)[4], const float* p) {
   d[3] = v.w;
 }
 
-// The split-K reduction of fused_int4_mlp (split_k.cu): out[r, c] = sum_s
-// ws[s, r, c], the splits added in order, so the result does not depend on
-// how the blocks were scheduled. cols % 4 == 0; every pointer 16-byte aligned.
-cudaError_t sum_splits(const float* ws, float* out, int rows, int cols, int splits, cudaStream_t stream);
-
 }  // namespace mllm

@@ -1,5 +1,6 @@
-// The int4 weight stream shared by int4_matmul.cu and decode_step.cu: planar
-// int4 weights on tensor cores, fed by a ring of 16-byte async copies.
+// The int4 weight stream shared by int4_matmul.cu, fused_int4_mlp.cu and
+// decode_step.cu: planar int4 weights on tensor cores, fed by a ring of
+// 16-byte async copies.
 //
 // The canonical planar layout: packed row j of a weight [K/2 (or khp), N]
 // holds two k of each column, in its low and its high nibble (k = j and
@@ -190,11 +191,12 @@ __device__ __forceinline__ void stage_x(uint32_t* xs, int rows, int mrows, F val
   }
 }
 
-// stage_x for x already in bf16 rows (int4_matmul): packed row j0 + r of half
-// h for row m is x[m * ld + h * khalf + j0 + r]. One 16-byte load gives 8
-// consecutive rows r0 .. r0 + 7 (r0 = 0 or 8 of a k-step) of one (m, h), and
-// prmt pairs them into the words e = 2i + r0 / 8 for i < 4. Every address is
-// a multiple of 8 elements (ld, khalf, j0 are), so x must be 16-byte aligned.
+// stage_x for x already in bf16 rows (int4_matmul, fused_int4_mlp): packed
+// row j0 + r of half h for row m is x[m * ld + h * khalf + j0 + r]. One
+// 16-byte load gives 8 consecutive rows r0 .. r0 + 7 (r0 = 0 or 8 of a k-step)
+// of one (m, h), and prmt pairs them into the words e = 2i + r0 / 8 for i < 4.
+// Every address is a multiple of 8 elements (ld, khalf, j0 are), so x must be
+// 16-byte aligned.
 template <int MT8>
 __device__ __forceinline__ void stage_x_bf16(uint32_t* xs, int rows, int mrows, const bf16* x, long ld, int khalf,
                                              int j0) {

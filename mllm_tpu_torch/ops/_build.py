@@ -57,9 +57,9 @@ SIGNATURES = {
     "mllm_flash_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _P],
     # q, k_pool, v_pool, table, out, kv_valid_vec, B, H, Hkv, NB, MAXB, D,
-    # kv_valid, window, scale_log2, stream
+    # kv_valid, window, scale_log2, splits, stream
     "mllm_decode_attention_paged_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                         _I, _I, _F, _P],
+                                         _I, _I, _F, _I, _P],
     # x, q, s, out, M, K, N, tn, cluster, rows_per, clusters, mt8, stream
     "mllm_int8_matmul_bf16": [*[_P] * 4, *[_I] * 8, _P],
     # x, q, s, out, M, K, N, bm, cluster, kper, clusters, stream
@@ -69,10 +69,11 @@ SIGNATURES = {
     # x, q, s, z, out, ws, counters, M, K, N, khp, full, splits, split_rows, chunk_rows, mt8,
     # stream
     "mllm_int4_matmul_bf16": [*[_P] * 7, *[_I] * 9, _P],
-    # x, gq, gs, gz, uq, us, uz, dq, ds, dz, ws, out, M, d, khp_d, ff, d_out,
-    # block_f, act, mt, stream
-    "mllm_fused_int4_mlp_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, gq, gs, gz, uq, us, uz, dq, ds, dz, ws, counters, out, M, d, khp, ff, d_out,
+    # block_f, act, mt8, splits_a, rows_a, splits_b, rows_b, chunk_rows, grid, stream
+    "mllm_fused_int4_mlp_bf16": [*[_P] * 13, *[_I] * 14, _P],
+    # mt8, affine, chunk_rows, out (int*)
+    "mllm_fused_int4_mlp_blocks": [_I, _I, _I, _P],
     # x, rope_r, pos, kv_start, *_MEGA_COMMON
     "mllm_fused_decode_step_bf16": [_P, _P, _I, _I, *_MEGA_COMMON],
     # x, cos, sin, pos_vec, kvs_vec, pos, kv_start, b, *_MEGA_COMMON

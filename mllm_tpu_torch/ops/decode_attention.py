@@ -36,14 +36,14 @@ from .flash_attention import LOG2E
 from .quant_matmul import sm_count
 
 PAGE = 128  # rows of a pool block (PagedKVCache.BS)
-DECODE_TILE = 64  # keys a tile of `csrc/decode_attention.cu`
+DECODE_TILE = 64  # keys a tile of `csrc/decode_attention.cuh`
 DECODE_MAX_SPLITS = 8  # its largest cluster: the portable limit
 DECODE_HEADS = 16  # query heads one of its CTAs takes (the m16 of mma.sync)
 
 
 def decode_split_ranges(lo: int, hi: int, splits: int, tile: int = DECODE_TILE) -> list[tuple[int, int]]:
     """The decode kernels' division of the keys [lo, hi) among the `splits`
-    CTAs of a cluster (`csrc/decode_attention.cu`, `decode_attention_quant.cu`):
+    CTAs of a cluster (`csrc/decode_attention.cuh`, `decode_attention_quant.cu`):
     the tiles [t0, hi) with t0 = lo rounded down to `tile`, cut into runs of
     ceil(ntiles / splits) whole tiles, run r to rank r. Rank r sees the keys
     [start, stop) of its run within [lo, hi); a rank with no tile gets start
@@ -62,9 +62,10 @@ def decode_split_ranges(lo: int, hi: int, splits: int, tile: int = DECODE_TILE) 
 
 
 def decode_splits(b: int, hkv: int, n_rep: int, s_max: int, sms: int) -> int:
-    """The decode kernel's cluster size: enough CTAs per (b, KV head) that the
+    """The decode kernels' cluster size: enough CTAs per (b, KV head) that the
     grid fills the card's `sms` SMs, at most DECODE_MAX_SPLITS and at most the
-    cache's tiles. Depends on the shapes only, never on a device length."""
+    cache's tiles (`s_max` keys a sequence: the dense cache's S, or MAXB * 128
+    for the paged pool). Depends on the shapes only, never on a device length."""
     groups = b * hkv * -(-n_rep // DECODE_HEADS)
     return max(1, min(DECODE_MAX_SPLITS, -(-sms // groups), -(-s_max // DECODE_TILE)))
 
@@ -295,11 +296,12 @@ def decode_attention_paged(
     valid_int, valid_vec = kv_len_arg(name, kv_valid_len, b, maxb * PAGE, q.device)
     if scale is None:
         scale = d**-0.5
+    splits = decode_splits(b, hkv, h // hkv, maxb * PAGE, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
     err = _build.library().mllm_decode_attention_paged_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tbl.data_ptr(), out.data_ptr(),
         valid_vec.data_ptr() if valid_vec is not None else None,
-        b, h, hkv, nb, maxb, d, valid_int, int(window or 0), scale * LOG2E,
+        b, h, hkv, nb, maxb, d, valid_int, int(window or 0), scale * LOG2E, splits,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

@@ -11,22 +11,26 @@ Layouts (from `prepare_int4` / `prepare_int4_ff`):
            (high); scales/zeros rows are in natural f order.
 
 A CPU tensor takes the plain version, which follows the JAX fallback (f32
-throughout). On the card, m <= 32 launches the kernel, which rounds the hidden
-activation to bf16 as the Pallas kernel does; larger m dequantizes the three
-weights to bf16 and runs three `torch.mm` (the JAX fallback route).
-`fused_int4_mlp.launches` counts kernel launches (the kernel and its split-K
-reduction count as one).
+throughout). On the card, m <= 32 launches the kernel (one cooperative
+launch, its plan `fused_mlp_plan`), which rounds the hidden activation to
+bf16 as the Pallas kernel does; larger m dequantizes the three weights to
+bf16 and runs three `torch.mm` (the JAX fallback route).
+`fused_int4_mlp.launches` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .quant_matmul import (GROUP, INT4_KERNEL_MAX_M, bf16_rows, check_operands,
-                           dequant_int4_canonical, launch_or_raise, pow2_rows)
+from .quant_matmul import (GROUP, INT4_KERNEL_MAX_M, SMEM_PER_BLOCK, SMEM_PER_SM,
+                           STAGE_ROWS, TILE_N, bf16_rows, check_operands, dequant_int4_canonical,
+                           launch_or_raise, pow2_rows, sm_count, tile_counters)
 
 
 def _gelu_tanh(x):
@@ -111,6 +115,89 @@ def fused_int4_mlp_ref(x, gate_ops, up_ops, down_ops, *, act: str = "silu",
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
+MLP_STAGES = 3  # ring stages of 32 packed rows (csrc/fused_int4_mlp.cu kStages)
+# The plan's cost model (seconds): a least-squares fit (non-negative) to every
+# plan that `tools/int4_tune.py --kernel mlp --sweep` timed at Qwen2-VL-2B's
+# widths, m = 1, 8, 16, 32, on "NVIDIA H100 80GB HBM3, 700.00 W" (PERF.md):
+# MLP_A_STAGE_S a gate/up stage of the busiest block, MLP_B_STAGE_S a stage of
+# a down chunk (run once its h is made), and the gate/up partials a chunk
+# gathers for its h at MLP_GATHER_BPS.
+MLP_A_STAGE_S, MLP_B_STAGE_S, MLP_GATHER_BPS = 3.61e-6, 2.53e-6, 15.5e9
+
+
+def mlp_stage_bytes(affine: bool) -> int:
+    """Shared memory of one ring stage: 32 packed rows of a 512-column tile
+    (rows 32 bytes apart) and the tile's scale (and zero) rows of both halves."""
+    return STAGE_ROWS * (TILE_N + 32) + (4 if affine else 2) * TILE_N * 4
+
+
+def mlp_blocks_per_sm(mt8: int, affine: bool) -> int:
+    """The blocks an SM is meant to hold: two up to 16 rows of x, one at 32
+    (registers)."""
+    return 2 if mt8 <= 2 else 1
+
+
+def mlp_chunk_rows(mt8: int, affine: bool) -> int:
+    """The packed rows of the staged-x area (a multiple of 32) beside the
+    ring, at mlp_blocks_per_sm blocks an SM (1 KB of each block's share is
+    the system's): x staged as the bf16 pairs of both halves for 8 mt8 rows,
+    32 mt8 bytes a packed row. A down chunk makes its h there too."""
+    per = mlp_blocks_per_sm(mt8, affine)
+    budget = min(SMEM_PER_BLOCK, SMEM_PER_SM // per - 1024) - MLP_STAGES * mlp_stage_bytes(affine)
+    return max(STAGE_ROWS, budget // (32 * mt8) // STAGE_ROWS * STAGE_ROWS)
+
+
+@functools.cache
+def fused_mlp_plan(m: int, d: int, ff: int, d_out: int, block_f: int, grid: int,
+                   affine: bool = False) -> tuple[int, int, int, int, int]:
+    """(mt8, splits_a, rows_a, splits_b, rows_b) of the fused_int4_mlp kernel
+    on `grid` resident blocks: 8-row tiles of x (1, 2 or 4); gate and up's K
+    (d / 2 packed rows) in splits_a runs of rows_a, down's K (ff / 2 packed
+    rows) in splits_b chunks of rows_b (every chunk of the down tiles has a
+    block of its own: ceil(d_out / 512) * splits_b <= grid; 32 rows of a
+    chunk's h and the gate/up partials it gathers fit the staged-x area). The
+    pair the cost model above finds fastest: the busiest block's gate/up
+    stages, the down chunk's stages, the partials it gathers. Fewer items win
+    a tie."""
+    mt8 = pow2_rows(-(-m // 8), 4)
+    ka, kb = d // 2 // STAGE_ROWS, ff // 2 // STAGE_ROWS
+    ta, tb = -(-ff // TILE_N), -(-d_out // TILE_N)
+    x_words = mlp_chunk_rows(mt8, affine) * 8 * mt8  # the staged-x area
+    best = None
+    for sa in range(1, ka + 1):
+        ra = -(-ka // sa)
+        if -(-ka // ra) != sa or 32 * (8 * mt8 + 4 * sa * m) > x_words:
+            continue
+        i = np.arange(2 * ta * sa)  # A item i on block i % grid
+        st = np.where(i % sa < sa - 1, ra, ka - (sa - 1) * ra)
+        a_s = np.bincount(i % grid, st, minlength=grid).max() * MLP_A_STAGE_S
+        for rb in range(1, kb + 1):
+            sb = -(-kb // rb)
+            if tb * sb > grid or -(-kb // sb) != rb:
+                continue
+            t = a_s + rb * MLP_B_STAGE_S + 4 * 2 * sa * 2 * m * rb * STAGE_ROWS / MLP_GATHER_BPS
+            key = (t, 2 * ta * sa + tb * sb)
+            if best is None or key < best[0]:
+                best = (key, (mt8, sa, ra * STAGE_ROWS, sb, rb * STAGE_ROWS))
+    if best is None:
+        raise ValueError(f"fused_int4_mlp: no plan for d={d}, ff={ff}, d_out={d_out}, block_f={block_f} "
+                         f"on {grid} blocks")
+    return best[1]
+
+
+@functools.cache
+def mlp_blocks(device_index: int, mt8: int, affine: bool, chunk_rows: int) -> int:
+    """The blocks of the kernel <mt8, affine> an SM keeps resident with
+    chunk_rows rows of x staged (the card's occupancy query)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.library().mllm_fused_int4_mlp_blocks(mt8, int(affine), chunk_rows, ctypes.addressof(out))
+    launch_or_raise("fused_int4_mlp (occupancy)", err)
+    if out.value < 1:
+        raise RuntimeError(f"fused_int4_mlp: the kernel <{mt8}, affine={affine}> does not fit an SM")
+    return out.value
+
+
 def fused_int4_mlp(x, gate_ops, up_ops, down_ops, *, act: str = "silu",
                    group: int = GROUP, block_f: int = 1280):
     """x [..., d] -> [..., d_out] f32 through the fused int4 gated MLP.
@@ -154,15 +241,23 @@ def fused_int4_mlp(x, gate_ops, up_ops, down_ops, *, act: str = "silu",
             f"fused_int4_mlp: the CUDA kernel needs group 32, d % 64 == 0, block_f % 64 == 0, "
             f"ff % block_f == 0, d_out % 4 == 0; got group {group}, d {d}, block_f {block_f}, "
             f"gate {tuple(gp.shape)}, up {tuple(up.shape)}, down {tuple(dp.shape)}")
-    mt = pow2_rows(m)
     out = torch.empty(m, n_out, device=x.device, dtype=torch.float32)
-    ws = torch.empty(ff // 64, m, n_out, device=x.device, dtype=torch.float32)
+    if m == 0:
+        return out.reshape(*x.shape[:-1], n_out)
+    dev = x.device.index or 0
+    cap = mlp_chunk_rows(pow2_rows(-(-m // 8), 4), affine)
+    grid = sm_count(dev) * mlp_blocks(dev, pow2_rows(-(-m // 8), 4), affine, cap)
+    mt8, sa, rows_a, sb, rows_b = fused_mlp_plan(m, d, ff, n_out, block_f, grid, affine)
+    ta, tb = -(-ff // TILE_N), -(-n_out // TILE_N)
+    ws = torch.empty(2 * sa * m * ta * TILE_N + sb * m * tb * TILE_N, device=x.device,
+                     dtype=torch.float32)  # the partials of the gate/up items, then of the down chunks
+    counters = tile_counters(x.device, ta + 2 * tb + 1)  # left zeroed, as int4_matmul leaves them
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _build.library().mllm_fused_int4_mlp_bf16(
         x2.data_ptr(), gp.data_ptr(), gs.data_ptr(), ptr(gz), up.data_ptr(), us.data_ptr(),
-        ptr(uz), dp.data_ptr(), ds.data_ptr(), ptr(dz), ws.data_ptr(), out.data_ptr(),
-        m, d, khp_d, ff, n_out, block_f, _ACT_ID[act], mt,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        ptr(uz), dp.data_ptr(), ds.data_ptr(), ptr(dz), ws.data_ptr(), counters.data_ptr(), out.data_ptr(),
+        m, d, khp_d, ff, n_out, block_f, _ACT_ID[act], mt8, sa, rows_a, sb, rows_b,
+        cap, grid, torch.cuda.current_stream(x.device).cuda_stream)
     launch_or_raise("fused_int4_mlp", err)
     fused_int4_mlp.launches += 1
     return out.reshape(*x.shape[:-1], n_out)

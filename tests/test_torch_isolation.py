@@ -72,11 +72,12 @@ def test_sources_are_the_kernels():
     names = sorted(os.path.basename(p) for p in _build.sources())
     assert names == ["decode_attention.cu", "decode_attention_paged.cu", "decode_attention_quant.cu",
                      "decode_step.cu", "flash_attention.cu", "flash_attention_quant.cu",
-                     "fused_int4_mlp.cu", "int4_matmul.cu", "int8_matmul.cu", "split_k.cu"]
+                     "fused_int4_mlp.cu", "int4_matmul.cu", "int8_matmul.cu"]
     assert set(_build.SIGNATURES) == {"mllm_flash_attention_bf16", "mllm_decode_attention_bf16",
                                       "mllm_flash_attention_quant", "mllm_decode_attention_quant",
                                       "mllm_decode_attention_paged_bf16",
                                       "mllm_int8_matmul_bf16", "mllm_int8_gemm_bf16", "mllm_int8_max_clusters",
                                       "mllm_int4_matmul_bf16",
-                                      "mllm_fused_int4_mlp_bf16", "mllm_fused_decode_step_bf16",
+                                      "mllm_fused_int4_mlp_bf16", "mllm_fused_int4_mlp_blocks",
+                                      "mllm_fused_decode_step_bf16",
                                       "mllm_fused_decode_step_batched_bf16"}

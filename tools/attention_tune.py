@@ -5,11 +5,15 @@
         --variant stages2=mllm_tpu_torch/csrc:kStages=2 --variant c4=mllm_tpu_torch/csrc@4
     python3 tools/attention_tune.py --kernel decode_quant \\
         --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc --variant bf16=x
+    python3 tools/attention_tune.py --kernel paged \\
+        --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc --variant dense=x
 
-A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...][@SPLITS]: `csrc/flash_attention.cu`
-or `csrc/decode_attention.cu` of that directory, with each named
-`constexpr int CONSTANT = ...;` of the source set to VALUE (e.g. kTile,
-kStages, kBK) in a copy under build/kernels/tune, compiled alone with nvcc for
+A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...][@SPLITS]: `csrc/flash_attention.cu`,
+`csrc/decode_attention.cu`, `decode_attention_quant.cu` or
+`decode_attention_paged.cu` of that directory, with each named
+`constexpr int CONSTANT = ...;` of the source or of the headers it includes
+set to VALUE (e.g. kTile, kStages, kBK) in a copy under build/kernels/tune
+(the source and every header of CSRC_DIR), compiled alone with nvcc for
 sm_90a and called through its C entry point.
 `@SPLITS` fixes the decode kernels' cluster size instead of the wrapper's rule
 (`decode_splits`). A directory whose decode entry point takes no cluster size
@@ -17,7 +21,12 @@ sm_90a and called through its C entry point.
 is PyTorch's scaled_dot_product_attention over the same keys (main rows);
 with `--kernel decode_quant` (`csrc/decode_attention_quant.cu`, rows
 chip_smoke.QUANT_DECODE_ROWS at int8 and then int4) the variant named `bf16`
-is this tree's bf16 decode_attention over the same keys dequantized to bf16.
+is this tree's bf16 decode_attention over the same keys dequantized to bf16;
+with `--kernel paged` (rows chip_smoke.PAGED_ROWS) the variant named `dense`
+is this tree's decode_attention over the dense view of the slots' blocks
+(`gather_pages`, made outside the timed window). A paged directory whose
+entry point takes no cluster size (an older tree's kernel) is called
+without one.
 
 For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (or only the main row,
 `--rows main`), the variants run in turns, in order then in reverse, `--reps`
@@ -50,9 +59,10 @@ from mllm_tpu_torch.ops.quant_matmul import sm_count  # noqa: E402
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCE = {"flash": "flash_attention.cu", "decode": "decode_attention.cu",
-          "decode_quant": "decode_attention_quant.cu"}
+          "decode_quant": "decode_attention_quant.cu", "paged": "decode_attention_paged.cu"}
 ENTRY = {"flash": "mllm_flash_attention_bf16", "decode": "mllm_decode_attention_bf16",
-         "decode_quant": "mllm_decode_attention_quant"}
+         "decode_quant": "mllm_decode_attention_quant", "paged": "mllm_decode_attention_paged_bf16"}
+YARDSTICKS = ("sdpa", "bf16", "dense")  # variant names that are calls of this tree, not sources
 
 
 def parse_variant(spec: str) -> dict:
@@ -68,26 +78,45 @@ def parse_variant(spec: str) -> dict:
 def with_constants(text: str, constants: list) -> str:
     """The source with each `constexpr int NAME = ...;` of `constants`
     (NAME=VALUE strings) set to VALUE; raises on a name it does not define."""
+    texts = with_constants_in({"source": text}, constants)
+    return texts["source"]
+
+
+def with_constants_in(texts: dict, constants: list) -> dict:
+    """{file: text} with each `constexpr int NAME = ...;` of `constants` set
+    to VALUE in the one file that defines it; raises unless exactly one
+    definition of NAME is found among them."""
+    texts = dict(texts)
     for item in constants:
         name, value = item.split("=")
-        text, n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{int(value)};", text)
-        if n != 1:
-            raise ValueError(f"no single `constexpr int {name}` in the source")
-    return text
+        found = 0
+        for file, text in texts.items():
+            texts[file], n = re.subn(rf"(constexpr int {name} = )[^;]+;", rf"\g<1>{int(value)};", text)
+            found += n
+        if found != 1:
+            raise ValueError(f"no single `constexpr int {name}` in the source and its headers")
+    return texts
 
 
 def build_variant(kind: str, var: dict, out_dir: str) -> ctypes.CDLL:
-    with open(os.path.join(var["csrc"], SOURCE[kind])) as f:
-        text = with_constants(f.read(), var["constants"])
-    key = hashlib.sha256((text + var["csrc"]).encode()).hexdigest()[:12]
-    lib = os.path.join(out_dir, f"{kind}_{var['name']}_{key}.so")
-    src = os.path.join(out_dir, f"{kind}_{var['name']}_{key}.cu")
+    files = [SOURCE[kind]] + sorted(f for f in os.listdir(var["csrc"]) if f.endswith(".cuh"))
+    texts = {}
+    for name in files:
+        with open(os.path.join(var["csrc"], name)) as f:
+            texts[name] = f.read()
+    texts = with_constants_in(texts, var["constants"])
+    key = hashlib.sha256(("".join(texts.values()) + var["csrc"]).encode()).hexdigest()[:12]
+    vdir = os.path.join(out_dir, f"{kind}_{var['name']}_{key}")
+    lib = os.path.join(vdir, "lib.so")
+    text = texts[SOURCE[kind]]
     if not os.path.exists(lib):
-        with open(src, "w") as f:
-            f.write(text)
+        os.makedirs(vdir, exist_ok=True)
+        for name, body in texts.items():
+            with open(os.path.join(vdir, name), "w") as f:
+                f.write(body)
         nvcc = _build.find_nvcc()
         cmd = [nvcc, *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-shared", "-I", os.path.abspath(var["csrc"]), "-o", lib, src]
+               "-shared", "-I", vdir, "-o", lib, os.path.join(vdir, SOURCE[kind])]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
                if "registers" in ln or "spill" in ln or "warning" in ln or "error" in ln]
@@ -102,6 +131,8 @@ def build_variant(kind: str, var: dict, out_dir: str) -> ctypes.CDLL:
         fn.argtypes = [_P] * 6 + [_I] * 10 + [_F] + splits + [_P]
     elif kind == "decode":
         fn.argtypes = [_P] * 6 + [_I] * 7 + [_F] + splits + [_P]
+    elif kind == "paged":
+        fn.argtypes = [_P] * 6 + [_I] * 8 + [_F] + splits + [_P]
     else:
         fn.argtypes = [_P] * 8 + [_I] * 8 + [_F] + splits + [_P]
     fn.restype = ctypes.c_int
@@ -174,6 +205,48 @@ def quant_caller(var: dict, q, ops, kw, dense):
     return run
 
 
+def paged_caller(var: dict, q, kp, vp, table, kw, dense):
+    """A no-argument call of the variant's paged decode kernel (the variant
+    "dense": this tree's decode_attention over the dense view `dense`)."""
+    from mllm_tpu_torch.ops.decode_attention import PAGE, decode_attention
+
+    if var["name"] == "dense":
+        return lambda: decode_attention(q, *dense, **kw)
+    out = torch.empty_like(q)
+    b, _, h, d = q.shape
+    nb, hkv = kp.shape[:2]
+    maxb = table.shape[1]
+    splits = var["splits"] or decode_splits(b, hkv, h // hkv, maxb * PAGE, sm_count(0))
+    args = (q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(), out.data_ptr(),
+            kw["kv_valid_len"].data_ptr(), b, h, hkv, nb, maxb, d, 0, int(kw["window"] or 0), d**-0.5 * LOG2E,
+            *([splits] if var["with_splits"] else []), torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        err = var["fn"](*args)
+        if err != 0:
+            raise RuntimeError(f"{var['name']}: launch failed with CUDA error {err}")
+        return out
+
+    return run
+
+
+def main_paged(args, variants, dev):
+    """--kernel paged: every row of chip_smoke.PAGED_ROWS (or the main row),
+    against decode_attention_paged_ref on the pools with the unseen rows
+    zeroed."""
+    from mllm_tpu_torch.ops.decode_attention import decode_attention_paged_ref
+
+    rows = chip_smoke.PAGED_ROWS
+    if args.rows == "main":
+        rows = [rows[chip_smoke.MAIN_ROW["decode_attention_paged"]]]
+    g = torch.Generator(device=dev).manual_seed(1234)
+    for row in rows:
+        q, kp, vp, table, kw, shape, plain_pools, dense = chip_smoke.paged_inputs(row, dev, g)
+        ref = decode_attention_paged_ref(q, *plain_pools, table, **kw).float()
+        runs = [paged_caller(var, q, kp, vp, table, kw, dense) for var in variants]
+        time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape)["bound_ms"])
+
+
 def time_variants(args, variants, runs, ref, shape, bound_ms):
     errs = []
     for run in runs:
@@ -213,7 +286,7 @@ def main_quant(args, variants, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--kernel", choices=("flash", "decode", "decode_quant"), required=True)
+    ap.add_argument("--kernel", choices=("flash", "decode", "decode_quant", "paged"), required=True)
     ap.add_argument("--variant", action="append", required=True)
     ap.add_argument("--rows", choices=("main", "all"), default="all")
     ap.add_argument("--reps", type=int, default=2)
@@ -224,9 +297,11 @@ def main():
     os.makedirs(out_dir, exist_ok=True)
     variants = [parse_variant(s) for s in args.variant]
     handles = [build_variant(args.kernel, var, out_dir) for var in variants  # noqa: F841
-               if var["name"] not in ("sdpa", "bf16")]
+               if var["name"] not in YARDSTICKS]
     if args.kernel == "decode_quant":
         return main_quant(args, variants, dev)
+    if args.kernel == "paged":
+        return main_paged(args, variants, dev)
     kind = "flash_attention" if args.kernel == "flash" else "decode_attention"
     row_list = chip_smoke.FLASH_ROWS if args.kernel == "flash" else chip_smoke.DECODE_ROWS
     if args.rows == "main":

@@ -1,5 +1,5 @@
-"""Time variants of int4_matmul, of int8_matmul and of the decode megakernel
-against each other on one card, in turns.
+"""Time variants of int4_matmul, of int8_matmul, of the fused int4 MLP and of
+the decode megakernel against each other on one card, in turns.
 
     python3 tools/int4_tune.py --kernel int4 \\
         --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc \\
@@ -7,12 +7,15 @@ against each other on one card, in turns.
     python3 tools/int4_tune.py --kernel mega --variant new=... --variant parent=...
     python3 tools/int4_tune.py --kernel int8 --variant new=... --variant parent=... \\
         --variant gemm=mllm_tpu_torch/csrc:qm.INT8_STREAM_MAX_M=0 --variant library --variant cublas
+    python3 tools/int4_tune.py --kernel mlp --variant new=... --variant parent=... --variant unfused
+    python3 tools/int4_tune.py --kernel mlp --sweep [--rows main]
 
-A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...]: `int4_matmul.cu` or
-`int8_matmul.cu` (each with `split_k.cu`) or `decode_step.cu` of that directory, with each named
-`constexpr int CONSTANT = ...;` set to VALUE (or, for `qm.NAME` / `ds.NAME`,
-a constant of the host plan in ops/quant_matmul.py / ops/decode_step.py set
-while the variant runs) in a copy under
+A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...]: `int4_matmul.cu`,
+`int8_matmul.cu`, `fused_int4_mlp.cu` (each with `split_k.cu` where that
+directory has one) or `decode_step.cu` of that directory, with each named
+`constexpr int CONSTANT = ...;` set to VALUE (or, for `qm.NAME` / `ds.NAME` /
+`fm.NAME`, a constant of the host plan in ops/quant_matmul.py /
+ops/decode_step.py / ops/fused_mlp.py set while the variant runs) in a copy under
 build/kernels/tune (headers from CSRC_DIR), compiled with nvcc for sm_90a and
 launched by the wrappers of the package that holds CSRC_DIR (another tree's
 `mllm_tpu_torch`, such as the parent's, is imported under a name of its own),
@@ -20,10 +23,14 @@ so each kernel runs with its own host plan, workspace and C signature. The
 variant `library` times torch._weight_int4pack_mm on the same weights
 (symmetric int4 rows), or torch._weight_int8pack_mm (int8); `cublas` (int8)
 times torch.mm on the weight already dequantized to bf16, a yardstick of
-another function.
+another function; `unfused` (mlp) times the unfused route through this
+tree's kernels (int4_matmul on gate and up, the activation, int4_matmul on
+down: chip_smoke.fused_mlp_calls).
 
 Rows: chip_smoke.INT4_ROWS (every int4_matmul row of the smoke),
-chip_smoke.INT8_ROWS (every int8_matmul row), or
+chip_smoke.INT8_ROWS (every int8_matmul row), chip_smoke.FUSED_MLP_ROWS
+(every fused_int4_mlp row; `--sweep` times every plan of this tree's kernel
+at them instead of variants), or
 chip_smoke.MEGA_ROWS (b=1 at pos 0 / 100 / 1531, b=8 at unequal positions,
 b=32 at 200, b=16 at unequal positions), at full width; `--rows main` keeps the smoke's main row. Each
 row runs the variants in order, then in reverse, `--reps` times, each timed as
@@ -55,21 +62,26 @@ import chip_smoke  # noqa: E402
 from attention_tune import with_constants  # noqa: E402
 from mllm_tpu_torch.ops import _build  # noqa: E402
 from mllm_tpu_torch.ops import decode_step as ds  # noqa: E402
+from mllm_tpu_torch.ops import fused_mlp as fm  # noqa: E402
 from mllm_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 
-SOURCES = {"int4": ("int4_matmul.cu", "split_k.cu"), "mega": ("decode_step.cu",),
-           "int8": ("int8_matmul.cu", "split_k.cu")}
+SOURCES = {"int4": ("int4_matmul.cu",), "mega": ("decode_step.cu",), "int8": ("int8_matmul.cu",),
+           "mlp": ("fused_int4_mlp.cu",)}
+OPTIONAL_SOURCES = ("split_k.cu",)  # built beside the kernel where a tree has it (older trees' split-K pass)
+YARDSTICKS = ("library", "cublas", "unfused")  # variant names that are calls, not sources
+HOST = ("qm.", "ds.", "fm.")  # prefixes of host-plan constants
 
 
 def parse_variant(spec: str) -> dict:
     """NAME=CSRC[:C=V,...]: a C naming a module constant of the host plan
-    (`qm.BLOCK_BPS`, `ds.ITEM_COST`) is set for that variant's calls only;
-    the others are `constexpr int`s of the kernel source."""
+    (`qm.BLOCK_BPS`, `ds.ITEM_COST`, `fm.MLP_ITEM_S`) is set for that
+    variant's calls only; the others are `constexpr int`s of the kernel
+    source."""
     name, _, rest = spec.partition("=")
     csrc, _, constants = rest.partition(":")
     items = [c for c in constants.split(",") if c]
-    host = [c.split("=") for c in items if c.startswith(("qm.", "ds."))]
-    return dict(name=name, csrc=csrc, constants=[c for c in items if not c.startswith(("qm.", "ds."))],
+    host = [c.split("=") for c in items if c.startswith(HOST)]
+    return dict(name=name, csrc=csrc, constants=[c for c in items if not c.startswith(HOST)],
                 host=[(*k.split(".", 1), float(v)) for k, v in host])
 
 
@@ -83,19 +95,28 @@ class host_constants:
         self.saved = [(mod, nm, getattr(mod, nm)) for mod, nm, _ in self.host]
         for mod, nm, v in self.host:
             setattr(mod, nm, type(getattr(mod, nm))(v))
+        self.clear_plans()
 
     def __exit__(self, *exc):
         for mod, nm, v in self.saved:
             setattr(mod, nm, v)
+        self.clear_plans()
+
+    def clear_plans(self):
+        """A cached plan was made under other constants: drop it."""
+        for mod, _, _ in self.host:
+            if hasattr(getattr(mod, "fused_mlp_plan", None), "cache_clear"):
+                mod.fused_mlp_plan.cache_clear()
 
 
 def tree_modules(csrc: str) -> dict:
-    """{"qm", "ds", "build"}: ops/quant_matmul.py, ops/decode_step.py and
-    ops/_build.py of the package that holds csrc: this one's, or another
-    tree's imported under a name of its own (its imports are relative)."""
+    """{"qm", "ds", "fm", "build"}: ops/quant_matmul.py, ops/decode_step.py,
+    ops/fused_mlp.py and ops/_build.py of the package that holds csrc: this
+    one's, or another tree's imported under a name of its own (its imports
+    are relative)."""
     pkg = os.path.dirname(os.path.abspath(csrc))
     if pkg == os.path.dirname(os.path.dirname(os.path.abspath(qm.__file__))):
-        return dict(qm=qm, ds=ds, build=_build)
+        return dict(qm=qm, ds=ds, fm=fm, build=_build)
     name = "tree_" + hashlib.sha256(pkg.encode()).hexdigest()[:12]
     if name not in sys.modules:
         spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
@@ -103,7 +124,8 @@ def tree_modules(csrc: str) -> dict:
         sys.modules[name] = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(sys.modules[name])
     return {key: importlib.import_module(f"{name}.ops.{mod}")
-            for key, mod in (("qm", "quant_matmul"), ("ds", "decode_step"), ("build", "_build"))}
+            for key, mod in (("qm", "quant_matmul"), ("ds", "decode_step"), ("fm", "fused_mlp"),
+                             ("build", "_build"))}
 
 
 class tree_library:
@@ -125,9 +147,10 @@ def build_variant(kind: str, var: dict, out_dir: str) -> None:
     its entry points with its package's C signatures into var["lib"], and
     its package's modules into var."""
     texts = []
-    for src in SOURCES[kind]:
+    sources = SOURCES[kind] + tuple(src for src in OPTIONAL_SOURCES if os.path.exists(os.path.join(var["csrc"], src)))
+    for src in sources:
         with open(os.path.join(var["csrc"], src)) as f:
-            texts.append(with_constants(f.read(), var["constants"] if src == SOURCES[kind][0] else []))
+            texts.append(with_constants(f.read(), var["constants"] if src == sources[0] else []))
     key = hashlib.sha256(("".join(texts) + var["csrc"]).encode()).hexdigest()[:12]
     vdir = os.path.join(out_dir, f"{kind}_{var['name']}_{key}")
     lib = os.path.join(vdir, "lib.so")
@@ -137,7 +160,7 @@ def build_variant(kind: str, var: dict, out_dir: str) -> None:
             if hdr.endswith(".cuh"):
                 shutil.copy(os.path.join(var["csrc"], hdr), vdir)
         paths = []
-        for src, text in zip(SOURCES[kind], texts):
+        for src, text in zip(sources, texts):
             paths.append(os.path.join(vdir, src))
             with open(paths[-1], "w") as f:
                 f.write(text)
@@ -196,6 +219,91 @@ def int8_rows(args, variants, dev, g):
         calls = {v["name"]: int8_caller(v, x, q, s, lib) for v in variants}
         yield (dict(m=m, K=k, N=n), calls, lambda: qm.int8_matmul_ref(x, q, s),
                chip_smoke.bound(k * n + 4 * n + m * k * 2 + m * n * 4, 2 * m * k * n))
+
+
+def mlp_rows(args, variants, dev, g):
+    """chip_smoke.FUSED_MLP_ROWS: each variant's package's fused_int4_mlp on
+    its library; `unfused` the unfused route through this tree's kernels."""
+    from mllm_tpu_torch.ops.fused_mlp import pick_block_f
+
+    rows = chip_smoke.FUSED_MLP_ROWS
+    if args.rows == "main":
+        rows = [rows[chip_smoke.MAIN_ROW["fused_int4_mlp"]]]
+    operands = {}
+    for m, act, affine, (d, ff) in rows:
+        if (d, ff) not in operands:
+            operands = {(d, ff): chip_smoke.fused_mlp_operands(d, ff, dev, g)}
+        block_f = pick_block_f(ff)
+        x = torch.randn(m, d, device=dev, generator=g).to(torch.bfloat16)
+        kernel, plain, unfused = chip_smoke.fused_mlp_calls(x, operands[(d, ff)], act, affine, block_f)
+        gate, up, down = ((*op, (-8.0 * op[1]) if affine else None) for op in operands[(d, ff)][:3])
+
+        def call(var, x=x, gate=gate, up=up, down=down, act=act, block_f=block_f):
+            def run():
+                with tree_library(var), host_constants(var):
+                    return var["fm"].fused_int4_mlp(x, gate, up, down, act=act, block_f=block_f)
+            return run
+
+        calls = {v["name"]: unfused if v["name"] == "unfused" else call(v) for v in variants
+                 if v["name"] not in ("library", "cublas")}
+        wb = 2 * chip_smoke.int4_bytes(d, ff, affine) + chip_smoke.int4_bytes(ff, d, affine)
+        yield (dict(m=m, d=d, ff=ff, block_f=block_f, act=act, affine=affine), calls, plain,
+               chip_smoke.bound(wb + m * d * 2 + m * d * 4, 2 * m * 3 * d * ff))
+
+
+def mlp_sweep(args, dev, g):
+    """--kernel mlp --sweep: every plan (splits_a, rows_a, splits_b, rows_b)
+    the kernel takes at each row, through this tree's C entry point on the
+    grid the wrapper would use: one JSON line per plan (the time, as
+    chip_smoke.time_ms takes it, the best of `--reps`, the error against the
+    plain version), then the plan `fused_mlp_plan` picks."""
+    from mllm_tpu_torch.ops.fused_mlp import fused_mlp_plan, mlp_blocks, mlp_chunk_rows, pick_block_f
+
+    rows = chip_smoke.FUSED_MLP_ROWS
+    if args.rows == "main":
+        rows = [rows[chip_smoke.MAIN_ROW["fused_int4_mlp"]]]
+    operands, lib = {}, _build.library()
+    for m, act, affine, (d, ff) in rows:
+        if (d, ff) not in operands:
+            operands = {(d, ff): chip_smoke.fused_mlp_operands(d, ff, dev, g)}
+        bf = pick_block_f(ff)
+        x = torch.randn(m, d, device=dev, generator=g).to(torch.bfloat16)
+        _, plain, _ = chip_smoke.fused_mlp_calls(x, operands[(d, ff)], act, affine, bf)
+        ref = plain()
+        gate, up, down = ((*op, (-8.0 * op[1]) if affine else None) for op in operands[(d, ff)][:3])
+        mt8 = qm.pow2_rows(-(-m // 8), 4)
+        cap = mlp_chunk_rows(mt8, affine)
+        grid = qm.sm_count(0) * mlp_blocks(0, mt8, affine, cap)
+        ka, kb, ta, tb = d // 64, ff // 64, -(-ff // 512), -(-d // 512)
+        counters = qm.tile_counters(dev, ta + 2 * tb + 1)
+        out = torch.empty(m, d, device=dev)
+        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+        shape = dict(m=m, d=d, ff=ff, block_f=bf, act=act, affine=affine, grid=grid)
+        for ra in sorted({-(-ka // sa) for sa in range(1, ka + 1)}):
+            sa = -(-ka // ra)
+            for rb in sorted({-(-kb // sb) for sb in range(1, kb + 1)}):
+                sb = -(-kb // rb)
+                if tb * sb > grid or 32 * (8 * mt8 + 4 * sa * m) > cap * 8 * mt8:
+                    continue
+                ws = torch.empty(2 * sa * m * ta * 512 + sb * m * tb * 512, device=dev)
+
+                def run(sa=sa, ra=ra, sb=sb, rb=rb, ws=ws):
+                    err = lib.mllm_fused_int4_mlp_bf16(
+                        x.data_ptr(), gate[0].data_ptr(), gate[1].data_ptr(), ptr(gate[2]), up[0].data_ptr(),
+                        up[1].data_ptr(), ptr(up[2]), down[0].data_ptr(), down[1].data_ptr(), ptr(down[2]),
+                        ws.data_ptr(), counters.data_ptr(), out.data_ptr(), m, d, gate[0].shape[0], ff, d, bf,
+                        fm._ACT_ID[act], mt8, sa, ra * 32, sb, rb * 32, cap, grid,
+                        torch.cuda.current_stream().cuda_stream)
+                    qm.launch_or_raise("fused_int4_mlp (sweep)", err)
+                    return out
+
+                run()
+                torch.cuda.synchronize()
+                print(json.dumps(dict(kernel="mlp", sweep=shape, splits_a=sa, rows_a=ra * 32, splits_b=sb,
+                                      rows_b=rb * 32, rel_err=rel_err(out, ref),
+                                      ms=min(chip_smoke.time_ms(run, 20) for _ in range(args.reps)))), flush=True)
+        print(json.dumps(dict(kernel="mlp", sweep=shape, planned=fused_mlp_plan(m, d, ff, d, bf, grid, affine))),
+              flush=True)
 
 
 def mega_caller(var, kernel_name, args, kw):
@@ -283,21 +391,26 @@ def mega_rows(args, variants, dev, g):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--kernel", choices=("int4", "mega", "int8"), required=True)
-    ap.add_argument("--variant", action="append", required=True)
+    ap.add_argument("--kernel", choices=("int4", "mega", "int8", "mlp"), required=True)
+    ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--rows", choices=("main", "all"), default="all")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--sweep", action="store_true",
+                    help="--kernel mlp: time every plan of this tree's kernel (no --variant needed)")
     args = ap.parse_args()
     chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
     out_dir = os.path.join(os.path.dirname(_build.library_path()), "tune")
     os.makedirs(out_dir, exist_ok=True)
+    if args.sweep:
+        return mlp_sweep(args, dev, torch.Generator(device=dev).manual_seed(1234))
     variants = [parse_variant(s) for s in args.variant]
     for var in variants:
-        if var["name"] not in ("library", "cublas"):
+        if var["name"] not in YARDSTICKS:
             build_variant(args.kernel, var, out_dir)
     g = torch.Generator(device=dev).manual_seed(1234)
-    rows = {"int4": int4_rows, "mega": mega_rows, "int8": int8_rows}[args.kernel](args, variants, dev, g)
+    rows = {"int4": int4_rows, "mega": mega_rows, "int8": int8_rows, "mlp": mlp_rows}[args.kernel](
+        args, variants, dev, g)
     time_rows(args, variants, rows)
 
 
