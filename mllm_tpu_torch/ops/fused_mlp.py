@@ -131,7 +131,7 @@ def mlp_stage_bytes(affine: bool) -> int:
     return STAGE_ROWS * (TILE_N + 32) + (4 if affine else 2) * TILE_N * 4
 
 
-def mlp_blocks_per_sm(mt8: int, affine: bool) -> int:
+def mlp_blocks_per_sm(mt8: int) -> int:
     """The blocks an SM is meant to hold: two up to 16 rows of x, one at 32
     (registers)."""
     return 2 if mt8 <= 2 else 1
@@ -142,7 +142,7 @@ def mlp_chunk_rows(mt8: int, affine: bool) -> int:
     ring, at mlp_blocks_per_sm blocks an SM (1 KB of each block's share is
     the system's): x staged as the bf16 pairs of both halves for 8 mt8 rows,
     32 mt8 bytes a packed row. A down chunk makes its h there too."""
-    per = mlp_blocks_per_sm(mt8, affine)
+    per = mlp_blocks_per_sm(mt8)
     budget = min(SMEM_PER_BLOCK, SMEM_PER_SM // per - 1024) - MLP_STAGES * mlp_stage_bytes(affine)
     return max(STAGE_ROWS, budget // (32 * mt8) // STAGE_ROWS * STAGE_ROWS)
 
@@ -244,10 +244,10 @@ def fused_int4_mlp(x, gate_ops, up_ops, down_ops, *, act: str = "silu",
     out = torch.empty(m, n_out, device=x.device, dtype=torch.float32)
     if m == 0:
         return out.reshape(*x.shape[:-1], n_out)
-    dev = x.device.index or 0
-    cap = mlp_chunk_rows(pow2_rows(-(-m // 8), 4), affine)
-    grid = sm_count(dev) * mlp_blocks(dev, pow2_rows(-(-m // 8), 4), affine, cap)
-    mt8, sa, rows_a, sb, rows_b = fused_mlp_plan(m, d, ff, n_out, block_f, grid, affine)
+    dev, mt8 = x.device.index or 0, pow2_rows(-(-m // 8), 4)
+    cap = mlp_chunk_rows(mt8, affine)
+    grid = sm_count(dev) * mlp_blocks(dev, mt8, affine, cap)
+    _, sa, rows_a, sb, rows_b = fused_mlp_plan(m, d, ff, n_out, block_f, grid, affine)
     ta, tb = -(-ff // TILE_N), -(-n_out // TILE_N)
     ws = torch.empty(2 * sa * m * ta * TILE_N + sb * m * tb * TILE_N, device=x.device,
                      dtype=torch.float32)  # the partials of the gate/up items, then of the down chunks

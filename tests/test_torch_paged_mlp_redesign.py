@@ -308,7 +308,7 @@ MLP_CASES = [(64, 256, 8, "silu", False, None), (64, 256, 3, "gelu_new", True, N
 @pytest.mark.parametrize("d,ff,m,act,affine,plan", MLP_CASES)
 def test_fused_mlp_kernel_order(d, ff, m, act, affine, plan):
     ops, bf = _mlp_ops(d, ff, affine)
-    grid = SMS * tfm.mlp_blocks_per_sm(pow2_rows(-(-m // 8), 4), affine)
+    grid = SMS * tfm.mlp_blocks_per_sm(pow2_rows(-(-m // 8), 4))
     if plan is None:
         plan = tfm.fused_mlp_plan(m, d, ff, d, bf, grid, affine)
     x = to_bf16(np.random.default_rng(m + d).standard_normal((m, d)))
@@ -392,7 +392,7 @@ def test_fused_plan_covers_once_and_cannot_deadlock(model, m):
     bf = tfm.pick_block_f(ff)
     for affine in (False, True):
         mt8 = pow2_rows(-(-m // 8), 4)
-        grid = SMS * tfm.mlp_blocks_per_sm(mt8, affine)
+        grid = SMS * tfm.mlp_blocks_per_sm(mt8)
         plan = tfm.fused_mlp_plan(m, d, ff, d, bf, grid, affine)
         pmt8, sa, rows_a, sb, rows_b = plan
         assert pmt8 == mt8 and m <= 8 * mt8 and rows_a % STAGE_ROWS == 0 and rows_b % STAGE_ROWS == 0
@@ -416,7 +416,7 @@ def test_fused_plan_covers_once_and_cannot_deadlock(model, m):
         assert steps_left(kernel_steps(blocks, bf), sa, sb, ta, tb) == 0
         # the x (or h) a block stages beside its ring fits the card's shared memory
         smem = tfm.MLP_STAGES * tfm.mlp_stage_bytes(affine) + 32 * mt8 * tfm.mlp_chunk_rows(mt8, affine)
-        assert smem <= tfm.SMEM_PER_SM // tfm.mlp_blocks_per_sm(mt8, affine) - 1024
+        assert smem <= tfm.SMEM_PER_SM // tfm.mlp_blocks_per_sm(mt8) - 1024
 
 
 def test_simulation_finds_a_deadlock():
