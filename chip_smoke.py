@@ -38,6 +38,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      integers and scales outside [kv_start, kv_valid) hold 127 and NaN / inf
      (plain version on them zeroed), and time the bf16 decode_attention
      kernel over the same keys dequantized (`bf16_decode_ms`, the yardstick).
+     The quantized prefill rows (QUANT_FLASH_ROWS: the 1536-token prompt, a
+     batched admission, a chunk over a long cache, a left-padded batch, a
+     sliding window, a poisoned batch, head_dim 64 with 8/8 heads) time the
+     bf16 flash_attention kernel over the same keys dequantized
+     (`bf16_flash_ms`, the yardstick).
      Every row carries its bound: the larger of its bytes over 3.35 TB/s and
      its FLOPs over 989 TFLOP/s (bf16); the attention main rows also time
      scaled_dot_product_attention on the same inputs (`library_ms`), every
@@ -454,18 +459,69 @@ QUANT_DECODE_ROWS = [
 ]
 
 
-def quant_kv(b, s, bits, dev, g):
+def quant_kv(b, s, bits, dev, g, hkv=HKV, d=D):
     """Random K and V [B, H_kv, s, D] quantized over D by the caches' own
     quantizer: [(integers, scales, dense bf16 dequantization)] for K and V."""
     from mllm_tpu_torch.kv.cache import quantize_kv
 
     out = []
     for _ in range(2):
-        x = torch.randn(b, HKV, s, D, device=dev, generator=g)
+        x = torch.randn(b, hkv, s, d, device=dev, generator=g)
         q, sc = quantize_kv(x, bits)
         vals = q.float() if bits == 8 else torch.cat([(q & 15).float(), (q >> 4).float()], -1) - 8
         out.append((q, sc, (vals * sc[..., None]).to(torch.bfloat16)))
     return out
+
+
+def poison_quant(kq, vq, ks, vs, kd, vd, lo, hi):
+    """Quantized K/V with the keys outside [lo[b], hi[b]) holding 127 and NaN /
+    inf scales (alternating by key), as an earlier request may leave a slot:
+    (kernel operands (k, v, k_scale, v_scale), plain operands with those
+    integers and scales zeroed, dense K and V with those rows zeroed)."""
+    dev = kq.device
+    j = torch.arange(kq.shape[2], device=dev)
+    lo_t, hi_t = (torch.tensor(xs, device=dev, dtype=torch.int32)[:, None] for xs in (lo, hi))
+    bad = ((j[None] < lo_t) | (j[None] >= hi_t))[:, None, :]  # [B, 1, S]
+    fill = torch.where(j % 2 == 0, float("nan"), float("inf"))[None, None, :]
+    kernel_ops = tuple(torch.where(bad[..., None], torch.full_like(t, 127), t) for t in (kq, vq)) + tuple(
+        torch.where(bad, fill, t) for t in (ks, vs))
+    plain_ops = tuple(torch.where(bad[..., None], torch.zeros_like(t), t) for t in (kq, vq)) + tuple(
+        torch.where(bad, torch.zeros_like(t), t) for t in (ks, vs))
+    dense = tuple(torch.where(bad[..., None], torch.zeros_like(t), t) for t in (kd, vd))
+    return kernel_ops, plain_ops, dense
+
+
+# quantized flash: (B, Sq, Skv, q_offset, kv_valid, kv_start, window, poisoned, (H, H_kv, D))
+QUANT_FLASH_ROWS = [
+    (1, 1536, 1536, 0, 1536, None, None, False, (H, HKV, D)),           # the 1500-token prompt's prefill
+    (8, 128, 128, 0, 128, None, None, False, (H, HKV, D)),              # a batched admission of 8 buckets
+    (1, 128, 1536, 1408, 1536, None, None, False, (H, HKV, D)),         # the last chunk of a chunked prefill
+    (4, 256, 256, 0, 256, [0, 17, 64, 150], None, False, (H, HKV, D)),  # a left-padded ragged batch
+    (1, 512, 1536, 1024, 1536, None, 256, False, (H, HKV, D)),          # a sliding window over a chunk
+    # stale rows: integers and scales outside [kv_start, kv_valid) hold 127 and NaN / inf
+    (4, 256, 256, 0, 200, [0, 17, 64, 150], None, True, (H, HKV, D)),
+    (2, 384, 384, 0, 384, [0, 40], None, False, (8, 8, 64)),            # head_dim 64, MHA
+]
+
+
+def quant_flash_inputs(row, bits, dev, g):
+    """One QUANT_FLASH_ROWS row at `bits`: (q, kernel operands (k, v, k_scale,
+    v_scale), plain operands, kwargs, shape, dense bf16 K and V of the plain
+    operands). A poisoned row's kernel operands hold 127 and NaN / inf scales
+    outside [kv_start, kv_valid); its plain operands have them zeroed (else
+    they are the kernel's)."""
+    b, sq, skv, qoff, kvl, start, window, poisoned, (h, hkv, d) = row
+    q = torch.randn(b, sq, h, d, device=dev, generator=g).to(torch.bfloat16)
+    (kq, ks, kd), (vq, vs, vd) = quant_kv(b, skv, bits, dev, g, hkv, d)
+    kw = dict(q_offset=qoff, kv_valid_len=kvl, window=window,
+              kv_start=None if start is None else torch.tensor(start, device=dev, dtype=torch.int32))
+    shape = dict(B=b, Sq=sq, H=h, Hkv=hkv, D=d, S=skv, q_offset=qoff, kv_valid=kvl, kv_start=start,
+                 window=window, bits=bits)
+    kernel_ops = plain_ops = (kq, vq, ks, vs)
+    if poisoned:
+        kernel_ops, plain_ops, (kd, vd) = poison_quant(kq, vq, ks, vs, kd, vd, start or [0] * b, [kvl] * b)
+        shape["poisoned"] = "127 and NaN / inf scales outside [kv_start, kv_valid); plain version on them zeroed"
+    return q, kernel_ops, plain_ops, kw, shape, (kd, vd)
 
 
 def quant_decode_inputs(row, bits, dev, g):
@@ -483,15 +539,7 @@ def quant_decode_inputs(row, bits, dev, g):
                  kv_valid_given=kvl, kv_start=start, window=window, bits=bits)
     kernel_ops = plain_ops = (kq, vq, ks, vs)
     if poisoned:
-        j = torch.arange(S_CACHE, device=dev)
-        lo, hi = ivec(start or [0] * b)[:, None], ivec(kvl)[:, None]
-        bad = ((j[None] < lo) | (j[None] >= hi))[:, None, :]  # [B, 1, S]
-        fill = torch.where(j % 2 == 0, float("nan"), float("inf"))[None, None, :]
-        kernel_ops = tuple(torch.where(bad[..., None], torch.full_like(t, 127), t) for t in (kq, vq)) + tuple(
-            torch.where(bad, fill, t) for t in (ks, vs))
-        plain_ops = tuple(torch.where(bad[..., None], torch.zeros_like(t), t) for t in (kq, vq)) + tuple(
-            torch.where(bad, torch.zeros_like(t), t) for t in (ks, vs))
-        kd, vd = (torch.where(bad[..., None], torch.zeros_like(t), t) for t in (kd, vd))
+        kernel_ops, plain_ops, (kd, vd) = poison_quant(kq, vq, ks, vs, kd, vd, start or [0] * b, kvl)
         shape["poisoned"] = "127 and NaN / inf scales outside [kv_start, kv_valid); plain version on them zeroed"
     return q, kernel_ops, plain_ops, kw, shape, (kd, vd)
 
@@ -552,20 +600,22 @@ def paged_inputs(row, dev, g):
 
 def kv_kernel_rows(dev, g) -> dict:
     """The kernels of the quantized and paged caches against their plain
-    versions (H=12, H_kv=2, D=128; max |kernel - plain| <= TOL): the int8 and
+    versions (H=12, H_kv=2, D=128, one quantized prefill row at D=64 with 8/8
+    heads; max |kernel - plain| <= TOL): the int8 and
     int4 kernels on K/V quantized by the caches' own quantizer, the paged one
     over a shuffled pool. Bytes: q, the output, and each visible key's K/V
     bytes with its two f32 scales (paged: bf16 K/V). No single PyTorch call
     takes these layouts (library_ms null); `dense_sdpa_ms` times SDPA over the
     same keys in a dense bf16 cache, a different function kept for context,
-    and on the quantized decode rows `bf16_decode_ms` the bf16 decode_attention
-    kernel over that dense cache (twice the bytes at int8), its yardstick; on
+    and on the quantized prefill (decode) rows `bf16_flash_ms`
+    (`bf16_decode_ms`) the bf16 flash_attention (decode_attention) kernel over
+    that dense cache (twice the bytes at int8), its yardstick; on
     the paged rows `dense_decode_ms` the same kernel over the dense view of the
     slots' blocks (the same bytes), the paged kernel's yardstick."""
     from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
                                                      decode_attention_paged_ref, decode_attention_quant,
                                                      decode_attention_quant_ref)
-    from mllm_tpu_torch.ops.flash_attention import flash_attention_quant, flash_attention_quant_ref
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_quant, flash_attention_quant_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -600,23 +650,15 @@ def kv_kernel_rows(dev, g) -> dict:
     rows = {"flash_attention_quant": [], "decode_attention_quant": [], "decode_attention_paged": []}
     for bits in (8, 4):
         kb = 2 * (D if bits == 8 else D // 2) + 8
-        # flash: (B, Sq, Skv, q_offset, kv_valid, kv_start)
-        for b, sq, skv, qoff, kvl, start in [
-            (1, 1536, 1536, 0, 1536, None),              # the 1500-token prompt's prefill
-            (8, 128, 128, 0, 128, None),                 # a batched admission of 8 buckets
-            (1, 128, 1536, 1408, 1536, None),            # the last chunk of a chunked prefill
-            (4, 256, 256, 0, 256, [0, 17, 64, 150]),     # a left-padded ragged batch
-        ]:
-            q = torch.randn(b, sq, H, D, device=dev, generator=g).to(torch.bfloat16)
-            (kq, ks, kd), (vq, vs, vd) = quant_kv(b, skv, bits, dev, g)
-            kw = dict(q_offset=qoff, kv_valid_len=kvl, kv_start=None if start is None else ivec(start))
+        for row in QUANT_FLASH_ROWS:
+            q, kops, pops, kw, shape, (kd, vd) = quant_flash_inputs(row, bits, dev, g)
+            kvl, qoff, d = shape["kv_valid"], shape["q_offset"], shape["D"]
             rows["flash_attention_quant"].append(check(
-                "flash_attention_quant", lambda: flash_attention_quant(q, kq, vq, ks, vs, **kw),
-                lambda: flash_attention_quant_ref(q, kq, vq, ks, vs, **kw),
-                dict(B=b, Sq=sq, H=H, Hkv=HKV, D=D, S=skv, q_offset=qoff, kv_valid=kvl, kv_start=start,
-                     window=None, bits=bits), kb,
+                "flash_attention_quant", lambda: flash_attention_quant(q, *kops, **kw),
+                lambda: flash_attention_quant_ref(q, *pops, **kw), shape, 2 * (d if bits == 8 else d // 2) + 8,
                 lambda: sdpa(q.transpose(1, 2), kd[:, :, :kvl], vd[:, :, :kvl], is_causal=qoff == 0,
-                             enable_gqa=True)))
+                             enable_gqa=True),
+                {"bf16_flash_ms": lambda: flash_attention(q, kd, vd, **kw)}))
         for row in QUANT_DECODE_ROWS:
             q, kops, pops, kw, shape, (kd, vd) = quant_decode_inputs(row, bits, dev, g)
             m = mask(shape["kv_valid"], S_CACHE, row[2], row[3])
@@ -1511,7 +1553,7 @@ def main():
                       bound_by=main_row["bound_by"], library_ms=main_row["library_ms"])
         if "rel_err" in main_row:
             kernel["max_rel_err"] = max(r["rel_err"] for r in rows[name])
-        for extra in ("dense_sdpa_ms", "bf16_decode_ms", "dense_decode_ms", "unfused_ms"):
+        for extra in ("dense_sdpa_ms", "bf16_flash_ms", "bf16_decode_ms", "dense_decode_ms", "unfused_ms"):
             if extra in main_row:
                 kernel[extra] = main_row[extra]
         kernels.append(kernel)

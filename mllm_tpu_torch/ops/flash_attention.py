@@ -23,6 +23,7 @@ raises. Each wrapper counts its kernel launches in `.launches`.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -103,6 +104,14 @@ def flash_attention(
 flash_attention.launches = 0
 
 
+@functools.cache
+def quant_q_scale(scale: float) -> float:
+    """The factor by which `flash_attention_quant` pre-scales q, as the f32
+    that the kernel multiplies by: scale * log2(e) rounded to bf16 (q's dtype,
+    as the JAX wrapper's `jnp.asarray(scale * log2 e, q.dtype)`)."""
+    return float(torch.tensor(scale * LOG2E, dtype=torch.bfloat16))
+
+
 def flash_attention_quant_ref(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # int8 [B, H_kv, Skv, D] or packed uint8 [B, H_kv, Skv, D/2]
@@ -154,7 +163,19 @@ def flash_attention_quant(
 ) -> torch.Tensor:
     """Prefill attention over int8 or packed-int4 K/V; same signature and
     arithmetic as `flash_attention_quant_ref`. On the card q_offset and
-    kv_valid_len are host ints, as the JAX wrapper's scalars."""
+    kv_valid_len are host ints, as the JAX wrapper's scalars.
+
+    The kernel (`csrc/flash_attention_quant.cu`, one launch) is bound by
+    matrix math past a few hundred tokens, as the bf16 one, and its integers
+    must become bf16 in shared memory before wgmma reads them: its producer
+    warpgroup loads the stored rows and their scales by TMA and converts each
+    tile's K and V into the bf16 kernel's swizzled ring a tile or more ahead
+    of the consumers, which run the bf16 kernel's products and softmax
+    (`csrc/flash_attention.cuh`). What still bounds it is the conversion's
+    issue beside the consumers' softmax on the same schedulers (PERF.md). q
+    goes in raw: the kernel rounds bf16(f32(q) * q_scale) in shared memory,
+    q_scale = f32(bf16(scale * log2 e)) (`quant_q_scale`), the product the
+    plain version takes in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_quant_ref(q, k, v, k_scale, v_scale, q_offset=q_offset,
                                          kv_valid_len=kv_valid_len, kv_start=kv_start,
@@ -170,13 +191,12 @@ def flash_attention_quant(
     start_vec = kv_start_arg(name, kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
-    qt = (q * torch.tensor(scale * LOG2E, dtype=q.dtype)).contiguous()
     out = torch.empty_like(q)
     err = _build.library().mllm_flash_attention_quant(
-        qt.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         out.data_ptr(), start_vec.data_ptr() if start_vec is not None else None,
         b, sq, h, hkv, skv, d, bits, q_offset, valid_int, int(causal), int(window or 0),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        quant_q_scale(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     flash_attention_quant.launches += 1
