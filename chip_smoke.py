@@ -57,6 +57,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      must be finite and within the tolerance of the plain version run on the
      same tensors with those rows zeroed. `kernel_geometry` checks both
      kernels at head_dim 64 and 128 with 8/8, 40/2 and 4/1 heads.
+     `kernel_check_device_scalars`: the three entries whose scalars may live
+     on the card (a captured loop's write head) at B=1 over the 2048 cache:
+     flash_attention (q_offset) and flash_attention_quant at int8 and int4
+     (q_offset and kv_valid_len) at the speculative verify shape (Sq 9 at
+     q_offset 1531) and a 256-row chunk at 1280, and fused_decode_step (pos
+     1531), each launched with one-element int32 tensors directly and from a
+     CUDA graph replayed with the scalars changed between replays: every
+     output bit-equal to the host-int launch at the same values and within
+     the tolerance of the plain version; the three kernels' main rows within
+     3 % of the final smoke of the tree before the device-scalar entries
+     (commit c967662; `kernel_check_main_row_vs_host_entry`).
   4. slice: a Qwen2-VL-2B-geometry LM (28 layers, random bf16 weights from a
      seeded generator) through generate, ragged_batched_generate and a
      sampled generate.
@@ -85,6 +96,40 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      teacher-forced steps against the base model (<= 0.1 x max |logit|);
      then the slice_engine run on it over a bf16 slot cache, every decode
      step one fused_decode_step_batched launch.
+  slice_compiled (in phases 4, 5, 6 and 8): generate_compiled, whose decode
+     loop replays a CUDA graph of 32 steps a window (the host reads `done`
+     once a window), on the bf16, int8, int4 and megakernel models and the
+     int8 model over int8 KV: prompts of 100 and 1500 tokens, 256 new tokens,
+     greedy tokens equal to the eager generate on the same model, a sampled
+     bf16 run equal to the eager sampled run with the same seed, and exactly
+     one graph replay a window; it prints tok/s of both, wall ms a token and
+     device ms a step (CUDA events around one replay / 32).
+  slice_sd (int8 model): bench.py's bench_sd prompts (a 16-token pattern x 8,
+     max_draft 8; Zipf(1.3) over 8192 ids, max_draft 4), 128 new tokens each
+     through speculative_generate_compiled (one graph of 8 verify steps a
+     window), speculative_generate and speculative_generate_tree (max_draft
+     6, 3 traces): every token within 0.1 x max |logit| of the top of a
+     teacher-forced prefill; prints lossless (equal to generate_compiled),
+     the first divergence, steps, drafted, accepted and tok/s against
+     generate_compiled.
+  slice_prefill (int8 model): chunked_prefill of a 1500-token prompt in
+     chunks of 256 over bf16 and int8 KV against a one-shot prefill (last
+     logits within 0.1 x max |logit|); prefill_with_prompt_cache of a second
+     prompt sharing the first 1024 tokens (matched exactly 1024) and of the
+     same prompt again (a full hit), within the same tolerance; prints ms.
+  The engine runs replay a captured window graph for every window (one for
+     greedy windows, one for sampled ones, captured at first use after a
+     warm-up model call that changes no state), and slice_engine adds
+     `engine_prefix`: prefix_cache=8 on the int8 model, bench_engine("prefix")
+     traffic (a shared 128-token prefix and a distinct 128-token tail, 8
+     requests x 48 new tokens): exactly 7 hits and 896 reused rows, the
+     teacher-forced check of 4 greedy requests, tok/s beside the bf16 engine
+     with eager windows (85.7, commit c967662's final smoke).
+  Launch counts with graphs: a wrapper counts where it launches, so inside a
+  capture once per recorded launch; the phases that replay graphs restate
+  them as launches on the card (`graphs.device_launches`: the counters less
+  the captures' recorded launches, plus each graph's launches times its
+  replays), and steps of a window past the end of a loop count too.
   Every slice phase checks finite logits and tokens inside the vocabulary;
   phases 4-6 also ragged-vs-alone prefill logits, the last greedy decode
   step's logits against a fresh prefill of the same tokens (<= 0.1 x max
@@ -368,7 +413,131 @@ def phase_kernels(dev) -> dict:
     rows.update(kv_kernel_rows(dev, g))
     rows.update(quant_kernel_rows(dev, g))
     rows.update(mega_kernel_rows(dev, g))
+    device_scalar_rows(dev, g, rows)
     return rows
+
+
+# The entries that take their scalars from device memory (a captured loop's
+# write head): B=1 over a 2048-row cache, the speculative verify window (9
+# queries at q_offset 1531) and a 256-row chunk at q_offset 1280, each with
+# the q_offsets its replays are given; the megakernel at pos 1531 and its
+# replay positions.
+SCALAR_FLASH_ROWS = [(9, (1531, 100, 2039)), (256, (1280, 0, 1792))]
+SCALAR_MEGA_POS = (1531, 7, 2047)
+# The main-row ms of the three kernels whose entries take device scalars, in
+# the final smoke of the tree before that change (commit c967662; NVIDIA H100
+# 80GB HBM3, 700.00 W): their main rows (host ints, as before) must stay
+# within 3 % of these
+HOST_ENTRY_MAIN_MS = {"flash_attention": 0.02762, "flash_attention_quant": 0.03831, "fused_decode_step": 2.401}
+MAIN_MS_SLACK = 1.03
+
+
+def replay_outputs(launch, scalars, values):
+    """`launch()` captured once in a CUDA graph whose scalars are the device
+    tensors `scalars`; for each tuple in `values` the scalars are set in
+    place and the graph replayed. Returns each replay's outputs (copies)."""
+    launch()  # builds the library and the plans outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch()
+    outs = []
+    for vals in values:
+        for t, v in zip(scalars, vals):
+            t.fill_(v)
+        graph.replay()
+        outs.append(tuple(o.clone() for o in (out if isinstance(out, tuple) else (out,))))
+    torch.cuda.synchronize()
+    return outs
+
+
+def device_scalar_rows(dev, g, rows) -> None:
+    """The three device-scalar entries: flash_attention (q_offset),
+    flash_attention_quant at int8 and int4 (q_offset and kv_valid_len) and
+    fused_decode_step (pos), each launched with one-element int32 tensors on
+    the card, directly and from a CUDA graph replayed with the scalars
+    changed between replays. Every output must be bit-equal to the launch
+    with host ints at the same values, and within the tolerance of the plain
+    version; the kernels' main rows (host ints) stay within 3 % of
+    HOST_ENTRY_MAIN_MS."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.nn.layers import RotaryEmbedding
+    from mllm_tpu_torch.ops import decode_step as ds
+    from mllm_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_quant,
+                                                    flash_attention_quant_ref, flash_attention_ref)
+
+    def i32(v):
+        return torch.full((), v, dtype=torch.int32, device=dev)
+
+    def gate(name, shape, direct_equal, replays_equal, err, tol):
+        emit(phase="kernel_check_device_scalars", kernel=name, shape=shape, direct_bit_equal=direct_equal,
+             replays_bit_equal=replays_equal, max_abs_err_vs_plain=err, tolerance=tol)
+        if not (direct_equal and all(replays_equal) and err <= tol):
+            raise AssertionError(f"{name} {shape}: device scalars bit-equal {direct_equal} / {replays_equal}, "
+                                 f"vs plain {err} (tolerance {tol})")
+
+    for sq, offsets in SCALAR_FLASH_ROWS:
+        q = torch.randn(1, sq, H, D, device=dev, generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(1, HKV, S_CACHE, D, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        off = i32(offsets[0])
+        host = flash_attention(q, k, v, q_offset=offsets[0], kv_valid_len=offsets[0] + sq)
+        direct = flash_attention(q, k, v, q_offset=off, kv_valid_len=off + sq)
+        reps = replay_outputs(lambda: flash_attention(q, k, v, q_offset=off, kv_valid_len=off + sq), [off],
+                              [(o,) for o in offsets])
+        same = [torch.equal(r[0], flash_attention(q, k, v, q_offset=o, kv_valid_len=o + sq))
+                for r, o in zip(reps, offsets)]
+        ref = flash_attention_ref(q, k, v, q_offset=offsets[0], kv_valid_len=offsets[0] + sq)
+        gate("flash_attention", dict(B=1, Sq=sq, S=S_CACHE, q_offsets=list(offsets)), torch.equal(host, direct),
+             same, (host.float() - ref.float()).abs().max().item(), TOL)
+        for bits in (8, 4):
+            (kq, ks, _), (vq, vs, _) = quant_kv(1, S_CACHE, bits, dev, g)
+            ops = (kq, vq, ks, vs)
+            off, kvl = i32(offsets[0]), i32(offsets[0] + sq)
+            host = flash_attention_quant(q, *ops, q_offset=offsets[0], kv_valid_len=offsets[0] + sq)
+            direct = flash_attention_quant(q, *ops, q_offset=off, kv_valid_len=kvl)
+            reps = replay_outputs(lambda: flash_attention_quant(q, *ops, q_offset=off, kv_valid_len=kvl),
+                                  [off, kvl], [(o, o + sq) for o in offsets])
+            same = [torch.equal(r[0], flash_attention_quant(q, *ops, q_offset=o, kv_valid_len=o + sq))
+                    for r, o in zip(reps, offsets)]
+            ref = flash_attention_quant_ref(q, *ops, q_offset=offsets[0], kv_valid_len=offsets[0] + sq)
+            gate("flash_attention_quant", dict(B=1, Sq=sq, S=S_CACHE, bits=bits, q_offsets=list(offsets)),
+                 torch.equal(host, direct), same, (host.float() - ref.float()).abs().max().item(), TOL)
+
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    ops, _ = mega_operands(dev, g, cfg)
+    rope = RotaryEmbedding.make(D, S_CACHE, cfg.rope_theta, device=dev)
+    kv = mega_cache(cfg, 1, dev, g)
+    x = torch.randn(1, cfg.hidden_size, device=dev, generator=g)
+    kw = dict(act=cfg.hidden_act, eps=cfg.rms_norm_eps, **mega_kw(cfg))
+
+    def rot(p):
+        return ds.rope_rotation_matrix(rope.sin[p], rope.cos[p])
+
+    pos = i32(SCALAR_MEGA_POS[0])
+    rot_dev = rot(pos.long().reshape(1))
+    host = ds.fused_decode_step(x, SCALAR_MEGA_POS[0], rot(SCALAR_MEGA_POS[0]), *ops, *kv, **kw)
+    direct = ds.fused_decode_step(x, pos, rot_dev, *ops, *kv, **kw)
+
+    def launch():
+        rot_dev.copy_(rot(pos.long().reshape(1)))
+        return ds.fused_decode_step(x, pos, rot_dev, *ops, *kv, **kw)
+
+    reps = replay_outputs(launch, [pos], [(p,) for p in SCALAR_MEGA_POS])
+    same = [all(torch.equal(a, b) for a, b in zip(r, ds.fused_decode_step(x, p, rot(p), *ops, *kv, **kw)))
+            for r, p in zip(reps, SCALAR_MEGA_POS)]
+    ref = ds.fused_decode_step_ref(x, SCALAR_MEGA_POS[0], rot(SCALAR_MEGA_POS[0]), *ops, *kv, **kw)
+    err = max(((o.float() - r.float()).abs().max() / r.float().abs().max()).item() for o, r in zip(host, ref))
+    gate("fused_decode_step", dict(b=1, L=cfg.num_hidden_layers, S=S_CACHE, pos=list(SCALAR_MEGA_POS)),
+         all(torch.equal(a, b) for a, b in zip(host, direct)), same, err, MEGA_TOL)
+    del kv
+
+    for name, before in HOST_ENTRY_MAIN_MS.items():
+        ms = rows[name][MAIN_ROW[name]]["ms"]
+        emit(phase="kernel_check_main_row_vs_host_entry", kernel=name, ms=ms, host_entry_ms=before,
+             ratio=ms / before, limit=MAIN_MS_SLACK)
+        if ms > before * MAIN_MS_SLACK:
+            raise AssertionError(f"{name}: main row {ms} ms > {MAIN_MS_SLACK} x {before} ms, its time "
+                                 "before the device-scalar entries")
 
 
 def attention_geometry_checks(dev, g) -> None:
@@ -1163,6 +1332,117 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str 
     return {name: launches[name] for name in expected}
 
 
+# slice_compiled: generate_compiled against the eager generate on the same
+# model, prompts of 100 and 1500 tokens, 256 new tokens (eos never hit)
+COMPILED_PROMPTS = (100, 1500)
+COMPILED_NEW = 256
+
+
+def first_divergence(a, b) -> int:
+    """The first index where two token lists differ (-1: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return -1 if len(a) == len(b) else min(len(a), len(b))
+
+
+def timed(fn):
+    """(fn(), wall seconds) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def replay_ms(name: str) -> float:
+    """Device ms of one replay of the StepGraph `name` replayed since the
+    last reset_counts (CUDA events around it; a finished loop's replay runs
+    the same launches as a live one, and writes nothing)."""
+    from mllm_tpu_torch.generation import graphs
+
+    (g,) = [x for x in graphs.all_graphs(name) if x.replays > 0]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    g.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def compiled_run(model, dev, name: str, kv_dtype: str = "bf16", sampled: bool = False) -> dict:
+    """slice_compiled on one model: generate_compiled (prompts of 100 and
+    1500 tokens, 256 new, eos never hit) against the eager generate on the
+    same model and cache type, and with sampled=True a sampled run (top-k
+    50, top-p 0.9, seed 7) against the eager sampled run. Gates: equal
+    tokens (the kernels and their arguments are the same, so a difference is
+    a capture bug) and one graph replay a window of COMPILED_WINDOW steps
+    (after a warm-up call that ran the loop's eager step and its capture).
+    Prints tok/s of both over wall time, wall ms a token, device ms a step
+    (CUDA events around one replay / COMPILED_WINDOW) and the card's busy
+    share (device ms a step / graph wall ms a token). Returns the launches on
+    the card (graphs.device_launches)."""
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.generation.generate import COMPILED_WINDOW, generate, generate_compiled, pad_to_bucket
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+
+    V, W = model.cfg.vocab_size, COMPILED_WINDOW
+    rng = np.random.default_rng(17)
+    greedy = SamplingConfig(max_new_tokens=COMPILED_NEW)
+    sample = SamplingConfig(max_new_tokens=64, do_sample=True, top_k=50, top_p=0.9)
+
+    def cache():
+        return model.init_cache(1, S_CACHE, kv_dtype=kv_dtype)
+
+    def compiled(prompt, scfg, n_new, seed=0):
+        ids = pad_to_bucket(np.asarray(prompt)[None])
+        (toks, n), t = timed(lambda: generate_compiled(model, ids, cache(), len(prompt), n_new, scfg, seed=seed))
+        return toks.cpu().numpy()[: int(n)].tolist(), t
+
+    for scfg in (greedy, sample) if sampled else (greedy,):  # the loops' eager steps and captures
+        compiled(rng.integers(0, V, 100), scfg, 2 * W)
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    graphs.reset_counts()
+    runs, ok = [], True
+    for n_prompt in COMPILED_PROMPTS:
+        prompt = rng.integers(0, V, n_prompt)
+        before = graphs.replays("generate_compiled")
+        toks, t_graph = compiled(prompt, greedy, COMPILED_NEW)
+        reps = graphs.replays("generate_compiled") - before
+        (res, _), t_eager = timed(lambda: generate(model, prompt, cache(), greedy))
+        want_reps = -(-(COMPILED_NEW - 1) // W)
+        runs.append(dict(prompt_tokens=n_prompt, new_tokens=len(toks), equal=toks == res.tokens,
+                         first_divergence=first_divergence(toks, res.tokens), graph_replays=reps,
+                         expected_replays=want_reps, graph_tok_s=len(toks) / t_graph,
+                         eager_tok_s=len(res.tokens) / t_eager, graph_wall_ms_per_token=t_graph / len(toks) * 1e3,
+                         eager_wall_ms_per_token=t_eager / len(res.tokens) * 1e3,
+                         eager_decode_tok_s=res.decode_tps))
+        ok &= toks == res.tokens and len(toks) == COMPILED_NEW and reps == want_reps
+    step_ms = replay_ms("generate_compiled") / W
+    sampled_run = None
+    if sampled:
+        prompt = rng.integers(0, V, 100)
+        toks, _ = compiled(prompt, sample, 64, seed=7)
+        res, _ = generate(model, prompt, cache(), sample, seed=7)
+        sampled_run = dict(prompt_tokens=100, new_tokens=len(toks), equal=toks == res.tokens,
+                           first_divergence=first_divergence(toks, res.tokens))
+        ok &= toks == res.tokens and len(toks) == 64
+    counted = {k: fn.launches for k, fn in kernels.items()}
+    launches = graphs.device_launches(counted)
+    emit(phase="slice_compiled", model=name, kv_dtype=kv_dtype, window=W, runs=runs, sampled=sampled_run,
+         device_ms_per_step=step_ms, busy_share=step_ms / runs[0]["graph_wall_ms_per_token"],
+         launches=launches, launches_counted=counted,
+         launch_note="launches on the card: the counters less each capture's recorded launches, plus each "
+                     "graph's launches times its replays (steps past the end of a loop run too)")
+    if not ok:
+        raise AssertionError(f"slice_compiled {name}: generate_compiled differs from eager generate, or "
+                             f"not one replay a window: {runs} {sampled_run}")
+    return launches
+
+
 def init_model(cfg, dev):
     from mllm_tpu_torch.models.transformer import CausalLM
 
@@ -1184,9 +1464,16 @@ def phase_slice(dev) -> dict:
     torch.cuda.synchronize()
     emit(phase="slice_init", seconds=time.perf_counter() - t0,
          params=sum(p.numel() for p in model.parameters()), weight_bytes=state_bytes(model))
-    return drive(model, cfg, dev, "slice", (17, 64, 128, 200),
-                 lambda prefills, steps: {"flash_attention": L * prefills,
-                                          "decode_attention": L * steps})
+    launches = drive(model, cfg, dev, "slice", (17, 64, 128, 200),
+                     lambda prefills, steps: {"flash_attention": L * prefills,
+                                              "decode_attention": L * steps})
+    return add_launches(launches, compiled_run(model, dev, "bf16", sampled=True))
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    for k, n in more.items():
+        total[k] = total.get(k, 0) + n
+    return total
 
 
 def phase_slice_quant(dev, mode: str, keep: bool = False):
@@ -1232,7 +1519,8 @@ def phase_slice_quant(dev, mode: str, keep: bool = False):
                     "int4_matmul": (2 * L + 1) * steps + prefills,
                     "fused_int4_mlp": L * steps}
         lens = (17, 64, 128, 200)
-    launches = drive(model, cfg, dev, f"slice_{mode}", lens, expected)
+    launches = add_launches(drive(model, cfg, dev, f"slice_{mode}", lens, expected),
+                            compiled_run(model, dev, mode))
     if keep:
         return launches, model
     del model
@@ -1257,9 +1545,123 @@ def phase_slice_kvq(dev, model) -> dict:
 
     launches = {}
     for kv in ("int8", "int4"):
-        for name, n in drive(model, model.cfg, dev, f"slice_kvq_{kv}", lens, expected, kv).items():
-            launches[name] = launches.get(name, 0) + n
-    return launches
+        add_launches(launches, drive(model, model.cfg, dev, f"slice_kvq_{kv}", lens, expected, kv))
+    return add_launches(launches, compiled_run(model, dev, "int8_kv_int8", kv_dtype="int8"))
+
+
+# slice_sd: bench.py's bench_sd prompts (numpy default_rng(0)), 128 new tokens
+SD_NEW = 128
+
+
+def phase_slice_sd(dev, model) -> dict:
+    """The int8 model through the three speculative decoders on bench_sd's
+    two prompts: a 16-token pattern x 8 (max_draft 8) and Zipf(1.3) over 8192
+    ids, 128 tokens (max_draft 4); speculative_generate_compiled and
+    speculative_generate at that max_draft, speculative_generate_tree at
+    max_draft 6 and 3 traces. Gate: every token within RAGGED_TOL x max
+    |logit| of the top of a teacher-forced prefill (the verify runs flash
+    attention and greedy decode runs decode attention, so near-ties may
+    differ). Prints whether each equals generate_compiled's greedy tokens
+    (`lossless`), the first divergence, steps, drafted, accepted and tok/s
+    against generate_compiled on the same prompt."""
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.generation.generate import COMPILED_WINDOW, generate_compiled
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.generation.speculative import (speculative_generate, speculative_generate_compiled,
+                                                       speculative_generate_tree)
+
+    V = model.cfg.vocab_size
+    pattern = np.tile(np.random.default_rng(0).integers(0, V, 16), 8)
+    zipf = np.minimum(np.random.default_rng(0).zipf(1.3, size=128), 8192) - 1
+    greedy = SamplingConfig(max_new_tokens=SD_NEW)
+
+    def cache():
+        return model.init_cache(1, S_CACHE)
+
+    generate_compiled(model, pattern[None], cache(), 128, 2 * COMPILED_WINDOW, greedy)  # warm-ups
+    for md in (8, 4):
+        speculative_generate_compiled(model, pattern[None], cache(), 128, 24, max_draft=md)
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    graphs.reset_counts()
+    worst = 0.0
+    for name, prompt, md in (("pattern", pattern, 8), ("zipf", zipf, 4)):
+        ids = prompt[None]
+        (ref, n_ref), t_ref = timed(lambda: generate_compiled(model, ids, cache(), 128, SD_NEW, greedy,
+                                                              eos_token_id=-7))
+        ref = ref.cpu().numpy()[: int(n_ref)].tolist()
+        (toks, n, steps, drafted, accepted), t_c = timed(lambda: speculative_generate_compiled(
+            model, ids, cache(), 128, SD_NEW, eos_token_id=-7, max_draft=md, ngram=3))
+        compiled_out = toks.cpu().numpy()[: int(n)].tolist()
+        (host_out, _, hs), t_h = timed(lambda: speculative_generate(model, ids, cache(), SD_NEW, eos_token_id={-7},
+                                                                    max_draft=md))
+        (tree_out, _, ts), t_t = timed(lambda: speculative_generate_tree(model, ids, cache(), SD_NEW,
+                                                                         eos_token_id={-7}, max_draft=6,
+                                                                         max_traces=3))
+        decoders = [("compiled", compiled_out, (int(steps), int(drafted), int(accepted)), t_c, md),
+                    ("host", host_out, (hs.steps, hs.drafted, hs.accepted), t_h, md),
+                    ("tree", tree_out, (ts.steps, ts.drafted, ts.accepted), t_t, 6)]
+        for dec, out, (st, dr, ac), t, draft in decoders:
+            gap = teacher_forced_gap(model, dev, prompt, out)
+            worst = max(worst, gap)
+            emit(phase="slice_sd", prompt=name, decoder=dec, max_draft=draft, new_tokens=len(out),
+                 lossless=out == ref, first_divergence=first_divergence(out, ref), steps=st, drafted=dr,
+                 accepted=ac, acceptance=ac / dr if dr else 0.0, tok_s=len(out) / t,
+                 generate_compiled_tok_s=len(ref) / t_ref, speedup=t_ref / t * len(out) / len(ref),
+                 teacher_forced_gap_over_max_logit=gap, tolerance=RAGGED_TOL)
+            if len(out) != SD_NEW or not all(0 <= x < V for x in out) or not gap <= RAGGED_TOL:
+                raise AssertionError(f"slice_sd {name} {dec}: {len(out)} tokens, teacher-forced gap {gap}")
+    return graphs.device_launches({k: fn.launches for k, fn in kernels.items()})
+
+
+def phase_slice_prefill(dev, model) -> dict:
+    """chunked_prefill of a 1500-token prompt in chunks of 256 over bf16 and
+    int8 KV caches against a one-shot prefill (last logits within RAGGED_TOL x
+    max |logit|); then prefill_with_prompt_cache of a second prompt sharing
+    the first 1024 tokens with a stored prefix (matched exactly 1024, logits
+    within the same tolerance of a one-shot prefill of it), and the same
+    prompt again (a full hit: matched 1500). Prints each prefill's ms."""
+    from mllm_tpu_torch.generation.generate import pad_to_bucket, prefill
+    from mllm_tpu_torch.generation.prefill import PromptCache, chunked_prefill, prefill_with_prompt_cache
+
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, V, 1500)
+    b = np.concatenate([a[:1024], rng.integers(0, V, 476)])
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+
+    def ratio(x, ref):
+        return ((x.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    for kv in ("bf16", "int8"):
+        def cache():
+            return model.init_cache(1, S_CACHE, kv_dtype=kv)
+
+        def one_shot(p):
+            return prefill(model, cache(), torch.as_tensor(pad_to_bucket(p[None]), device=dev), len(p))[0]
+
+        one_shot(a)  # warm-up
+        chunked_prefill(model, cache(), a[None], 1500, chunk=256)
+        ref_a, t_one = timed(lambda: one_shot(a))
+        (lg_a, _), t_chunked = timed(lambda: chunked_prefill(model, cache(), a[None], 1500, chunk=256))
+        pc = PromptCache(4)
+        _, t_store = timed(lambda: prefill_with_prompt_cache(model, cache(), a[None, :1024], 1024, pc, chunk=256))
+        (lg_b, _, matched), t_hit = timed(lambda: prefill_with_prompt_cache(model, cache(), b[None], 1500, pc,
+                                                                             chunk=256))
+        (lg_full, _, matched_full), t_full = timed(lambda: prefill_with_prompt_cache(model, cache(), b[None], 1500,
+                                                                                      pc, chunk=256))
+        ref_b = one_shot(b)
+        gaps = dict(chunked=ratio(lg_a, ref_a), prefix_hit=ratio(lg_b, ref_b), full_hit=ratio(lg_full, ref_b))
+        emit(phase="slice_prefill", kv_dtype=kv, prompt_tokens=1500, chunk=256, one_shot_ms=t_one * 1e3,
+             chunked_ms=t_chunked * 1e3, store_prefix_1024_ms=t_store * 1e3, prefix_hit_ms=t_hit * 1e3,
+             full_hit_ms=t_full * 1e3, matched=matched, matched_full=matched_full,
+             logits_gap_over_max_logit=gaps, tolerance=RAGGED_TOL)
+        if matched != 1024 or matched_full != 1500 or not max(gaps.values()) <= RAGGED_TOL:
+            raise AssertionError(f"slice_prefill {kv}: matched {matched} / {matched_full}, gaps {gaps}")
+    return {k: fn.launches for k, fn in kernels.items()}
 
 
 # the engine runs: 12 requests for 8 slots (slots are reused), prompts of
@@ -1292,6 +1694,8 @@ def serve(model, dev, name: str, engine_kw: dict, expected_per, start_thread=Fal
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, V, n) for n in ENGINE_LENS]
     sampled = SamplingConfig(max_new_tokens=ENGINE_NEW, do_sample=True, top_k=50, top_p=0.9)
+    from mllm_tpu_torch.generation import graphs
+
     kernels = wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1300,6 +1704,7 @@ def serve(model, dev, name: str, engine_kw: dict, expected_per, start_thread=Fal
                       if isinstance(t, torch.Tensor) and t.dim() >= 4)
     for fn in kernels.values():
         fn.launches = 0
+    graphs.reset_counts()
     t0 = time.perf_counter()
     qs = [eng.submit(p, ENGINE_NEW, sampled if i >= 10 else None) for i, p in enumerate(prompts)]
     if start_thread:
@@ -1311,28 +1716,34 @@ def serve(model, dev, name: str, engine_kw: dict, expected_per, start_thread=Fal
         outs = [collect(q, timeout=5) for q in qs]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    steps = eng.steps * eng.window
+    counted = {k: fn.launches for k, fn in kernels.items()}
+    launches = graphs.device_launches(counted)
+    # decode steps: every window's, and each window graph's warm-up model call
+    steps = eng.steps * eng.window + len(eng._windows)
     expected = expected_per(eng.admissions, steps)
     peak = torch.cuda.max_memory_allocated()
     if not all(len(o) == ENGINE_NEW and all(0 <= t < V for t in o) for o in outs):
         raise AssertionError(f"{name}: lengths {[len(o) for o in outs]} (expected {ENGINE_NEW} each) "
                              "or a token out of the vocabulary")
     kv_dtype = engine_kw.get("kv_dtype", "bf16") if "paged" not in engine_kw else "bf16"
-    gap = 0.0
-    for i in (0, 3, 7, 8):  # greedy; prompts of 17, 100, 256 and 300 tokens
-        ids = np.concatenate([prompts[i], outs[i][:-1]])
-        logits, _ = model(torch.as_tensor(ids[None], device=dev),
-                          model.init_cache(1, S_CACHE, kv_dtype=kv_dtype), last_only=False)
-        lg = logits[0, len(prompts[i]) - 1 :].float()
-        chosen = lg.gather(1, torch.as_tensor(outs[i], device=dev)[:, None])[:, 0]
-        gap = max(gap, ((lg.max(-1).values - chosen) / lg.abs().max(-1).values).max().item())
+    gap = max(teacher_forced_gap(model, dev, prompts[i], outs[i], kv_dtype)
+              for i in (0, 3, 7, 8))  # greedy; prompts of 17, 100, 256 and 300 tokens
+    replays = sum(g.replays for g in eng._windows.values())
+    capture_s = sum(g.capture_s for g in eng._windows.values())
     emit(phase="slice_engine", run=name, requests=len(prompts), new_tokens=ENGINE_NEW,
          prompt_tokens=list(ENGINE_LENS), wall_s=wall, tok_s=len(prompts) * ENGINE_NEW / wall,
-         windows=eng.steps, decode_steps=steps, admissions=eng.admissions, requeued=eng.requeued,
+         capture_s=capture_s, tok_s_less_capture=len(prompts) * ENGINE_NEW / (wall - capture_s),
+         windows=eng.steps, graph_replays=replays,
+         decode_steps=steps, admissions=eng.admissions, requeued=eng.requeued,
          kv_cache_bytes=cache_bytes, max_memory_allocated_bytes=peak,
          teacher_forced_gap_over_max_logit=gap, tolerance=RAGGED_TOL, launches=launches,
-         launches_expected=expected, loop_thread=start_thread)
+         launches_counted=counted, launches_expected=expected, loop_thread=start_thread,
+         launch_note="launches on the card: the counters (one per launch made eagerly or recorded "
+                     "in a capture) less each capture's recorded launches, plus each graph's "
+                     "launches times its replays")
+    if replays != eng.steps:
+        raise AssertionError(f"{name}: {eng.steps - replays} of {eng.steps} windows ran eagerly; every "
+                             "window is a graph replay")
     if not gap <= RAGGED_TOL:
         raise AssertionError(f"{name}: an emitted greedy token sits {gap} x max |logit| below the "
                              f"top of a teacher-forced prefill (tolerance {RAGGED_TOL})")
@@ -1341,6 +1752,87 @@ def serve(model, dev, name: str, engine_kw: dict, expected_per, start_thread=Fal
             raise AssertionError(f"{name} {k}: {launches[k]} launches, expected {want}")
     if "paged" in engine_kw and eng.requeued == 0:
         raise AssertionError(f"{name}: no request waited for pool blocks while a slot was free")
+    del eng
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in expected}
+
+
+def teacher_forced_gap(model, dev, prompt, toks, kv_dtype: str = "bf16") -> float:
+    """How far below the top of a teacher-forced prefill of prompt + toks[:-1]
+    the emitted tokens sit: max over positions of (max logit - logit of the
+    token) / max |logit|, over a cache of `kv_dtype`."""
+    ids = np.concatenate([np.asarray(prompt), np.asarray(toks[:-1])])
+    logits, _ = model(torch.as_tensor(ids[None], device=dev),
+                      model.init_cache(1, S_CACHE, kv_dtype=kv_dtype), last_only=False)
+    lg = logits[0, len(prompt) - 1 :].float()
+    chosen = lg.gather(1, torch.as_tensor(np.asarray(toks), device=dev)[:, None])[:, 0]
+    return ((lg.max(-1).values - chosen) / lg.abs().max(-1).values).max().item()
+
+
+# the prefix-cache engine run (bench.py's bench_engine("prefix")): a shared
+# 128-token prefix and a distinct 128-token tail, 8 requests x 48 new tokens;
+# the first admission stores its prompt, the other seven reuse the prefix
+PREFIX_REQUESTS, PREFIX_NEW = 8, 48
+# the bf16 engine with eager windows: commit c967662's final smoke, engine_bf16
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+EAGER_ENGINE_BF16_TOK_S = 85.7
+
+
+def serve_prefix(model, dev) -> dict:
+    """ContinuousEngine(prefix_cache=8) over a bf16 slot cache on `model`:
+    exact prefix_hits (7) and prefix_tokens_reused (7 x 128), 48
+    in-vocabulary tokens a request, 4 greedy requests within RAGGED_TOL x
+    max |logit| of a teacher-forced prefill, exact launch counts (one
+    flash_attention prefill a layer and admission: whole prompts and
+    suffixes alike)."""
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
+
+    L, V = model.cfg.num_hidden_layers, model.cfg.vocab_size
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, V, 128)
+    prompts = [np.concatenate([shared, rng.integers(0, V, 128)]) for _ in range(PREFIX_REQUESTS)]
+    kernels = wrappers()
+    torch.cuda.synchronize()
+    eng = ContinuousEngine(model, start_thread=False, prefix_cache=8, **ENGINE_KW)
+    for fn in kernels.values():
+        fn.launches = 0
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    qs = [eng.submit(p, PREFIX_NEW) for p in prompts]
+    while any(r is not None for r in eng.req) or not eng.pending.empty() or eng._inflight is not None:
+        eng.step()
+    outs = [collect(q, timeout=5) for q in qs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = graphs.device_launches({k: fn.launches for k, fn in kernels.items()})
+    steps = eng.steps * eng.window + len(eng._windows)  # and each window graph's warm-up call
+    expected = {"flash_attention": L * eng.admissions, "decode_attention": L * steps,
+                **{k: 0 for k in ("flash_attention_quant", "decode_attention_quant", "decode_attention_paged")}}
+    gap = max(teacher_forced_gap(model, dev, prompts[i], outs[i]) for i in (0, 1, 4, 7))
+    want_hits, want_reused = PREFIX_REQUESTS - 1, (PREFIX_REQUESTS - 1) * 128
+    replays = sum(g.replays for g in eng._windows.values())
+    capture_s = sum(g.capture_s for g in eng._windows.values())
+    emit(phase="slice_engine", run="engine_prefix", requests=PREFIX_REQUESTS, new_tokens=PREFIX_NEW,
+         prompt_tokens="128 shared + 128 distinct", wall_s=wall, tok_s=PREFIX_REQUESTS * PREFIX_NEW / wall,
+         capture_s=capture_s, tok_s_less_capture=PREFIX_REQUESTS * PREFIX_NEW / (wall - capture_s),
+         eager_windows_engine_bf16_tok_s=EAGER_ENGINE_BF16_TOK_S, windows=eng.steps, graph_replays=replays,
+         admissions=eng.admissions,
+         prefix_hits=eng.prefix_hits, prefix_tokens_reused=eng.prefix_tokens_reused,
+         expected_hits=want_hits, expected_reused=want_reused, teacher_forced_gap_over_max_logit=gap,
+         tolerance=RAGGED_TOL, launches=launches, launches_expected=expected)
+    if not all(len(o) == PREFIX_NEW and all(0 <= t < V for t in o) for o in outs):
+        raise AssertionError(f"engine_prefix: lengths {[len(o) for o in outs]} or a token out of the vocabulary")
+    if replays != eng.steps:
+        raise AssertionError(f"engine_prefix: {eng.steps - replays} of {eng.steps} windows ran eagerly")
+    if (eng.prefix_hits, eng.prefix_tokens_reused) != (want_hits, want_reused):
+        raise AssertionError(f"engine_prefix: hits {eng.prefix_hits}, reused {eng.prefix_tokens_reused}; "
+                             f"expected {want_hits}, {want_reused}")
+    if not gap <= RAGGED_TOL:
+        raise AssertionError(f"engine_prefix: teacher-forced gap {gap} > {RAGGED_TOL}")
+    for k, want in expected.items():
+        if launches[k] != want:
+            raise AssertionError(f"engine_prefix {k}: {launches[k]} launches, expected {want}")
     del eng
     torch.cuda.empty_cache()
     return {k: launches[k] for k in expected}
@@ -1369,6 +1861,8 @@ def phase_slice_engine(dev, model) -> dict:
 
         for k, n in serve(model, dev, f"engine_{name}", kw, expected, start_thread=thread).items():
             launches[k] = launches.get(k, 0) + n
+    for k, n in serve_prefix(model, dev).items():
+        launches[k] = launches.get(k, 0) + n
     return launches
 
 
@@ -1523,9 +2017,13 @@ def phase_slice_mega(dev) -> dict:
     launches_e = serve(mega, dev, "engine_int4mega", {}, lambda admissions, steps: {
         "flash_attention": L * admissions, "fused_decode_step_batched": steps,
         "fused_decode_step": 0, "decode_attention": 0})
+    launches_c = compiled_run(mega, dev, "mega")  # b=1: every step one fused_decode_step, device pos
+    if launches_c["fused_decode_step"] == 0 or launches_c["decode_attention"] != 0:
+        raise AssertionError(f"slice_compiled mega: launches {launches_c}")
     del mega, base
     torch.cuda.empty_cache()
-    return {name: launches[name] + launches_r[name] + launches_e.get(name, 0) for name in launches}
+    return {name: launches[name] + launches_r[name] + launches_e.get(name, 0) + launches_c.get(name, 0)
+            for name in launches}
 
 
 def main():
@@ -1536,7 +2034,8 @@ def main():
     launches = {name: 0 for name in SOURCES}
     results = [phase_slice(dev)]
     int8_launches, model8 = phase_slice_quant(dev, "int8", keep=True)
-    results += [int8_launches, phase_slice_kvq(dev, model8), phase_slice_engine(dev, model8)]
+    results += [int8_launches, phase_slice_kvq(dev, model8), phase_slice_sd(dev, model8),
+                phase_slice_prefill(dev, model8), phase_slice_engine(dev, model8)]
     del model8
     torch.cuda.empty_cache()
     results += [phase_slice_quant(dev, "int4"), phase_slice_mega(dev)]

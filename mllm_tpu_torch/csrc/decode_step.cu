@@ -1011,14 +1011,17 @@ mllm::MegaParams common(const void* x, int b, MLLM_MEGA_COMMON_ARGS) {
 
 }  // namespace
 
-// b = 1: x [1, d] f32, rope_r [128, 128] f32, keys kv_start <= t < pos visible.
-extern "C" int mllm_fused_decode_step_bf16(const void* x, const void* rope_r, int pos, int kv_start,
-                                           MLLM_MEGA_COMMON_ARGS) {
+// b = 1: x [1, d] f32, rope_r [128, 128] f32, keys kv_start <= t < pos visible;
+// pos_dev, a device int32, is read in place of pos when it is not null (a
+// captured loop's write head; the body reads the one-entry pos_vec).
+extern "C" int mllm_fused_decode_step_bf16(const void* x, const void* rope_r, const void* pos_dev, int pos,
+                                           int kv_start, MLLM_MEGA_COMMON_ARGS) {
   using namespace mllm;
   MegaParams p = common(x, 1, qkv_q, qkv_s, qkv_b, o_q, o_s, g_q, g_s, u_q, u_s, d_q, d_s, n1, n2, k_cache,
                         v_cache, y, k_new, v_new, ws, plan, L, d, ff, h, hkv, S, group_a, group_d, block_f,
                         act, eps, rm, scale, stream);
   p.rope_r = static_cast<const float*>(rope_r);
+  p.pos_vec = static_cast<const int*>(pos_dev);
   p.pos = pos;
   p.kv_start = kv_start;
   carve(p, static_cast<float*>(ws));

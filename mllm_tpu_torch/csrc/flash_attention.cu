@@ -185,17 +185,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const FlashParam
 }  // namespace mllm
 
 // Returns the CUDA error code of the launch (0 on success). kv_valid_vec and
-// kv_start may be null. The kernel does not synchronise.
+// kv_start may be null; q_offset_dev, a device int32, is read in place of
+// q_offset when it is not null (a captured loop's write head). The kernel does
+// not synchronise.
 extern "C" int mllm_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                         const void* kv_valid_vec, const void* kv_start, int B,
-                                         int Sq, int H, int Hkv, int Skv, int D, int q_offset,
-                                         int kv_valid, int causal, int window, float scale_log2,
-                                         void* stream) {
+                                         const void* kv_valid_vec, const void* kv_start,
+                                         const void* q_offset_dev, int B, int Sq, int H, int Hkv,
+                                         int Skv, int D, int q_offset, int kv_valid, int causal,
+                                         int window, float scale_log2, void* stream) {
   using namespace mllm;
   using namespace mllm::flash;
   const FlashParams p{static_cast<bf16*>(out), static_cast<const int*>(kv_valid_vec),
                       static_cast<const int*>(kv_start), B, Sq, H, Hkv, Skv, q_offset, kv_valid,
-                      causal, window, (Sq + kBQ - 1) / kBQ, scale_log2};
+                      causal, window, (Sq + kBQ - 1) / kBQ, scale_log2,
+                      static_cast<const int*>(q_offset_dev)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch<64>(q, k, v, p, s);

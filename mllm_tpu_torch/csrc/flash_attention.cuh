@@ -59,6 +59,7 @@ struct FlashParams {
   int q_offset, kv_valid, causal, window;
   int n_qtiles;
   float scale_log2;  // the factor of the f32 scores: scale * log2(e), or 1 for a pre-scaled q
+  const int* q_offset_dev;  // a device int32 read in place of q_offset, or null
 };
 
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
@@ -83,7 +84,7 @@ __device__ __forceinline__ void pass_turn(int wg) {
 // every key that any of its rows may see, tiles of kBK keys from kb0.
 struct CtaTiles {
   int b, h, hk, q0;
-  int kv_start, kv_valid;
+  int q_offset, kv_start, kv_valid;
   int lo, hi, kb0, ntiles;
 };
 
@@ -96,13 +97,16 @@ __device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
   c.b = (blockIdx.x / p.H) % p.B;
   c.q0 = qt * kBQ;
   c.hk = c.h / (p.H / p.Hkv);
+  // a device q_offset (a captured decode loop's write head) is read here, so
+  // the grid and every launch argument are the same whatever its value
+  c.q_offset = p.q_offset_dev ? *p.q_offset_dev : p.q_offset;
   c.kv_valid = min(p.kv_valid_vec ? p.kv_valid_vec[c.b] : p.kv_valid, p.Skv);
   c.kv_start = max(p.kv_start ? p.kv_start[c.b] : 0, 0);
   c.lo = c.kv_start;
   c.hi = c.kv_valid;
   if (p.causal) {
-    c.hi = min(c.hi, p.q_offset + min(c.q0 + kBQ, p.Sq));
-    if (p.window > 0) c.lo = max(c.lo, p.q_offset + c.q0 - p.window + 1);
+    c.hi = min(c.hi, c.q_offset + min(c.q0 + kBQ, p.Sq));
+    if (p.window > 0) c.lo = max(c.lo, c.q_offset + c.q0 - p.window + 1);
   }
   c.kb0 = (c.lo / kBK) * kBK;
   c.ntiles = c.hi > c.lo ? (c.hi - c.kb0 + kBK - 1) / kBK : 0;
@@ -227,7 +231,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
   // [klo, khi) = [kv_start, kv_valid), and when causal j <= q_pos and
   // j > q_pos - window.
   const int r0 = wg * 64 + warp * 16 + g;
-  const int qpos0 = p.q_offset + c.q0 + r0, qpos1 = qpos0 + 8;
+  const int qpos0 = c.q_offset + c.q0 + r0, qpos1 = qpos0 + 8;
   const bool windowed = p.causal && p.window > 0;
   const int klo0 = windowed ? max(c.kv_start, qpos0 - p.window + 1) : c.kv_start;
   const int klo1 = windowed ? max(c.kv_start, qpos1 - p.window + 1) : c.kv_start;
@@ -238,7 +242,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
   // Sq) sees; the others (a sliding window's far tiles) cost it no product,
   // only its part in the turns and barriers.
   const int kb0 = c.kb0, ntiles = c.ntiles;
-  const int qa = p.q_offset + c.q0 + wg * 64, qb = p.q_offset + min(c.q0 + wg * 64 + 64, p.Sq) - 1;
+  const int qa = c.q_offset + c.q0 + wg * 64, qb = c.q_offset + min(c.q0 + wg * 64 + 64, p.Sq) - 1;
   const int wlo = windowed ? max(c.kv_start, qa - p.window + 1) : c.kv_start;
   const int whi = p.causal ? min(c.kv_valid, qb + 1) : c.kv_valid;
   const int it_a = min(ntiles, max(0, (wlo - kb0) / kBK));

@@ -404,17 +404,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
 // Returns the CUDA error code of the launch (0 on success). q is the raw
 // query; q_scale = f32(bf16(scale * log2 e)), by which the kernel pre-scales
 // it in bf16; bits is 8 (int8 K/V [B, Hkv, Skv, D]) or 4 (packed uint8
-// [B, Hkv, Skv, D/2]); kv_start may be null. The kernel does not synchronise.
+// [B, Hkv, Skv, D/2]); kv_start may be null. kv_valid_vec (device int32 [B])
+// and q_offset_dev (a device int32) are read in place of kv_valid and
+// q_offset when they are not null (a captured loop's write head): the grid,
+// the tensor maps and every other argument stay what they are. The kernel
+// does not synchronise.
 extern "C" int mllm_flash_attention_quant(const void* q, const void* k, const void* v,
                                           const void* ks, const void* vs, void* out,
-                                          const void* kv_start, int B, int Sq, int H, int Hkv,
+                                          const void* kv_start, const void* kv_valid_vec,
+                                          const void* q_offset_dev, int B, int Sq, int H, int Hkv,
                                           int Skv, int D, int bits, int q_offset, int kv_valid,
                                           int causal, int window, float q_scale, void* stream) {
   using namespace mllm;
   using namespace mllm::flash;
   if (Hkv < 1 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const FlashParams p{static_cast<bf16*>(out), nullptr, static_cast<const int*>(kv_start), B, Sq, H, Hkv,
-                      Skv, q_offset, kv_valid, causal, window, (Sq + kBQ - 1) / kBQ, 1.f};
+  const FlashParams p{static_cast<bf16*>(out), static_cast<const int*>(kv_valid_vec),
+                      static_cast<const int*>(kv_start), B, Sq, H, Hkv, Skv, q_offset, kv_valid, causal,
+                      window, (Sq + kBQ - 1) / kBQ, 1.f, static_cast<const int*>(q_offset_dev)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128 && bits == 8) return launch<128, false>(q, k, v, ks, vs, q_scale, p, s);
   if (D == 128 && bits == 4) return launch<128, true>(q, k, v, ks, vs, q_scale, p, s);

@@ -11,20 +11,28 @@ slots keep decoding. The cache is one of `SlotKVCache` (dense), a
     installs it into the slot and samples the first token on the device;
   - a decode window runs `decode_window` model calls, each one token for
     every slot at its own write head, with per-slot sampling on the device;
-    idle slots compute values that are discarded;
-  - the scheduler state (current token, activity, budget, sampling params)
-    lives on the device between windows: a window reads nothing back, and
-    `_drain` is the one host fetch (a window's tokens and the admissions'
-    first tokens in one copy).
+    idle slots compute values that are discarded. On the card every window
+    is a replay of a CUDA graph (`graphs.StepGraph`), one for all-greedy
+    windows and one for windows that sample, captured at its first use after
+    a warm-up model call that changes no state;
+  - the scheduler state (current token, activity, budget, sampling params),
+    the slot cache's heads and its block table live on the device at fixed
+    addresses, edited in place by admission and `with_tables`, so a
+    replayed window reads them where it was captured: a window reads
+    nothing back, and `_drain` is the one host fetch (a window's tokens and
+    the admissions' first tokens in one copy);
+  - with `prefix_cache=N` an LRU of N admission caches keyed by prompt
+    tokens (`prefill.PromptCache`) lets a request whose prompt shares a
+    bucket-aligned prefix with an earlier one prefill only the rest
+    (`prefix_hits`, `prefix_tokens_reused`).
 
 With `pipeline=True` window N's tokens are copied into pinned host memory
 right after window N is queued, behind an event; window N+1 is queued, and
 only then does the host wait on N's event, so the copy and the host's
 bookkeeping overlap window N+1 on the card.
 
-Not ported yet (the constructor raises NotImplementedError): the prefix cache
-(`prefix_cache > 0`, ROADMAP Queue 1 item 10), vision admission
-(`submit_vl`, item 13) and tensor-parallel serving (`mesh`, item 16).
+Not ported yet (NotImplementedError): vision admission (`submit_vl`, ROADMAP
+Queue 1 item 13) and tensor-parallel serving (`mesh`, item 16).
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kv.cache import PagedKVCache, SlotKVCache, SlotQuantKVCache, to_device
+from ..kv.cache import PagedKVCache, SlotKVCache, SlotQuantKVCache, storage, to_device
+from .graphs import StepGraph
+from .prefill import PromptCache
 from .sampling import SamplingConfig, sample_tokens_batched
 
 
@@ -85,23 +95,47 @@ def _sampling_params(s: SamplingConfig) -> tuple[float, int, float]:
     return s.temperature, s.top_k, s.top_p
 
 
-@torch.no_grad()
-def _admit_step(model, cache, state: SchedState, slot: int, ids: torch.Tensor, true_len: int,
-                max_tokens: int, sampling: SamplingConfig, bucket: int):
-    """Prefill `ids` [1, bucket] (true_len valid) into a small cache, install
-    it into `slot`, sample the first token on the device and record the slot's
-    request in `state`. Returns (tok [1], cache). Nothing is read back."""
-    cfg = model.cfg
-    small = cache.make_prefill_cache(1, bucket, cache.n_layers, cfg.num_key_value_heads, cfg.head_dim_)
-    hidden, small = model.hidden_states(ids, small)
-    logits = model.logits(hidden[:, true_len - 1 : true_len])[:, 0]
+def _install_first(model, cache, state: SchedState, slot: int, small, last_hidden, true_len: int,
+                   max_tokens: int, sampling: SamplingConfig):
+    """Install a prefilled 1-sequence cache into `slot`, sample its first
+    token from the hidden state of its last prompt token and record the
+    request in `state`. Returns (tok [1], cache, small with pos = true_len)."""
+    logits = model.logits(last_hidden)[:, 0]
     cache = cache.admit(slot, small, true_len)
     t, k, p = _sampling_params(sampling)
     dev = logits.device
     tok = sample_tokens_batched(logits, torch.full((1,), t, device=dev), torch.full((1,), k, device=dev),
                                 torch.full((1,), p, device=dev), state.generator, all_greedy=t <= 0)
     state.set_slots([slot], tok, [max_tokens - 1], [t], [k], [p])  # the host emits the first token
-    return tok, cache
+    return tok, cache, small.with_pos(true_len)
+
+
+@torch.no_grad()
+def _admit_step(model, cache, state: SchedState, slot: int, ids: torch.Tensor, true_len: int,
+                max_tokens: int, sampling: SamplingConfig, bucket: int):
+    """Prefill `ids` [1, bucket] (true_len valid) into a small cache, install
+    it into `slot`, sample the first token on the device and record the slot's
+    request in `state`. Returns (tok [1], cache, small). Nothing is read back."""
+    cfg = model.cfg
+    small = cache.make_prefill_cache(1, bucket, cache.n_layers, cfg.num_key_value_heads, cfg.head_dim_)
+    hidden, small = model.hidden_states(ids, small)
+    return _install_first(model, cache, state, slot, small, hidden[:, true_len - 1 : true_len], true_len,
+                          max_tokens, sampling)
+
+
+@torch.no_grad()
+def _admit_prefix_step(model, cache, state: SchedState, slot: int, prefix_small, m: int,
+                       suffix_ids: torch.Tensor, true_len: int, max_tokens: int,
+                       sampling: SamplingConfig, bucket_total: int):
+    """Admission with prefix reuse (JAX `_admit_prefix_step`): `prefix_small`
+    holds the KV of the first m prompt tokens (a bucket-aligned prefix), so
+    only the suffix [1, bucket_total - m] runs through the model, into the
+    prefix's cache grown to bucket_total rows; the first token is sampled at
+    prompt position true_len - 1. Returns (tok [1], cache, small)."""
+    small = _pad_small_seq(prefix_small, bucket_total)
+    hidden, small = model.hidden_states(suffix_ids, small)
+    return _install_first(model, cache, state, slot, small, hidden[:, true_len - 1 - m : true_len - m],
+                          true_len, max_tokens, sampling)
 
 
 @torch.no_grad()
@@ -111,7 +145,7 @@ def _admit_batch(model, cache, state: SchedState, slot_ids: np.ndarray, ids: tor
     """Admit up to A one-bucket requests in one batched prefill: ids [A,
     bucket], row a for slot slot_ids[a] (a slot id >= B marks a padding row,
     which is dropped); params [A, 3] = (temperature, top_k, top_p).
-    Returns (toks [A], cache)."""
+    Returns (toks [A], cache, small)."""
     cfg = model.cfg
     a = ids.shape[0]
     small = cache.make_prefill_cache(a, bucket, cache.n_layers, cfg.num_key_value_heads, cfg.head_dim_)
@@ -127,7 +161,7 @@ def _admit_batch(model, cache, state: SchedState, slot_ids: np.ndarray, ids: tor
     rows = np.nonzero(slot_ids < state.cur.shape[0])[0]
     state.set_slots(slot_ids[rows], toks[to_device(rows, dev, torch.long)], max_tokens[rows] - 1,
                     params[rows, 0], params[rows, 1], params[rows, 2])
-    return toks, cache
+    return toks, cache, small
 
 
 def _pad_small_seq(small, new_len: int):
@@ -144,17 +178,19 @@ def _pad_small_seq(small, new_len: int):
 
 
 @torch.no_grad()
-def _decode_window(model, cache, state: SchedState, eos_ids: torch.Tensor, steps: int,
-                   all_greedy: bool):
-    """`steps` decode iterations with per-slot sampling, all on the device.
+def _decode_window(model, cache, state: SchedState, eos_ids: torch.Tensor, out: torch.Tensor,
+                   all_greedy: bool) -> None:
+    """out.shape[1] decode iterations with per-slot sampling, all on the device.
 
     A slot emits while it is active with budget left; EOS or an exhausted
     budget deactivates it, and its later positions in the window are -1.
-    Returns (out [B, steps] int64 with -1 padding, cache); `state` is updated."""
+    Writes out [B, steps] (int64, -1 padding) and advances `state` and the
+    cache's heads in place: their addresses do not change, so the window can
+    be captured once and replayed."""
     toks, active, budget = state.cur, state.active, state.budget
-    out = torch.full((toks.shape[0], steps), -1, dtype=torch.int64, device=toks.device)
-    for i in range(steps):
-        logits, cache = model(toks[:, None], cache, last_only=True)
+    c = cache
+    for i in range(out.shape[1]):
+        logits, c = model(toks[:, None], c, last_only=True)
         nxt = sample_tokens_batched(logits[:, 0, :], state.temperature, state.top_k, state.top_p,
                                     state.generator, all_greedy=all_greedy)
         emit = active & (budget > 0)
@@ -164,8 +200,10 @@ def _decode_window(model, cache, state: SchedState, eos_ids: torch.Tensor, steps
         hit_eos = (nxt[:, None] == eos_ids[None, :]).any(dim=1)
         active = emit & ~hit_eos & (budget > 0)
         toks = torch.where(nxt >= 0, nxt, toks)  # keep the last valid token
-    state.cur, state.active, state.budget = toks, active, budget
-    return out, cache
+    state.cur.copy_(toks)
+    state.active.copy_(active)
+    state.budget.copy_(budget)
+    cache.pos.copy_(c.pos)
 
 
 @dataclass
@@ -193,9 +231,6 @@ class ContinuousEngine:
                  eos_token_id=None, kv_dtype="bf16", start_thread: bool = True,
                  decode_window: int = 8, pipeline: bool = False, prefix_cache: int = 0,
                  paged: int = 0, mesh=None):
-        if prefix_cache > 0:
-            raise NotImplementedError("the engine's prefix cache is not ported yet "
-                                      "(ROADMAP Queue 1 item 10)")
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving is not ported yet (ROADMAP Queue 1 item 16)")
         cfg = model.cfg
@@ -237,6 +272,14 @@ class ContinuousEngine:
         self.steps = 0  # decode windows dispatched
         self.admissions = 0  # admission prefills run (one request, or one batch)
         self.requeued = 0  # admissions put back because the block pool was full
+        # every window writes its tokens here; one StepGraph a sampling kind
+        self._out = torch.full((slots, self.window), -1, dtype=torch.int64, device=dev)
+        self._windows: dict = {}
+        # automatic prefix caching: an LRU of admission caches keyed by prompt
+        # tokens; reuse is bucket-aligned. 0 = off.
+        self._pcache = PromptCache(prefix_cache) if prefix_cache > 0 else None
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
         self._stop = False
         self._thread = None
         if start_thread:
@@ -316,6 +359,14 @@ class ContinuousEngine:
         tbl[slot] = -1
         self.cache = self.cache.with_tables(tbl)
 
+    def _prefix_match(self, ids: np.ndarray) -> int:
+        """Bucket-aligned reusable prefix length of `ids` (0: no hit)."""
+        if self._pcache is None:
+            return 0
+        _, matched = self._pcache.lookup_common(ids)
+        m = min(matched, len(ids) - 1)  # keep >= 1 suffix token for the logits
+        return (m // self.bucket) * self.bucket
+
     def _install(self, slot: int, r: _Request, tok) -> None:
         self.req[slot] = r
         self.emitted[slot] = 0
@@ -324,17 +375,33 @@ class ContinuousEngine:
 
     def _admit(self, slot: int, r: _Request) -> bool:
         """Prefill + install a (multi-bucket) prompt into `slot`; its first
-        token stays on the device until the next window's fetch."""
+        token stays on the device until the next window's fetch. With the
+        prefix cache, a bucket-aligned shared prefix is not prefilled again:
+        only the suffix runs through the model."""
         n = len(r.ids)
         bucket = min(-(-max(n, 1) // self.bucket) * self.bucket, self.max_len)
         if not self._paged_reserve(slot, n, r.max_tokens, bucket):
             return False
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :n] = r.ids[:bucket]
         self.admissions += 1
-        tok, self.cache = _admit_step(self.model, self.cache, self._state, slot,
-                                      to_device(ids, self.model.device), min(n, bucket),
-                                      r.max_tokens, r.sampling, bucket)
+        m = self._prefix_match(r.ids)
+        hit = self._pcache.lookup_prefix_rows(r.ids, m) if m > 0 else None
+        dev = self.model.device
+        if hit is not None:
+            ids = np.zeros((1, bucket - m), np.int64)
+            ids[0, : n - m] = r.ids[m:n]
+            tok, self.cache, small = _admit_prefix_step(
+                self.model, self.cache, self._state, slot, hit, m, to_device(ids, dev), n,
+                r.max_tokens, r.sampling, bucket)
+            self.prefix_hits += 1
+            self.prefix_tokens_reused += m
+        else:
+            ids = np.zeros((1, bucket), np.int64)
+            ids[0, :n] = r.ids[:bucket]
+            tok, self.cache, small = _admit_step(self.model, self.cache, self._state, slot,
+                                                 to_device(ids, dev), min(n, bucket), r.max_tokens,
+                                                 r.sampling, bucket)
+        if self._pcache is not None:
+            self._pcache.store(r.ids[: min(n, bucket)], small)
         self._install(slot, r, tok)
         return True
 
@@ -354,11 +421,14 @@ class ContinuousEngine:
             mt[row] = r.max_tokens
             params[row] = _sampling_params(r.sampling)
         self.admissions += 1
-        toks, self.cache = _admit_batch(
+        toks, self.cache, small = _admit_batch(
             self.model, self.cache, self._state, slot_ids, to_device(ids, self.model.device), lens, mt,
             params, self.bucket, all_greedy=not any(r.sampling.do_sample for _, r in batch))
         for row, (slot, r) in enumerate(batch):
             self._install(slot, r, toks[row : row + 1])
+            if self._pcache is not None:  # this row's cache (the store copies it)
+                one = type(small)(*(t[:, row : row + 1] for t in storage(small)), len(r.ids))
+                self._pcache.store(r.ids, one)
 
     def _emit(self, slot: int, tok: int):
         r = self.req[slot]
@@ -427,7 +497,7 @@ class ContinuousEngine:
                 r = self.pending.get_nowait()
             except queue.Empty:
                 break
-            if len(r.ids) <= self.bucket:
+            if len(r.ids) <= self.bucket and self._prefix_match(r.ids) == 0:
                 if not self._paged_reserve(slot, len(r.ids), r.max_tokens, self.bucket):
                     self.pending.put(r)  # pool full: retry next step
                     break
@@ -443,9 +513,8 @@ class ContinuousEngine:
             firsts, self._first = self._first, {}
             self.steps += 1
             greedy_only = not any(r.sampling.do_sample for r in self.req if r is not None)
-            out, self.cache = _decode_window(self.model, self.cache, self._state, self._eos_arr,
-                                             self.window, greedy_only)
-            w = self._fetch(out, firsts)
+            self._window_graph(greedy_only)()
+            w = self._fetch(self._out, firsts)
             if self.pipeline:
                 # window N+1 is queued before the host waits on window N
                 prev, self._inflight = self._inflight, w
@@ -459,6 +528,26 @@ class ContinuousEngine:
             self._inflight = None
             worked = True
         return worked
+
+    def _window_graph(self, all_greedy: bool) -> StepGraph:
+        """The decode window of this sampling kind over the engine's static
+        buffers. On the card its warm-up is one model call that changes no
+        state: it writes each slot's K/V row at its head, the row that the
+        window's first step writes again with the same values; the window is
+        then captured and replayed from its first use."""
+        if all_greedy not in self._windows:
+            def window():
+                _decode_window(self.model, self.cache, self._state, self._eos_arr, self._out, all_greedy)
+
+            def warmup():
+                with torch.no_grad():
+                    self.model(self._state.cur[:, None], self.cache, last_only=True)
+
+            gens = () if all_greedy else (self._state.generator,)
+            self._windows[all_greedy] = StepGraph(
+                window, self._out.device, warmup=warmup, generators=gens, warmup_is_work=False,
+                name=f"engine_window_{'greedy' if all_greedy else 'sampled'}")
+        return self._windows[all_greedy]
 
     def run(self):
         while not self._stop:

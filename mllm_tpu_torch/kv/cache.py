@@ -8,19 +8,26 @@
   - `PagedKVCache`     a shared pool of 128-row blocks behind a block table
 
 The sequence axis is inner per head, so the attention kernels stream one
-head's keys contiguously. `update_layer` and the admissions write IN PLACE
-into the storage; `advance`, `with_pos`, `reset` and `with_tables` return a new
-cache over the same storage, so callers keep the JAX package's style
-(`cache = cache.advance(n)`).
+head's keys contiguously. `update_layer`, `rollback_accept` and the
+admissions write IN PLACE into the storage; `advance`, `with_pos` and `reset`
+return a new cache over the same storage, so callers keep the JAX package's
+style (`cache = cache.advance(n)`).
 
-Write heads: `KVCache` and the two quantized caches keep a host int, so eager
-decode never reads a device scalar back. The slot and paged caches keep an
-int32 `[B]` tensor on the cache's device, so a decode window advances every
-slot without a host round trip. Out-of-range writes follow the JAX package:
-a slot's append at pos >= max_len lands on row max_len - 1
-(`lax.dynamic_update_slice` clamps; idle and retired slots keep advancing),
-and a paged append past the table or through a -1 entry is dropped (it lands
-in a sink block behind the pool that nothing reads).
+Write heads live on the cache's device, as in the JAX package: `KVCache` and
+the two quantized caches keep an int32 0-d tensor, the slot and paged caches
+an int32 `[B]` tensor. Nothing here reads a head back to the host, so a
+decode step is the same launches at every position and a captured loop
+(`generation/graphs.py`) replays it. Out-of-range writes follow the JAX
+package: a dense append whose rows would run past max_len is shifted back to
+end at max_len when the head is on the card (`lax.dynamic_update_slice`
+clamps its start; the loops check their lengths up front, so none of them
+reaches it) and raises when it is on the CPU, where reading it is free; a
+slot's append at pos >= max_len lands on row max_len - 1 (idle and retired
+slots keep advancing), and a paged append past the table or through a -1
+entry is dropped (it lands in a sink block behind the pool that nothing
+reads). The slot heads and the paged table are edited in place (admission,
+`with_tables`), so a captured decode window reads them at the addresses it
+was captured with.
 
 Host-side indices (admission slots, the block table the allocator edits) are
 numpy; they reach the card with non-blocking copies, which do not wait for
@@ -45,24 +52,89 @@ def _round_up(n: int, m: int = BLOCK) -> int:
 
 
 def _set_rows(pos: torch.Tensor, slots, values) -> torch.Tensor:
-    """A copy of the per-slot heads with pos[slots] = values (host or device values)."""
-    out = pos.clone()
-    out[to_device(slots, pos.device, torch.long)] = to_device(values, pos.device, pos.dtype)
-    return out
+    """pos[slots] = values (host or device values), in place; returns pos."""
+    pos[to_device(slots, pos.device, torch.long)] = to_device(values, pos.device, pos.dtype)
+    return pos
 
 
-def _check_fits(pos: int, s: int, max_len: int) -> None:
-    if pos + s > max_len:
-        raise ValueError(f"KV cache overflow: pos {pos} + {s} tokens > max_len {max_len}")
+def head(pos, device) -> torch.Tensor:
+    """A write head as an int32 0-d tensor on `device` (a host int is filled
+    in by a kernel, not copied, so making one never waits on the card)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(pos), dtype=torch.int32, device=device)
+
+
+def _memo(cache, name: str, s: int):
+    """A per-cache memo and its key: the length, the head's version counter,
+    which every in-place edit of the head (an admission, a captured loop's
+    write-back) moves on, and whether a CUDA graph is being captured: a
+    capture must record the computation, not read a tensor made before it
+    (its replays would see that tensor's old value)."""
+    return cache.__dict__.setdefault(name, {}), (s, cache.pos._version, _capturing())
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def _write_rows(cache, s: int) -> torch.Tensor:
+    """The rows [start, start + s) that an s-token append writes, start =
+    the head clamped to [0, max_len - s] as `lax.dynamic_update_slice` clamps
+    it; made once per head value and length (every layer appends there).
+
+    A head on the CPU is checked, as reading it costs nothing: an append that
+    does not fit raises. A head on the card is not read back (that would
+    wait for the card, and a captured loop cannot): the loops check their
+    lengths up front."""
+    memo, key = _memo(cache, "_rows", s)
+    if key not in memo:
+        if cache.pos.device.type == "cpu" and int(cache.pos) + s > cache.max_len:
+            raise ValueError(f"KV cache overflow: pos {int(cache.pos)} + {s} tokens > max_len "
+                             f"{cache.max_len}")
+        start = cache.pos.clamp(0, max(cache.max_len - s, 0))
+        memo[key] = (start + torch.arange(s, device=start.device)).long()
+    return memo[key]
+
+
+def storage(cache) -> list:
+    """The storage tensors of a cache (K, V and, quantized, their scales)."""
+    return [getattr(cache, n) for n in ("k", "v", "k_scale", "v_scale") if hasattr(cache, n)]
+
+
+def valid_len(cache, s: int) -> torch.Tensor:
+    """The attention length after an s-token append, pos + s (0-d, or [B]
+    per slot), made once per head value and length."""
+    memo, key = _memo(cache, "_valid", s)
+    if key not in memo:
+        memo[key] = cache.pos + s
+    return memo[key]
+
+
+def _rollback(bufs, max_len: int, draft_start, accept_idx, n_accept) -> torch.Tensor:
+    """JAX `rollback_accept` on storage whose sequence axis is 3: gather the
+    accepted rows draft_start + accept_idx[i] (i < n_accept; row draft_start
+    otherwise) and write them at draft_start + i, in place. Returns the new
+    head draft_start + n_accept."""
+    dev = bufs[0].device
+    idx = to_device(accept_idx, dev, torch.long).reshape(-1)
+    start, n = head(draft_start, dev), head(n_accept, dev)
+    i = torch.arange(idx.shape[0], device=dev)
+    src = (start + torch.where(i < n, idx, 0)).clamp(0, max_len - 1)
+    dst = start.clamp(0, max_len - idx.shape[0]) + i
+    for buf in bufs:
+        buf.index_copy_(3, dst, buf.index_select(3, src))
+    return start + n
 
 
 class KVCache:
-    """k, v: [L, B, H_kv, max_len, D]; pos: number of valid cached tokens."""
+    """k, v: [L, B, H_kv, max_len, D]; pos: int32 0-d tensor on the storage's
+    device, the number of valid cached tokens (a host int is accepted)."""
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: int = 0):
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, pos=0):
         self.k = k
         self.v = v
-        self.pos = int(pos)
+        self.pos = head(pos, k.device)
 
     @staticmethod
     def init(n_layers: int, batch: int, max_len: int, n_kv_heads: int, head_dim: int, *,
@@ -80,30 +152,39 @@ class KVCache:
         return self.k.shape[0]
 
     def update_layer(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
-        """Write k_new/v_new [B, S, H_kv, D] at self.pos of `layer`, in place.
+        """Write k_new/v_new [B, S, H_kv, D] at self.pos of `layer`, in place
+        (the start clamped so the S rows fit, as JAX's dynamic_update_slice).
 
         Does NOT advance pos (all layers append at the same offset; call
         `advance` once per step)."""
-        s = k_new.shape[1]
-        _check_fits(self.pos, s, self.max_len)
-        self.k[layer, :, :, self.pos : self.pos + s].copy_(k_new.transpose(1, 2))
-        self.v[layer, :, :, self.pos : self.pos + s].copy_(v_new.transpose(1, 2))
+        rows = _write_rows(self, k_new.shape[1])
+        self.k[layer].index_copy_(2, rows, k_new.transpose(1, 2).to(self.k.dtype))
+        self.v[layer].index_copy_(2, rows, v_new.transpose(1, 2).to(self.v.dtype))
         return self
 
     def layer(self, layer: int):
         """Full-length K/V for one layer: ([B, H_kv, max_len, D], same)."""
         return self.k[layer], self.v[layer]
 
-    def advance(self, n: int) -> "KVCache":
-        return KVCache(self.k, self.v, self.pos + int(n))
+    def advance(self, n) -> "KVCache":
+        return KVCache(self.k, self.v, self.pos + n)
 
-    def with_pos(self, pos: int) -> "KVCache":
-        """Same storage, write head at `pos`."""
+    def with_pos(self, pos) -> "KVCache":
+        """Same storage, write head at `pos` (an int or a device scalar)."""
         return KVCache(self.k, self.v, pos)
 
     def reset(self) -> "KVCache":
         """Rewind the write head; the storage is left as it is."""
         return KVCache(self.k, self.v, 0)
+
+    def rollback_accept(self, draft_start, accept_idx, n_accept) -> "KVCache":
+        """Speculative-decoding verification (JAX `KVCache.rollback_accept`):
+        for i < n_accept, the entry at draft_start + accept_idx[i] moves to
+        draft_start + i, in place, and the head becomes draft_start +
+        n_accept. draft_start and n_accept are ints or device scalars,
+        accept_idx [n_draft] host or device ints."""
+        pos = _rollback((self.k, self.v), self.max_len, draft_start, accept_idx, n_accept)
+        return KVCache(self.k, self.v, pos)
 
 
 # -- quantized storage --------------------------------------------------------
@@ -157,16 +238,17 @@ class QuantKVCache:
     """int8 KV cache with per-(token, head) scales (JAX `QuantKVCache`).
 
     k, v: int8 [L, B, H_kv, max_len, D]; k_scale, v_scale: f32 [L, B, H_kv,
-    max_len]; pos: host int. max_len rounds up to a multiple of 128."""
+    max_len]; pos: int32 0-d tensor on the device. max_len rounds up to a
+    multiple of 128."""
 
     BITS = 8
 
-    def __init__(self, k, v, k_scale, v_scale, pos: int = 0):
+    def __init__(self, k, v, k_scale, v_scale, pos=0):
         self.k = k
         self.v = v
         self.k_scale = k_scale
         self.v_scale = v_scale
-        self.pos = int(pos)
+        self.pos = head(pos, k.device)
 
     @classmethod
     def init(cls, n_layers: int, batch: int, max_len: int, n_kv_heads: int, head_dim: int, *,
@@ -189,14 +271,13 @@ class QuantKVCache:
 
     def update_layer(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor):
         """Quantize k_new/v_new [B, S, H_kv, D] and write them at self.pos of
-        `layer`, in place; pos does not advance."""
-        s = k_new.shape[1]
-        _check_fits(self.pos, s, self.max_len)
-        span = slice(self.pos, self.pos + s)
+        `layer`, in place (the start clamped as `KVCache.update_layer`); pos
+        does not advance."""
+        rows = _write_rows(self, k_new.shape[1])
         for buf, sbuf, new in ((self.k, self.k_scale, k_new), (self.v, self.v_scale, v_new)):
             q, sc = self._quantize(new.transpose(1, 2))
-            buf[layer, :, :, span].copy_(q)
-            sbuf[layer, :, :, span].copy_(sc)
+            buf[layer].index_copy_(2, rows, q)
+            sbuf[layer].index_copy_(2, rows, sc)
         return self
 
     def layer(self, layer: int):
@@ -208,14 +289,20 @@ class QuantKVCache:
         """(k, v, k_scale, v_scale) of one layer as stored, for the kernels."""
         return self.k[layer], self.v[layer], self.k_scale[layer], self.v_scale[layer]
 
-    def with_pos(self, pos: int):
+    def with_pos(self, pos):
         return type(self)(self.k, self.v, self.k_scale, self.v_scale, pos)
 
-    def advance(self, n: int):
-        return self.with_pos(self.pos + int(n))
+    def advance(self, n):
+        return self.with_pos(self.pos + n)
 
     def reset(self):
         return self.with_pos(0)
+
+    def rollback_accept(self, draft_start, accept_idx, n_accept):
+        """`KVCache.rollback_accept` on the stored rows and their scales
+        (packed int4 bytes move as they are)."""
+        return self.with_pos(_rollback((self.k, self.v, self.k_scale[..., None], self.v_scale[..., None]),
+                                       self.max_len, draft_start, accept_idx, n_accept))
 
 
 class Quant4KVCache(QuantKVCache):
@@ -449,10 +536,10 @@ class PagedKVCache:
 
     def _replace(self, pos=None, table_host=None) -> "PagedKVCache":
         if table_host is None:
-            table, table_host = self.table, self.table_host
-        else:
-            table = to_device(table_host, self.table.device, torch.int32)
-        return PagedKVCache(self.k_store, self.v_store, table, self.pos if pos is None else pos,
+            table_host = self.table_host
+        else:  # in place: a captured window reads the table where it was captured
+            self.table.copy_(torch.from_numpy(table_host), non_blocking=True)
+        return PagedKVCache(self.k_store, self.v_store, self.table, self.pos if pos is None else pos,
                             table_host)
 
     def update_layer(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> "PagedKVCache":

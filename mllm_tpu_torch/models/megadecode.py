@@ -290,7 +290,7 @@ class MegaDecodeLM(nn.Module):
         ops = (self.qkv_ops.astuple(), self.o_ops.astuple()[:2], self.gate_ops.astuple()[:2],
                self.up_ops.astuple()[:2], self.down_ops.astuple()[:2], self.norm1_w, self.norm2_w,
                cache.k, cache.v)
-        if isinstance(pos, torch.Tensor):  # SlotKVCache: a device head per slot
+        if pos.dim() == 1:  # SlotKVCache: a device head per slot
             p = pos.clamp(max=cache.max_len - 1)
             pl = p.long()
             y, k_new, v_new = fused_decode_step_batched(x[:, 0], p, rope.sin[pl], rope.cos[pl], *ops, **kw)
@@ -299,16 +299,22 @@ class MegaDecodeLM(nn.Module):
             cache.v[:, slots, :, pl] = v_new.transpose(0, 1).to(cache.v.dtype)
             hidden = self.base.norm(y[:, None].to(x.dtype))
             return self.base.logits(hidden), cache.advance(1)
-        if pos + 1 > cache.max_len:
-            raise ValueError(f"KV cache overflow: pos {pos} + 1 token > max_len {cache.max_len}")
+        # the device head (KVCache): the kernels read it, the rope rows are
+        # gathered on the card, and the new row is written there, so the step
+        # is the same launches at every position. A head on the CPU is
+        # checked; one on the card clamps to the last row, as the append does.
+        if pos.device.type == "cpu" and int(pos) + 1 > cache.max_len:
+            raise ValueError(f"KV cache overflow: pos {int(pos)} + 1 token > max_len {cache.max_len}")
+        p = pos.clamp(max=cache.max_len - 1)
+        pl = p.long().reshape(1)
         if b == 1:
-            rot = rope_rotation_matrix(rope.sin[pos], rope.cos[pos], cfg.head_dim_)
-            y, k_new, v_new = fused_decode_step(x[0], pos, rot, *ops, **kw)
+            rot = rope_rotation_matrix(rope.sin[pl], rope.cos[pl], cfg.head_dim_)
+            y, k_new, v_new = fused_decode_step(x[0], p, rot, *ops, **kw)
             k_new, v_new = k_new[:, None], v_new[:, None]
         else:  # lockstep: every slot at the cache's write head
-            sin, cos = rope.sin[pos].expand(b, -1), rope.cos[pos].expand(b, -1)
-            y, k_new, v_new = fused_decode_step_batched(x[:, 0], pos, sin, cos, *ops, **kw)
-        cache.k[:, :, :, pos].copy_(k_new)
-        cache.v[:, :, :, pos].copy_(v_new)
+            sin, cos = rope.sin[pl].expand(b, -1), rope.cos[pl].expand(b, -1)
+            y, k_new, v_new = fused_decode_step_batched(x[:, 0], p.expand(b), sin, cos, *ops, **kw)
+        cache.k.index_copy_(3, pl, k_new[:, :, :, None].to(cache.k.dtype))
+        cache.v.index_copy_(3, pl, v_new[:, :, :, None].to(cache.v.dtype))
         hidden = self.base.norm(y[:, None].to(x.dtype))
         return self.base.logits(hidden), cache.advance(1)

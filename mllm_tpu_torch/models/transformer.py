@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..core.config import TextConfig
-from ..kv.cache import KVCache, Quant4KVCache, QuantKVCache
+from ..kv.cache import KVCache, Quant4KVCache, QuantKVCache, valid_len
 from ..nn.attention import attend, attend_from_cache
 from ..nn.layers import ACT_FN, Embedding, Linear, RMSNorm, RotaryEmbedding
 
@@ -68,7 +68,11 @@ class Attention(nn.Module):
                 return cfg.sliding_window
         return None
 
-    def forward(self, x, rope: RotaryEmbedding, cache: Optional[KVCache], positions, kv_start=None):
+    def forward(self, x, rope: RotaryEmbedding, cache: Optional[KVCache], positions, kv_start=None,
+                bias=None, causal=True):
+        """bias/causal: tree speculative decoding passes an additive attention
+        bias with causal=False (JAX `Attention.__call__`); it reaches `sdpa`
+        through `attention_route`, as the reference sends it to XLA."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -88,12 +92,12 @@ class Attention(nn.Module):
         k = rope(k, positions)
 
         scale = cfg.query_pre_attn_scalar**-0.5 if cfg.query_pre_attn_scalar else None
-        kw = dict(kv_start=kv_start, causal=True, window=self._window(), scale=scale,
+        kw = dict(kv_start=kv_start, causal=causal, window=self._window(), bias=bias, scale=scale,
                   logit_softcap=cfg.attn_logit_softcap)
         if cache is not None:
             cache = cache.update_layer(self.layer_idx, k, v)
             out = attend_from_cache(q, cache, self.layer_idx, q_offset=cache.pos,
-                                    kv_valid_len=cache.pos + s, **kw)
+                                    kv_valid_len=valid_len(cache, s), **kw)
         else:  # cacheless (scoring) path
             out = attend(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
                          q_offset=0, kv_valid_len=None, **kw)
@@ -139,9 +143,10 @@ class DecoderBlock(nn.Module):
         self.mlp = MLP(cfg, **kw)
         self.residual_multiplier = cfg.residual_multiplier  # MiniCPM scale_depth/sqrt(L)
 
-    def forward(self, x, rope, cache, positions, kv_start=None):
+    def forward(self, x, rope, cache, positions, kv_start=None, bias=None, causal=True):
         rm = self.residual_multiplier
-        h, cache = self.attn(self.input_norm(x), rope, cache, positions, kv_start=kv_start)
+        h, cache = self.attn(self.input_norm(x), rope, cache, positions, kv_start=kv_start, bias=bias,
+                             causal=causal)
         x = x + (h if rm == 1.0 else h * in_dtype(rm, h.dtype))
         h = self.mlp(self.post_attn_norm(x))
         x = x + (h if rm == 1.0 else h * in_dtype(rm, h.dtype))
@@ -199,9 +204,10 @@ class CausalLM(nn.Module):
                       pad_lens=None):
         """Run the trunk; returns (hidden [B,S,D], cache with pos advanced by S).
 
-        A cache with per-slot write heads (pos [B] on the device) gives each
-        sequence its own positions; attention then gets q_offset = pos and
-        kv_valid_len = pos + S as vectors, with no host round trip.
+        Positions and attention lengths come from the cache's write head on
+        the device (pos, 0-d, or [B] per slot), with no host round trip;
+        positions past the rope table clamp to its last row, as JAX's gather
+        does (only idle slots and a finished loop's dead steps reach it).
 
         pad_lens: [B] left-pad tokens per sequence (ragged batching); rope
         positions shift back by pad_lens (clamped at 0) and the pad prefix is
@@ -210,13 +216,10 @@ class CausalLM(nn.Module):
         if self.cfg.embedding_multiplier != 1.0:
             x = x * in_dtype(self.cfg.embedding_multiplier, x.dtype)
         s = x.shape[1]
-        pos0 = cache.pos if cache is not None else 0
         positions = torch.arange(s, device=x.device)[None, :]  # [1, S]
-        if isinstance(pos0, torch.Tensor):  # per-slot write heads [B]: positions [B, S]
-            # idle slots run past the rope table; JAX's gather clamps the index
-            positions = (pos0[:, None] + positions).clamp(max=self.rope.sin.shape[0] - 1)
-        else:
-            positions = pos0 + positions
+        if cache is not None:  # per-slot write heads [B]: positions [B, S]
+            pos0 = cache.pos[:, None] if cache.pos.dim() == 1 else cache.pos
+            positions = (pos0 + positions).clamp(max=self.rope.sin.shape[0] - 1)
         kv_start = None
         if pad_lens is not None:
             pad = torch.as_tensor(pad_lens, device=x.device)

@@ -40,9 +40,9 @@ _MEGA_COMMON = [*[_P] * 20, *[_I] * 10, _F, _F, _F, _P]
 
 # name -> argtypes of the C entry points in csrc/
 SIGNATURES = {
-    # q, k, v, out, kv_valid_vec, kv_start, B, Sq, H, Hkv, Skv, D,
+    # q, k, v, out, kv_valid_vec, kv_start, q_offset_dev, B, Sq, H, Hkv, Skv, D,
     # q_offset, kv_valid, causal, window, scale_log2, stream
-    "mllm_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "mllm_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _F, _P],
     # q, k, v, out, kv_valid_vec, kv_start, B, H, Hkv, S, D,
     # kv_valid, window, scale_log2, splits, stream
@@ -52,10 +52,11 @@ SIGNATURES = {
     # bits, kv_valid, window, scale, splits, stream
     "mllm_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _I, _P],
-    # q (raw, bf16), k, v, k_scale, v_scale, out, kv_start, B, Sq, H, Hkv, Skv,
-    # D, bits, q_offset, kv_valid, causal, window, q_scale, stream; q_scale is
-    # f32(bf16(scale * log2 e)): the kernel takes bf16(f32(q) * q_scale)
-    "mllm_flash_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q (raw, bf16), k, v, k_scale, v_scale, out, kv_start, kv_valid_vec,
+    # q_offset_dev, B, Sq, H, Hkv, Skv, D, bits, q_offset, kv_valid, causal,
+    # window, q_scale, stream; q_scale is f32(bf16(scale * log2 e)): the kernel
+    # takes bf16(f32(q) * q_scale)
+    "mllm_flash_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _F, _P],
     # q, k_pool, v_pool, table, out, kv_valid_vec, B, H, Hkv, NB, MAXB, D,
     # kv_valid, window, scale_log2, splits, stream
@@ -75,8 +76,8 @@ SIGNATURES = {
     "mllm_fused_int4_mlp_bf16": [*[_P] * 13, *[_I] * 14, _P],
     # mt8, affine, chunk_rows, out (int*)
     "mllm_fused_int4_mlp_blocks": [_I, _I, _I, _P],
-    # x, rope_r, pos, kv_start, *_MEGA_COMMON
-    "mllm_fused_decode_step_bf16": [_P, _P, _I, _I, *_MEGA_COMMON],
+    # x, rope_r, pos_dev, pos, kv_start, *_MEGA_COMMON
+    "mllm_fused_decode_step_bf16": [_P, _P, _P, _I, _I, *_MEGA_COMMON],
     # x, cos, sin, pos_vec, kvs_vec, pos, kv_start, b, *_MEGA_COMMON
     "mllm_fused_decode_step_batched_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, *_MEGA_COMMON],
 }

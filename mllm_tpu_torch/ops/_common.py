@@ -146,6 +146,18 @@ def kv_len_arg(name: str, kv_valid_len, b: int, skv: int, device) -> tuple[int, 
     return n, None
 
 
+def offset_arg(name: str, q_offset, device) -> tuple[int, Optional[torch.Tensor]]:
+    """(host q_offset, device int32 scalar or None): a tensor q_offset (a write
+    head on the device) is passed by address and read by the kernel, so a
+    captured loop replays the same launch at every position."""
+    if not isinstance(q_offset, torch.Tensor):
+        return int(q_offset), None
+    if q_offset.numel() != 1:
+        raise ValueError(f"{name}: one q_offset for the batch, got {q_offset.numel()} "
+                         "(per-sequence offsets have no kernel, as in the JAX wrapper)")
+    return 0, q_offset.reshape(()).to(device=device, dtype=torch.int32)
+
+
 def kv_start_arg(name: str, kv_start, b: int, device) -> Optional[torch.Tensor]:
     """int32 [B] on device, or None."""
     if kv_start is None:

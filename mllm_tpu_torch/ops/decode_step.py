@@ -345,7 +345,9 @@ def fused_decode_step(x, pos, rope_r, qkv_ops, o_ops, gate_ops, up_ops, down_ops
                       scale: Optional[float] = None, group_a: int = 64, group_d: int = 32,
                       block_f: int = 640, block_k: int = 512, kv_start=None):
     """One full-trunk decode step of one sequence: x [1, d] (post-embedding),
-    pos = tokens already in the cache, rope_r the [hd, hd] rotation at pos.
+    pos = tokens already in the cache (a host int, or a one-element int tensor
+    on the card that the kernel reads: a write head, so the launch is the same
+    at every position), rope_r the [hd, hd] rotation at pos.
     Returns (y [1, d] f32, k_new [L, Hkv, hd] f32 roped, v_new [L, Hkv, hd] f32)."""
     name = "fused_decode_step"
     _check_window(name, pos, kv_start, k_cache.shape[3])
@@ -355,14 +357,21 @@ def fused_decode_step(x, pos, rope_r, qkv_ops, o_ops, gate_ops, up_ops, down_ops
             v_cache, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, act=act, eps=eps, rm=rm,
             scale=scale, group_a=group_a, group_d=group_d, block_f=block_f, kv_start=kv_start)
     geo = _geometry(name, x, qkv_ops, gate_ops, k_cache, n_heads, n_kv_heads, head_dim, group_a, block_f)
-    pos, start = int(pos), int(kv_start or 0)
-    _check_window(name, pos, start, geo[5])
+    start = int(kv_start or 0)
+    if isinstance(pos, torch.Tensor) and pos.device.type != "cpu":
+        if pos.numel() != 1:
+            raise ValueError(f"{name}: one position for b = 1, got {pos.numel()}")
+        pos_dev, pos = pos.reshape(1).to(device=x.device, dtype=torch.int32), 0
+    else:
+        pos_dev, pos = None, int(pos)
+        _check_window(name, pos, start, geo[5])
     x2 =_f32_rows(x, 1, geo[1])
     rot = rope_r.to(device=x.device, dtype=torch.float32).contiguous()
     if rot.shape != (HEAD_DIM, HEAD_DIM):
         raise ValueError(f"{name}: rope_r must be [128, 128], got {tuple(rot.shape)}")
     y, k_new, v_new = _launch(
-        name, _build.library().mllm_fused_decode_step_bf16, (x2.data_ptr(), rot.data_ptr(), pos, start),
+        name, _build.library().mllm_fused_decode_step_bf16,
+        (x2.data_ptr(), rot.data_ptr(), _ptr(pos_dev), pos, start),
         1, x2, qkv_ops, o_ops, gate_ops, up_ops, down_ops, norm1_w, norm2_w, k_cache, v_cache,
         h=n_heads, hkv=n_kv_heads, act=act, eps=eps, rm=rm,
         scale=head_dim**-0.5 if scale is None else scale, group_a=group_a, group_d=group_d,

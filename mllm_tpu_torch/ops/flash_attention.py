@@ -30,7 +30,7 @@ import torch
 
 from . import _build
 from ._common import (check_kernel_args, check_quant_kv_args, flash_visible_keys, kv_len_arg,
-                      kv_start_arg, masked_exp, masked_softmax)
+                      kv_start_arg, masked_exp, masked_softmax, offset_arg)
 
 LOG2E = 1.4426950408889634
 
@@ -68,22 +68,26 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
-    q_offset: int = 0,
+    q_offset=0,
     kv_valid_len=None,
     kv_start: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Prefill attention; same signature and masking as `flash_attention_ref`."""
+    """Prefill attention; same signature and masking as `flash_attention_ref`.
+
+    q_offset is a host int or a one-element tensor on the card (a write head,
+    as the JAX kernel's scalar prefetch); kv_valid_len an int or a tensor of
+    one or B entries. Device values are read by the kernel, never by the host,
+    so the launch is the same at every position and replays in a CUDA graph."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                    kv_start=kv_start, causal=causal, window=window, scale=scale)
     b, sq, h, d = q.shape
     check_kernel_args("flash_attention", q, k, v)
     hkv, skv = k.shape[1], k.shape[2]
-    if not isinstance(q_offset, int):
-        raise TypeError(f"flash_attention: q_offset must be a host int, got {type(q_offset)}")
+    offset_int, offset_dev = offset_arg("flash_attention", q_offset, q.device)
     valid_int, valid_vec = kv_len_arg("flash_attention", kv_valid_len, b, skv, q.device)
     start_vec = kv_start_arg("flash_attention", kv_start, b, q.device)
     if scale is None:
@@ -93,7 +97,8 @@ def flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         valid_vec.data_ptr() if valid_vec is not None else None,
         start_vec.data_ptr() if start_vec is not None else None,
-        b, sq, h, hkv, skv, d, q_offset, valid_int, int(causal), int(window or 0),
+        offset_dev.data_ptr() if offset_dev is not None else None,
+        b, sq, h, hkv, skv, d, offset_int, valid_int, int(causal), int(window or 0),
         scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
@@ -154,7 +159,7 @@ def flash_attention_quant(
     k_scale: torch.Tensor,
     v_scale: torch.Tensor,
     *,
-    q_offset: int = 0,
+    q_offset=0,
     kv_valid_len=None,
     kv_start: Optional[torch.Tensor] = None,
     causal: bool = True,
@@ -163,7 +168,9 @@ def flash_attention_quant(
 ) -> torch.Tensor:
     """Prefill attention over int8 or packed-int4 K/V; same signature and
     arithmetic as `flash_attention_quant_ref`. On the card q_offset and
-    kv_valid_len are host ints, as the JAX wrapper's scalars.
+    kv_valid_len are one value for the batch, as the JAX wrapper's scalars:
+    host ints, or one-element tensors on the card that the kernel reads (a
+    write head; the launch is then the same at every position).
 
     The kernel (`csrc/flash_attention_quant.cu`, one launch) is bound by
     matrix math past a few hundred tokens, as the bf16 one, and its integers
@@ -184,10 +191,11 @@ def flash_attention_quant(
     b, sq, h, d = q.shape
     bits = check_quant_kv_args(name, q, k, v, k_scale, v_scale)
     hkv, skv = k.shape[1], k.shape[2]
-    if not isinstance(q_offset, int) or isinstance(kv_valid_len, torch.Tensor):
-        raise TypeError(f"{name}: q_offset and kv_valid_len must be host ints (per-sequence "
-                        "lengths have no kernel here, as in the JAX wrapper)")
-    valid_int, _ = kv_len_arg(name, kv_valid_len, b, skv, q.device)
+    if isinstance(kv_valid_len, torch.Tensor) and kv_valid_len.numel() != 1:
+        raise ValueError(f"{name}: one kv_valid_len for the batch, got {kv_valid_len.numel()} "
+                         "(per-sequence lengths have no kernel here, as in the JAX wrapper)")
+    offset_int, offset_dev = offset_arg(name, q_offset, q.device)
+    valid_int, valid_vec = kv_len_arg(name, kv_valid_len, b, skv, q.device)
     start_vec = kv_start_arg(name, kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
@@ -195,7 +203,9 @@ def flash_attention_quant(
     err = _build.library().mllm_flash_attention_quant(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         out.data_ptr(), start_vec.data_ptr() if start_vec is not None else None,
-        b, sq, h, hkv, skv, d, bits, q_offset, valid_int, int(causal), int(window or 0),
+        valid_vec.data_ptr() if valid_vec is not None else None,
+        offset_dev.data_ptr() if offset_dev is not None else None,
+        b, sq, h, hkv, skv, d, bits, offset_int, valid_int, int(causal), int(window or 0),
         quant_q_scale(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

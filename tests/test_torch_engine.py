@@ -229,8 +229,7 @@ def test_randomized_load(pair):
 
 def test_unported_options_raise(pair):
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        _engine(tm, prefix_cache=4)
+    assert _engine(tm, prefix_cache=4)._pcache is not None  # ported: no longer raises
     with pytest.raises(NotImplementedError, match="item 16"):
         _engine(tm, mesh=object())
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -370,3 +369,94 @@ def test_engine_on_mega_matches_its_single_stream(megas):
     want = [generate(tmega, p[None], tmega.init_cache(1, 64), SamplingConfig(max_new_tokens=3),
                      eos_token_id=-2, bucket=16)[0].tokens for p in prompts]
     assert got == want
+
+
+# -- the prefix cache (counterparts of tests/test_engine.py:174-226) -----------
+
+
+def _two_phase(eng, p_a, p_b, coll=collect):
+    """Request a, ten scheduler steps, then request b (which finds a's prefix)."""
+    qa = eng.submit(p_a, 6)
+    for _ in range(10):
+        eng.step()
+    qb = eng.submit(p_b, 6)
+    for _ in range(10):
+        eng.step()
+    return coll(qa, timeout=5), coll(qb, timeout=5)
+
+
+def test_engine_prefix_cache_exact_and_jax(pair):
+    """Two requests sharing a 20-token prefix (over one 16-token bucket): the
+    second admission reuses the bucket-aligned 16 rows, its tokens equal the
+    single stream's and the JAX engine's, and the counters are exact."""
+    jm, tm = pair
+    rng = np.random.default_rng(6)
+    system = rng.integers(0, 97, 20)
+    p_a = np.concatenate([system, rng.integers(0, 97, 4)])
+    p_b = np.concatenate([system, rng.integers(0, 97, 5)])
+    eng = _engine(tm, prefix_cache=4)
+    got = _two_phase(eng, p_a, p_b)
+    assert got == (_single_stream(tm, p_a, 6), _single_stream(tm, p_b, 6))
+    assert (eng.prefix_hits, eng.prefix_tokens_reused) == (1, 16)
+    jeng_ = _jax_engine(jm, prefix_cache=4)
+    assert _two_phase(jeng_, p_a.astype(np.int32), p_b.astype(np.int32), jeng.collect) == got
+    assert (jeng_.prefix_hits, jeng_.prefix_tokens_reused) == (1, 16)
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_engine_prefix_cache_quant_kv_and_jax(pair, jax_kernel_arithmetic, kv):
+    """Prefix reuse over the quantized slot cache (the quantized small caches
+    are cut, grown and installed again): tokens equal the engine without the
+    prefix cache and the JAX engine with it (its quantized attention through
+    the Pallas kernels' arithmetic), hits and reused rows exact."""
+    jm, tm = pair
+    rng = np.random.default_rng(8)
+    system = rng.integers(0, 97, 18)
+    p_a = np.concatenate([system, rng.integers(0, 97, 3)])
+    p_b = np.concatenate([system, rng.integers(0, 97, 6)])
+    plain = _two_phase(_engine(tm, kv_dtype=kv), p_a, p_b)
+    eng = _engine(tm, kv_dtype=kv, prefix_cache=4)
+    got = _two_phase(eng, p_a, p_b)
+    assert got == plain
+    assert (eng.prefix_hits, eng.prefix_tokens_reused) == (1, 16)
+    jeng_ = _jax_engine(jm, kv_dtype=kv, prefix_cache=4)
+    assert _two_phase(jeng_, p_a.astype(np.int32), p_b.astype(np.int32), jeng.collect) == got
+    assert (jeng_.prefix_hits, jeng_.prefix_tokens_reused) == (eng.prefix_hits, eng.prefix_tokens_reused)
+
+
+def test_engine_prefix_cache_randomized_load(pair):
+    """12 greedy requests, every third sharing a 20-token prefix, random
+    lengths and budgets, submitted at random times over 3 slots with the
+    prefix cache on: every stream equals its single-stream run, and the
+    hits and reused rows equal the JAX engine's on the same schedule."""
+    jm, tm = pair
+    rng = np.random.default_rng(13)
+    shared = rng.integers(0, 97, 20)
+    prompts, budgets = [], []
+    for i in range(12):
+        if i % 3 == 0:
+            p = np.concatenate([shared, rng.integers(0, 97, rng.integers(1, 6))])
+        else:
+            p = rng.integers(0, 97, rng.integers(2, 30))
+        prompts.append(p)
+        budgets.append(int(rng.integers(2, 8)))
+    arrivals = np.random.default_rng(14).random(400) < 0.5
+
+    def run(eng, coll, cast):
+        qs, nxt = [], 0
+        for step in range(400):
+            if nxt < len(prompts) and arrivals[step]:
+                qs.append(eng.submit(cast(prompts[nxt]), budgets[nxt]))
+                nxt += 1
+            eng.step()
+            if nxt == len(prompts) and all(r is None for r in eng.req) and eng.pending.empty():
+                break
+        return [coll(q, timeout=5) for q in qs]
+
+    eng = _engine(tm, slots=3, prefix_cache=4)
+    got = run(eng, collect, lambda p: p)
+    assert got == [_single_stream(tm, p, b) for p, b in zip(prompts, budgets)]
+    assert eng.prefix_hits > 0
+    jeng_ = _jax_engine(jm, slots=3, prefix_cache=4)
+    assert run(jeng_, jeng.collect, lambda p: p.astype(np.int32)) == got
+    assert (jeng_.prefix_hits, jeng_.prefix_tokens_reused) == (eng.prefix_hits, eng.prefix_tokens_reused)
