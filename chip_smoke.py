@@ -125,6 +125,42 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      requests x 48 new tokens): exactly 7 hits and 896 reused rows, the
      teacher-forced check of 4 greedy requests, tok/s beside the bf16 engine
      with eager windows (85.7, commit c967662's final smoke).
+  9. head_dim_route: 2-layer qwen2-type models at head_dim 256, then 80 (8 /
+     2 heads, random bf16 weights) through generate and generate_compiled:
+     every attention call takes `sdpa` (no attention kernel launches),
+     finite logits, the last decode step within 0.1 x max |logit| of a
+     fresh prefill.
+  10. slice_int8a8: int8_matmul_a8 (torch._int_mm) at (17, 1536, 2048),
+     (1536, 1536, 8960) and (1536, 8960, 1536) within 2e-3 of the exact
+     product of x quantized in f64 apart from the port, a8_quantize's int8 x
+     and scales bit-equal to its CPU result, timed beside torch.mm on the
+     bf16 weight, the int8 kernel and _int_mm alone on both weight layouts;
+     the bf16 model through
+     quantize_model("int8-a8", on_device=True): the 1500-token prefill
+     against its int8 twin (same weights, weight-only), logits within 0.1 x
+     max |logit|, and ragged_batched_generate at b=8 with A8 on the
+     prefill's 4L projections only.
+  11. slice_containers: the full-width LM as ggml blocks made from seeded
+     random bytes (Q4_0 q/k/v/o, Q4_K gate/up, Q8_0 down, f16 tied
+     embedding, f32 norms and biases) written as a `.mllm` model directory
+     (with a synthetic 151936-entry tokenizer.json: byte-level BPE, or
+     SentencePiece BPE where `regex` is absent) and as a GGUF file under
+     build/smoke_containers/, loaded by auto_model and load_gguf_model: the
+     two loads' prefill logits bit-equal, layer 0's repacked products
+     within 2e-3 of the blocks' dequant (Q8_0, requantized to a scale a
+     row: within that requantization's bound, and 2e-3 of its own
+     operands), the last greedy step against a fresh prefill, tokenizer
+     round trips on an ASCII and a CJK text, exact launches by int4 law.
+  12. slice_serve: mllm_tpu_torch.serve on 127.0.0.1, port 0, over that
+     model: --engine continuous (8 slots, int8 KV) takes 8 completions of
+     17-300 prompt tokens, 2 chats and 1 streamed completion (48 new tokens
+     each) concurrently through urllib; the stream equals the plain text,
+     /metrics counts 11 requests and 11 first tokens, /healthz answers,
+     greedy tokens within 0.1 x max |logit| of a teacher-forced prefill;
+     then 2 requests each through --engine window and --engine sd. Prints
+     tok/s over wall time, the windows' capture seconds apart, and each
+     request's time to first token.
+  Phases 9-12 print their seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -144,6 +180,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import time
 
@@ -1191,6 +1228,36 @@ def mega_geometry_rows(dev, g, lm: dict, mrows):
         yield name, row
 
 
+def last_step_vs_prefill(model, dev, prompt, tokens, last_logits, kv_dtype: str = "bf16") -> float:
+    """max |last decode step's logits - a fresh prefill's| / max |prefill
+    logits|, the prefill over prompt + tokens[:-1]."""
+    from mllm_tpu_torch.generation.generate import pad_to_bucket, prefill
+
+    ids = np.concatenate([np.asarray(prompt), np.asarray(tokens[:-1])])
+    fresh, _ = prefill(model, model.init_cache(1, S_CACHE, kv_dtype=kv_dtype),
+                       torch.as_tensor(pad_to_bucket(ids[None]), device=dev), len(ids))
+    fresh = fresh.float()
+    return ((last_logits.float() - fresh).abs().max() / fresh.abs().max()).item()
+
+
+def logits_spy(model, dev):
+    """Wrap model.logits for eager runs: every call's output is checked for
+    finite values on the device (no host read) and the last one kept.
+    Returns (state, restore): state["finite"] is a device bool, state["last"]
+    the last call's logits."""
+    plain = model.logits
+    state = {"finite": torch.ones((), dtype=torch.bool, device=dev), "last": None}
+
+    def spy(hidden):
+        out = plain(hidden)
+        state["finite"] = state["finite"] & torch.isfinite(out).all()
+        state["last"] = out
+        return out
+
+    model.logits = spy
+    return state, lambda: setattr(model, "logits", plain)
+
+
 def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str = "bf16") -> dict:
     """Run the main path of one slice phase through the user entry points and
     check it, over caches of `kv_dtype`. expected_per(prefills, steps) ->
@@ -1200,19 +1267,7 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str 
     from mllm_tpu_torch.generation.sampling import SamplingConfig
 
     kernels = wrappers()
-    # every logits call of the run is checked for finite values, on the device
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-    last = {}
-    plain_logits = model.logits
-
-    def checked_logits(hidden):
-        nonlocal finite
-        out = plain_logits(hidden)
-        finite = finite & torch.isfinite(out).all()
-        last["logits"] = out
-        return out
-
-    model.logits = checked_logits
+    spy, restore = logits_spy(model, dev)  # every logits call of the run is checked for finite values
     rng = np.random.default_rng(0)
     greedy = SamplingConfig(max_new_tokens=64)
     torch.cuda.reset_peak_memory_stats()
@@ -1234,18 +1289,14 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str 
     run_generate(rng.integers(0, cfg.vocab_size, 100), SamplingConfig(max_new_tokens=8))  # warm-up
     prompt100 = rng.integers(0, cfg.vocab_size, 100)
     res100 = run_generate(prompt100, greedy)
-    last_step = last["logits"][:, -1].float()  # the last greedy decode step's logits
+    last_step = spy["last"][:, -1]  # the last greedy decode step's logits
     res1500 = run_generate(rng.integers(0, cfg.vocab_size, 1500), SamplingConfig(max_new_tokens=32))
 
     # decode vs prefill: the last decode step against a fresh prefill of the same tokens
-    ids = np.concatenate([prompt100, res100.tokens[:-1]])
-    lg_fresh, _ = prefill(model, init_cache(1),
-                          torch.as_tensor(pad_to_bucket(ids[None]), device=dev), len(ids))
+    decode_vs_prefill = last_step_vs_prefill(model, dev, prompt100, res100.tokens, last_step, kv_dtype)
     prefills += 1
-    decode_vs_prefill = ((last_step - lg_fresh.float()).abs().max()
-                         / lg_fresh.float().abs().max()).item()
     emit(phase=f"{phase}_decode_vs_prefill", max_abs_diff_over_max_logit=decode_vs_prefill,
-         tolerance=RAGGED_TOL, tokens=len(ids))
+         tolerance=RAGGED_TOL, tokens=len(prompt100) + len(res100.tokens) - 1)
     if not decode_vs_prefill <= RAGGED_TOL:
         raise AssertionError(f"{phase}: last decode step differs from a fresh prefill: "
                              f"{decode_vs_prefill} > {RAGGED_TOL}")
@@ -1306,8 +1357,8 @@ def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str 
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
     expected = expected_per(prefills, steps)
-    all_finite = bool(finite)
-    model.logits = plain_logits
+    all_finite = bool(spy["finite"])
+    restore()
     for name, res in (("greedy_100", res100), ("greedy_1500", res1500), ("sampled", sampled)):
         if not all(0 <= t < cfg.vocab_size for t in res.tokens):
             raise AssertionError(f"{phase} {name}: token out of vocabulary")
@@ -2026,6 +2077,760 @@ def phase_slice_mega(dev) -> dict:
             for name in launches}
 
 
+# ---------------------------------------------------------------------------
+# The way in: head_dim route, containers, W8A8, the server
+# ---------------------------------------------------------------------------
+
+ATTENTION_KERNELS = ("flash_attention", "decode_attention", "flash_attention_quant",
+                     "decode_attention_quant", "decode_attention_paged")
+# (head_dim, heads, kv heads): head_dims no attention kernel takes
+HEAD_DIM_ROUTE = ((256, 8, 2), (80, 8, 2))
+
+
+def phase_head_dim_route(dev) -> dict:
+    """A 2-layer qwen2-type model at head_dim 256, then 80 (8 / 2 heads,
+    random bf16 weights) through generate and generate_compiled on the card:
+    no raise, only `sdpa` serves attention (every attention kernel's counter
+    stays 0), finite logits, and the last decode step within RAGGED_TOL x max
+    |logit| of a fresh prefill."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.generation.generate import generate, generate_compiled, pad_to_bucket
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.nn.attention import attention_route
+
+    kernels = wrappers()
+    launches = {}
+    for d, h, hkv in HEAD_DIM_ROUTE:
+        t0 = time.perf_counter()
+        cfg = TextConfig(**{**QWEN2VL_2B_LM, "num_hidden_layers": 2, "num_attention_heads": h,
+                            "num_key_value_heads": hkv, "head_dim": d})
+        model = init_model(cfg, dev)
+        rng = np.random.default_rng(d)
+        prompt = rng.integers(0, cfg.vocab_size, 100)
+        for fn in kernels.values():
+            fn.launches = 0
+        graphs.reset_counts()
+        spy, restore = logits_spy(model, dev)
+        res, _ = generate(model, prompt, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=24))
+        restore()  # eager runs only
+        finite = bool(spy["finite"])
+        gap = last_step_vs_prefill(model, dev, prompt, res.tokens, spy["last"][:, -1])
+        toks, n = generate_compiled(model, pad_to_bucket(prompt[None]), model.init_cache(1, S_CACHE), 100, 40,
+                                    SamplingConfig(max_new_tokens=40))
+        compiled = toks.cpu().numpy()[: int(n)].tolist()
+        torch.cuda.synchronize()
+        counted = {k: fn.launches for k, fn in kernels.items()}
+        on_card = graphs.device_launches(counted)
+        routes = sorted({attention_route(sq, cache=c, head_dim=d) for sq in (1, 100)
+                         for c in ("dense", "paged", "quant")})
+        emit(phase="head_dim_route", head_dim=d, heads=h, kv_heads=hkv, layers=2, routes=routes,
+             seconds=time.perf_counter() - t0, new_tokens=[len(res.tokens), len(compiled)],
+             compiled_equals_eager=compiled[: len(res.tokens)] == res.tokens[: len(compiled)],
+             compiled_in_vocab=all(0 <= t < cfg.vocab_size for t in compiled),
+             last_decode_vs_prefill=gap, tolerance=RAGGED_TOL, logits_finite=finite,
+             attention_launches={k: on_card[k] for k in ATTENTION_KERNELS})
+        if routes != ["sdpa"] or any(on_card[k] for k in ATTENTION_KERNELS):
+            raise AssertionError(f"head_dim_route {d}: routes {routes}, launches {on_card}")
+        if not finite or not gap <= RAGGED_TOL or not all(0 <= t < cfg.vocab_size for t in compiled):
+            raise AssertionError(f"head_dim_route {d}: finite {finite}, decode vs prefill {gap}, "
+                                 f"compiled tokens {compiled}")
+        add_launches(launches, {k: on_card[k] for k in ATTENTION_KERNELS})
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+# slice_containers: the ggml block kinds of the served model's projections
+CONTAINER_KINDS = {"self_attn.q_proj": "Q4_0", "self_attn.k_proj": "Q4_0", "self_attn.v_proj": "Q4_0",
+                   "self_attn.o_proj": "Q4_0", "mlp.gate_proj": "Q4_K", "mlp.up_proj": "Q4_K",
+                   "mlp.down_proj": "Q8_0"}
+GGML_TYPES = {"F32": 0, "F16": 1, "Q4_0": 2, "Q8_0": 8, "Q4_K": 12, "Q6_K": 14}  # ggml type ids
+GGML_BLOCKS = {"Q4_0": (32, 18, (0,)), "Q8_0": (32, 34, (0,)), "Q4_K": (256, 144, (0, 2)),
+               "Q6_K": (256, 210, (208,))}  # elements, bytes, f16 scale offsets of a block
+TOKENIZER_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+
+
+def random_blocks(kind: str, n: int, k: int, std: float, rng) -> np.ndarray:
+    """The ggml blocks of an [n, k] weight made straight from seeded random
+    bytes: every byte random but the f16 block scales (d, and dmin = 7.5 d
+    for Q4_K, so the groups' offsets centre the weights), one value for the
+    whole tensor chosen so that the decoded weights' std is `std`."""
+    from mllm_tpu_torch.core import dtypes as dt
+
+    elems, nbytes, offsets = GGML_BLOCKS[kind]
+    raw = rng.integers(0, 256, (n * k // elems, nbytes), dtype=np.uint8)
+
+    def set_scales(d):
+        for off, mult in zip(offsets, (1.0, 7.5)):
+            raw[:, off : off + 2] = np.full((len(raw), 1), d * mult, np.float16).view(np.uint8)
+
+    set_scales(1.0)
+    probe = min(len(raw), 4096)
+    unit = float(dt.decode(raw[:probe].reshape(-1), getattr(dt.DataType, kind), probe * elems).std())
+    set_scales(std / unit)
+    return raw.reshape(-1)
+
+
+def synthetic_tokenizer(vocab_size: int, seed: int, byte_level: bool = True) -> dict:
+    """A tokenizer.json of `vocab_size` entries with merges, made from a seed:
+    byte-level BPE over the GPT-2 byte alphabet with Qwen2's split pattern
+    (byte_level=True, needs `regex`), or SentencePiece BPE with byte fallback
+    (the llama kind). Merges join two earlier tokens drawn at random from the
+    first 4096; the last ids are TOKENIZER_SPECIALS."""
+    from mllm_tpu_torch.tokenizers.base import BYTE_TO_UNICODE
+    from mllm_tpu_torch.tokenizers.bpe import QWEN2_PATTERN
+
+    rng = np.random.default_rng(seed)
+    if byte_level:
+        base = [BYTE_TO_UNICODE[b] for b in range(256)]
+        first = base
+    else:
+        base = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+        first = ["▁"] + [chr(c) for c in range(ord("a"), ord("z") + 1)] + [chr(c) for c in range(ord("A"), ord("Z") + 1)]
+        base = base + first
+    toks, merges = list(base), []
+    vocab = {t: i for i, t in enumerate(toks)}
+    n_plain = vocab_size - len(TOKENIZER_SPECIALS)
+    pool = list(first)
+    while len(toks) < n_plain:
+        for a, b in rng.integers(0, 4096, (4096, 2)):
+            a, b = pool[a % len(pool)], pool[b % len(pool)]
+            if a + b in vocab or len(toks) >= n_plain:
+                continue
+            vocab[a + b] = len(toks)
+            toks.append(a + b)
+            merges.append(f"{a} {b}")
+            if len(pool) < 4096:
+                pool.append(a + b)
+    added = [{"id": n_plain + i, "content": t, "special": True} for i, t in enumerate(TOKENIZER_SPECIALS)]
+    model = {"type": "BPE", "vocab": vocab, "merges": merges, "byte_fallback": not byte_level}
+    if byte_level:
+        pre = {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": False}]}
+        return {"version": "1.0", "added_tokens": added, "pre_tokenizer": pre, "model": model,
+                "decoder": {"type": "ByteLevel"}}
+    return {"version": "1.0", "added_tokens": added, "pre_tokenizer": None, "model": model}
+
+
+def container_tensors(cfg, seed: int, kinds: dict = CONTAINER_KINDS, overrides: dict = None) -> dict:
+    """HF name -> (ggml kind, shape, array) of a random qwen2-type checkpoint
+    of `cfg`: the projections as ggml blocks (kinds by projection, overrides
+    by full name), each at the std of the random float model's Linear
+    (U(-1/sqrt(k), 1/sqrt(k))); f16 tied embedding (N(0, 0.02)); f32 norms
+    (ones) and qkv biases."""
+    rng = np.random.default_rng(seed)
+    d, ff, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    hd = cfg.head_dim_
+    q, kv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    shapes = {"self_attn.q_proj": (q, d), "self_attn.k_proj": (kv, d), "self_attn.v_proj": (kv, d),
+              "self_attn.o_proj": (d, q), "mlp.gate_proj": (ff, d), "mlp.up_proj": (ff, d),
+              "mlp.down_proj": (d, ff)}
+    out = {"model.embed_tokens.weight": ("F16", (cfg.vocab_size, d),
+                                         (rng.standard_normal((cfg.vocab_size, d), np.float32) * 0.02)
+                                         .astype(np.float16)),
+           "model.norm.weight": ("F32", (d,), np.ones(d, np.float32))}
+    for i in range(L):
+        p = f"model.layers.{i}."
+        for proj, (n, k) in shapes.items():
+            name = p + proj + ".weight"
+            kind = (overrides or {}).get(name, kinds[proj])
+            out[name] = (kind, (n, k), random_blocks(kind, n, k, 1.0 / np.sqrt(3.0 * k), rng))
+            if proj in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+                s = 1.0 / np.sqrt(k)
+                out[p + proj + ".bias"] = ("F32", (n,), rng.uniform(-s, s, n).astype(np.float32))
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            out[p + norm + ".weight"] = ("F32", (d,), np.ones(d, np.float32))
+    return out
+
+
+def hf_config(cfg) -> dict:
+    """The config.json of a qwen2-type `cfg` (tied embeddings)."""
+    return {"model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"], "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_hidden_layers, "num_attention_heads": cfg.num_attention_heads,
+            "num_key_value_heads": cfg.num_key_value_heads, "max_position_embeddings": cfg.max_position_embeddings,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta, "tie_word_embeddings": True,
+            "bos_token_id": cfg.bos_token_id, "eos_token_id": cfg.eos_token_id, "hidden_act": "silu"}
+
+
+def write_mllm_model(path: str, cfg, tensors: dict, tokenizer: dict) -> None:
+    """A model directory: config.json, model.mllm (MllmWriter) and tokenizer.json."""
+    import os
+
+    from mllm_tpu_torch.core.dtypes import DataType
+    from mllm_tpu_torch.core.param_loader import MllmWriter
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg), f)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tokenizer, f, ensure_ascii=False)
+    w = MllmWriter(os.path.join(path, "model.mllm"))
+    for name, (kind, _, arr) in tensors.items():
+        w.add(name, arr, getattr(DataType, kind))
+    w.write()
+
+
+def write_gguf_model(path: str, cfg, tensors: dict, tokenizer: dict) -> None:
+    """The same tensors as a GGUF file (llama.cpp names, arch qwen2), the
+    tokenizer's tokens and merges in its metadata."""
+    from mllm_tpu_torch.core import gguf
+
+    arch = "qwen2"
+    w = gguf.GGUFWriter(path, arch)
+    for key, vt, v in (("embedding_length", gguf._T_U32, cfg.hidden_size),
+                       ("block_count", gguf._T_U32, cfg.num_hidden_layers),
+                       ("feed_forward_length", gguf._T_U32, cfg.intermediate_size),
+                       ("attention.head_count", gguf._T_U32, cfg.num_attention_heads),
+                       ("attention.head_count_kv", gguf._T_U32, cfg.num_key_value_heads),
+                       ("context_length", gguf._T_U32, cfg.max_position_embeddings),
+                       ("attention.layer_norm_rms_epsilon", gguf._T_F32, cfg.rms_norm_eps),
+                       ("rope.freq_base", gguf._T_F32, cfg.rope_theta)):
+        w.add_kv(f"{arch}.{key}", vt, v)
+    model = tokenizer["model"]
+    toks = [""] * (max(model["vocab"].values()) + 1 + len(tokenizer["added_tokens"]))
+    for t, i in model["vocab"].items():
+        toks[i] = t
+    for a in tokenizer["added_tokens"]:
+        toks[a["id"]] = a["content"]
+    w.add_kv("tokenizer.ggml.model", gguf._T_STR, "llama" if model["byte_fallback"] else "gpt2")
+    w.add_kv("tokenizer.ggml.tokens", gguf._T_ARR, (gguf._T_STR, toks))
+    w.add_kv("tokenizer.ggml.merges", gguf._T_ARR, (gguf._T_STR, model["merges"]))
+    w.add_kv("tokenizer.ggml.bos_token_id", gguf._T_I32, cfg.bos_token_id)
+    w.add_kv("tokenizer.ggml.eos_token_id", gguf._T_I32, cfg.eos_token_id)
+    for name, (kind, shape, arr) in tensors.items():
+        w.add_tensor(gguf._map_name(name), np.ascontiguousarray(arr).tobytes(), shape, GGML_TYPES[kind])
+    w.write()
+
+
+def law_counts():
+    """Count int4_matmul's kernel launches by law (symmetric: no zeros;
+    affine: zeros) around Int4Linear.forward, from the wrapper's own
+    counter. Returns (counts, restore)."""
+    from mllm_tpu_torch.nn.layers import Int4Linear
+    from mllm_tpu_torch.ops import quant_matmul as qm
+
+    plain = Int4Linear.forward
+    counts = {"symmetric": 0, "affine": 0}
+
+    def counted(self, x):
+        before = qm.int4_matmul.launches
+        y = plain(self, x)
+        counts["affine" if self.zeros_t is not None else "symmetric"] += qm.int4_matmul.launches - before
+        return y
+
+    Int4Linear.forward = counted
+    return counts, lambda: setattr(Int4Linear, "forward", plain)
+
+
+CONTAINER_PROMPTS = ("The quick brown fox jumps over the lazy dog; 1234 + 5678 = 6912.",
+                     "多语言的模型服务：你好，世界！東京の天気は晴れです。")
+
+
+def phase_slice_containers(dev):
+    """The served checkpoint, written and loaded back: at the full Qwen2-VL-2B
+    LM geometry, ggml blocks made straight from seeded random bytes (Q4_0
+    q/k/v/o, Q4_K gate/up, Q8_0 down; f16 tied embedding, f32 norms and
+    biases) go into a `.mllm` model directory (config.json, model.mllm,
+    a synthetic tokenizer.json of 151936 entries) and into a GGUF file with
+    the same tokenizer; `auto_model` and `load_gguf_model` load them on the
+    card. Checks: the two loads' prefill logits of one 100-token prompt
+    bit-equal; layer 0's repacked projections against x @ decode(blocks).T
+    (Q4_0, Q4_K within QUANT_TOL; Q8_0, requantized to a scale a row, within
+    the requantization's own bound, and its int8 operands' plain product
+    within QUANT_TOL); the last greedy step within RAGGED_TOL x max |logit|
+    of a fresh prefill; decode(encode(text)) == text on an ASCII and a CJK
+    prompt with both tokenizers; exact launch counts, int4_matmul of both
+    laws and int8_matmul. Returns (launches, model, tokenizer, directory)."""
+    import os
+    import shutil
+
+    from mllm_tpu_torch.core import dtypes as dt
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.core.gguf import load_gguf_model
+    from mllm_tpu_torch.generation.generate import generate, pad_to_bucket, prefill
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.models.registry import auto_model
+    from mllm_tpu_torch.ops import quant_matmul as qm
+
+    try:
+        import regex  # noqa: F401
+        byte_level = True
+    except ImportError:
+        byte_level = False
+    emit(phase="slice_containers_regex", regex_present=byte_level,
+         tokenizer="byte-level BPE" if byte_level else "SentencePiece BPE (regex is absent)")
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    L = cfg.num_hidden_layers
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_containers")
+    shutil.rmtree(root, ignore_errors=True)
+    mdir, gpath = os.path.join(root, "qwen2-mllm"), os.path.join(root, "qwen2.gguf")
+    t0 = time.perf_counter()
+    tensors = container_tensors(cfg, seed=11)
+    tok_spec = synthetic_tokenizer(cfg.vocab_size, seed=11, byte_level=byte_level)
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_mllm_model(mdir, cfg, tensors, tok_spec)
+    mllm_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_gguf_model(gpath, cfg, tensors, tok_spec)
+    gguf_write_s = time.perf_counter() - t0
+    file_bytes = {"mllm": os.path.getsize(os.path.join(mdir, "model.mllm")), "gguf": os.path.getsize(gpath)}
+
+    def timed_load(fn):
+        repack = {"s": 0.0}
+        plain = (qm.repack_q4_0, qm.repack_q4_k, qm.repack_q8_0)
+
+        def clocked(f):
+            def run(*a):
+                t = time.perf_counter()
+                out = f(*a)
+                repack["s"] += time.perf_counter() - t
+                return out
+            return run
+
+        qm.repack_q4_0, qm.repack_q4_k, qm.repack_q8_0 = map(clocked, plain)
+        try:
+            out, s = timed(fn)
+        finally:
+            qm.repack_q4_0, qm.repack_q4_k, qm.repack_q8_0 = plain
+        return out, s, repack["s"]
+
+    (model, tok, _), mllm_load_s, mllm_repack_s = timed_load(lambda: auto_model(mdir, device=dev))
+    (gmodel, gtok, gcfg), gguf_load_s, gguf_repack_s = timed_load(lambda: load_gguf_model(gpath, device=dev))
+    layers = sorted({type(m).__name__ for m in model.modules()})
+    emit(phase="slice_containers_load", make_s=make_s, mllm_write_s=mllm_write_s, gguf_write_s=gguf_write_s,
+         file_bytes=file_bytes, mllm_load_s=mllm_load_s, mllm_repack_s=mllm_repack_s, gguf_load_s=gguf_load_s,
+         gguf_repack_s=gguf_repack_s, weight_bytes=state_bytes(model), gguf_weight_bytes=state_bytes(gmodel),
+         layers=layers, gguf_config_diff={k: [v, getattr(model.cfg, k)] for k, v in vars(gcfg).items()
+                                          if v != getattr(model.cfg, k)})
+
+    # the two loads: bit-equal prefill logits of one 100-token prompt
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 100)
+    ids = torch.as_tensor(pad_to_bucket(prompt[None]), device=dev)
+    lg_m, _ = prefill(model, model.init_cache(1, S_CACHE), ids, 100)
+    lg_g, _ = prefill(gmodel, gmodel.init_cache(1, S_CACHE), ids, 100)
+    bit_equal = torch.equal(lg_m, lg_g)
+
+    # layer 0's repacked projections against the plain dequant of their blocks
+    g = torch.Generator(device=dev).manual_seed(5)
+    blk = model.blocks[0]
+    proj_rows = []
+    for name, lin in (("self_attn.q_proj", blk.attn.q_proj), ("mlp.gate_proj", blk.mlp.gate_proj),
+                      ("mlp.down_proj", blk.mlp.down_proj)):
+        kind, (n, k), raw = tensors[f"model.layers.0.{name}.weight"]
+        w = torch.from_numpy(dt.decode(raw, getattr(dt.DataType, kind), n * k).reshape(n, k)).to(dev)
+        for m in (1, 8):
+            x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+            plain = x.float() @ w.t()
+            if kind == "Q8_0":
+                y = qm.int8_matmul(x, lin.qweight_t, lin.scales)
+                operands = qm.int8_matmul_ref(x, lin.qweight_t, lin.scales)
+                # requantized to one scale a row: each weight moves by at most half its row's step
+                req_bound = (0.5 * lin.scales[None, :] * x.float().abs().sum(-1, keepdim=True))
+                row = dict(vs_operands=((y - operands).abs().max() / operands.abs().max()).item(),
+                           within_requant_bound=bool(((y - plain).abs() <= req_bound * 1.001
+                                                      + QUANT_TOL["int8_matmul"] * plain.abs().max()).all()))
+            else:
+                y = qm.int4_matmul(x, lin.packed_t, lin.scales_t, lin.group, lin.zeros_t)
+                row = {}
+            rel = ((y - plain).abs().max() / plain.abs().max()).item()
+            proj_rows.append(dict(projection=name, kind=kind, m=m, vs_blocks=rel, **row))
+    ok_proj = all((r["vs_blocks"] <= QUANT_TOL["int4_matmul"]) if r["kind"] != "Q8_0" else
+                  (r["vs_operands"] <= QUANT_TOL["int8_matmul"] and r["within_requant_bound"])
+                  for r in proj_rows)
+
+    # the main path on the .mllm load: a greedy generate, launches counted by law
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    laws, restore_laws = law_counts()
+    spy, restore = logits_spy(model, dev)
+    res, _ = generate(model, prompt, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=24))
+    gap = last_step_vs_prefill(model, dev, prompt, res.tokens, spy["last"][:, -1])
+    torch.cuda.synchronize()
+    restore()
+    restore_laws()
+    finite = bool(spy["finite"])
+    prefills, steps = 2, len(res.tokens) - 1  # the generate's prefill and the fresh one
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expected = {"flash_attention": L * prefills, "decode_attention": L * steps,
+                "int8_matmul": L * (prefills + steps), "int4_matmul": 6 * L * steps}
+    expected_laws = {"symmetric": 4 * L * steps, "affine": 2 * L * steps}
+    round_trip = {which: [t.decode(t.encode(s)) == s for s in CONTAINER_PROMPTS]
+                  for which, t in (("mllm", tok), ("gguf", gtok))}
+    emit(phase="slice_containers", prefill_logits_bit_equal=bit_equal, projections=proj_rows,
+         tolerance=QUANT_TOL["int4_matmul"], last_decode_vs_prefill=gap, ragged_tol=RAGGED_TOL,
+         logits_finite=finite, tokens_in_vocab=all(0 <= t < cfg.vocab_size for t in res.tokens),
+         tokenizer_round_trip=round_trip, prompt_tokens=[len(tok.encode(s)) for s in CONTAINER_PROMPTS],
+         launches=launches, launches_expected=expected, int4_laws=laws, int4_laws_expected=expected_laws)
+    if not bit_equal:
+        raise AssertionError("slice_containers: .mllm and GGUF loads give different prefill logits")
+    if not ok_proj:
+        raise AssertionError(f"slice_containers: a repacked projection differs from its blocks: {proj_rows}")
+    if not (finite and gap <= RAGGED_TOL):
+        raise AssertionError(f"slice_containers: finite {finite}, decode vs prefill {gap}")
+    if not all(all(v) for v in round_trip.values()):
+        raise AssertionError(f"slice_containers: tokenizer round trip failed: {round_trip}")
+    if any(launches[k] != v for k, v in expected.items()) or laws != expected_laws:
+        raise AssertionError(f"slice_containers: launches {launches} {laws}, expected {expected} {expected_laws}")
+    del gmodel
+    torch.cuda.empty_cache()
+    return expected, model, tok, root
+
+
+A8_ROWS = [(17, 1536, 2048), (1536, 1536, 8960), (1536, 8960, 1536)]
+INT8_OP_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
+
+
+def a8_bound(m: int, k: int, n: int) -> dict:
+    """int8_matmul_a8's least time: x (bf16) and the int8 weight read once,
+    the f32 output written once, against the HBM rate; the s8 x s8 product's
+    operations against the int8 tensor-core rate."""
+    nbytes, ops = 2 * m * k + k * n + 4 * (m * n + n), 2 * m * k * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OP_PER_S
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+A8_OWN_TOL = 1e-6  # the A8 product against its own int8 operands: f32 rounding of acc and two products
+A8_LENS = (17, 40, 64, 90, 128, 150, 180, 200)  # the JAX bench row's ragged batch of 8
+
+
+def phase_slice_int8a8(dev) -> dict:
+    """W8A8: int8_matmul_a8 (torch._int_mm on the card) at A8_ROWS within
+    QUANT_TOL of the product of x quantized in f64 apart from the port (amax
+    / 127, round half to even, clip; that int8 x within 1 of the port's),
+    within A8_OWN_TOL of the exact product of its own int8 operands, and
+    a8_quantize on the card bit-equal to its CPU result; timed beside torch.mm on the bf16 weight (a yardstick),
+    the weight-only int8_matmul kernel and _int_mm alone on both weight
+    layouts; then the
+    bf16 model through quantize_model("int8-a8", on_device=True): a
+    1500-token prefill's ms against the same prefill on its int8 twin (the
+    same int8 weights as QuantLinear), logits within RAGGED_TOL x max
+    |logit|; ragged_batched_generate at b=8 (A8_LENS): tokens in vocabulary,
+    A8 on the prefill's 4L projections only, every decode step int8_matmul."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation.generate import pad_to_bucket, prefill, ragged_batched_generate
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.nn.layers import QuantLinear, QuantLinearA8
+    from mllm_tpu_torch.ops import quant_matmul as qm
+    from mllm_tpu_torch.ops.quantize_model import _q8_device, fuse_projections, quantize_model
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for m, k, n in A8_ROWS:
+        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+        w = ((torch.rand(n, k, device=dev, generator=g) * 2 - 1) / k ** 0.5).to(torch.bfloat16)
+        qv, sc = _q8_device(w)
+        nk = qv.t().contiguous()
+        y = qm.int8_matmul_a8(x, nk, sc)
+        xq, xs = qm.a8_quantize(x, k)
+        xq_cpu, xs_cpu = qm.a8_quantize(x.cpu(), k)
+        mismatches = int((xq.cpu() != xq_cpu).sum()) + int((xs.cpu() != xs_cpu).sum())
+        x64 = x.double()  # x quantized apart from the port: f64 amax / 127, round half to even, clip
+        s64 = x64.abs().amax(-1, keepdim=True) / 127
+        s64 = torch.where(s64 > 0, s64, torch.ones_like(s64))
+        q64 = torch.round(x64 / s64).clamp(-127, 127)
+        plain = (q64 @ qv.double()) * s64 * sc.double()[None, :]
+        rel = ((y.double() - plain).abs().max() / plain.abs().max()).item()
+        own = (xq.double() @ qv.double()) * xs.double() * sc.double()[None, :]  # the port's own operands
+        own_rel = ((y.double() - own).abs().max() / own.abs().max()).item()
+        xq_pad = torch.cat([xq, xq.new_zeros(max(0, qm.A8_MIN_ROWS - m), k)])
+        rows.append(dict(m=m, k=k, n=n, rel_err=rel, own_operands_rel_err=own_rel,
+                         quantize_vs_cpu_mismatches=mismatches,
+                         xq_vs_f64_max=(xq.double() - q64).abs().max().item(),
+                         ms=time_ms(lambda: qm.int8_matmul_a8(x, nk, sc), 20),
+                         int_mm_nk_ms=time_ms(lambda: torch._int_mm(xq_pad, nk.t()), 20),
+                         int_mm_kn_ms=time_ms(lambda: torch._int_mm(xq_pad, qv), 20),
+                         int8_matmul_ms=time_ms(lambda: qm.int8_matmul(x, qv, sc), 20),
+                         bf16_mm_ms=time_ms(lambda: torch.mm(x, w.t()), 20),
+                         **a8_bound(m, k, n)))
+    emit(phase="slice_int8a8_products", rows=rows, tolerance=QUANT_TOL["int8_matmul"],
+         note="rel_err: against the product of x quantized in f64 apart from the port (xq_vs_f64_max: "
+              "its largest difference from the port's int8 x, at most 1 where a quotient lies at a "
+              "rounding boundary); own_operands_rel_err: against the exact product of the port's int8 x "
+              "and scales, within A8_OWN_TOL (f32 rounding); "
+              "quantize_vs_cpu_mismatches: a8_quantize's int8 x and scales on the card against its CPU "
+              "result, element by element; ms: int8_matmul_a8 (quantizing x included); int_mm_nk_ms / "
+              "int_mm_kn_ms: torch._int_mm alone on the [N, K] copy / the [K, N] weight; bf16_mm_ms: "
+              "torch.mm on the weight in bf16, another function")
+    if not all(r["rel_err"] <= QUANT_TOL["int8_matmul"] and r["own_operands_rel_err"] <= A8_OWN_TOL
+               and r["xq_vs_f64_max"] <= 1 and r["quantize_vs_cpu_mismatches"] == 0 for r in rows):
+        raise AssertionError(f"slice_int8a8: A8 product differs from the exact product: {rows}")
+
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    L = cfg.num_hidden_layers
+    model = init_model(cfg, dev)
+    t0 = time.perf_counter()
+    quantize_model(fuse_projections(model), "int8-a8", on_device=True)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    twin_layers = {}
+    for path, mod in model.named_modules():
+        if isinstance(mod, QuantLinearA8):
+            twin_layers[path] = mod
+    layers = sorted({type(m).__name__ for m in model.modules()})
+
+    def swap(to_a8: bool):
+        for path, a8 in twin_layers.items():
+            parent, _, name = path.rpartition(".")
+            setattr(model.get_submodule(parent), name,
+                    a8 if to_a8 else QuantLinear(a8.qweight_t, a8.scales, a8.bias))
+
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 1500))
+    ids = torch.as_tensor(pad_to_bucket(prompt), device=dev)
+
+    def prefill_ms():
+        times, lg = [], None
+        for _ in range(4):
+            (lg, _), s = timed(lambda: prefill(model, model.init_cache(1, S_CACHE), ids, 1500))
+            times.append(s * 1e3)
+        return float(np.median(times[1:])), lg
+
+    a8_calls = {"n": 0}
+    plain_a8 = qm.int8_matmul_a8
+
+    def counted_a8(*a):
+        a8_calls["n"] += 1
+        return plain_a8(*a)
+
+    swap(False)
+    int8_ms, lg_int8 = prefill_ms()
+    swap(True)
+    a8_ms, lg_a8 = prefill_ms()
+    vs_int8 = ((lg_a8.float() - lg_int8.float()).abs().max() / lg_int8.float().abs().max()).item()
+
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    qm.int8_matmul_a8 = counted_a8
+    try:
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in A8_LENS]
+        (toks, _, _), ragged_s = timed(lambda: ragged_batched_generate(model, prompts, model.init_cache(8, S_CACHE),
+                                                                      SamplingConfig(max_new_tokens=32)))
+    finally:
+        qm.int8_matmul_a8 = plain_a8
+    steps = toks.shape[1] - 1
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expected = {"int8_matmul": (4 * L + 1) * steps + 1, "flash_attention": L, "decode_attention": L * steps}
+    emit(phase="slice_int8a8", quantize_s=quant_s, weight_bytes=state_bytes(model),
+         nk_copy_bytes=sum(m.qweight_nk.numel() for m in twin_layers.values()),
+         layers=layers,
+         prefill_ms_1500_a8=a8_ms, prefill_ms_1500_int8=int8_ms, a8_over_int8=a8_ms / int8_ms,
+         logits_vs_int8=vs_int8, tolerance=RAGGED_TOL, ragged_lens=list(A8_LENS), ragged_new=int(toks.shape[1]),
+         ragged_s=ragged_s, a8_calls=a8_calls["n"], a8_calls_expected=4 * L, launches=launches,
+         launches_expected=expected)
+    if "QuantLinearA8" not in layers or "Linear" in layers:
+        raise AssertionError(f"slice_int8a8: quantize_model left {layers}")
+    if not vs_int8 <= RAGGED_TOL:
+        raise AssertionError(f"slice_int8a8: A8 prefill logits {vs_int8} x max |logit| from the int8 model's")
+    if not ((0 <= toks) & (toks < cfg.vocab_size)).all() or toks.shape != (8, 32):
+        raise AssertionError(f"slice_int8a8: ragged tokens {toks.shape} or out of the vocabulary")
+    if a8_calls["n"] != 4 * L or any(launches[k] != v for k, v in expected.items()):
+        raise AssertionError(f"slice_int8a8: A8 calls {a8_calls['n']} (expected {4 * L}), launches {launches}, "
+                             f"expected {expected}")
+    del model, twin_layers
+    torch.cuda.empty_cache()
+    return expected
+
+
+SERVE_LENS = (17, 40, 64, 100, 150, 200, 256, 300)  # prompt tokens of the 8 completions
+SERVE_NEW = 48
+
+
+def prompt_texts(tok, lens, seed: int) -> list:
+    """Texts of random lowercase words that encode (bos included) to at
+    least each of `lens` tokens, stopping at the first word that gets there."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    out = []
+    for n in lens:
+        text = ""
+        while len(tok.encode(text, bos=True)) < n:
+            text += (" " if text else "") + "".join(rng.choice(letters, rng.integers(2, 9)))
+        out.append(text)
+    return out
+
+
+def start_server(frontend):
+    """A ThreadingHTTPServer on 127.0.0.1, port 0, over `frontend`, serving
+    on a thread. Returns (server, port)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from mllm_tpu_torch.serve import make_handler
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(frontend))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, srv.server_address[1]
+
+
+def http(port: int, path: str, body=None, timeout: float = 300.0):
+    """(status, body bytes) of a GET (body None) or a JSON POST to the server."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def sse_text(raw: bytes) -> str:
+    """The text of an SSE completion stream, its chunks reassembled."""
+    text = ""
+    for line in raw.decode().split("\n"):
+        if line.startswith("data: ") and line != "data: [DONE]":
+            text += json.loads(line[len("data: "):])["choices"][0]["text"]
+    return text
+
+
+def recording(frontend) -> list:
+    """Wrap frontend.submit so that each finished request's (prompt ids,
+    tokens) is kept, in the order they finish. Returns that list."""
+    import queue
+    import threading
+
+    records, plain = [], frontend.submit
+
+    def submit(ids, max_tokens, sampling=None):
+        done, relay = plain(ids, max_tokens, sampling=sampling), queue.Queue()
+
+        def keep():
+            out = done.get()
+            records.append((np.asarray(ids), out))
+            relay.put(out)
+
+        threading.Thread(target=keep, daemon=True).start()
+        return relay
+
+    frontend.submit = submit
+    return records
+
+
+def phase_slice_serve(dev, model, tok) -> dict:
+    """The port's server (`mllm_tpu_torch.serve`) in a thread on 127.0.0.1,
+    port 0, over the `.mllm` model of slice_containers: --engine continuous
+    (8 slots, int8 KV cache, decode windows of 32 as graphs, pipelined on the
+    engine's loop thread) takes, concurrently through urllib, 8 completions
+    of 17-300 prompt tokens x 48 new, 2 chat completions and 1 streamed
+    completion (reassembled, equal to the same request's non-streamed text);
+    then /metrics (mllm_requests_total equals the requests, a TTFT count as
+    large) and /healthz. The greedy completions' tokens, kept by the frontend
+    in process, lie within RAGGED_TOL x max |logit| of a teacher-forced
+    prefill over an int8 cache. Then 2 requests through --engine window and 2
+    through --engine sd, each checked the same way over a bf16 cache."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.serve import ContinuousFrontend, make_frontend
+    from mllm_tpu_torch.utils.metrics import Metrics
+
+    cfg, L = model.cfg, model.cfg.num_hidden_layers
+    texts = prompt_texts(tok, SERVE_LENS, seed=21)
+    completions = [{"prompt": t, "max_tokens": SERVE_NEW} for t in texts]
+    chats = [{"messages": [{"role": "system", "content": "Answer briefly."}, {"role": "user", "content": t}],
+              "max_tokens": SERVE_NEW} for t in texts[1:3]]
+    stream = {**completions[0], "stream": True}
+
+    def post(body):
+        path = "/v1/chat/completions" if "messages" in body else "/v1/completions"
+        return http(port, path, body)
+
+    kernels = wrappers()
+    metrics = Metrics()
+    fe = ContinuousFrontend(model, tok, cfg, max_len=S_CACHE, max_batch=8, kv_dtype="int8", metrics=metrics)
+    records = recording(fe)
+    srv, port = start_server(fe)
+    for fn in kernels.values():
+        fn.launches = 0
+    graphs.reset_counts()
+    laws, restore_laws = law_counts()
+    try:
+        bodies = completions + chats + [stream]
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            replies, wall = timed(lambda: list(pool.map(post, bodies)))
+        _, scrape = http(port, "/metrics")
+        health = http(port, "/healthz")
+    finally:
+        restore_laws()
+        fe.stop()
+        srv.shutdown()
+        srv.server_close()
+    launches = graphs.device_launches({k: fn.launches for k, fn in kernels.items()})
+    scrape = scrape.decode()
+    answers = [json.loads(r[1]) for r in replies[:-1]]
+    streamed = sse_text(replies[-1][1])
+    new_tokens = [a["usage"]["completion_tokens"] for a in answers]
+    gap = max(teacher_forced_gap(model, dev, ids, out, "int8") for ids, out in records)
+    ttft = list(metrics._hists["mllm_ttft_seconds"])
+    capture_s = sum(g.capture_s for g in fe.engine._windows.values())
+    n_req = len(bodies)
+    want_metrics = (f"mllm_requests_total {float(n_req)}", f"mllm_ttft_seconds_count {n_req}")
+    emit(phase="slice_serve", engine="continuous", kv_dtype="int8", requests=n_req,
+         prompt_tokens=[a["usage"]["prompt_tokens"] for a in answers], new_tokens=new_tokens, wall_s=wall,
+         tok_s=sum(new_tokens + [SERVE_NEW]) / wall, capture_s=capture_s,
+         tok_s_less_capture=sum(new_tokens + [SERVE_NEW]) / (wall - capture_s),
+         ttft_ms=sorted(t * 1e3 for t in ttft), windows=fe.engine.steps, admissions=fe.engine.admissions,
+         stream_equals_plain=streamed == answers[0]["choices"][0]["text"], statuses=[r[0] for r in replies],
+         metrics_lines=[w in scrape for w in want_metrics], healthz=[health[0], health[1].decode()],
+         teacher_forced_gap_over_max_logit=gap,
+         tolerance=RAGGED_TOL, launches=launches, int4_laws_counted=laws,
+         launch_note="launches on the card (graphs.device_launches); int4_laws_counted are the wrapper's "
+                     "counts, captures counted once")
+    if any(r[0] != 200 for r in replies) or new_tokens != [SERVE_NEW] * len(answers):
+        raise AssertionError(f"slice_serve: statuses {[r[0] for r in replies]}, new tokens {new_tokens}")
+    if streamed != answers[0]["choices"][0]["text"]:
+        raise AssertionError("slice_serve: the streamed text differs from the same request's plain text")
+    if not all(w in scrape for w in want_metrics) or health != (200, b"ok"):
+        raise AssertionError(f"slice_serve: /metrics {scrape!r} or /healthz {health}")
+    if len(records) != len(answers) or not gap <= RAGGED_TOL:
+        raise AssertionError(f"slice_serve: {len(records)} records, teacher-forced gap {gap}")
+    if not (launches["flash_attention_quant"] and launches["decode_attention_quant"] and launches["int8_matmul"]
+            and laws["symmetric"] and laws["affine"]) or launches["flash_attention"] or launches["decode_attention"]:
+        raise AssertionError(f"slice_serve: launches {launches} {laws}")
+    out = {k: launches[k] for k in ("flash_attention_quant", "decode_attention_quant", "int8_matmul", "int4_matmul")}
+
+    for kind in ("window", "sd"):
+        for fn in kernels.values():
+            fn.launches = 0
+        fe = make_frontend(kind, model, tok, cfg, max_len=S_CACHE, metrics=Metrics())
+        records = recording(fe)
+        srv, port = start_server(fe)
+        try:
+            with ThreadPoolExecutor(2) as pool:
+                replies, wall = timed(lambda: list(pool.map(post, completions[:2])))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        counted = {k: fn.launches for k, fn in kernels.items()}
+        answers = [json.loads(r[1]) for r in replies]
+        new_tokens = [a["usage"]["completion_tokens"] for a in answers]
+        gap = max(teacher_forced_gap(model, dev, ids, o) for ids, o in records)
+        emit(phase="slice_serve", engine=kind, requests=2, new_tokens=new_tokens, wall_s=wall,
+             tok_s=sum(new_tokens) / wall, teacher_forced_gap_over_max_logit=gap, tolerance=RAGGED_TOL,
+             sd_acceptance=fe.metrics.snapshot()["gauges"].get("mllm_sd_acceptance"), launches=counted)
+        if (new_tokens != [SERVE_NEW] * 2 or not gap <= RAGGED_TOL
+                or not (counted["flash_attention"] and (kind == "sd" or counted["decode_attention"]))):
+            raise AssertionError(f"slice_serve {kind}: new tokens {new_tokens}, gap {gap}, launches {counted}")
+        add_launches(out, {k: counted[k] for k in ("flash_attention", "decode_attention", "int8_matmul",
+                                                   "int4_matmul")})
+    return out
+
+
+def timed_phase(name: str, fn):
+    """fn(), its wall seconds printed as `<name>_seconds`."""
+    t0 = time.perf_counter()
+    out = fn()
+    emit(phase=f"{name}_seconds", seconds=time.perf_counter() - t0)
+    return out
+
+
 def main():
     kind = phase_device()
     dev = torch.device("cuda", 0)
@@ -2038,7 +2843,14 @@ def main():
                 phase_slice_prefill(dev, model8), phase_slice_engine(dev, model8)]
     del model8
     torch.cuda.empty_cache()
-    results += [phase_slice_quant(dev, "int4"), phase_slice_mega(dev)]
+    results += [phase_slice_quant(dev, "int4"), phase_slice_mega(dev),
+                timed_phase("head_dim_route", lambda: phase_head_dim_route(dev)),
+                timed_phase("slice_int8a8", lambda: phase_slice_int8a8(dev))]
+    container_launches, model, tok, root = timed_phase("slice_containers", lambda: phase_slice_containers(dev))
+    results += [container_launches, timed_phase("slice_serve", lambda: phase_slice_serve(dev, model, tok))]
+    del model
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n

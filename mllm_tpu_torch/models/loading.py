@@ -1,7 +1,13 @@
-"""Checkpoint -> CausalLM: counterpart of `mllm_tpu/models/loading.py` for
-float weights (f32 / f16 / bf16 safetensors), kept float or quantized at load
-(`quant="int8" | "int4"`, as `make_linear` does it). Quantized checkpoints
-(.mllm / GGUF) and the fused-projection checkpoints (phi3, persimmon) come in
+"""Checkpoint -> CausalLM: counterpart of `mllm_tpu/models/loading.py`.
+
+Float weights (f32 / f16 / bf16 safetensors, or float tensors of a `.mllm`
+or GGUF container) are kept float or quantized at load (`quant="int8" |
+"int8-a8" | "int4"`). A container that exposes raw ggml blocks (`.mllm`,
+GGUF) gives its quantized Linear weights to `make_linear`, which repacks
+them losslessly into the kernels' layouts: Q4_0 -> symmetric `Int4Linear`,
+Q4_K -> affine `Int4Linear` (with zeros), Q8_0 / Q8_0F -> `QuantLinear`
+(requantized to one scale a row); other block types decode to float and
+follow `quant`. The fused-projection checkpoints (phi3, persimmon) come in
 later slices.
 """
 
@@ -10,8 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import dtypes as dt
 from ..core.config import TextConfig
-from ..nn.layers import Int4Linear, Linear, QuantLinear
+from ..nn.layers import Int4Linear, Linear, QuantLinear, QuantLinearA8
 from ..ops import quant_matmul as qm
 from ..ops.quantize_model import check_mode
 from .transformer import CausalLM
@@ -63,15 +70,50 @@ def checkpoint_names(model: CausalLM, nm: NameMap) -> dict[str, str]:
 
 
 def quant_linear_from_float(w: np.ndarray, bias, quant: str, device):
-    """A float [out, in] checkpoint weight -> QuantLinear (int8) or symmetric
-    Int4Linear (int4) by the numpy packers (`make_linear`,
-    `_maybe_quant_from_float` of the JAX package)."""
-    if quant == "int8":
+    """A float [out, in] checkpoint weight -> QuantLinear (int8),
+    QuantLinearA8 (int8-a8) or symmetric Int4Linear (int4) by the numpy
+    packers (`make_linear`, `_maybe_quant_from_float` of the JAX package)."""
+    if quant in ("int8", "int8-a8"):
         qv, sc = qm.repack_float_to_int8(w)
-        return QuantLinear(torch.from_numpy(qv).to(device), torch.from_numpy(sc).to(device), bias)
+        cls = QuantLinearA8 if quant == "int8-a8" else QuantLinear
+        return cls(torch.from_numpy(qv).to(device), torch.from_numpy(sc).to(device), bias)
     packed, scales, _ = qm.prepare_int4(*qm.repack_float_to_int4(w, qm.GROUP), qm.GROUP)
     return Int4Linear(torch.from_numpy(packed).to(device), torch.from_numpy(scales).to(device),
                       qm.GROUP, None, bias)
+
+
+def make_linear(loader, name: str, n: int, k: int, bias, quant: str | None, *, device, dtype):
+    """The checkpoint weight `name` [n, k] -> the port's Linear module (JAX
+    `make_linear`). Raw ggml blocks repack into the kernels' layouts whatever
+    `quant` says, as there: Q4_0 -> symmetric Int4Linear (value = (q - 8) * d),
+    Q4_K -> affine Int4Linear (q * scale + zero), Q8_0 / Q8_0F -> QuantLinear.
+    Any other weight is read as float and kept (quant None) or quantized."""
+    ldt = loader.dtype(name) if hasattr(loader, "raw") else None
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    if ldt is not None and dt.is_quantized(ldt):
+        raw = np.asarray(loader.raw(name))
+        if ldt == dt.DataType.Q4_0:
+            packed, scales, _ = qm.prepare_int4(*qm.repack_q4_0(raw, n, k), qm.GROUP)
+            return Int4Linear(dev(packed), dev(scales), qm.GROUP, None, bias)
+        if ldt == dt.DataType.Q4_K:
+            packed, scales, zeros = qm.repack_q4_k(raw, n, k)
+            packed, scales, zeros = qm.prepare_int4(packed, scales, qm.GROUP, zeros)
+            return Int4Linear(dev(packed), dev(scales), qm.GROUP, dev(zeros), bias)
+        if ldt == dt.DataType.Q8_0:
+            return QuantLinear(*map(dev, qm.repack_q8_0(raw, n, k)), bias)
+        w = dt.decode(raw, ldt, n * k).reshape(n, k)
+        if ldt == dt.DataType.Q8_0F:  # f32 block scales: the same per-row requantization
+            qv, sc = dt.quant_q8_per_row_int8(w)
+            return QuantLinear(dev(qv.T), dev(sc), bias)
+    else:
+        w = loader.load(name, (n, k), np.float32)
+    w = np.array(w, np.float32)  # a copy: loaders hand out read-only views of the file
+    if quant is not None:
+        return quant_linear_from_float(w, bias, quant, device)
+    return Linear.from_tensors(torch.from_numpy(w).to(device=device, dtype=dtype), bias)
 
 
 def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
@@ -81,9 +123,10 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
     config whose checkpoint has no lm_head falls back to the tied head, and
     a qk_norm config whose checkpoint has no q_norm runs without it.
 
-    quant="int8" | "int4" quantizes every Linear (the untied lm_head too)
-    from the checkpoint's f32 values on the host; the tied embedding and the
-    MLPs stay as they are (no head quantization, no FusedInt4MLP), as in JAX."""
+    Every Linear (the untied lm_head too) goes through `make_linear`: raw
+    ggml blocks are repacked, float weights quantized on the host when
+    quant="int8" | "int8-a8" | "int4"; the tied embedding and the MLPs stay
+    as they are (no head quantization, no FusedInt4MLP), as in JAX."""
     if quant is not None:
         check_mode(quant)
     nm = names or NameMap()
@@ -94,23 +137,23 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
         if blk.attn.q_norm is not None and nm.blk.format(i=blk.attn.layer_idx) + nm.q_norm not in loader:
             blk.attn.q_norm = blk.attn.k_norm = None
     sd = model.state_dict()
-    arrays = {key: np.array(loader.load(ck, tuple(sd[key].shape), np.float32))
-              for key, ck in checkpoint_names(model, nm).items()}
+    names = checkpoint_names(model, nm)
 
-    def tensor(a):
-        return torch.from_numpy(a).to(device=device, dtype=dtype)
+    def tensor(key):
+        a = loader.load(names.pop(key), tuple(sd[key].shape), np.float32)
+        return torch.from_numpy(np.array(a, np.float32)).to(device=device, dtype=dtype)
 
     state = {}
-    if quant is not None:
-        for path, lin in list(model.named_modules()):
-            if not isinstance(lin, Linear):
-                continue
-            bias = arrays.pop(path + ".bias", None)
-            ql = quant_linear_from_float(arrays.pop(path + ".weight"), None if bias is None
-                                         else tensor(bias), quant, device)
-            parent, _, name = path.rpartition(".")
-            setattr(model.get_submodule(parent), name, ql)
-            state.update({f"{path}.{k}": v for k, v in ql.state_dict().items()})
-    state.update({k: tensor(a) for k, a in arrays.items()})
+    for path, lin in list(model.named_modules()):
+        if not isinstance(lin, Linear):
+            continue
+        bias = tensor(path + ".bias") if path + ".bias" in names else None
+        n, k = lin.weight.shape
+        new = make_linear(loader, names.pop(path + ".weight"), n, k, bias, quant, device=device,
+                          dtype=dtype)
+        parent, _, name = path.rpartition(".")
+        setattr(model.get_submodule(parent), name, new)
+        state.update({f"{path}.{key}": v for key, v in new.state_dict().items()})
+    state.update({key: tensor(key) for key in list(names)})
     model.load_state_dict(state, strict=True)
     return model

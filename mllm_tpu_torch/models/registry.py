@@ -2,9 +2,11 @@
 of `mllm_tpu/models/registry.py` for the dense text families.
 
 `auto_model(path)` reads an HF `config.json` (or takes a named preset),
-builds the CausalLM and loads its safetensors weights. Architectures,
-containers and options this slice does not port raise NotImplementedError
-naming the ROADMAP item that brings them.
+builds the CausalLM, loads its weights from safetensors or `.mllm`
+container(s) and returns (model, tokenizer, config), the tokenizer read
+from the directory's `tokenizer.json`. Architectures and options this slice
+does not port raise NotImplementedError naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional
 import torch
 
 from ..core.config import TextConfig, from_hf_config
-from ..core.param_loader import SafetensorsLoader
+from ..core.param_loader import MultiFileParamLoader, ParamLoader, SafetensorsLoader
 from ..ops.quantize_model import check_mode
 from ..utils.runtime import default_device
 from .families import PRESETS
@@ -47,10 +49,16 @@ def build_model(cfg: TextConfig, loader, *, device, dtype=torch.bfloat16, quant=
 
 
 def open_loader(path: str):
-    """Safetensors file or directory."""
-    if path.endswith(".mllm") or (os.path.isdir(path) and not any(
-            f.endswith(".safetensors") for f in os.listdir(path))):
-        raise _not_ported("the .mllm container reader", "ROADMAP Queue 1 item 6")
+    """Open a checkpoint: `.mllm` file(s) (a directory holding `.mllm` files
+    and no safetensors reads them all) or a safetensors file or directory
+    (JAX `open_loader`)."""
+    if os.path.isdir(path):
+        mllms = [f for f in sorted(os.listdir(path)) if f.endswith(".mllm")]
+        if mllms and not any(f.endswith(".safetensors") for f in os.listdir(path)):
+            return MultiFileParamLoader([os.path.join(path, f) for f in mllms])
+        return SafetensorsLoader(path)
+    if path.endswith(".mllm"):
+        return ParamLoader(path)
     return SafetensorsLoader(path)
 
 
@@ -66,12 +74,14 @@ def auto_config(path_or_preset: str, **overrides) -> TextConfig:
 
 def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[TextConfig] = None,
                with_tokenizer: bool = True, *, device=None, **overrides):
-    """Load (model, tokenizer, cfg) from an HF-style model directory.
+    """Load (model, tokenizer, cfg) from an HF-style model directory (JAX
+    `auto_model`). The tokenizer is `auto_tokenizer(path)` when the directory
+    holds a tokenizer.json and with_tokenizer is set, else None.
 
-    quant="int8" | "int4" quantizes the float checkpoint's Linears at load;
-    other modes raise NotImplementedError. The tokenizer is not ported yet:
-    with_tokenizer=True on a directory that holds a tokenizer.json raises
-    rather than returning None."""
+    quant="int8" | "int8-a8" | "int4" quantizes the checkpoint's float Linears
+    at load (ggml blocks repack whatever quant says); other modes raise
+    NotImplementedError. The model goes to the card unless `device` says
+    otherwise."""
     if quant is not None:
         check_mode(quant)
     if config is None and os.path.isdir(path):
@@ -82,8 +92,11 @@ def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[Tex
             if mt in _LATER:
                 raise _not_ported(f"model_type {mt!r}", _LATER[mt])
     cfg = config or auto_config(path, **overrides)
-    if with_tokenizer and os.path.isdir(path) and os.path.exists(os.path.join(path, "tokenizer.json")):
-        raise _not_ported("tokenizers", "ROADMAP Queue 1 item 6")
     model = build_model(cfg, open_loader(path), device=device or default_device(), dtype=dtype,
                         quant=quant)
-    return model, None, cfg
+    tok = None
+    if with_tokenizer and os.path.isdir(path) and os.path.exists(os.path.join(path, "tokenizer.json")):
+        from ..tokenizers.hf_json import auto_tokenizer
+
+        tok = auto_tokenizer(path)
+    return model, tok, cfg

@@ -9,10 +9,11 @@ every other query length to `ops.flash_attention`. Each wrapper runs its
 plain version on CPU tensors and its kernel on CUDA tensors; the TPU
 package's shape thresholds (D % 128, Sq % 128, batch/length switches) do not
 apply. `attention_route` decides, the same on every device: an additive
-`bias` (tree speculation), an attention `logit_softcap` (gemma2) and a prefill
-over a quantized cache with per-slot lengths go through the port's own `sdpa`
-(on the card too), as the reference sends them to XLA `sdpa`: no Pallas
-kernel takes them there, so no Hopper kernel is owed.
+`bias` (tree speculation), an attention `logit_softcap` (gemma2), a prefill
+over a quantized cache with per-slot lengths and a head_dim outside
+KERNEL_HEAD_DIMS (64, 128) go through the port's own `sdpa` (on the card
+too), as the reference sends them to XLA `sdpa`: no Pallas kernel takes them
+there, so no Hopper kernel is owed.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ..ops._common import KERNEL_HEAD_DIMS
 from ..ops.decode_attention import decode_attention, decode_attention_paged, decode_attention_quant
 from ..ops.flash_attention import flash_attention, flash_attention_quant
 
@@ -90,14 +92,19 @@ def sdpa(
 
 
 def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=None,
-                    kv_valid_len=None, kv_start=None) -> str:
+                    kv_valid_len=None, kv_start=None, head_dim: Optional[int] = None) -> str:
     """Which function serves an attention call: "sdpa", "decode", "flash",
     "decode_paged", "decode_quant" or "flash_quant". `cache` is "dense",
     "paged" or "quant". The route does not depend on the device: the kernels'
     wrappers take their plain versions on CPU tensors and launch on CUDA ones,
-    and `sdpa` is plain PyTorch on both. Counterpart of the choice between XLA
-    `sdpa` and the Pallas kernels in `mllm_tpu/nn/attention.py:145-175,192-196`."""
+    and `sdpa` is plain PyTorch on both. A head_dim the kernels do not take
+    (not in KERNEL_HEAD_DIMS) goes to `sdpa` on every cache, as the reference
+    sends every `d % 128 != 0` call to XLA. Counterpart of the choice between
+    XLA `sdpa` and the Pallas kernels in
+    `mllm_tpu/nn/attention.py:145-175,192-196`."""
     if bias is not None or logit_softcap is not None:
+        return "sdpa"
+    if head_dim is not None and head_dim not in KERNEL_HEAD_DIMS:
         return "sdpa"
     if cache == "paged":
         return "decode_paged" if sq == 1 and kv_start is None else _dense_route(sq)
@@ -123,7 +130,7 @@ def attend(
     The decode kernel measures a window from the last valid key, so it
     assumes the query sits at position kv_valid_len - 1 (as every decode
     step does)."""
-    route = attention_route(q.shape[1], bias=bias, logit_softcap=logit_softcap)
+    route = attention_route(q.shape[1], bias=bias, logit_softcap=logit_softcap, head_dim=q.shape[-1])
     if route == "sdpa":
         return sdpa(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start,
                     causal=causal, window=window, bias=bias, scale=scale,
@@ -148,7 +155,8 @@ def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None
                                         layer, as the reference's XLA route)
       dense caches                   -> `attend`
 
-    A bias or a softcap takes `sdpa` over the layer (dequantized or gathered).
+    A bias, a softcap or a head_dim outside KERNEL_HEAD_DIMS takes `sdpa` over
+    the layer (dequantized or gathered).
 
     A quantized cache is never dequantized to memory on the kernel routes."""
     from ..kv.cache import PagedKVCache, QuantKVCache, SlotQuantKVCache
@@ -158,7 +166,7 @@ def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None
     kind = ("paged" if isinstance(cache, PagedKVCache)
             else "quant" if isinstance(cache, (QuantKVCache, SlotQuantKVCache)) else "dense")
     route = attention_route(q.shape[1], cache=kind, bias=bias, logit_softcap=logit_softcap,
-                            kv_valid_len=kv_valid_len, kv_start=kv_start)
+                            kv_valid_len=kv_valid_len, kv_start=kv_start, head_dim=q.shape[-1])
     if route == "decode_paged":
         return decode_attention_paged(q, cache.k[layer_idx], cache.v[layer_idx], cache.table,
                                       kv_valid_len=kv_valid_len, scale=scale, window=window)

@@ -125,6 +125,42 @@ class QuantLinear(nn.Module):
         return y.to(x.dtype)
 
 
+class QuantLinearA8(QuantLinear):
+    """QuantLinear that quantizes the activations too when a call is
+    prefill-shaped (W8A8; `mllm_tpu` nn/layers.py QuantLinearA8): m >= 16
+    rows and a sequence longer than one token take `int8_matmul_a8`; every
+    other call (decode steps, however many slots) takes the weight-only
+    `int8_matmul` kernel. As in the JAX package, the sequence length is
+    x.shape[-2] for a 3-D x and m for a 2-D one.
+
+    The A8 product takes the weight's [N, K] copy, `qweight_nk` (a buffer
+    outside the state dict, moved with the module), the layout
+    `torch._int_mm` takes fastest; the [K, N] one stays for the decode
+    kernel."""
+
+    def __init__(self, qweight_t: torch.Tensor, scales: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__(qweight_t, scales, bias)
+        self.register_buffer("qweight_nk", qweight_t.t().contiguous(), persistent=False)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.qweight_nk = self.qweight_t.t().contiguous()
+
+    def forward(self, x):
+        from ..ops.quant_matmul import int8_matmul, int8_matmul_a8
+
+        m = x.numel() // x.shape[-1]
+        seq = x.shape[-2] if x.dim() >= 3 else m
+        if m >= 16 and seq > 1:
+            y = int8_matmul_a8(x, self.qweight_nk, self.scales)
+        else:
+            y = int8_matmul(x, self.qweight_t, self.scales)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
 class Int4Linear(nn.Module):
     """Linear over int4 group-quantized weights in the canonical planar layout
     of `ops.quant_matmul.prepare_int4` (`mllm_tpu` nn/layers.py Int4Linear):

@@ -23,8 +23,15 @@ m, as the Pallas kernel serves every m: a weight stream up to
 INT8_STREAM_MAX_M rows of x, TMA + wgmma above. Each wrapper counts its kernel
 launches in `.launches`.
 
-Not ported: `int8_matmul_a8`, the n-axis int4 layout and the ggml repackers
-(ROADMAP Queue 1 item 8).
+W8A8 (`int8_matmul_a8`): per-token int8 activations times the int8 weights,
+an exact s8 x s8 -> s32 product. The JAX package runs it through XLA, not
+Pallas, so its counterpart is a torch op: `torch._int_mm` on the card, an
+int32 `torch.mm` on the CPU.
+
+The ggml repackers (`repack_q4_0`, `repack_q4_k`, `repack_q8_0`) turn a
+checkpoint's Q4_0 / Q4_K / Q8_0 blocks into these layouts at load time,
+losslessly for the int4 ones. Not ported: the n-axis int4 layout (on purpose,
+ROADMAP ground rules).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import dtypes as _dt
 from . import _build
 
 GROUP = 32  # the int4 kernels' quant group
@@ -44,6 +52,14 @@ INT4_KERNEL_MAX_M = 32  # larger m dequantizes and runs one matmul (JAX quant_ma
 # ---------------------------------------------------------------------------
 # Load-time packers (numpy), byte-identical to the JAX package's numpy branch
 # ---------------------------------------------------------------------------
+
+
+def pack_int4_planar(q: np.ndarray) -> np.ndarray:
+    """q: uint8 [N, K] values 0..15 -> planar packed [K/2, N] (the unsigned
+    layout of the affine, zero-point path)."""
+    n, k = q.shape
+    qt = np.ascontiguousarray(q.T)  # [K, N]
+    return (qt[: k // 2] | (qt[k // 2 :] << 4)).astype(np.uint8)
 
 
 def pack_int4_planar_signed(v: np.ndarray) -> np.ndarray:
@@ -74,6 +90,49 @@ def repack_float_to_int4(w: np.ndarray, group: int = GROUP) -> tuple[np.ndarray,
     scale = np.where(amax > 0, amax / 7.0, 1.0).astype(np.float32)
     v = np.clip(np.round(wg / scale[..., None]), -8, 7).astype(np.int8)
     return pack_int4_planar_signed(v.reshape(n, k)), np.ascontiguousarray(scale.T)
+
+
+def repack_q4_0(raw: np.ndarray, n: int, k: int):
+    """ggml Q4_0 rows -> (packed [K/2, N] signed nibbles, scales [K/32, N]).
+    Lossless: value = (q - 8) * d."""
+    blocks = raw.reshape(n, k // 32, 18)
+    d = blocks[..., :2].copy().view(np.float16).astype(np.float32)[..., 0]  # [N, K/32]
+    qs = blocks[..., 2:]  # [N, K/32, 16] nibbles: lo = elems 0..15, hi = 16..31
+    lo = (qs & 0x0F).astype(np.int8) - 8
+    hi = (qs >> 4).astype(np.int8) - 8
+    v = np.concatenate([lo, hi], axis=-1).reshape(n, k)  # value = v*d, v in -8..7
+    return pack_int4_planar_signed(v), np.ascontiguousarray(d.T)
+
+
+def repack_q4_k(raw: np.ndarray, n: int, k: int):
+    """ggml Q4_K rows -> (packed [K/2, N], scales [K/32, N], zeros [K/32, N]).
+    Lossless: value = q * (d * sc) - dmin * m == q * scale + zero a 32-group."""
+    flat = raw.reshape(n * (k // 256), 144)
+    nb = flat.shape[0]
+    d = flat[:, 0:2].copy().view(np.float16).astype(np.float32)[:, 0]
+    dmin = flat[:, 2:4].copy().view(np.float16).astype(np.float32)[:, 0]
+    sc6, mn6 = _dt._unpack_q4k_scales(flat[:, 4:16])  # [nb, 8] each
+    qs = flat[:, 16:144]  # [nb, 128]
+    q = np.empty((nb, 256), dtype=np.uint8)
+    for chunk in range(4):
+        qb = qs[:, chunk * 32 : (chunk + 1) * 32]
+        q[:, chunk * 64 : chunk * 64 + 32] = qb & 0x0F
+        q[:, chunk * 64 + 32 : chunk * 64 + 64] = qb >> 4
+    scales = (d[:, None] * sc6.astype(np.float32)).reshape(n, k // 32)
+    zeros = (-(dmin[:, None] * mn6.astype(np.float32))).reshape(n, k // 32)
+    return (pack_int4_planar(q.reshape(n, k)), np.ascontiguousarray(scales.T),
+            np.ascontiguousarray(zeros.T))
+
+
+def repack_q8_0(raw: np.ndarray, n: int, k: int):
+    """ggml Q8_0 rows -> the int8 layout (values [K, N] int8, scales [N]).
+    Q8_0 has a scale a 32-group; the rows are requantized to one scale a row
+    for the per-out-channel kernel (error <= 1/254 of a bin)."""
+    blocks = raw.reshape(n, k // 32, 34)
+    d = blocks[..., :2].copy().view(np.float16).astype(np.float32)[..., 0]  # [N, K/32]
+    qs = blocks[..., 2:].copy().view(np.int8).astype(np.float32)  # [N, K/32, 32]
+    qv, sc = _dt.quant_q8_per_row_int8((qs * d[..., None]).reshape(n, k))
+    return np.ascontiguousarray(qv.T), sc
 
 
 _INT4_BJ_CANDIDATES = (768, 512, 256)  # the JAX kernel's block quanta
@@ -257,6 +316,50 @@ def int8_matmul(x: torch.Tensor, qweight_t: torch.Tensor, scales: torch.Tensor) 
 
 
 int8_matmul.launches = 0
+
+
+A8_MIN_ROWS = 17  # torch._int_mm on a card takes more than 16 rows of x
+
+
+def a8_quantize(x: torch.Tensor, k: int):
+    """Per-token symmetric int8: x [..., K] -> (int8 [m, K], f32 scales [m, 1]).
+    The scale is amax * f32(1/127), as XLA compiles the JAX package's
+    `amax / 127.0` under jit. max |x| is exact in x's dtype, and the division
+    widens x to f32 as it reads it: four passes over x, no f32 copy of it."""
+    x2 = x.reshape(-1, k)
+    amax = torch.linalg.vector_norm(x2, ord=float("inf"), dim=-1, keepdim=True).float()
+    xs = torch.where(amax > 0, amax * _RECIP_127, torch.ones_like(amax))
+    return torch.div(x2, xs).round_().clamp_(-127, 127).to(torch.int8), xs
+
+
+_RECIP_127 = 1.0 / 127.0
+
+
+def int8_matmul_a8(x: torch.Tensor, qweight_nk: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """W8A8: y[..., N] = (int8(x) @ qweight_nk.T) * x_scale * scales, f32 out.
+
+    Per-token scales amax/127, x rounded and clipped to int8, an exact
+    s8 x s8 -> s32 product (k * 127^2 < 2^31 for every k of the model zoo),
+    then both scales on the f32 result (JAX `int8_matmul_a8`, which takes the
+    [K, N] weight). The weight is [N, K], K-contiguous: `torch._int_mm` takes
+    that layout 5.4-7.1x faster than [K, N] on an H100 (tools/a8_split.py;
+    PERF.md, PR 11). On the card the product is `torch._int_mm`, which takes
+    more than 16 rows and K, N multiples of 8: fewer rows are padded with zero
+    rows and sliced off. On the CPU it is an int32 `torch.mm`."""
+    n, k = qweight_nk.shape
+    xq, xs = a8_quantize(x, k)
+    m = xq.shape[0]
+    if x.device.type == "cpu":
+        acc = xq.to(torch.int32) @ qweight_nk.to(torch.int32).t()
+    else:
+        if k % 8 or n % 8:
+            raise ValueError(f"int8_matmul_a8: torch._int_mm needs K and N multiples of 8, got K = {k}, "
+                             f"N = {n}")
+        if m < A8_MIN_ROWS:
+            xq = torch.cat([xq, xq.new_zeros(A8_MIN_ROWS - m, k)])
+        acc = torch._int_mm(xq, qweight_nk.t())[:m]
+    y = torch.mul(acc, xs).mul_(scales.float()[None, :])  # (f32(acc) * xs) * scales, two passes
+    return y.reshape(*x.shape[:-1], n)
 
 
 TILE_N = 512  # output columns a work item of int4_matmul covers (csrc/int4_matmul.cu kTileN)

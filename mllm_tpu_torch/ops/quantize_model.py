@@ -1,17 +1,19 @@
 """Whole-model post-training quantization: counterpart of
-`mllm_tpu/ops/quantize_model.py` for the modes "int8" and "int4".
+`mllm_tpu/ops/quantize_model.py` for the modes "int8", "int8-a8" and "int4".
 
   - `fuse_projections`: q/k/v -> one `qkv_proj`, gate/up -> one `gateup_proj`.
   - `quantize_model`: every eligible `Linear` becomes a `QuantLinear` (int8,
-    per out-channel) or an `Int4Linear` (int4, group 32, symmetric, canonical
-    planar layout); in int4 mode a gated MLP becomes one `FusedInt4MLP`, and
-    the tied-embedding head is quantized (`QuantEmbedHead`, `Int4EmbedHead`).
+    per out-channel), a `QuantLinearA8` (int8-a8: the same weights, int8
+    activations on prefill-shaped calls) or an `Int4Linear` (int4, group 32,
+    symmetric, canonical planar layout); in int4 mode a gated MLP becomes one
+    `FusedInt4MLP`, and the tied-embedding head is quantized
+    (`QuantEmbedHead` for int8 and int8-a8, `Int4EmbedHead`).
 
 Unlike the JAX package, both work IN PLACE on the torch model (the float
 weights are released as each layer is replaced) and return it. There is one
 int4 layout (the canonical planar one of `prepare_int4`): no `MLLM_INT4_IMPL`
 n-axis twin, no `INT4_MIN_PARAMS` int8 fallback for small projections, no
-int4-mixed heuristic. `on_device=True` quantizes with torch ops where the
+int4-mixed heuristic (mode "int4-mixed" raises; it is not ported, on purpose). `on_device=True` quantizes with torch ops where the
 weights are (`_q8_device`, `_q4_device`); otherwise the numpy packers run on
 the host. Both give the same bytes as the JAX package.
 """
@@ -23,11 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import Embedding, Int4Linear, Linear, QuantLinear
+from ..nn.layers import Embedding, Int4Linear, Linear, QuantLinear, QuantLinearA8
 from . import quant_matmul as qm
 from .fused_mlp import _ACT, fused_int4_mlp, pick_block_f, prepare_int4_ff
 
-MODES = ("int8", "int4")
+MODES = ("int8", "int8-a8", "int4")
 
 
 def _not_ported(mode) -> NotImplementedError:
@@ -175,13 +177,14 @@ def _bias(lin: Linear):
     return None if lin.bias is None else lin.bias.detach()
 
 
-def int8_linear(w: torch.Tensor, bias, on_device: bool) -> QuantLinear:
+def int8_linear(w: torch.Tensor, bias, on_device: bool, a8: bool = False) -> QuantLinear:
+    """QuantLinear (QuantLinearA8 with a8=True) of the float weight w [N, K]."""
     if on_device:
         qv, sc = _q8_device(w)
     else:
         q_np, s_np = qm.repack_float_to_int8(_host_f32(w))
         qv, sc = torch.from_numpy(q_np).to(w.device), torch.from_numpy(s_np).to(w.device)
-    return QuantLinear(qv, sc, bias)
+    return (QuantLinearA8 if a8 else QuantLinear)(qv, sc, bias)
 
 
 def int4_linear(w: torch.Tensor, bias, on_device: bool) -> Int4Linear:
@@ -196,8 +199,9 @@ def _eligible(w: torch.Tensor, min_size: int) -> bool:
 def _quant_linear(lin: Linear, mode: str, min_size: int, on_device: bool):
     if not _eligible(lin.weight, min_size):
         return lin
-    make = int8_linear if mode == "int8" else int4_linear
-    return make(lin.weight, _bias(lin), on_device)
+    if mode == "int4":
+        return int4_linear(lin.weight, _bias(lin), on_device)
+    return int8_linear(lin.weight, _bias(lin), on_device, a8=mode == "int8-a8")
 
 
 def _fuse_int4_mlp(mlp, min_size: int, on_device: bool):

@@ -31,12 +31,23 @@ from mllm_tpu_torch.kv import cache as tcache
 from mllm_tpu_torch.models.bridge import causal_lm_from_jax_params
 from mllm_tpu_torch.models.megadecode import MegaDecodeLM
 from mllm_tpu_torch.models.transformer import CausalLM
+from mllm_tpu_torch.nn import attention as port_attention
 from mllm_tpu_torch.ops import decode_step as tds
 
 CPU = torch.device("cpu")
 CFG_KW = dict(vocab_size=97, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
               num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
               eos_token_id=96, rope_theta=10000.0)  # the JAX test_generate model, with GQA
+
+
+@pytest.fixture(scope="module", autouse=True)
+def kernel_route_at_small_head_dim():
+    """This file's models have head_dim 8, which the port's route sends
+    to `sdpa` (the kernels take 64 and 128): here it reaches the kernels'
+    plain versions, so the loops drive the wrappers as they do on the card."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_attention, "KERNEL_HEAD_DIMS", (8, 64, 128))
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from mllm_tpu_torch.generation.sampling import (SamplingConfig, batched_keep_mas
 from mllm_tpu_torch.kv.cache import KVCache, PagedKVCache, QuantKVCache, SlotKVCache, SlotQuantKVCache
 from mllm_tpu_torch.models.bridge import causal_lm_from_jax_params
 from mllm_tpu_torch.models.megadecode import MegaDecodeLM
+from mllm_tpu_torch.nn import attention as port_attention
 
 from test_torch_kvcache import _kernel_arithmetic_attend
 
@@ -45,6 +46,16 @@ CPU = torch.device("cpu")
 CFG_KW = dict(vocab_size=97, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
               num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256,
               eos_token_id=-9)  # never sampled: fixed-length outputs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def kernel_route_at_small_head_dim():
+    """This file's models have head_dim 16, which the port's route sends
+    to `sdpa` (the kernels take 64 and 128): here it reaches the kernels'
+    plain versions, so the loops drive the wrappers as they do on the card."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_attention, "KERNEL_HEAD_DIMS", (16, 64, 128))
+        yield
 
 
 @pytest.fixture(scope="module")

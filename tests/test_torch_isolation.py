@@ -57,6 +57,33 @@ def test_serving_modules_import_no_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+_WAY_IN_PROBE = """
+import sys
+import chip_smoke
+from mllm_tpu_torch import serve
+from mllm_tpu_torch.core import dtypes, gguf, param_loader
+from mllm_tpu_torch.models.registry import auto_model, open_loader
+from mllm_tpu_torch.tokenizers import base, bpe, chat_templates, hf_json, tiktoken, unigram, wordpiece
+from mllm_tpu_torch.utils import log, metrics
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib") or m == "mllm_tpu" or m.startswith("mllm_tpu."))
+assert not bad, bad
+assert "regex" not in sys.modules, "importing the tokenizers imported regex"
+print("ok")
+"""
+
+
+def test_way_in_modules_and_smoke_import_no_jax():
+    """The tokenizers, containers, metrics, the server and chip_smoke.py pull
+    in neither JAX nor mllm_tpu; `regex` waits until a tokenizer needs it."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _WAY_IN_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "library_path", lambda: str(tmp_path / "libmissing.so"))

@@ -310,7 +310,7 @@ def test_quantize_model_flags(jax_pallas_int4):
         _equal(got[k], ref[k].numpy())
 
 
-@pytest.mark.parametrize("mode", ["int8-a8", "int4-mixed", "fp8"])
+@pytest.mark.parametrize("mode", ["nf4", "int4-mixed", "fp8"])
 def test_unported_modes_raise(mode):
     tm = causal_lm_from_jax_params(_params(_jax_float_model("unrolled")), TextConfig(**CFG_KW), CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):

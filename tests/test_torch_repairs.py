@@ -1,8 +1,9 @@
-"""Two port faults against the reference, repaired (ROADMAP Queue 3):
+"""Port faults against the reference, repaired (ROADMAP Queue 3):
 
 - attention calls that the reference serves through XLA `sdpa` (an additive
   bias, a logit softcap, a prefill over a quantized cache with per-slot
-  lengths) take the port's `sdpa` on every device; they raised on a card;
+  lengths, a head_dim other than the kernels' 64 and 128) take the port's
+  `sdpa` on every device; they raised on a card;
 - the scalar multipliers (residual, embedding, logit divisor) are rounded to
   the activation dtype before use, as `jnp.asarray(rm, h.dtype)` rounds them.
 
@@ -40,12 +41,25 @@ from test_torch_model import _jax_forward, _pair, _rel
     (dict(sq=8, cache="paged"), "flash"),
     (dict(sq=1), "decode"),
     (dict(sq=5, kv_valid_len=torch.tensor([5, 3])), "flash"),
+    *[(dict(sq=sq, cache=cache, head_dim=d), "sdpa") for d in (80, 96, 256)
+      for cache in ("dense", "paged", "quant") for sq in (1, 16)],
+    *[(dict(sq=sq, cache=cache, head_dim=d), want) for d in (64, 128)
+      for cache, sq, want in (("dense", 1, "decode"), ("dense", 16, "flash"), ("paged", 1, "decode_paged"),
+                              ("paged", 16, "flash"), ("quant", 1, "decode_quant"),
+                              ("quant", 16, "flash_quant"))],
 ], ids=["bias", "softcap", "quant_bias", "paged_softcap", "quant_per_slot_prefill",
         "quant_scalar_prefill", "quant_0d_prefill", "quant_decode", "paged_decode",
-        "paged_left_pad", "paged_prefill", "dense_decode", "dense_prefill"])
+        "paged_left_pad", "paged_prefill", "dense_decode", "dense_prefill",
+        *[f"head_dim{d}_{cache}_sq{sq}" for d in (80, 96, 256) for cache in ("dense", "paged", "quant")
+          for sq in (1, 16)],
+        *[f"head_dim{d}_{cache}_sq{sq}_kernel" for d in (64, 128)
+          for cache, sq in (("dense", 1), ("dense", 16), ("paged", 1), ("paged", 16), ("quant", 1),
+                            ("quant", 16))]])
 def test_attention_route(case, want):
-    """The route of a call, the same on a card as here: the three calls the
-    reference sends to XLA sdpa go to the port's sdpa, no other call moves."""
+    """The route of a call, the same on a card as here: the calls the
+    reference sends to XLA sdpa (a bias, a softcap, a per-slot quantized
+    prefill, a head_dim the kernels do not take: 80, 96, 256 on every cache)
+    go to the port's sdpa, no other call moves."""
     case = dict(case)
     sq = case.pop("sq")
     assert attention_route(sq, **case) == want
@@ -72,6 +86,50 @@ def test_quant_cache_prefill_with_per_slot_lengths_takes_sdpa():
     assert torch.equal(out, sdpa(q, *cache.layer(0), kv_valid_len=kvl))
     dense = KVCache.init(1, 2, 128, 2, 16, device="cpu", dtype=torch.bfloat16)
     assert attend_from_cache(q, dense, 0, kv_valid_len=kvl).shape == q.shape
+
+
+@pytest.mark.parametrize("head_dim", [80, 96, 256])
+def test_head_dim_outside_the_kernels_takes_sdpa(monkeypatch, head_dim):
+    """attend and attend_from_cache (dense, paged, int8 and int4 caches) at a
+    head_dim no kernel takes call none of the kernels' wrappers, whose CUDA
+    entries would raise on it, and give `sdpa` over the (dequantized or
+    gathered) layer; a 2-layer model at that head_dim generates."""
+    import mllm_tpu_torch.nn.attention as att
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation.generate import generate
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.kv.cache import PagedKVCache, Quant4KVCache
+    from mllm_tpu_torch.models.transformer import CausalLM
+
+    for name in ("flash_attention", "decode_attention", "flash_attention_quant", "decode_attention_quant",
+                 "decode_attention_paged"):
+        monkeypatch.setattr(att, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} at head_dim {head_dim}"))
+    rng = np.random.default_rng(head_dim)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    q1, q8 = t(2, 1, 4, head_dim), t(2, 8, 4, head_dim)
+    k, v = t(2, 2, 16, head_dim), t(2, 2, 16, head_dim)
+    for q in (q1, q8):
+        assert torch.equal(attend(q, k, v, q_offset=16 - q.shape[1], kv_valid_len=16),
+                           sdpa(q, k, v, q_offset=16 - q.shape[1], kv_valid_len=16))
+    caches = [KVCache.init(1, 2, 128, 2, head_dim, device="cpu", dtype=torch.float32),
+              QuantKVCache.init(1, 2, 128, 2, head_dim, device="cpu"),
+              Quant4KVCache.init(1, 2, 128, 2, head_dim, device="cpu"),
+              PagedKVCache.init(1, 2, 256, 2, head_dim, device="cpu", dtype=torch.float32, n_blocks=4)]
+    for cache in caches:
+        if isinstance(cache, PagedKVCache):
+            cache = cache.with_tables(np.array([[0, 1], [2, 3]], np.int32))
+        cache = cache.update_layer(0, t(2, 8, 2, head_dim), t(2, 8, 2, head_dim))
+        out = attend_from_cache(q8, cache, 0, kv_valid_len=8)
+        assert torch.equal(out, sdpa(q8, *cache.layer(0), kv_valid_len=8))
+    cfg = TextConfig(vocab_size=64, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                     num_attention_heads=4, num_key_value_heads=2, head_dim=head_dim, eos_token_id=-1)
+    model = CausalLM.init(cfg, device="cpu")
+    res, _ = generate(model, np.arange(5), model.init_cache(1, 64, torch.float32), SamplingConfig(max_new_tokens=4),
+                      bucket=8)
+    assert len(res.tokens) == 4
 
 
 @pytest.mark.parametrize("value", [1.4 / 40**0.5, 1.4 / 2**0.5, 2048**0.5, 12.1, 4.0155, 1.0])

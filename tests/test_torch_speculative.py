@@ -25,11 +25,22 @@ from mllm_tpu_torch.generation import speculative as tspec
 from mllm_tpu_torch.generation.generate import generate
 from mllm_tpu_torch.generation.sampling import SamplingConfig
 from mllm_tpu_torch.models.bridge import causal_lm_from_jax_params
+from mllm_tpu_torch.nn import attention as port_attention
 
 CPU = torch.device("cpu")
 CFG_KW = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
               num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=512,
               eos_token_id=-3, rope_theta=10000.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def kernel_route_at_small_head_dim():
+    """This file's models have head_dim 8, which the port's route sends
+    to `sdpa` (the kernels take 64 and 128): here it reaches the kernels'
+    plain versions, so the loops drive the wrappers as they do on the card."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_attention, "KERNEL_HEAD_DIMS", (8, 64, 128))
+        yield
 
 
 def _pair(key=3, **cfg_kw):
