@@ -127,9 +127,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      with eager windows (85.7, commit c967662's final smoke).
   9. head_dim_route: 2-layer qwen2-type models at head_dim 256, then 80 (8 /
      2 heads, random bf16 weights) through generate and generate_compiled:
-     every attention call takes `sdpa` (no attention kernel launches),
-     finite logits, the last decode step within 0.1 x max |logit| of a
-     fresh prefill.
+     at 256 the bf16 flash and decode kernels serve attention (a quantized
+     cache would take `sdpa`), at 80 only `sdpa` (no attention kernel
+     launches); finite logits, the last decode step within 0.1 x max
+     |logit| of a fresh prefill.
   10. slice_int8a8: int8_matmul_a8 (torch._int_mm) at (17, 1536, 2048),
      (1536, 1536, 8960) and (1536, 8960, 1536) within 2e-3 of the exact
      product of x quantized in f64 apart from the port, a8_quantize's int8 x
@@ -160,7 +161,36 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      then 2 requests each through --engine window and --engine sd. Prints
      tok/s over wall time, the windows' capture seconds apart, and each
      request's time to first token.
-  Phases 9-12 print their seconds (`<phase>_seconds`).
+  13. slice_moe: the JAX bench's MoE geometry (hidden 1024, 16 layers, 16/8
+     heads, 16 experts, top-4, expert ff 512, shared expert 2048, vocab
+     32768; random weights at MoEMLP.init's scale) at full depth: one
+     layer's dense and ragged branch times at t = 1 .. 1024 tokens (bf16 and
+     int8 experts; the two branches within 3e-2 x max |y| of each other),
+     then bf16, "int8" and "int4" (fuse_projections + quantize_model)
+     through batched_generate at b=8 (128 prompt tokens, 128 new), the last
+     decode step of a b=1 generate against a fresh prefill, slice_compiled
+     (generate_compiled at b=1 equal to eager),
+     exact launches of every kernel the mode runs, and the bf16 model
+     through the engine as slice_engine runs it.
+  14. slice_moe_wide: Qwen1.5-MoE-A2.7B's published width (hidden 2048, 24
+     layers, 16/16 heads, 60 experts, top-4, expert ff 1408, shared expert
+     5632 with its sigmoid gate, vocab 151936, untied; 14.3 G parameters, no
+     depth cut): the branch times, then bf16 and "int8" through
+     batched_generate at b=1 and b=8 (128 prompt tokens, 64 new), exact
+     launches, peak memory.
+  15. slice_families: gemma-2b, gemma2-2b, stablelm2-1.6b, phi3-mini,
+     phonelm-1.5b (with int8 RoPE tables) and dclm-1b at full width, depth
+     cut to 4 layers: generate (100-token prompt, 32 new) with the last
+     decode step against a fresh prefill, generate_compiled equal to it, and
+     exact attention launches (Gemma-2B at head_dim 256, StableLM, PhoneLM
+     and DCLM: the bf16 kernels; Gemma2's softcap and Phi-3's head_dim 96:
+     `sdpa`).
+  The kernel check also runs flash_attention and decode_attention at head_dim
+  256 (Gemma-2B's 8 / 1 heads: FLASH_ROWS_256, DECODE_ROWS_256, poisoned rows
+  included; the `@256` rows of the kernels line, whose launches are those at
+  head_dim 256 in head_dim_route and slice_families) and checks
+  decode_attention_paged at 256 over PAGED_ROWS' pools.
+  Phases 9-15 print their seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -204,7 +234,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 MAIN_ROW = {"flash_attention": 5, "decode_attention": 1, "int8_matmul": 1, "int4_matmul": 4,
             "fused_int4_mlp": 0, "fused_decode_step": 2, "fused_decode_step_batched": 0,
             # int8 K/V: the 1536-token prefill; the engine's 8 slots at unequal lengths
-            "flash_attention_quant": 0, "decode_attention_quant": 1, "decode_attention_paged": 0}
+            "flash_attention_quant": 0, "decode_attention_quant": 1, "decode_attention_paged": 0,
+            # head_dim 256 (Gemma-2B's attention): the 1536-token prefill, its last decode step
+            "flash_attention@256": 0, "decode_attention@256": 0}
 SOURCES = {
     "flash_attention": ("mllm_tpu_torch/csrc/flash_attention.cu",
                         "mllm_tpu/ops/flash_attention.py:230"),
@@ -222,6 +254,10 @@ SOURCES = {
                                "mllm_tpu/ops/decode_attention.py:244"),
     "decode_attention_paged": ("mllm_tpu_torch/csrc/decode_attention_paged.cu",
                                "mllm_tpu/ops/decode_attention.py:461"),
+    "flash_attention@256": ("mllm_tpu_torch/csrc/flash_attention.cu",
+                            "mllm_tpu/ops/flash_attention.py:230"),
+    "decode_attention@256": ("mllm_tpu_torch/csrc/decode_attention.cu",
+                             "mllm_tpu/ops/decode_attention.py:317"),
 }
 MEGA_TOL = 1e-2  # relative, on y and on k_new/v_new
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
@@ -371,11 +407,14 @@ def poison_outside(x, lo, hi):
     return torch.where(bad, fill, x), torch.where(bad, torch.zeros_like(x), x)
 
 
-def attention_inputs(kind: str, row: tuple, dev, g):
-    """Random bf16 inputs of one row of FLASH_ROWS / DECODE_ROWS (H=12,
-    H_kv=2, D=128, cache S_CACHE): (q, k, v, k_plain, v_plain, kwargs, shape).
-    A poisoned row's kernel inputs hold NaN / inf outside [kv_start, kv_valid);
-    k_plain / v_plain have those rows zeroed (else they are k, v)."""
+def attention_inputs(kind: str, row: tuple, dev, g, geo=(H, HKV, D)):
+    """Random bf16 inputs of one row of FLASH_ROWS / DECODE_ROWS (by default
+    H=12, H_kv=2, D=128; `geo` = (H, H_kv, D) else; cache S_CACHE): (q, k, v,
+    k_plain, v_plain, kwargs, shape). A poisoned row's kernel inputs hold NaN /
+    inf outside [kv_start, kv_valid); k_plain / v_plain have those rows zeroed
+    (else they are k, v)."""
+    H, HKV, D = geo  # noqa: N806
+
     def rnd(*shape):
         return torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
 
@@ -412,46 +451,55 @@ def phase_kernels(dev) -> dict:
     from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
 
     g = torch.Generator(device=dev).manual_seed(1234)
-
-    def check(name, kernel, plain, shape, library=None):
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        # every row is compared: both versions write zeros where a row sees no key
-        err = (out.float() - ref.float()).abs().max().item()
-        finite = bool(torch.isfinite(out.float()).all())
-        row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err,
-                   finite=finite, ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5),
-                   library_ms=time_ms(library, 20) if library is not None else None,
-                   **attention_bound(shape))
-        emit(**row)
-        if not finite or not err <= TOL:
-            raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
-                                 f"finite={finite}")
-        return row
-
-    def sdpa(q, k, v, kvl, causal):
-        """The library call for a main row: one SDPA over the valid keys (GQA)."""
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl], is_causal=causal, enable_gqa=True)
-
-    rows = {"flash_attention": [], "decode_attention": []}
+    rows = {}
     for kind, kernel, plain, row_list in (("flash_attention", flash_attention, flash_attention_ref, FLASH_ROWS),
                                           ("decode_attention", decode_attention, decode_attention_ref,
                                            DECODE_ROWS)):
-        for row in row_list:
-            q, k, v, kp, vp, kw, shape = attention_inputs(kind, row, dev, g)
-            main = len(rows[kind]) == MAIN_ROW[kind]
-            kvl = shape["kv_valid"] if kind == "flash_attention" else shape["kv_valid"][0]
-            rows[kind].append(check(
-                kind, lambda: kernel(q, k, v, **kw), lambda: plain(q, kp, vp, **kw), shape,
-                sdpa(q, k, v, kvl, kind == "flash_attention") if main else None))
+        rows[kind] = attention_rows(kind, kind, kernel, plain, row_list, dev, g)
     attention_geometry_checks(dev, g)
     sdpa_route_checks(dev, g)
     rows.update(kv_kernel_rows(dev, g))
     rows.update(quant_kernel_rows(dev, g))
     rows.update(mega_kernel_rows(dev, g))
     device_scalar_rows(dev, g, rows)
+    rows.update(wide_kernel_rows(dev, g))
     return rows
+
+
+def check_attention_row(name, kernel, plain, shape, library=None) -> dict:
+    """One bf16 attention row: the kernel against its plain version (every
+    row compared: both write zeros where a row sees no key), finite, within
+    TOL; ms, plain ms, the library call's ms and the bound."""
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err,
+               finite=finite, ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5),
+               library_ms=time_ms(library, 20) if library is not None else None,
+               **attention_bound(shape))
+    emit(**row)
+    if not finite or not err <= TOL:
+        raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
+                             f"finite={finite}")
+    return row
+
+
+def attention_rows(name, kind, kernel, plain, row_list, dev, g, geo=(H, HKV, D)) -> list:
+    """check_attention_row over FLASH_ROWS- or DECODE_ROWS-shaped rows; the
+    main row (MAIN_ROW[name]) also times one SDPA over the valid keys (GQA)."""
+    out = []
+    for row in row_list:
+        q, k, v, kp, vp, kw, shape = attention_inputs(kind, row, dev, g, geo)
+        kvl = shape["kv_valid"] if kind == "flash_attention" else shape["kv_valid"][0]
+        library = None
+        if len(out) == MAIN_ROW[name]:
+            library = (lambda q=q, k=k, v=v, kvl=kvl: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl], is_causal=kind == "flash_attention",
+                enable_gqa=True))
+        out.append(check_attention_row(name, lambda: kernel(q, k, v, **kw), lambda: plain(q, kp, vp, **kw),
+                                       shape, library))
+    return out
 
 
 # The entries that take their scalars from device memory (a captured loop's
@@ -763,7 +811,7 @@ PAGED_ROWS = [
 PAGED_MAXB = 16
 
 
-def paged_inputs(row, dev, g):
+def paged_inputs(row, dev, g, geo=(H, HKV, D)):
     """One PAGED_ROWS row: (q, k_pool, v_pool, table, kwargs, shape, (plain
     k_pool, plain v_pool), (dense K, dense V)). A poisoned row's pools hold
     NaN and inf (alternating by row) in every row no slot sees and in the
@@ -772,6 +820,7 @@ def paged_inputs(row, dev, g):
     (bf16 [B, H_kv, MAXB * 128, D]), made here, outside any timed window."""
     from mllm_tpu_torch.ops.decode_attention import PAGE, gather_pages
 
+    H, HKV, D = geo  # noqa: N806
     kvl, retired, window, poisoned = row
     b = len(kvl)
     need = [-(-n // PAGE) for n in kvl]
@@ -1255,7 +1304,9 @@ def logits_spy(model, dev):
         return out
 
     model.logits = spy
-    return state, lambda: setattr(model, "logits", plain)
+    # deleting the instance attribute leaves no model -> bound method -> model
+    # cycle, which would keep a deleted model's memory until a collection
+    return state, lambda: delattr(model, "logits")
 
 
 def drive(model, cfg, dev, phase: str, ragged_lens, expected_per, kv_dtype: str = "bf16") -> dict:
@@ -2083,16 +2134,20 @@ def phase_slice_mega(dev) -> dict:
 
 ATTENTION_KERNELS = ("flash_attention", "decode_attention", "flash_attention_quant",
                      "decode_attention_quant", "decode_attention_paged")
-# (head_dim, heads, kv heads): head_dims no attention kernel takes
+# (head_dim, heads, kv heads): 256 reaches the bf16 kernels (not the
+# quantized ones), 80 no attention kernel
 HEAD_DIM_ROUTE = ((256, 8, 2), (80, 8, 2))
+HEAD_DIM_ROUTES = {256: ["decode", "decode_paged", "flash", "sdpa"], 80: ["sdpa"]}
 
 
 def phase_head_dim_route(dev) -> dict:
     """A 2-layer qwen2-type model at head_dim 256, then 80 (8 / 2 heads,
     random bf16 weights) through generate and generate_compiled on the card:
-    no raise, only `sdpa` serves attention (every attention kernel's counter
-    stays 0), finite logits, and the last decode step within RAGGED_TOL x max
-    |logit| of a fresh prefill."""
+    no raise; at 256 the dense cache's calls take flash_attention and
+    decode_attention (and a quantized cache would take `sdpa`), at 80 only
+    `sdpa` serves attention (every attention kernel's counter stays 0);
+    finite logits, and the last decode step within RAGGED_TOL x max |logit|
+    of a fresh prefill. The launches at 256 count as the @256 rows'."""
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.generation import graphs
     from mllm_tpu_torch.generation.generate import generate, generate_compiled, pad_to_bucket
@@ -2130,12 +2185,14 @@ def phase_head_dim_route(dev) -> dict:
              compiled_in_vocab=all(0 <= t < cfg.vocab_size for t in compiled),
              last_decode_vs_prefill=gap, tolerance=RAGGED_TOL, logits_finite=finite,
              attention_launches={k: on_card[k] for k in ATTENTION_KERNELS})
-        if routes != ["sdpa"] or any(on_card[k] for k in ATTENTION_KERNELS):
+        kernel_route = d == 256
+        if routes != HEAD_DIM_ROUTES[d] or any(on_card[k] for k in ATTENTION_KERNELS[2:]) or \
+                any(bool(on_card[k]) != kernel_route for k in ATTENTION_KERNELS[:2]):
             raise AssertionError(f"head_dim_route {d}: routes {routes}, launches {on_card}")
         if not finite or not gap <= RAGGED_TOL or not all(0 <= t < cfg.vocab_size for t in compiled):
             raise AssertionError(f"head_dim_route {d}: finite {finite}, decode vs prefill {gap}, "
                                  f"compiled tokens {compiled}")
-        add_launches(launches, {k: on_card[k] for k in ATTENTION_KERNELS})
+        add_launches(launches, {k + ("@256" if kernel_route else ""): on_card[k] for k in ATTENTION_KERNELS[:2]})
         del model
         torch.cuda.empty_cache()
     return launches
@@ -2823,6 +2880,411 @@ def phase_slice_serve(dev, model, tok) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# head_dim 256: the bf16 flash and decode kernels at Gemma-2B's attention
+# (8 query heads, 1 KV head, head_dim 256), and the paged body at 256
+# ---------------------------------------------------------------------------
+
+WIDE_GEO = (8, 1, 256)
+FLASH_ROWS_256 = [
+    (1, 1536, 0, 1536, None, None, False),                                # a 1500-token prompt's bucket
+    (1, 128, 1408, 1536, None, None, False),                              # a 128-row chunk over 1536 keys
+    (8, 128, 0, [128, 17, 100, 64, 128, 90, 33, 120], None, None, False),  # B=8, per-sequence lengths
+    (4, 256, 0, [256, 200, 131, 250], [0, 17, 64, 150], None, True),     # kv_start, stale NaN / inf rows
+    (1, 300, 0, 300, None, 64, False),                                    # sliding window
+]
+DECODE_ROWS_256 = [
+    (1, [1531], None, None, False),                                       # a 1500-token prompt's last step
+    (8, [1, 511, 513, 2048, 100, 1000, 1531, 777], [0, 0, 5, 100, 0, 50, 0, 3], None, False),
+    (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256, False),                   # window
+    (4, [0, 77, 2083, 1531], [0, 13, 100, 700], None, True),             # stale rows; a slot past the cache
+]
+WIDE_KERNELS = {"flash_attention@256": "flash_attention", "decode_attention@256": "decode_attention"}
+
+
+def wide_kernel_rows(dev, g) -> dict:
+    """flash_attention and decode_attention at head_dim 256 against their
+    plain versions (FLASH_ROWS_256, DECODE_ROWS_256 at WIDE_GEO: causal,
+    windowed, kv_start, q_offset, B = 1 and 8, poisoned rows), timed beside
+    their bounds, the main rows beside SDPA; then decode_attention_paged at
+    256 over PAGED_ROWS' pools, checked only (no path of this smoke pages a
+    head_dim 256 cache)."""
+    from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
+                                                     decode_attention_paged_ref, decode_attention_ref)
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    rows = {"flash_attention@256": attention_rows("flash_attention@256", "flash_attention", flash_attention,
+                                                  flash_attention_ref, FLASH_ROWS_256, dev, g, WIDE_GEO),
+            "decode_attention@256": attention_rows("decode_attention@256", "decode_attention", decode_attention,
+                                                   decode_attention_ref, DECODE_ROWS_256, dev, g, WIDE_GEO)}
+    worst = 0.0
+    for row in PAGED_ROWS:
+        q, kp, vp, table, kw, shape, (kpp, vpp), _ = paged_inputs(row, dev, g, WIDE_GEO)
+        out = decode_attention_paged(q, kp, vp, table, **kw)
+        err = (out.float() - decode_attention_paged_ref(q, kpp, vpp, table, **kw).float()).abs().max().item()
+        if not (err <= TOL and bool(torch.isfinite(out.float()).all())):
+            raise AssertionError(f"decode_attention_paged D=256 {shape}: max |kernel - plain| {err} "
+                                 f"(tolerance {TOL}) or not finite")
+        worst = max(worst, err)
+    emit(phase="kernel_check_paged_256", rows=len(PAGED_ROWS), geometry=list(WIDE_GEO), max_abs_err=worst,
+         tolerance=TOL)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# MoE: the JAX bench's routed geometry and Qwen1.5-MoE-A2.7B's published width
+# ---------------------------------------------------------------------------
+
+QWEN2_MOE_08B = dict(  # bench.py QWEN2_MOE_08B (qwen2 attention, tied head)
+    vocab_size=32768, hidden_size=1024, intermediate_size=512, num_hidden_layers=16,
+    num_attention_heads=16, num_key_value_heads=8, max_position_embeddings=8192, eos_token_id=-2,
+    num_experts=16, num_experts_per_tok=4, moe_shared_expert_size=2048)
+QWEN15_MOE_A27B = dict(  # Qwen1.5-MoE-A2.7B config.json (model_type qwen2_moe)
+    model_type="qwen2_moe", vocab_size=151936, hidden_size=2048, intermediate_size=1408,
+    num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=16, max_position_embeddings=8192,
+    rope_theta=1000000.0, tie_word_embeddings=False, eos_token_id=-2, num_experts=60,
+    num_experts_per_tok=4, moe_norm_topk_prob=False, moe_shared_expert_size=5632)
+MOE_T = (1, 2, 4, 8, 16, 32, 128, 1024)  # tokens a call: decode batches, then prefills
+MOE_BRANCH_TOL = 3e-2  # x max |y|: the ragged branch rounds products and combine to bf16, the dense keeps f32
+MOE_BATCH, MOE_PROMPT, MOE_NEW = 8, 128, 128  # the qwen2moe-0.8b-*-b8 rows' traffic
+
+
+def graph_ms(fn, calls: int = 10):
+    """Device ms of one call of `fn` replayed from a CUDA graph of `calls`
+    calls (warm-up on a side stream first); None when fn cannot be captured."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * calls)
+
+
+def wall_ms(fn, calls: int = 20) -> float:
+    """Host wall ms of one eager call, `calls` back to back, synchronised at
+    both ends (what an eager decode step pays: launches and host reads)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e3
+
+
+def moe_layer(cfg, dev, seed: int, shared_gate: bool = False):
+    """One MoEMLP of cfg with MoEMLP.init's random weights, bf16 on the card."""
+    from mllm_tpu_torch.models.moe import MoEMLP
+    from mllm_tpu_torch.nn.layers import Linear
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    moe = MoEMLP(cfg, device=dev, dtype=torch.bfloat16, shared_gate=shared_gate)
+    moe.reset_parameters(gen)
+    for m in moe.modules():
+        if isinstance(m, Linear):
+            m.reset_parameters(gen)
+    return moe
+
+
+def moe_branch_rows(dev, name: str, cfg_kw: dict) -> list:
+    """The dense and ragged branches of one layer of `cfg_kw` at t in MOE_T
+    tokens, bf16 experts and int8 (QuantMoEMLP.from_moe): ms a layer as one
+    call replayed from a CUDA graph (None for the int8 ragged branch, which
+    reads its group sizes on the host and cannot be captured) and as host
+    wall time of an eager call; the two branches within MOE_BRANCH_TOL x
+    max |y| of each other on the same x. Also, at t <= 32, the int8 dense
+    branch's two ways to its expert products: gate||up through one
+    int8_matmul launch against the side-by-side layout (the port's) or a
+    bf16 copy of the int8 stacks made in the call; down through a bf16 copy
+    (the port's) or one int8_matmul launch an expert."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.models.moe import QuantMoEMLP, bmm_f32, dense_branch, route
+    from mllm_tpu_torch.ops.quant_matmul import int8_matmul
+
+    cfg = TextConfig(**cfg_kw)
+    e, k, d = cfg.num_experts, cfg.num_experts_per_tok, cfg.hidden_size
+    moe = moe_layer(cfg, dev, 5)
+    qmoe = QuantMoEMLP.from_moe(moe)
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for t in MOE_T:
+        calls = 10 if t <= 32 else 2  # a prefill's intermediates are large: fewer calls a graph
+        x = (torch.randn(t, d, device=dev, generator=g) * 0.5).to(torch.bfloat16)
+        for label, m in (("bf16", moe), ("int8", qmoe)):
+            top_p, top_i = route(x, m.router_weight, k, m.norm_topk_prob)
+            ragged = lambda m=m, top_p=top_p, top_i=top_i: m._ragged(x, top_p, top_i)  # noqa: E731
+            dense = lambda m=m, top_p=top_p, top_i=top_i: m._dense_all_experts(x, top_p, top_i)  # noqa: E731
+            yr, yd = ragged().float(), dense().float()
+            gap = ((yr - yd).abs().max() / yd.abs().max()).item()
+            row = dict(phase="moe_branch", geometry=name, experts=e, top_k=k, hidden=d,
+                       expert_ff=cfg.intermediate_size, t=t, weights=label,
+                       dense_graph_ms=graph_ms(dense, calls), dense_wall_ms=wall_ms(dense, calls),
+                       ragged_graph_ms=graph_ms(ragged, calls) if label == "bf16" else None,
+                       ragged_wall_ms=wall_ms(ragged, calls), branches_gap_over_max=gap, tolerance=MOE_BRANCH_TOL,
+                       rule_takes="dense" if dense_branch(t, e, k, d, cfg.intermediate_size, label == "int8")
+                       else "ragged")
+            if label == "int8" and t <= 32:
+                xb = x.to(torch.bfloat16)
+                ff = qmoe.w_gate.shape[-1]
+                h = torch.randn(e, t, ff, device=dev, generator=g).to(torch.bfloat16)
+                row.update(
+                    gateup_int8_matmul_ms=graph_ms(lambda: int8_matmul(xb, qmoe.w_gateup_t, qmoe.s_gateup)),
+                    gateup_bf16_copy_ms=graph_ms(lambda: bmm_f32(
+                        xb[None].expand(2 * e, t, d), torch.cat([qmoe.w_gate, qmoe.w_up]).to(torch.bfloat16))),
+                    down_bf16_copy_ms=graph_ms(lambda: bmm_f32(h, qmoe.w_down.to(torch.bfloat16))),
+                    down_int8_matmul_per_expert_ms=graph_ms(lambda: [
+                        int8_matmul(h[i], qmoe.w_down[i], qmoe.s_down[i]) for i in range(e)]))
+            emit(**row)
+            if not gap <= MOE_BRANCH_TOL:
+                raise AssertionError(f"moe_branch {name} {label} t={t}: branches differ by {gap} x max |y|")
+            out.append(row)
+    del moe, qmoe
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_expected(cfg, mode: str, forwards: list) -> dict:
+    """The exact launches of the MoE model of `cfg` in `mode` ("bf16",
+    "int8", "int4", after fuse_projections + quantize_model) over `forwards`,
+    a list of (tokens in the call, is_prefill, rows of the head). Attention:
+    one flash_attention a layer a prefill, one decode_attention a layer a
+    step. int8: qkv, o and the shared expert's gate||up and down a layer,
+    the head once; the experts one gate||up launch a layer on the dense
+    branch, three an expert on the ragged one (every expert holds tokens at
+    these lengths). int4: qkv, o and the head on the int4 kernel at <= 32
+    rows, the shared expert's fused MLP at <= 32 rows, the experts as int8."""
+    from mllm_tpu_torch.models.moe import dense_branch
+    from mllm_tpu_torch.ops.quant_matmul import INT4_KERNEL_MAX_M
+
+    L, e, k, d, ff = (cfg.num_hidden_layers, cfg.num_experts, cfg.num_experts_per_tok, cfg.hidden_size,
+                      cfg.intermediate_size)
+    n = {"flash_attention": 0, "decode_attention": 0, "int8_matmul": 0, "int4_matmul": 0, "fused_int4_mlp": 0}
+    for t, is_prefill, head_rows in forwards:
+        n["flash_attention" if is_prefill else "decode_attention"] += L
+        if mode == "bf16":
+            continue
+        experts = L if dense_branch(t, e, k, d, ff, True) else 3 * e * L
+        if mode == "int8":
+            n["int8_matmul"] += 4 * L + 1 + experts
+        else:
+            n["int8_matmul"] += experts
+            n["int4_matmul"] += (2 * L if t <= INT4_KERNEL_MAX_M else 0) + (head_rows <= INT4_KERNEL_MAX_M)
+            n["fused_int4_mlp"] += L if t <= INT4_KERNEL_MAX_M else 0
+    return n
+
+
+def moe_model(cfg_kw: dict, dev, mode: str, shared_gate: bool = False):
+    """CausalLM.init of cfg_kw (MoE blocks: MoEMLP.init's scale), bf16 on the
+    card, then fuse_projections + quantize_model(mode, on_device=True)
+    unless mode is "bf16"; shared_gate adds a random [1, d] sigmoid gate to
+    each shared expert (qwen2_moe's)."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.ops.quantize_model import fuse_projections, quantize_model
+
+    cfg = TextConfig(**cfg_kw)
+    model = init_model(cfg, dev)
+    if shared_gate:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        for blk in model.blocks:
+            blk.mlp.shared_gate = torch.nn.Parameter(
+                torch.randn(1, cfg.hidden_size, device=dev, generator=gen).to(torch.bfloat16) * 0.02,
+                requires_grad=False)
+    if mode != "bf16":
+        quantize_model(fuse_projections(model), mode, on_device=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return cfg, model
+
+
+def moe_drive(model, cfg, dev, name: str, mode: str, batches=(MOE_BATCH,), prompt=MOE_PROMPT,
+              new=MOE_NEW) -> dict:
+    """The MoE main path, eagerly: batched_generate at each b in `batches`
+    (b prompts of `prompt` tokens, `new` new tokens; prefill ms and decode
+    tok/s), and a b=1 generate of a 100-token prompt whose last decode step
+    is held against a fresh prefill; exact launch counts (moe_expected).
+    Returns the launches."""
+    from mllm_tpu_torch.generation.generate import batched_generate, generate, prefill
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+
+    kernels = wrappers()
+    rng = np.random.default_rng(21)
+    V = cfg.vocab_size
+    batched_generate(model, rng.integers(0, V, (1, prompt)), np.array([prompt]),  # warm-up
+                     model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    forwards, runs = [], []
+    for b in batches:
+        ids = rng.integers(0, V, (b, prompt))
+        cache = model.init_cache(b, S_CACHE)
+        (lg, cache), t_pre = timed(lambda: prefill(model, cache, torch.as_tensor(ids, device=dev), prompt))
+        (toks, _), t_all = timed(lambda: batched_generate(model, ids, np.full(b, prompt), model.init_cache(b, S_CACHE),
+                                                          SamplingConfig(max_new_tokens=new)))
+        if toks.shape != (b, new) or not ((toks >= 0) & (toks < V)).all() or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{name} b={b}: tokens {toks.shape}, or out of the vocabulary, or non-finite logits")
+        forwards += [(b * prompt, True, b)] * 2 + [(b, False, b)] * (new - 1)
+        runs.append(dict(batch=b, prompt_tokens=prompt, new_tokens=new, prefill_ms=t_pre * 1e3,
+                         decode_tok_s=b * (new - 1) / max(t_all - t_pre, 1e-9)))
+    spy, restore = logits_spy(model, dev)
+    p100 = rng.integers(0, V, 100)
+    res, _ = generate(model, p100, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=32))
+    restore()
+    gap = last_step_vs_prefill(model, dev, p100, res.tokens, spy["last"][:, -1])
+    forwards += [(100, True, 1)] + [(1, False, 1)] * (len(res.tokens) - 1) + [(130, True, 1)]
+    if not bool(spy["finite"]) or not gap <= RAGGED_TOL:
+        raise AssertionError(f"{name}: finite {bool(spy['finite'])}, last decode step vs prefill {gap}")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    expected = moe_expected(cfg, mode, forwards)
+    emit(phase=name, mode=mode, runs=runs, last_decode_vs_prefill=gap, tolerance=RAGGED_TOL,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+         launches_expected=expected)
+    for k, want in expected.items():
+        if launches[k] != want:
+            raise AssertionError(f"{name} {k}: {launches[k]} launches, expected {want}")
+    return {k: launches[k] for k in expected}
+
+
+def phase_slice_moe(dev) -> dict:
+    """The JAX bench's MoE geometry (QWEN2_MOE_08B: 16 layers, 16 experts,
+    top-4, shared expert 2048) at full depth, random weights at MoEMLP.init's
+    scale: the branch times of one layer at t in MOE_T; bf16, "int8" and
+    "int4" through batched_generate at b=8 (128 prompt tokens, 128 new, the
+    qwen2moe-0.8b-*-b8 rows' traffic), the decode-vs-prefill check,
+    slice_compiled at b=1 (generate_compiled against generate, prompts of
+    100 and 1500 tokens); then the engine over the bf16 model
+    (slice_engine's 12 requests) with exact launches."""
+    launches = {}
+    moe_branch_rows(dev, "qwen2moe-0.8b", QWEN2_MOE_08B)
+    for mode in ("bf16", "int8", "int4"):
+        t0 = time.perf_counter()
+        cfg, model = moe_model(QWEN2_MOE_08B, dev, mode)
+        emit(phase="slice_moe_model", mode=mode, seconds=time.perf_counter() - t0, weight_bytes=state_bytes(model),
+             layers=sorted({type(m).__name__ for m in model.modules()}))
+        add_launches(launches, moe_drive(model, cfg, dev, f"slice_moe_{mode}", mode))
+        add_launches(launches, compiled_run(model, dev, f"moe_{mode}"))
+        if mode == "bf16":
+            L = cfg.num_hidden_layers
+
+            def expected(admissions, steps):
+                return {"flash_attention": L * admissions, "decode_attention": L * steps,
+                        **{k: 0 for k in ("flash_attention_quant", "decode_attention_quant",
+                                          "decode_attention_paged", "int8_matmul")}}
+
+            add_launches(launches, serve(model, dev, "moe_engine_bf16", {}, expected))
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice_moe_wide(dev) -> dict:
+    """Qwen1.5-MoE-A2.7B's published width (QWEN15_MOE_A27B: 24 layers, 60
+    experts, top-4, expert ff 1408, shared expert 5632 with its sigmoid
+    gate, vocab 151936, untied; 14.3 G parameters, no depth cut), random
+    weights: the branch times of one layer at t in MOE_T, then bf16 and
+    "int8" through batched_generate at b=1 and b=8 (128 prompt tokens, 64
+    new) with exact launches and peak memory."""
+    launches = {}
+    moe_branch_rows(dev, "qwen1.5-moe-a2.7b", QWEN15_MOE_A27B)
+    for mode in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        cfg, model = moe_model(QWEN15_MOE_A27B, dev, mode, shared_gate=True)
+        emit(phase="slice_moe_wide_model", mode=mode, seconds=time.perf_counter() - t0,
+             params=sum(t.numel() for t in model.state_dict().values()), weight_bytes=state_bytes(model),
+             memory_allocated_bytes=torch.cuda.memory_allocated())
+        add_launches(launches, moe_drive(model, cfg, dev, f"slice_moe_wide_{mode}", mode, batches=(1, MOE_BATCH),
+                                         new=64))
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+# slice_families: each preset at full width, depth cut to FAMILY_LAYERS
+FAMILIES = ("gemma-2b", "gemma2-2b", "stablelm2-1.6b", "phi3-mini", "phonelm-1.5b", "dclm-1b")
+FAMILY_LAYERS = 4
+# the presets whose attention reaches the bf16 kernels (Gemma2's softcap and
+# Phi-3's head_dim 96 take sdpa, as the reference sends them to XLA)
+FAMILY_KERNELS = {"gemma-2b": True, "gemma2-2b": False, "stablelm2-1.6b": True, "phi3-mini": False,
+                  "phonelm-1.5b": True, "dclm-1b": True}
+
+
+def phase_slice_families(dev) -> dict:
+    """Each preset of FAMILIES at full width (what the kernels see), depth cut
+    to 4 layers, random bf16 weights (PhoneLM with its int8 RoPE tables):
+    generate (a 100-token prompt, 32 new) with the last decode step against
+    a fresh prefill, generate_compiled equal to it, and the attention
+    kernels' launches exact: FAMILY_KERNELS' presets one flash_attention a
+    layer a prefill and one decode_attention a layer a step, the others
+    none. Gemma-2B's (head_dim 256) are returned as the @256 rows'."""
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.generation.generate import generate, generate_compiled, pad_to_bucket
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.models.families import PRESETS
+
+    kernels = wrappers()
+    launches = {}
+    for name in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = PRESETS[name].replace(num_hidden_layers=FAMILY_LAYERS, eos_token_id=-2,
+                                    rope_int8=name.startswith("phonelm"))
+        model = init_model(cfg, dev)
+        prompt = np.random.default_rng(31).integers(0, cfg.vocab_size, 100)
+        for fn in kernels.values():
+            fn.launches = 0
+        graphs.reset_counts()
+        spy, restore = logits_spy(model, dev)
+        res, _ = generate(model, prompt, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=32))
+        restore()
+        finite = bool(spy["finite"])
+        gap = last_step_vs_prefill(model, dev, prompt, res.tokens, spy["last"][:, -1])
+        eager = {k: fn.launches for k, fn in kernels.items()}
+        toks, n = generate_compiled(model, pad_to_bucket(prompt[None]), model.init_cache(1, S_CACHE), 100, 32,
+                                    SamplingConfig(max_new_tokens=32))
+        compiled = toks.cpu().numpy()[: int(n)].tolist()
+        torch.cuda.synchronize()
+        on_card = graphs.device_launches({k: fn.launches for k, fn in kernels.items()})
+        L, steps = FAMILY_LAYERS, len(res.tokens) - 1
+        want = ({"flash_attention": 2 * L, "decode_attention": L * steps} if FAMILY_KERNELS[name]
+                else {"flash_attention": 0, "decode_attention": 0})
+        emit(phase="slice_families", preset=name, layers=L, hidden=cfg.hidden_size, head_dim=cfg.head_dim_,
+             heads=[cfg.num_attention_heads, cfg.num_key_value_heads], vocab=cfg.vocab_size,
+             seconds=time.perf_counter() - t0, new_tokens=[len(res.tokens), len(compiled)],
+             compiled_equals_eager=compiled == res.tokens, last_decode_vs_prefill=gap, tolerance=RAGGED_TOL,
+             logits_finite=finite, eager_launches={k: eager[k] for k in ATTENTION_KERNELS},
+             eager_launches_expected=want, launches_on_card={k: on_card[k] for k in ATTENTION_KERNELS},
+             depth_cut=f"{PRESETS[name].num_hidden_layers} -> {L} layers; widths as published")
+        if not finite or not gap <= RAGGED_TOL or compiled != res.tokens:
+            raise AssertionError(f"slice_families {name}: finite {finite}, decode vs prefill {gap}, "
+                                 f"compiled equal {compiled == res.tokens}")
+        others = set(ATTENTION_KERNELS) - set(want)
+        if any(eager[k] != v for k, v in want.items()) or any(on_card[k] for k in others) or \
+                (FAMILY_KERNELS[name] and not on_card["decode_attention"]):
+            raise AssertionError(f"slice_families {name}: launches {eager} (expected {want}), on the card {on_card}")
+        suffix = "@256" if cfg.head_dim_ == 256 else ""
+        add_launches(launches, {k + suffix: on_card[k] for k in ("flash_attention", "decode_attention")})
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
 def timed_phase(name: str, fn):
     """fn(), its wall seconds printed as `<name>_seconds`."""
     t0 = time.perf_counter()
@@ -2851,6 +3313,9 @@ def main():
     del model
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    results += [timed_phase("slice_moe", lambda: phase_slice_moe(dev)),
+                timed_phase("slice_moe_wide", lambda: phase_slice_moe_wide(dev)),
+                timed_phase("slice_families", lambda: phase_slice_families(dev))]
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n

@@ -39,6 +39,7 @@ extern "C" int mllm_decode_attention_bf16(const void* q, const void* k, const vo
   switch (D) {
     case 64: return launch_decode<64, false>(decode_kernel<64>, p, splits, s);
     case 128: return launch_decode<128, false>(decode_kernel<128>, p, splits, s);
+    case 256: return launch_decode<256, false>(decode_kernel<256>, p, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

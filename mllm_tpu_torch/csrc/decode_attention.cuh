@@ -54,6 +54,11 @@ constexpr int kWarps = kTile / 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 4;   // tiles in flight, dense cache
 constexpr int kPagedStages = 3;  // paged pool: two CTAs an SM (at D = 128) where four stages fit one
+// head_dim 256 (Gemma-2B): a stage of K and V with their padding is 67.5 KB,
+// so four do not fit the SM's 227 KB: three (dense) and two (paged, whose
+// table row also needs room)
+constexpr int kStagesWide = 3;
+constexpr int kPagedStagesWide = 2;
 constexpr int kRows = 16;           // query heads a CTA (the m16 of mma.sync)
 constexpr int kPad = 8;             // bf16 elements of row padding: conflict-free ldmatrix
 constexpr int kMaxSplits = 8;       // the portable cluster size
@@ -85,17 +90,18 @@ struct Smem {
   float wm[kWarps][kRows], wl[kWarps][kRows];  // each warp's (m, l)
   float m[kRows], l[kRows];                      // the CTA's partial, read by the cluster
 };
+// Tiles in flight of the kernel of a cache, at head_dim D.
+template <bool kPaged, int D>
+__host__ __device__ constexpr int stages_of() {
+  return D > 128 ? (kPaged ? kPagedStagesWide : kStagesWide) : (kPaged ? kPagedStages : kStages);
+}
 // After the last tile the ring holds each warp's acc [kWarps][kRows][D] (f32),
 // then the CTA's partial acc [kRows][D] in the slots of warp 0.
-static_assert(sizeof(float) * kWarps * kRows * 64 <=
-                  sizeof(bf16) * 2 * (kPagedStages < kStages ? kPagedStages : kStages) * kTile * (64 + kPad),
-              "the merge reuses the K/V ring");
-
-// Tiles in flight of the kernel of a cache.
-template <bool kPaged>
-__host__ __device__ constexpr int stages_of() {
-  return kPaged ? kPagedStages : kStages;
+template <int D>
+constexpr bool merge_fits() {
+  return sizeof(float) * kWarps * kRows * D <= sizeof(bf16) * 2 * stages_of<true, D>() * kTile * (D + kPad);
 }
+static_assert(merge_fits<64>() && merge_fits<128>() && merge_fits<256>(), "the merge reuses the K/V ring");
 
 // Where key j of sequence b, KV head hk lies: the row-address rule, the one
 // thing the two caches do not share.
@@ -139,7 +145,7 @@ struct Rows {
 // Dynamic shared memory of a CTA: Smem, then (paged) the table row.
 template <int D, bool kPaged>
 __host__ __device__ constexpr int smem_bytes(int maxb) {
-  return (int)sizeof(Smem<D, stages_of<kPaged>()>) + (kPaged ? ((4 * maxb + 15) / 16) * 16 : 0);
+  return (int)sizeof(Smem<D, stages_of<kPaged, D>()>) + (kPaged ? ((4 * maxb + 15) / 16) * 16 : 0);
 }
 
 template <int D, bool kPaged>
@@ -147,7 +153,7 @@ __device__ __forceinline__ void decode_body(const DecodeParams& p) {
   constexpr int kLds = D + kPad;
   constexpr int kSteps = D / 16;  // k-steps of Q K^T
   constexpr int kND = D / 8;      // 8-wide column blocks of O
-  constexpr int S = stages_of<kPaged>();
+  constexpr int S = stages_of<kPaged, D>();
   using Shared = Smem<D, S>;
   extern __shared__ __align__(16) unsigned char smem[];
   auto& s = *reinterpret_cast<Shared*>(smem);

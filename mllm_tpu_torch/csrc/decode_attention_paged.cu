@@ -48,7 +48,7 @@ extern "C" int mllm_decode_attention_paged_bf16(const void* q, const void* k_poo
   using namespace mllm;
   using namespace mllm::dec;
   if (splits < 1 || splits > kMaxSplits || H % Hkv != 0 || NB < 1 || MAXB < 1 ||
-      smem_bytes<128, true>(MAXB) > 232448)
+      smem_bytes<128, true>(MAXB) > 232448 || (D == 256 && smem_bytes<256, true>(MAXB) > 232448))
     return static_cast<int>(cudaErrorInvalidValue);
   const int hgroups = (H / Hkv + kRows - 1) / kRows;
   const DecodeParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
@@ -59,6 +59,7 @@ extern "C" int mllm_decode_attention_paged_bf16(const void* q, const void* k_poo
   switch (D) {
     case 64: return launch_decode<64, true>(paged_decode_kernel<64>, p, splits, s);
     case 128: return launch_decode<128, true>(paged_decode_kernel<128>, p, splits, s);
+    case 256: return launch_decode<256, true>(paged_decode_kernel<256>, p, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

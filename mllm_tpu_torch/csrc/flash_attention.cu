@@ -46,6 +46,13 @@
 //    first: blockIdx.x 0 is the last tile of head 0.
 //  - Online softmax in f32, base 2, scale * log2(e) folded into the f32
 //    scores; GQA by index (h -> h / n_rep).
+//  - head_dim 256 (Gemma-2B, which the reference runs through this Pallas
+//    kernel too): 64-key tiles (S = wgmma m64n64k16, O += P V m64n256k16) so
+//    Q and two stages fit shared memory (192 KB), and no producer warpgroup
+//    (256 threads, no setmaxnreg), so a consumer thread may hold O (128
+//    registers) beside S and P (flash_attention.cuh): thread 0 issues Q and
+//    the first two tiles, then refills a stage after its softmax of the next
+//    tile, once both warpgroups are done with it (`InlineTiles`).
 // The consumer warpgroups' code (products, softmax, turns, tile ranges and
 // the epilogue) is flash_attention.cuh, which flash_attention_quant.cu shares;
 // this file holds the TMA producer and the stale-V-row pass.
@@ -62,7 +69,7 @@ using namespace flash;
 // in P V), each a share of the rows, then meet. With one kv_valid for the
 // batch (`tma_bounded`) the tensor map ends at it, so TMA itself writes
 // zeros past it and only rows before kv_start need the pass.
-template <int D>
+template <int D, int BK = block_k<D>()>
 struct TmaTiles {
   bf16* sV;
   uint64_t* full;
@@ -73,15 +80,15 @@ struct TmaTiles {
 
   __device__ __forceinline__ void wait_k(int it) const {
     constexpr int kDH = D / kSwz;
-    const int stage = it % kStages, kb = kb0 + it * kBK;
+    const int stage = it % kStages, kb = kb0 + it * BK;
     mbar_wait(&full[stage], (it / kStages) & 1);
-    if (kb < kv_start || (!tma_bounded && kb + kBK > kv_valid)) {
-      bf16* vt = sV + stage * kDH * kBK * kSwz;
-      for (int i = tid; i < kBK * kDH * 8; i += kConsumers * 128) {
+    if (kb < kv_start || (!tma_bounded && kb + BK > kv_valid)) {
+      bf16* vt = sV + stage * kDH * BK * kSwz;
+      for (int i = tid; i < BK * kDH * 8; i += kConsumers * 128) {
         const int r = i / (kDH * 8), c = i % (kDH * 8);  // key row, 16-byte chunk
         const int key = kb + r;
         if (key < kv_start || key >= kv_valid)
-          *reinterpret_cast<uint4*>(vt + ((c / 8) * kBK + r) * kSwz + (c % 8) * 8) = make_uint4(0, 0, 0, 0);
+          *reinterpret_cast<uint4*>(vt + ((c / 8) * BK + r) * kSwz + (c % 8) * 8) = make_uint4(0, 0, 0, 0);
       }
       fence_proxy_async();  // the zeros reach wgmma's (async-proxy) reads
       named_barrier_sync(kBarTile, kConsumers * 128);
@@ -91,31 +98,71 @@ struct TmaTiles {
   __device__ __forceinline__ void wait_v(int) const {}
   __device__ __forceinline__ void release_v(int it) const { mbar_arrive(&empty[it % kStages]); }
   __device__ __forceinline__ void prepare_q(bf16*, int, int) const {}
+  __device__ __forceinline__ void refill(int) const {}
+};
+
+// TMA loads of tile `it` (K and V: keys kb0 + it * BK on, of K/V row `row`
+// = b * Hkv + hk) into its stage, on full[stage]; issued by one thread.
+template <int D, int BK>
+__device__ __forceinline__ void load_tile(const CUtensorMap* tm_k, const CUtensorMap* tm_v, bf16* sK, bf16* sV,
+                                          uint64_t* full, int kb0, int row, int it) {
+  constexpr int kDH = D / kSwz;
+  const int stage = it % kStages;
+  mbar_arrive_expect_tx(&full[stage], 2 * BK * D * 2);
+  const int kb = kb0 + it * BK;
+#pragma unroll
+  for (int j = 0; j < kDH; ++j) {
+    tma_load_3d(sK + (stage * kDH + j) * BK * kSwz, tm_k, &full[stage], j * kSwz, kb, row);
+    tma_load_3d(sV + (stage * kDH + j) * BK * kSwz, tm_v, &full[stage], j * kSwz, kb, row);
+  }
+}
+
+// The head_dim 256 kernel's ring (no producer warpgroup): thread 0 loads
+// tile it - 1 + kStages into the stage of tile it - 1 after its softmax of
+// tile `it`, once both warpgroups have released it (the other warpgroup's
+// P V on it was issued before this warpgroup's S of tile `it`, by the turns).
+template <int D, int BK = block_k<D>()>
+struct InlineTiles : TmaTiles<D, BK> {
+  const CUtensorMap *tm_k, *tm_v;
+  bf16* sK;
+  int row, ntiles;
+
+  __device__ __forceinline__ void refill(int it) const {
+    const int next = it - 1 + kStages;
+    if (this->tid == 0 && it >= 1 && next < ntiles) {
+      mbar_wait(&this->empty[(it - 1) % kStages], ((it - 1) / kStages) & 1);
+      load_tile<D, BK>(tm_k, tm_v, sK, this->sV, this->full, this->kb0, row, next);
+    }
+    __syncwarp();
+  }
 };
 
 template <int D>
 constexpr int smem_bytes() {
-  return (kBQ + 2 * kStages * kBK) * D * 2 + 1024 /* alignment */ + 8 * (1 + 2 * kStages);
+  return (kBQ + 2 * kStages * block_k<D>()) * D * 2 + 1024 /* alignment */ + 8 * (1 + 2 * kStages);
 }
+static_assert(smem_bytes<256>() <= 232448, "head_dim 256: Q and two stages of 64-key tiles fit");
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(threads_of<D>(), 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const FlashParams p) {
   constexpr int kDH = D / kSwz;  // 64-column boxes of a row
+  constexpr int BK = block_k<D>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of 128 bytes
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   bf16* sQ = reinterpret_cast<bf16*>(base);  // [kDH][kBQ][64]
-  bf16* sK = sQ + kBQ * D;                   // [kStages][kDH][kBK][64]
-  bf16* sV = sK + kStages * kBK * D;         // [kStages][kDH][kBK][64]
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + kStages * kBK * D);
+  bf16* sK = sQ + kBQ * D;                   // [kStages][kDH][BK][64]
+  bf16* sV = sK + kStages * BK * D;          // [kStages][kDH][BK][64]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sV + kStages * BK * D);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + kStages;
 
-  const CtaTiles c = cta_tiles(p);
+  const CtaTiles c = cta_tiles<BK>(p);
   const int tid = threadIdx.x;
-  if (tid == kConsumers * 128) {  // the descriptors' first fetch overlaps the set-up
+  constexpr bool kInline = threads_of<D>() == kConsumers * 128;  // no producer warpgroup
+  if (tid == (kInline ? 0 : kConsumers * 128)) {  // the descriptors' first fetch overlaps the set-up
     tma_prefetch(&tm_q);
     tma_prefetch(&tm_k);
     tma_prefetch(&tm_v);
@@ -133,30 +180,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   // The warpgroup index, provably uniform across each warp (ptxas applies
   // setmaxnreg only to branches it can prove warpgroup-uniform).
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
-  if (wg == kConsumers) {
+  const int loader = kInline ? 0 : kConsumers * 128;  // the thread that issues Q and the first tiles
+  if (tid == loader && c.ntiles > 0) {
+    mbar_arrive_expect_tx(qbar, kBQ * D * 2);
+#pragma unroll
+    for (int j = 0; j < kDH; ++j) tma_load_4d(sQ + j * kBQ * kSwz, &tm_q, qbar, j * kSwz, c.h, c.q0, c.b);
+  }
+  const TmaTiles<D> ring{sV, full, empty, c.kb0, c.kv_start, c.kv_valid, p.kv_valid_vec == nullptr, tid};
+  if constexpr (kInline) {
+    const int row = c.b * p.Hkv + c.hk;
+    if (tid == 0)
+      for (int it = 0; it < min(kStages, c.ntiles); ++it) load_tile<D, BK>(&tm_k, &tm_v, sK, sV, full, c.kb0, row, it);
+    __syncwarp();
+    const InlineTiles<D> tiles{ring, &tm_k, &tm_v, sK, row, c.ntiles};
+    consume<D>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
+  } else if (wg == kConsumers) {
     // ---- producer warpgroup: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (tid == kConsumers * 128 && c.ntiles > 0) {
-      mbar_arrive_expect_tx(qbar, kBQ * D * 2);
-#pragma unroll
-      for (int j = 0; j < kDH; ++j) tma_load_4d(sQ + j * kBQ * kSwz, &tm_q, qbar, j * kSwz, c.h, c.q0, c.b);
+    if (tid == loader)
       for (int it = 0; it < c.ntiles; ++it) {
-        const int stage = it % kStages;
-        if (it >= kStages) mbar_wait(&empty[stage], (it / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[stage], 2 * kBK * D * 2);
-        const int kb = c.kb0 + it * kBK, row = c.b * p.Hkv + c.hk;
-#pragma unroll
-        for (int j = 0; j < kDH; ++j) {
-          tma_load_3d(sK + (stage * kDH + j) * kBK * kSwz, &tm_k, &full[stage], j * kSwz, kb, row);
-          tma_load_3d(sV + (stage * kDH + j) * kBK * kSwz, &tm_v, &full[stage], j * kSwz, kb, row);
-        }
+        if (it >= kStages) mbar_wait(&empty[it % kStages], (it / kStages - 1) & 1);
+        load_tile<D, BK>(&tm_k, &tm_v, sK, sV, full, c.kb0, c.b * p.Hkv + c.hk, it);
       }
-    }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const TmaTiles<D> tiles{sV, full, empty, c.kb0, c.kv_start, c.kv_valid, p.kv_valid_vec == nullptr, tid};
-    consume<D>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
+    consume<D>(p, c, sQ, sK, sV, qbar, ring, wg, tid);
   }
 }
 
@@ -169,7 +218,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const FlashParam
   const int rows = p.kv_valid_vec ? p.Skv : max(1, min(p.kv_valid, p.Skv));
   const cuuint64_t kvdims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)p.B * p.Hkv};
   const cuuint64_t kvstrides[2] = {(cuuint64_t)D * 2, (cuuint64_t)p.Skv * D * 2};
-  const cuuint32_t kvbox[3] = {kSwz, kBK, 1};
+  const cuuint32_t kvbox[3] = {kSwz, block_k<D>(), 1};
   // bf16 maps whose innermost dimension is D, read in boxes of 64 columns
   // with the 128-byte swizzle; elements outside the tensor load as zeros
   if (!encode_q_map(&tq, q, p.B, p.Sq, p.H, D) ||
@@ -178,7 +227,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const FlashParam
       !encode_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kvdims, kvstrides, kvbox,
                          CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  return launch_flash(flash_fwd_kernel<D>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
+  return launch_flash<threads_of<D>()>(flash_fwd_kernel<D>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
 }
 
 }  // namespace
@@ -203,6 +252,7 @@ extern "C" int mllm_flash_attention_bf16(const void* q, const void* k, const voi
   switch (D) {
     case 64: return launch<64>(q, k, v, p, s);
     case 128: return launch<128>(q, k, v, p, s);
+    case 256: return launch<256>(q, k, v, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -44,12 +44,35 @@ namespace mllm {
 namespace flash {
 
 constexpr int kBQ = 128;     // query rows a CTA
-constexpr int kBK = 128;     // keys a tile
+constexpr int kBK = 128;     // keys a tile (head_dim 64 and 128)
 constexpr int kStages = 2;   // bf16 K/V tiles in the ring
 static_assert(kBK == 64 || kBK == 128, "wgmma n64 or n128 for S");
 constexpr int kConsumers = 2;   // warpgroups of 64 query rows
 constexpr int kThreads = (kConsumers + 1) * 128;
 constexpr int kSwz = 64;        // bf16 columns of one 128-byte swizzled box row
+
+// head_dim 256 (Gemma-2B): Q is 64 KB and a stage of 128-key K and V tiles
+// 128 KB, so two stages of them (320 KB) do not fit the SM's 227 KB; 64-key
+// tiles do (64 + 2 x 64 = 192 KB). A consumer thread then holds O at 64 x 256
+// f32 (128 registers) beside S (32) and P (16): more than the 168 registers
+// ptxas gives a thread of a 384-thread block. It gave 168 and spilled ~300
+// bytes with a producer warpgroup and setmaxnreg 240, and with a producer
+// warp alone (288 threads): it sizes a wgmma kernel's block in whole
+// warpgroups (the card, tools/attention_tune.py, PERF.md). So the kernel has
+// no producer: the two consumer warpgroups (256 threads, up to 255 registers
+// a thread) and their thread 0 issues the loads (InlineTiles,
+// flash_attention.cu).
+constexpr int kBKWide = 64;
+constexpr int kThreadsWide = 256;  // the consumer warpgroups only
+
+template <int D>
+__host__ __device__ constexpr int block_k() {
+  return D > 128 ? kBKWide : kBK;
+}
+template <int D>
+__host__ __device__ constexpr int threads_of() {
+  return D > 128 ? kThreadsWide : kThreads;
+}
 
 struct FlashParams {
   bf16* o;                  // [B, Sq, H, D]
@@ -88,6 +111,7 @@ struct CtaTiles {
   int lo, hi, kb0, ntiles;
 };
 
+template <int BK = kBK>
 __device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
   CtaTiles c;
   // The heaviest q-tiles first: every head's last tile, then the one before.
@@ -108,8 +132,8 @@ __device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
     c.hi = min(c.hi, c.q_offset + min(c.q0 + kBQ, p.Sq));
     if (p.window > 0) c.lo = max(c.lo, c.q_offset + c.q0 - p.window + 1);
   }
-  c.kb0 = (c.lo / kBK) * kBK;
-  c.ntiles = c.hi > c.lo ? (c.hi - c.kb0 + kBK - 1) / kBK : 0;
+  c.kb0 = (c.lo / BK) * BK;
+  c.ntiles = c.hi > c.lo ? (c.hi - c.kb0 + BK - 1) / BK : 0;
   return c;
 }
 
@@ -134,16 +158,16 @@ __device__ __forceinline__ float quad_max(float x) {
 
 // S = Q K^T for tile `it`: this warpgroup's 64 rows x kBK keys, over D in
 // k-steps of 16 (both operands K-major, 128-byte swizzled).
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const bf16* sQ, const bf16* sK, int it,
+template <int D, int BK = block_k<D>()>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], const bf16* sQ, const bf16* sK, int it,
                                          int wg) {
   constexpr int kDH = D / kSwz;
-  const bf16* kt = sK + (it % kStages) * kDH * kBK * kSwz;
+  const bf16* kt = sK + (it % kStages) * kDH * BK * kSwz;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int j = kk / 4, w = kk % 4;  // 64-column box, 16-column step inside it
     const uint64_t da = wgmma_desc(sQ + (j * kBQ + wg * 64) * kSwz + w * 16, 16, 1024);
-    const uint64_t db = wgmma_desc(kt + j * kBK * kSwz + w * 16, 16, 1024);
+    const uint64_t db = wgmma_desc(kt + j * BK * kSwz + w * 16, 16, 1024);
     wgmma_ss(s, da, db, kk > 0);
   }
   wgmma_commit();
@@ -151,14 +175,14 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const bf16* sQ, co
 
 // O += P V for tile `it`: V is [keys][64-column boxes], MN-major for wgmma
 // (transpose bit); LBO steps between the boxes, SBO between 8-key groups.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[kBK / 16][4],
+template <int D, int BK = block_k<D>()>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[BK / 16][4],
                                          const bf16* sV, int it) {
   constexpr int kDH = D / kSwz;
-  const bf16* vt = sV + (it % kStages) * kDH * kBK * kSwz;
+  const bf16* vt = sV + (it % kStages) * kDH * BK * kSwz;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    wgmma_rs(o, pf[kk], wgmma_desc(vt + kk * 16 * kSwz, kBK * kSwz * 2, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs(o, pf[kk], wgmma_desc(vt + kk * 16 * kSwz, BK * kSwz * 2, 1024));
   wgmma_commit();
 }
 
@@ -167,12 +191,13 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)
 // kb + 8 (i / 4) + (i & 1), kb including this thread's 2 t), leaves the
 // probabilities in s, updates the statistics and returns the factors (a0,
 // a1) for O. Masked probabilities are exact zeros: exp2(-inf) = 0.
-__device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], int kb, const RowKeys& rk,
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], int kb, const RowKeys& rk,
                                                float scale_log2, RowStats& st, float& a0, float& a1) {
-  if (!(kb >= rk.klo0 && kb >= rk.klo1 && kb + kBK - 7 < rk.khi0 && kb + kBK - 7 < rk.khi1)) {
+  if (!(kb >= rk.klo0 && kb >= rk.klo1 && kb + BK - 7 < rk.khi0 && kb + BK - 7 < rk.khi1)) {
     const int lo0 = rk.klo0 - kb, hi0 = rk.khi0 - kb, lo1 = rk.klo1 - kb, hi1 = rk.khi1 - kb;
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int c = (i / 4) * 8 + (i & 1);
       const bool ok = (i & 2) ? (c >= lo1 && c < hi1) : (c >= lo0 && c < hi0);
       if (!ok) s[i] = -INFINITY;
@@ -180,7 +205,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], int kb, cons
   }
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     if (i & 2) mx1 = fmaxf(mx1, s[i]); else mx0 = fmaxf(mx0, s[i]);
   }
   const float mn0 = fmaxf(st.m0, quad_max(mx0) * scale_log2);  // finite
@@ -191,7 +216,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], int kb, cons
   st.m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     if (i & 2) {
       s[i] = fast_exp2(fmaf(s[i], scale_log2, -mn1));
       rs1 += s[i];
@@ -206,9 +231,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2], int kb, cons
 
 // P as bf16 A fragments (the rounding point of the plain versions):
 // k-step kk covers keys 16 kk .. 16 kk + 15.
-__device__ __forceinline__ void pack_p(const float (&s)[kBK / 2], uint32_t (&pf)[kBK / 16][4]) {
+template <int BK>
+__device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pf)[BK / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
     pf[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
     pf[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
     pf[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
@@ -218,10 +244,11 @@ __device__ __forceinline__ void pack_p(const float (&s)[kBK / 2], uint32_t (&pf)
 
 // One consumer warpgroup (wg 0 or 1, 128 threads; tid the CTA's thread index)
 // from Q's arrival to its rows of the output. `tiles` supplies `wait_k`,
-// `release_k`, `wait_v`, `release_v` (above) and `prepare_q(sQ, wg, wtid)`
+// `release_k`, `wait_v`, `release_v` (above), `prepare_q(sQ, wg, wtid)`
 // (called by every thread of the warpgroup once Q has landed, before its
-// first product).
-template <int D, class Tiles>
+// first product) and `refill(it)` (called after the softmax of tile `it`, or
+// where it would be: a kernel without a producer loads the ring there).
+template <int D, class Tiles, int BK = block_k<D>()>
 __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c, bf16* sQ, const bf16* sK,
                                         const bf16* sV, uint64_t* qbar, const Tiles& tiles, int wg,
                                         int tid) {
@@ -245,8 +272,8 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
   const int qa = c.q_offset + c.q0 + wg * 64, qb = c.q_offset + min(c.q0 + wg * 64 + 64, p.Sq) - 1;
   const int wlo = windowed ? max(c.kv_start, qa - p.window + 1) : c.kv_start;
   const int whi = p.causal ? min(c.kv_valid, qb + 1) : c.kv_valid;
-  const int it_a = min(ntiles, max(0, (wlo - kb0) / kBK));
-  const int it_b = max(it_a, min(ntiles, (whi - kb0 + kBK - 1) / kBK));
+  const int it_a = min(ntiles, max(0, (wlo - kb0) / BK));
+  const int it_b = max(it_a, min(ntiles, (whi - kb0 + BK - 1) / BK));
 
   float o[D / 2];
 #pragma unroll
@@ -267,6 +294,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
       wait_turn(wg);
       pass_turn(wg);
       tiles.release_k(it);
+      tiles.refill(it);
       tiles.wait_v(it);
       wait_turn(wg);
       pass_turn(wg);
@@ -274,25 +302,26 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
     };
     for (int it = 0; it < it_a; ++it) skip_tile(it);
     for (int it = it_a; it < it_b; ++it) {
-      float s[kBK / 2];
-      uint32_t pf[kBK / 16][4];
+      float s[BK / 2];
+      uint32_t pf[BK / 16][4];
       float a0, a1;
       tiles.wait_k(it);
       wait_turn(wg);
       wgmma_fence();
-      issue_qk<D>(s, sQ, sK, it, wg);
+      issue_qk<D, BK>(s, sQ, sK, it, wg);
       pass_turn(wg);
       wgmma_wait<0>();
       wgmma_fence_operands(s);
       tiles.release_k(it);
-      online_softmax(s, kb0 + it * kBK + 2 * t, rows, p.scale_log2, st, a0, a1);
+      online_softmax<BK>(s, kb0 + it * BK + 2 * t, rows, p.scale_log2, st, a0, a1);
+      tiles.refill(it);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
-      pack_p(s, pf);
+      pack_p<BK>(s, pf);
       tiles.wait_v(it);
       wait_turn(wg);
       wgmma_fence();
-      issue_pv<D>(o, pf, sV, it);
+      issue_pv<D, BK>(o, pf, sV, it);
       pass_turn(wg);
       wgmma_wait<0>();
       wgmma_fence_operands(o);
@@ -335,13 +364,13 @@ inline bool encode_q_map(CUtensorMap* map, const void* q, int B, int Sq, int H, 
 // at the main row (B=1, Sq=1536) the plain launch's time was bimodal (27.3 or
 // 28.4 us between launches of one process), the cluster launch's steady at
 // the lower mode (PERF.md).
-template <class Kernel, class... Args>
+template <int Threads = kThreads, class Kernel, class... Args>
 cudaError_t launch_flash(Kernel kernel, const FlashParams& p, int smem, cudaStream_t stream, const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.n_qtiles * p.H * p.B);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(Threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

@@ -302,6 +302,7 @@ struct QuantTiles {
   __device__ __forceinline__ void release_v(int it) const {
     if (lane0) mbar_arrive(&ring.empty_v[it % kStages]);
   }
+  __device__ __forceinline__ void refill(int) const {}
   __device__ __forceinline__ void prepare_q(bf16* sQ, int wg, int wtid) const {
 #pragma unroll
     for (int j = 0; j < D / kSwz; ++j) {

@@ -308,6 +308,30 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 256] += A[64 x 16] (registers) B[16 x 256], B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256_mn(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : MLLM_ACC8(0), MLLM_ACC8(8), MLLM_ACC8(16), MLLM_ACC8(24),
+        MLLM_ACC8(32), MLLM_ACC8(40), MLLM_ACC8(48), MLLM_ACC8(56),
+        MLLM_ACC8(64), MLLM_ACC8(72), MLLM_ACC8(80), MLLM_ACC8(88),
+        MLLM_ACC8(96), MLLM_ACC8(104), MLLM_ACC8(112), MLLM_ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // D[64 x 128] (+)= A[64 x 16] (registers) B[16 x 128], B K-major in shared memory.
 __device__ __forceinline__ void wgmma_rs_n128_kb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
   asm volatile(
@@ -329,7 +353,7 @@ __device__ __forceinline__ void wgmma_rs_n128_kb(float (&d)[64], const uint32_t 
 #undef MLLM_ACC8
 
 // The width N of the product follows the accumulator: 32 floats a thread is
-// N = 64, 64 floats is N = 128.
+// N = 64, 64 floats is N = 128, 128 floats (wgmma_rs) N = 256.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   wgmma_ss_n64(d, a, b, accumulate);
 }
@@ -341,6 +365,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 }
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   wgmma_rs_n128(d, a, b);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n256_mn(d, a, b);
 }
 // A from registers, B K-major; N follows the accumulator (64 floats: 128, 128: 256).
 __device__ __forceinline__ void wgmma_rs_kb(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {

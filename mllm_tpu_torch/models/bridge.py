@@ -10,8 +10,13 @@ The model may have gone through `fuse_projections` and/or `quantize_model`
 (int8 or int4, any flags): the port's structure is read from the names
 (`qkv_proj`, `gateup_proj`, `qweight_t`/`scales`, `packed_t`/`scales_t`
 [/`zeros_t`], `mlp.gate_ops.0/1[/2]`, `embed_tokens.qweight_t`,
-`embed_tokens.proj.packed_t`). Integer arrays keep their dtype and scales and
-zeros stay f32; the other float arrays take `dtype`.
+`embed_tokens.proj.packed_t`). MoE blocks take `mlp.router_weight`,
+`mlp.w_gate` / `w_up` / `w_down` (float: `MoEMLP`; with `mlp.s_gate` /
+`s_up` / `s_down`: `QuantMoEMLP`), `mlp.shared_expert.*` (float, int8 or
+fused int4) and `mlp.shared_gate`. LayerNorm biases, per-head q/k
+LayerNorms and a non-gated MLP (no `mlp.up_proj`) follow the names too.
+Integer arrays keep their dtype and scales and zeros stay f32; the other
+float arrays take `dtype`.
 RoPE tables (`rope.sin`, `rope.cos`) are rebuilt from the config, not copied.
 Loading is strict: a missing or unexpected name raises.
 
@@ -27,13 +32,14 @@ import numpy as np
 import torch
 
 from ..core.config import TextConfig
-from ..nn.layers import Int4Linear, Linear, QuantLinear
+from ..nn.layers import Int4Linear, LayerNorm, Linear, QuantLinear, RMSNorm
 from ..ops.fused_mlp import pick_block_f
 from ..ops.quantize_model import FusedInt4MLP, Int4EmbedHead, Int4Operands, QuantEmbedHead
 from .megadecode import BLOCK_F_CAP, MegaDecodeLM
-from .transformer import CausalLM
+from .moe import MoEMLP, QuantMoEMLP
+from .transformer import MLP, CausalLM
 
-_F32_NAMES = ("scales", "scales_t", "zeros_t", "1", "2")  # last name parts kept in f32
+_F32_NAMES = ("scales", "scales_t", "zeros_t", "1", "2", "s_gate", "s_up", "s_down")  # kept in f32
 
 
 def port_state_dict(params: dict[str, np.ndarray], n_layers: int) -> dict[str, np.ndarray]:
@@ -82,11 +88,55 @@ def _operands(state: dict, prefix: str) -> Int4Operands:
     return Int4Operands(*(state.get(f"{prefix}.{i}") for i in range(3)))
 
 
+def _mlp(state: dict, prefix: str, mlp: MLP, cfg: TextConfig):
+    """The MLP (or FusedInt4MLP) that the names under `prefix` describe,
+    filling `mlp`'s projections."""
+    if prefix + "gate_ops.0" in state:
+        return FusedInt4MLP(
+            _operands(state, prefix + "gate_ops"), _operands(state, prefix + "up_ops"),
+            _operands(state, prefix + "down_ops"), cfg.hidden_act,
+            pick_block_f(state[prefix + "gate_ops.0"].shape[1]), bias=state.get(prefix + "bias"))
+    gateup = _linear(state, prefix + "gateup_proj", required=False)
+    if gateup is not None:
+        mlp.gateup_proj = gateup
+        mlp.gate_proj = mlp.up_proj = None
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        if getattr(mlp, name) is not None:
+            setattr(mlp, name, _linear(state, prefix + name, required=name != "up_proj"))
+    return mlp
+
+
+def _moe(state: dict, prefix: str, moe: MoEMLP, cfg: TextConfig):
+    """MoEMLP (float stacks) or QuantMoEMLP (with s_*) from the names under
+    `prefix`; the shared expert as `_mlp`, or None when there is none."""
+    shared = None
+    if any(k.startswith(prefix + "shared_expert.") for k in state):
+        shared = _mlp(state, prefix + "shared_expert.", moe.shared_expert, cfg)
+    gate = state.get(prefix + "shared_gate")
+    if prefix + "s_gate" in state:
+        get = lambda k: state[prefix + k]  # noqa: E731
+        return QuantMoEMLP(get("router_weight"), get("w_gate"), get("s_gate"), get("w_up"), get("s_up"),
+                           get("w_down"), get("s_down"), moe.top_k, moe.norm_topk_prob, moe.act, shared, gate)
+    moe.shared_expert = shared
+    if gate is not None:
+        moe.shared_gate = torch.nn.Parameter(gate, requires_grad=False)
+    return moe
+
+
 def causal_lm_from_jax_params(params: dict[str, np.ndarray], cfg: TextConfig, device,
                               dtype=torch.float32) -> CausalLM:
     model = CausalLM(cfg, device=device, dtype=dtype)
     state = {k: _to_torch(k, v, device, dtype)
              for k, v in port_state_dict(params, cfg.num_hidden_layers).items()}
+    for key in [k for k in state if k.endswith("norm.bias")]:  # LayerNorm biases
+        norm = model.get_submodule(key[: -len(".bias")])
+        if isinstance(norm, RMSNorm) or norm.bias is None:
+            parent, _, name = key[: -len(".bias")].rpartition(".")
+            setattr(model.get_submodule(parent), name,
+                    LayerNorm(norm.weight.shape[0], norm.eps, device=device, dtype=dtype))
+    for name, norm in list(model.named_modules()):
+        if isinstance(norm, LayerNorm) and norm.bias is not None and name + ".bias" not in state:
+            norm.bias = None
     for i, blk in enumerate(model.blocks):
         p = f"blocks.{i}."
         attn, mlp = blk.attn, blk.mlp
@@ -97,19 +147,7 @@ def causal_lm_from_jax_params(params: dict[str, np.ndarray], cfg: TextConfig, de
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             if getattr(attn, name) is not None:
                 setattr(attn, name, _linear(state, p + "attn." + name))
-        if p + "mlp.gate_ops.0" in state:
-            blk.mlp = FusedInt4MLP(
-                _operands(state, p + "mlp.gate_ops"), _operands(state, p + "mlp.up_ops"),
-                _operands(state, p + "mlp.down_ops"), cfg.hidden_act,
-                pick_block_f(cfg.intermediate_size), bias=state.get(p + "mlp.bias"))
-            continue
-        gateup = _linear(state, p + "mlp.gateup_proj", required=False)
-        if gateup is not None:
-            mlp.gateup_proj = gateup
-            mlp.gate_proj = mlp.up_proj = None
-        for name in ("gate_proj", "up_proj", "down_proj"):
-            if getattr(mlp, name) is not None:
-                setattr(mlp, name, _linear(state, p + "mlp." + name))
+        blk.mlp = _moe(state, p + "mlp.", mlp, cfg) if isinstance(mlp, MoEMLP) else _mlp(state, p + "mlp.", mlp, cfg)
     if model.lm_head is not None:
         model.lm_head = _linear(state, "lm_head")
     if "embed_tokens.qweight_t" in state:

@@ -1,7 +1,4 @@
-"""Config presets of the dense families this slice runs: the qwen, llama
-and mistral entries of `mllm_tpu/models/families.py`, copied. Gemma,
-StableLM, Phi-3 and PhoneLM need layers that are not ported yet.
-"""
+"""Config presets: the entries of `mllm_tpu/models/families.py`, copied."""
 
 from __future__ import annotations
 
@@ -110,6 +107,54 @@ MISTRAL_7B = TextConfig(
     tie_word_embeddings=False, bos_token_id=1, eos_token_id=2,
 )
 
+# ---------------------------------------------------------------------------
+# Gemma
+# ---------------------------------------------------------------------------
+
+GEMMA_2B = TextConfig(
+    model_type="gemma", vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+    num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+    max_position_embeddings=8192, rope_theta=10000.0, attention_bias=False,
+    hidden_act="gelu_pytorch_tanh", tie_word_embeddings=True,
+    embedding_multiplier=2048**0.5, bos_token_id=2, eos_token_id=1,
+)
+
+GEMMA2_2B = TextConfig(
+    model_type="gemma2", vocab_size=256000, hidden_size=2304, intermediate_size=9216,
+    num_hidden_layers=26, num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+    max_position_embeddings=8192, rope_theta=10000.0, attention_bias=False,
+    hidden_act="gelu_pytorch_tanh", tie_word_embeddings=True, post_norm=True,
+    sliding_window=4096, sliding_window_pattern=2,
+    logit_softcap=30.0, attn_logit_softcap=50.0,
+    embedding_multiplier=2304**0.5, bos_token_id=2, eos_token_id=1,
+)
+
+# ---------------------------------------------------------------------------
+# StableLM / Phi-3 / PhoneLM
+# ---------------------------------------------------------------------------
+
+STABLELM2_16B = TextConfig(
+    model_type="stablelm", vocab_size=100352, hidden_size=2048, intermediate_size=5632,
+    num_hidden_layers=24, num_attention_heads=32, num_key_value_heads=32,
+    max_position_embeddings=4096, rope_theta=10000.0, attention_bias=True,
+    o_proj_bias=False, norm_type="layernorm", rope_partial=0.25,
+    tie_word_embeddings=False, bos_token_id=100257, eos_token_id=100257,
+)
+
+PHI3_MINI = TextConfig(
+    model_type="phi3", vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+    max_position_embeddings=4096, rope_theta=10000.0, attention_bias=False,
+    tie_word_embeddings=False, bos_token_id=1, eos_token_id=32000,
+)
+
+PHONELM_15B = TextConfig(
+    model_type="phonelm", vocab_size=49152, hidden_size=2048, intermediate_size=6816,
+    num_hidden_layers=24, num_attention_heads=16, num_key_value_heads=16,
+    max_position_embeddings=2048, rope_theta=10000.0, attention_bias=False,
+    hidden_act="relu2", tie_word_embeddings=True, bos_token_id=1, eos_token_id=2,
+)
+
 PRESETS: dict[str, TextConfig] = {
     "qwen1.5-0.5b": QWEN15_05B,
     "qwen2.5-0.5b": QWEN25_05B,
@@ -124,4 +169,9 @@ PRESETS: dict[str, TextConfig] = {
     "smollm2-135m": SMOLLM2_135M,
     "dclm-1b": DCLM_1B,
     "mistral-7b": MISTRAL_7B,
+    "gemma-2b": GEMMA_2B,
+    "gemma2-2b": GEMMA2_2B,
+    "stablelm2-1.6b": STABLELM2_16B,
+    "phi3-mini": PHI3_MINI,
+    "phonelm-1.5b": PHONELM_15B,
 }

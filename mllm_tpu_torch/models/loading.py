@@ -7,8 +7,9 @@ GGUF) gives its quantized Linear weights to `make_linear`, which repacks
 them losslessly into the kernels' layouts: Q4_0 -> symmetric `Int4Linear`,
 Q4_K -> affine `Int4Linear` (with zeros), Q8_0 / Q8_0F -> `QuantLinear`
 (requantized to one scale a row); other block types decode to float and
-follow `quant`. The fused-projection checkpoints (phi3, persimmon) come in
-later slices.
+follow `quant`. Fused q||k||v and gate||up checkpoints (phi3) are split by
+rows at load and each part kept float or quantized from float, as there.
+`mlp_builder` builds a block's MLP itself (the MoE families).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.config import TextConfig
-from ..nn.layers import Int4Linear, Linear, QuantLinear, QuantLinearA8
+from ..nn.layers import Int4Linear, LayerNorm, Linear, QuantLinear, QuantLinearA8, RotaryEmbedding
 from ..ops import quant_matmul as qm
 from ..ops.quantize_model import check_mode
 from .transformer import CausalLM
@@ -35,34 +36,56 @@ class NameMap:
     attn_k = "self_attn.k_proj"
     attn_v = "self_attn.v_proj"
     attn_o = "self_attn.o_proj"
+    attn_qkv = "self_attn.qkv_proj"  # fused variant (phi3)
     q_norm = "self_attn.q_norm.weight"
     k_norm = "self_attn.k_norm.weight"
     gate = "mlp.gate_proj"
     up = "mlp.up_proj"
     down = "mlp.down_proj"
+    gate_up = "mlp.gate_up_proj"  # fused variant (phi3)
     attn_norm = "input_layernorm"
     ffn_norm = "post_attention_layernorm"
+    pre_ffn_norm = "pre_feedforward_layernorm"  # gemma2
+    post_ffn_norm = "post_feedforward_layernorm"
+
+
+def _norm_names(names: dict, port: str, ck: str, norm) -> None:
+    """A norm's weight (and LayerNorm bias) names; ck is the checkpoint name
+    with or without its ".weight"."""
+    base = ck[: -len(".weight")] if ck.endswith(".weight") else ck
+    names[port + ".weight"] = base + ".weight"
+    if getattr(norm, "bias", None) is not None:
+        names[port + ".bias"] = base + ".bias"
 
 
 def checkpoint_names(model: CausalLM, nm: NameMap) -> dict[str, str]:
-    """Port state-dict key -> checkpoint tensor name, for every parameter."""
-    names = {"embed_tokens.weight": nm.token_embd, "norm.weight": nm.final_norm}
+    """Port state-dict key -> checkpoint tensor name, for every parameter
+    (a block's MLP left out when mlp_builder built it: it holds no Linear of
+    this map)."""
+    from .transformer import MLP
+
+    names = {"embed_tokens.weight": nm.token_embd}
+    _norm_names(names, "norm", nm.final_norm, model.norm)
     if model.lm_head is not None:
         names["lm_head.weight"] = nm.lm_head
     for i, blk in enumerate(model.blocks):
         p, b = nm.blk.format(i=i), f"blocks.{i}."
-        names[b + "input_norm.weight"] = p + nm.attn_norm + ".weight"
-        names[b + "post_attn_norm.weight"] = p + nm.ffn_norm + ".weight"
+        _norm_names(names, b + "input_norm", p + nm.attn_norm, blk.input_norm)
+        _norm_names(names, b + "post_attn_norm", p + nm.ffn_norm, blk.post_attn_norm)
+        if blk.pre_ffn_norm is not None:
+            _norm_names(names, b + "pre_ffn_norm", p + nm.pre_ffn_norm, blk.pre_ffn_norm)
+            _norm_names(names, b + "post_ffn_norm", p + nm.post_ffn_norm, blk.post_ffn_norm)
         if blk.attn.q_norm is not None:
-            names[b + "attn.q_norm.weight"] = p + nm.q_norm
-            names[b + "attn.k_norm.weight"] = p + nm.k_norm
-        for port, ck, lin in (("attn.q_proj", nm.attn_q, blk.attn.q_proj),
-                              ("attn.k_proj", nm.attn_k, blk.attn.k_proj),
-                              ("attn.v_proj", nm.attn_v, blk.attn.v_proj),
-                              ("attn.o_proj", nm.attn_o, blk.attn.o_proj),
-                              ("mlp.gate_proj", nm.gate, blk.mlp.gate_proj),
-                              ("mlp.up_proj", nm.up, blk.mlp.up_proj),
-                              ("mlp.down_proj", nm.down, blk.mlp.down_proj)):
+            _norm_names(names, b + "attn.q_norm", p + nm.q_norm, blk.attn.q_norm)
+            _norm_names(names, b + "attn.k_norm", p + nm.k_norm, blk.attn.k_norm)
+        projs = [("attn.q_proj", nm.attn_q, blk.attn.q_proj), ("attn.k_proj", nm.attn_k, blk.attn.k_proj),
+                 ("attn.v_proj", nm.attn_v, blk.attn.v_proj), ("attn.o_proj", nm.attn_o, blk.attn.o_proj)]
+        if type(blk.mlp) is MLP:
+            projs += [("mlp.gate_proj", nm.gate, blk.mlp.gate_proj), ("mlp.up_proj", nm.up, blk.mlp.up_proj),
+                      ("mlp.down_proj", nm.down, blk.mlp.down_proj)]
+        for port, ck, lin in projs:
+            if lin is None:
+                continue
             names[b + port + ".weight"] = p + ck + ".weight"
             if lin.bias is not None:
                 names[b + port + ".bias"] = p + ck + ".bias"
@@ -116,36 +139,99 @@ def make_linear(loader, name: str, n: int, k: int, bias, quant: str | None, *, d
     return Linear.from_tensors(torch.from_numpy(w).to(device=device, dtype=dtype), bias)
 
 
+def _split_rows(loader, name: str, splits: list[int], in_f: int) -> list[np.ndarray]:
+    """A fused [sum(splits), in_f] weight split by rows (JAX `_split_rows`)."""
+    w = np.array(loader.load(name, (sum(splits), in_f), np.float32), np.float32)
+    return np.split(w, np.cumsum(splits)[:-1], axis=0)
+
+
+def _from_float(w: np.ndarray, quant: str | None, *, device, dtype):
+    """A float [out, in] part of a fused weight -> Linear, or quantized from
+    float (JAX `_maybe_quant_from_float`; no bias)."""
+    if quant is not None:
+        return quant_linear_from_float(np.ascontiguousarray(w), None, quant, device)
+    return Linear.from_tensors(torch.from_numpy(np.ascontiguousarray(w)).to(device=device, dtype=dtype))
+
+
 def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
-                   names: NameMap = None, quant: str | None = None) -> CausalLM:
+                   names: NameMap = None, quant: str | None = None, mlp_builder=None) -> CausalLM:
     """Build the model for `cfg` and fill it from `loader` (strict: every
     parameter must be in the checkpoint). As in the JAX package, an untied
-    config whose checkpoint has no lm_head falls back to the tied head, and
-    a qk_norm config whose checkpoint has no q_norm runs without it.
+    config whose checkpoint has no lm_head falls back to the tied head, a
+    qk_norm config whose checkpoint has no q_norm runs without it (and one
+    whose q_norm has a bias gets per-head LayerNorms), a LayerNorm without a
+    bias in the checkpoint has none, and an MLP without up_proj is non-gated.
 
     Every Linear (the untied lm_head too) goes through `make_linear`: raw
     ggml blocks are repacked, float weights quantized on the host when
     quant="int8" | "int8-a8" | "int4"; the tied embedding and the MLPs stay
-    as they are (no head quantization, no FusedInt4MLP), as in JAX."""
+    as they are (no head quantization, no FusedInt4MLP), as in JAX.
+    mlp_builder(loader, layer_prefix, layer_idx) -> module replaces a
+    block's MLP (the MoE families)."""
     if quant is not None:
         check_mode(quant)
     nm = names or NameMap()
-    model = CausalLM(cfg, device=device, dtype=dtype)
+    # a built MLP replaces the block's: the blocks are made with small dense
+    # MLPs in its place, so no expert stack is allocated twice
+    model = CausalLM(cfg.replace(num_experts=0) if mlp_builder else cfg, device=device, dtype=dtype)
+    model.cfg = cfg
+    if cfg.rope_int8:  # as in the JAX package, a loaded model takes the float tables
+        model.rope = RotaryEmbedding.make(cfg.head_dim_, cfg.max_position_embeddings, cfg.rope_theta,
+                                          cfg.rope_style, cfg.rope_partial, cfg.rope_scaling_dict(),
+                                          device=device)
     if model.lm_head is not None and nm.lm_head not in loader:
         model.lm_head = None
-    for blk in model.blocks:
-        if blk.attn.q_norm is not None and nm.blk.format(i=blk.attn.layer_idx) + nm.q_norm not in loader:
-            blk.attn.q_norm = blk.attn.k_norm = None
-    sd = model.state_dict()
+    hd = cfg.head_dim_
+    built, fused = {}, {}
+    for i, blk in enumerate(model.blocks):
+        p = nm.blk.format(i=i)
+        attn = blk.attn
+        if attn.q_norm is not None:
+            if p + nm.q_norm not in loader:
+                attn.q_norm = attn.k_norm = None
+            elif p + nm.q_norm.replace(".weight", ".bias") in loader:  # per-head LayerNorm
+                attn.q_norm, attn.k_norm = (LayerNorm(hd, cfg.rms_norm_eps, device=device, dtype=dtype)
+                                            for _ in range(2))
+        if p + nm.attn_qkv + ".weight" in loader:
+            h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hidden_size
+            parts = _split_rows(loader, p + nm.attn_qkv + ".weight", [h * hd, hkv * hd, hkv * hd], d)
+            for name, w in zip(("q_proj", "k_proj", "v_proj"), parts):
+                fused[f"blocks.{i}.attn.{name}"] = _from_float(w, quant, device=device, dtype=dtype)
+        if mlp_builder is not None:
+            built[i] = mlp_builder(loader, p, i)
+            continue
+        if p + nm.gate_up + ".weight" in loader:
+            ff = cfg.intermediate_size
+            parts = _split_rows(loader, p + nm.gate_up + ".weight", [ff, ff], cfg.hidden_size)
+            for name, w in zip(("gate_proj", "up_proj"), parts):
+                fused[f"blocks.{i}.mlp.{name}"] = _from_float(w, quant, device=device, dtype=dtype)
+        elif p + nm.up + ".weight" not in loader:
+            blk.mlp.up_proj = None
+    for i, mlp in built.items():
+        model.blocks[i].mlp = mlp
     names = checkpoint_names(model, nm)
+    for key in [k for k in names if k.endswith(".bias") and names[k] not in loader]:
+        # a bias the checkpoint does not hold is none (JAX `make_linear`, `norm_from`)
+        del names[key]
+        mod = model.get_submodule(key[: -len(".bias")])
+        if isinstance(mod, LayerNorm):
+            mod.bias = None
+    sd = model.state_dict()
 
     def tensor(key):
         a = loader.load(names.pop(key), tuple(sd[key].shape), np.float32)
         return torch.from_numpy(np.array(a, np.float32)).to(device=device, dtype=dtype)
 
     state = {}
+    for i, mlp in built.items():
+        state.update({f"blocks.{i}.mlp.{k}": v for k, v in mlp.state_dict().items()})
+    for path, new in fused.items():
+        names.pop(path + ".weight", None)
+        parent, _, name = path.rpartition(".")
+        setattr(model.get_submodule(parent), name, new)
+        state.update({f"{path}.{key}": v for key, v in new.state_dict().items()})
     for path, lin in list(model.named_modules()):
-        if not isinstance(lin, Linear):
+        if not isinstance(lin, Linear) or path in fused or path + ".weight" not in names:
             continue
         bias = tensor(path + ".bias") if path + ".bias" in names else None
         n, k = lin.weight.shape

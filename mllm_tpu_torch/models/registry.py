@@ -1,5 +1,5 @@
 """Model registry and auto loading from a checkpoint directory: counterpart
-of `mllm_tpu/models/registry.py` for the dense text families.
+of `mllm_tpu/models/registry.py` for the text families, dense and MoE.
 
 `auto_model(path)` reads an HF `config.json` (or takes a named preset),
 builds the CausalLM, loads its weights from safetensors or `.mllm`
@@ -24,13 +24,14 @@ from ..utils.runtime import default_device
 from .families import PRESETS
 from .loading import load_causal_lm
 
-# model_types whose checkpoints are a plain dense CausalLM with HF names
-DENSE_TYPES = ("qwen2", "qwen3", "llama", "mistral", "tinyllama", "smollm")
+# model_types whose checkpoints are a dense CausalLM with HF names (minicpm:
+# the llama topology with its multipliers in TextConfig)
+DENSE_TYPES = ("qwen2", "qwen3", "llama", "mistral", "gemma", "gemma2", "stablelm", "phi3",
+               "phonelm", "smollm", "dclm", "tinyllama", "minicpm")
+MOE_TYPES = ("mixtral", "qwen2_moe", "minicpm_moe", "bailing_moe", "smallthinker")
 
 _LATER = {
-    **dict.fromkeys(("gemma", "gemma2", "stablelm", "phi3", "phonelm", "dclm", "minicpm",
-                     "opt", "bert", "clip", "vit", "mixtral", "qwen2_moe", "minicpm_moe",
-                     "bailing_moe", "smallthinker"), "ROADMAP Queue 1 item 14"),
+    **dict.fromkeys(("opt", "bert", "clip", "vit"), "ROADMAP Queue 1 item 14"),
     **dict.fromkeys(("qwen2_vl", "qwen2_5_vl", "llava", "fuyu", "phi3_v", "phi3v"),
                     "ROADMAP Queue 1 item 13"),
 }
@@ -42,8 +43,27 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def build_model(cfg: TextConfig, loader, *, device, dtype=torch.bfloat16, quant=None):
     """Dispatch on model_type to the function that builds the architecture."""
-    if cfg.model_type in DENSE_TYPES:
+    mt = cfg.model_type
+    if mt in DENSE_TYPES:
         return load_causal_lm(loader, cfg, device=device, dtype=dtype, quant=quant)
+    if mt in MOE_TYPES:
+        from .moe import load_moe_mlp
+
+        kw = dict(device=device, dtype=dtype, quant=quant)
+        if mt == "mixtral":  # block_sparse_moe with experts w1 (gate) / w3 (up) / w2 (down)
+            names = tuple(f"experts.{{e}}.{w}.weight" for w in ("w1", "w3", "w2"))
+
+            def mlp_builder(ld, prefix, i):
+                return load_moe_mlp(ld, prefix + "block_sparse_moe.", cfg, expert_names=names, **kw)
+        elif mt == "minicpm_moe":
+            def mlp_builder(ld, prefix, i):
+                return load_moe_mlp(ld, prefix + "mlp.", cfg, **kw)
+        else:  # qwen2_moe; bailing (Ling) and smallthinker follow its names
+            def mlp_builder(ld, prefix, i):
+                return load_moe_mlp(ld, prefix + "mlp.", cfg, shared_prefix="shared_expert.",
+                                    shared_gate_name="shared_expert_gate", **kw)
+        return load_causal_lm(loader, cfg, device=device, dtype=dtype, quant=quant,
+                              mlp_builder=mlp_builder)
     raise _not_ported(f"model_type {cfg.model_type!r}",
                       _LATER.get(cfg.model_type, "no ROADMAP item names it"))
 

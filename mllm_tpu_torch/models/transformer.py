@@ -1,5 +1,7 @@
 """Decoder-only transformer: counterpart of `mllm_tpu/models/transformer.py`
-for the dense families (qwen2, qwen3, llama, mistral, ...).
+for the text families (qwen2, qwen3, llama, mistral, gemma, gemma2,
+stablelm, phi3, phonelm, minicpm, and the MoE families, whose blocks hold a
+`models.moe.MoEMLP`).
 
 Module and attribute names match the JAX package (`embed_tokens`,
 `blocks[i].attn.q_proj`, `input_norm`, `post_attn_norm`, `mlp.gate_proj`,
@@ -10,7 +12,7 @@ names there, with `blocks.{i}` in place of `blocks.mods.{i}`.
 `mlp.gateup_proj` (gate||up) in place of the split projections, as in the
 JAX package; `quantize_model` then swaps Linears for quantized layers.
 
-Not in this slice: stacked weights, ring attention and `loss`.
+Not ported: stacked weights, ring attention and `loss`.
 """
 
 from __future__ import annotations
@@ -23,24 +25,26 @@ from torch import nn
 from ..core.config import TextConfig
 from ..kv.cache import KVCache, Quant4KVCache, QuantKVCache, valid_len
 from ..nn.attention import attend, attend_from_cache
-from ..nn.layers import ACT_FN, Embedding, Linear, RMSNorm, RotaryEmbedding
+from ..nn.layers import (ACT_FN, Embedding, IRotaryEmbedding, LayerNorm, Linear, RMSNorm,
+                         RotaryEmbedding)
 
 
 def check_supported(cfg: TextConfig) -> None:
-    """Raise NotImplementedError for config features this slice lacks."""
-    missing = []
-    if cfg.norm_type != "rmsnorm":
-        missing.append(f"norm_type={cfg.norm_type} (ROADMAP Queue 1 item 3)")
-    if cfg.post_norm or cfg.model_type.startswith("gemma"):
-        missing.append("gemma norms and softcaps (ROADMAP Queue 1 item 14)")
-    if cfg.rope_int8:
-        missing.append("int8 RoPE tables (ROADMAP Queue 1 item 3)")
-    if cfg.num_experts:
-        missing.append("MoE layers (ROADMAP Queue 1 item 14)")
+    """Raise NotImplementedError for config features the port lacks."""
     if cfg.hidden_act not in ACT_FN:
-        missing.append(f"activation {cfg.hidden_act} (ROADMAP Queue 1 item 3)")
-    if missing:
-        raise NotImplementedError("mllm_tpu_torch does not port yet: " + "; ".join(missing))
+        raise NotImplementedError(f"mllm_tpu_torch does not port activation {cfg.hidden_act} yet "
+                                  "(ROADMAP Queue 1 item 3)")
+    if cfg.norm_type not in ("rmsnorm", "layernorm"):
+        raise NotImplementedError(f"mllm_tpu_torch does not port norm_type={cfg.norm_type}")
+
+
+def make_norm(cfg: TextConfig, dim: int, *, device, dtype):
+    """LayerNorm (with bias) for norm_type "layernorm", else RMSNorm, with
+    Gemma's unit offset for the gemma types (JAX `_make_norm`)."""
+    if cfg.norm_type == "layernorm":
+        return LayerNorm(dim, cfg.rms_norm_eps, device=device, dtype=dtype)
+    return RMSNorm(dim, cfg.rms_norm_eps, add_unit_offset=cfg.model_type.startswith("gemma"),
+                   device=device, dtype=dtype)
 
 
 class Attention(nn.Module):
@@ -105,7 +109,8 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """Gated FFN: down(act(gate(x)) * up(x))."""
+    """Gated FFN: down(act(gate(x)) * up(x)); with up_proj None (a checkpoint
+    without one) the non-gated down(act(gate(x)))."""
 
     def __init__(self, cfg: TextConfig, *, device, dtype):
         super().__init__()
@@ -122,7 +127,10 @@ class MLP(nn.Module):
             gu = self.gateup_proj(x)
             ff = gu.shape[-1] // 2
             return self.down_proj(ACT_FN[self.act](gu[..., :ff]) * gu[..., ff:])
-        return self.down_proj(ACT_FN[self.act](self.gate_proj(x)) * self.up_proj(x))
+        h = ACT_FN[self.act](self.gate_proj(x))
+        if self.up_proj is not None:
+            h = h * self.up_proj(x)
+        return self.down_proj(h)
 
 
 def in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -137,18 +145,31 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg: TextConfig, layer_idx: int, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        d = cfg.hidden_size
+        self.input_norm = make_norm(cfg, d, **kw)
         self.attn = Attention(cfg, layer_idx, **kw)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
-        self.mlp = MLP(cfg, **kw)
+        self.post_attn_norm = make_norm(cfg, d, **kw)
+        if cfg.num_experts:
+            from .moe import MoEMLP
+
+            self.mlp = MoEMLP(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg, **kw)
+        # gemma2: a norm after attention (before the residual) and after the MLP
+        self.pre_ffn_norm = make_norm(cfg, d, **kw) if cfg.post_norm else None
+        self.post_ffn_norm = make_norm(cfg, d, **kw) if cfg.post_norm else None
         self.residual_multiplier = cfg.residual_multiplier  # MiniCPM scale_depth/sqrt(L)
 
     def forward(self, x, rope, cache, positions, kv_start=None, bias=None, causal=True):
         rm = self.residual_multiplier
         h, cache = self.attn(self.input_norm(x), rope, cache, positions, kv_start=kv_start, bias=bias,
                              causal=causal)
+        if self.pre_ffn_norm is not None:
+            h = self.pre_ffn_norm(h)
         x = x + (h if rm == 1.0 else h * in_dtype(rm, h.dtype))
         h = self.mlp(self.post_attn_norm(x))
+        if self.post_ffn_norm is not None:
+            h = self.post_ffn_norm(h)
         x = x + (h if rm == 1.0 else h * in_dtype(rm, h.dtype))
         return x, cache
 
@@ -163,24 +184,31 @@ class CausalLM(nn.Module):
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.blocks = nn.ModuleList(
             [DecoderBlock(cfg, i, **kw) for i in range(cfg.num_hidden_layers)])
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        self.norm = make_norm(cfg, cfg.hidden_size, **kw)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else Linear(cfg.hidden_size, cfg.vocab_size, False, **kw))
-        self.rope = RotaryEmbedding.make(
-            cfg.head_dim_, cfg.max_position_embeddings, cfg.rope_theta,
-            cfg.rope_style, cfg.rope_partial, cfg.rope_scaling_dict(), device=device)
+        if cfg.rope_int8:  # the reference's IRoPE (PhoneLM)
+            self.rope = IRotaryEmbedding.make(cfg.head_dim_, cfg.max_position_embeddings, cfg.rope_theta,
+                                              cfg.rope_style, cfg.rope_partial, device=device)
+        else:
+            self.rope = RotaryEmbedding.make(
+                cfg.head_dim_, cfg.max_position_embeddings, cfg.rope_theta,
+                cfg.rope_style, cfg.rope_partial, cfg.rope_scaling_dict(), device=device)
         self.cfg = cfg
 
     @staticmethod
     def init(cfg: TextConfig, *, device, dtype=torch.float32,
              generator: Optional[torch.Generator] = None) -> "CausalLM":
         """Random weights with the JAX package's init distributions, drawn from
-        `generator` (a fresh one seeded with 0 on `device` if None)."""
+        `generator` (a fresh one seeded with 0 on `device` if None); MoE
+        blocks take `MoEMLP.init`'s N(0, 0.02^2) experts and router."""
+        from .moe import MoEMLP
+
         model = CausalLM(cfg, device=device, dtype=dtype)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         for mod in model.modules():
-            if isinstance(mod, (Linear, Embedding)):
+            if isinstance(mod, (Linear, Embedding, MoEMLP)):
                 mod.reset_parameters(generator)
         return model
 

@@ -37,8 +37,17 @@ def gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+def quick_gelu(x):
+    return x * torch.sigmoid(1.702 * x)
+
+
 def relu(x):
     return F.relu(x)
+
+
+def relu2(x):
+    r = F.relu(x)
+    return r * r
 
 
 ACT_FN: dict[str, Callable] = {
@@ -46,7 +55,10 @@ ACT_FN: dict[str, Callable] = {
     "gelu": gelu,
     "gelu_new": gelu_tanh,
     "gelu_pytorch_tanh": gelu_tanh,
+    "quick_gelu": quick_gelu,
     "relu": relu,
+    "relu2": relu2,
+    "relu^2": relu2,
 }
 
 
@@ -211,18 +223,44 @@ class Embedding(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """Root-mean-square norm, computed in f32."""
+    """Root-mean-square norm, computed in f32. `add_unit_offset` scales by
+    (1 + w), Gemma's convention."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, *, device, dtype):
+    def __init__(self, dim: int, eps: float = 1e-6, add_unit_offset: bool = False, *, device, dtype):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype), requires_grad=False)
         self.eps = eps
+        self.add_unit_offset = add_unit_offset
 
     def forward(self, x):
         xf = x.float()
         var = xf.pow(2).mean(dim=-1, keepdim=True)
         xf = xf * torch.rsqrt(var + self.eps)
-        return (xf * self.weight.float()).to(x.dtype)
+        w = self.weight.float()
+        if self.add_unit_offset:
+            w = 1.0 + w
+        return (xf * w).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm in f32 (biased variance), optional bias (`mllm_tpu` LayerNorm)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, bias: bool = True, *, device, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype), requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(dim, device=device, dtype=dtype), requires_grad=False)
+                     if bias else None)
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
+        xf = (xf - mean) * torch.rsqrt(var + self.eps)
+        xf = xf * self.weight.float()
+        if self.bias is not None:
+            xf = xf + self.bias.float()
+        return xf.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +294,27 @@ def llama3_scale_inv_freq(
 def ntk_scale_theta(theta: float, head_dim: int, factor: float) -> float:
     """Dynamic-NTK base scaling."""
     return theta * factor ** (head_dim / (head_dim - 2))
+
+
+def longrope_scale(inv_freq: np.ndarray, rope_scaling: dict, max_position: int,
+                   theta: float, which: str = "auto") -> tuple[np.ndarray, float]:
+    """Phi-3 LongRope: per-frequency long or short rescale factors and the
+    attention factor (HF _compute_longrope_parameters). Returns (inv_freq,
+    attention_factor). which: "short" | "long" | "auto" (long when
+    max_position exceeds the original window); the attention factor is the
+    same for both branches."""
+    orig = rope_scaling.get("original_max_position_embeddings", max_position)
+    if which == "auto":
+        which = "long" if max_position > orig else "short"
+    ext = rope_scaling.get(f"{which}_factor")
+    if ext is not None:
+        ext = np.asarray(ext, np.float64)
+        inv_freq = inv_freq / ext
+    scale = max_position / orig
+    attn = rope_scaling.get("attention_factor")
+    if attn is None:
+        attn = math.sqrt(1 + math.log(scale) / math.log(orig)) if scale > 1.0 else 1.0
+    return inv_freq, float(attn)
 
 
 def yarn_scale(inv_freq: np.ndarray, rope_scaling: dict, max_position: int,
@@ -340,8 +399,20 @@ class RotaryEmbedding(nn.Module):
             elif typ == "yarn":
                 inv, attn_scale = yarn_scale(inv, rope_scaling, max_position, theta, rot_dim)
             elif typ == "longrope":
-                raise NotImplementedError(
-                    "longrope (phi3) RoPE is not ported yet: ROADMAP Queue 1 item 3")
+                orig = rope_scaling.get("original_max_position_embeddings", max_position)
+                if rope_scaling.get("short_factor") is not None and max_position > orig:
+                    # both branches reachable: both tables, chosen per call
+                    inv_s, attn_scale = longrope_scale(inv, rope_scaling, max_position, theta, "short")
+                    inv_l, _ = longrope_scale(inv, rope_scaling, max_position, theta, "long")
+                    t = np.arange(max_position, dtype=np.float64)
+                    fs, fl = np.outer(t, inv_s), np.outer(t, inv_l)
+
+                    def tab(a):
+                        return torch.tensor(a * attn_scale, device=device, dtype=dtype)
+
+                    return LongRopeEmbedding(tab(np.sin(fs)), tab(np.cos(fs)), tab(np.sin(fl)),
+                                             tab(np.cos(fl)), int(orig), style, rot_dim=rot_dim)
+                inv, attn_scale = longrope_scale(inv, rope_scaling, max_position, theta)
         t = np.arange(max_position, dtype=np.float64)
         freqs = np.outer(t, inv)  # [max_pos, rot/2]
         return RotaryEmbedding(
@@ -355,6 +426,59 @@ class RotaryEmbedding(nn.Module):
         """x: [..., S, H, D] (seq axis = -3); positions: int tensor broadcastable to [..., S]."""
         sin = self.sin[positions][..., None, :]  # [..., S, 1, rot/2]
         cos = self.cos[positions][..., None, :]
+        return apply_rotary(x, sin, cos, self.style, self.rot_dim)
+
+
+class LongRopeEmbedding(nn.Module):
+    """Phi-3 LongRope with the long / short choice made per call, as HF and
+    the reference make it: LONG factors when the largest position + 1 exceeds
+    the original window, else SHORT (`mllm_tpu` LongRopeEmbedding). Both
+    tables are kept; the choice is a `torch.where` on the device, so no host
+    read and a captured step stays valid at every position."""
+
+    def __init__(self, sin_short, cos_short, sin_long, cos_long, original_max_position: int,
+                 style: str = "hf", rot_dim: Optional[int] = None):
+        super().__init__()
+        for name, t in (("sin", sin_short), ("cos", cos_short), ("sin_long", sin_long),
+                        ("cos_long", cos_long)):
+            self.register_buffer(name, t, persistent=False)
+        self.original_max_position = original_max_position
+        self.style = style
+        self.rot_dim = rot_dim if rot_dim is not None else 2 * sin_short.shape[-1]
+
+    def forward(self, x, positions):
+        use_long = (positions.max() + 1) > self.original_max_position  # a device bool
+        sin = torch.where(use_long, self.sin_long[positions], self.sin[positions])[..., None, :]
+        cos = torch.where(use_long, self.cos_long[positions], self.cos[positions])[..., None, :]
+        return apply_rotary(x, sin, cos, self.style, self.rot_dim)
+
+
+class IRotaryEmbedding(nn.Module):
+    """int8 sin/cos tables, round(v * 127), dequantized by 1/127 at apply time
+    (the reference's IRoPE, PhoneLM; `mllm_tpu` IRotaryEmbedding). `sin` and
+    `cos` are the int8 tables."""
+
+    def __init__(self, sin_q: torch.Tensor, cos_q: torch.Tensor, style: str = "hf",
+                 rot_dim: Optional[int] = None):
+        super().__init__()
+        self.register_buffer("sin", sin_q, persistent=False)
+        self.register_buffer("cos", cos_q, persistent=False)
+        self.style = style
+        self.rot_dim = rot_dim if rot_dim is not None else 2 * sin_q.shape[-1]
+
+    @staticmethod
+    def make(head_dim: int, max_position: int = 32768, theta: float = 10000.0, style: str = "hf",
+             partial: float = 1.0, *, device) -> "IRotaryEmbedding":
+        freqs = np.outer(np.arange(max_position, dtype=np.float64), rope_inv_freq(head_dim, theta, partial))
+        sq = np.clip(np.round(np.sin(freqs) * 127.0), -127, 127).astype(np.int8)
+        cq = np.clip(np.round(np.cos(freqs) * 127.0), -127, 127).astype(np.int8)
+        return IRotaryEmbedding(torch.from_numpy(sq).to(device), torch.from_numpy(cq).to(device), style,
+                                rot_dim=int(head_dim * partial) // 2 * 2)
+
+    def forward(self, x, positions):
+        inv127 = np.float32(1.0 / 127.0).item()  # the f32 constant JAX multiplies by
+        sin = self.sin[positions][..., None, :].float() * inv127
+        cos = self.cos[positions][..., None, :].float() * inv127
         return apply_rotary(x, sin, cos, self.style, self.rot_dim)
 
 

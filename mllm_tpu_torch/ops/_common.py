@@ -7,7 +7,8 @@ from typing import Optional
 
 import torch
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # the bf16 flash, decode and paged decode kernels
+QUANT_KERNEL_HEAD_DIMS = (64, 128)  # the kernels over int8 / int4 K/V
 
 
 def visible_keys(b: int, skv: int, kv_valid_len, kv_start: Optional[torch.Tensor],
@@ -121,8 +122,8 @@ def check_quant_kv_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Te
             or k_scale.shape != k.shape[:3] or v_scale.shape != k.shape[:3]):
         raise ValueError(f"{name}: q {tuple(q.shape)}, K/V {tuple(k.shape)} and scales "
                          f"{tuple(k_scale.shape)} do not fit ({bits}-bit K/V)")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    if d not in QUANT_KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim in {QUANT_KERNEL_HEAD_DIMS}, got {d}")
     for t, n in ((q, "q"), (k, "k"), (v, "v"), (k_scale, "k_scale"), (v_scale, "v_scale")):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {n} must be contiguous and 16-byte aligned")

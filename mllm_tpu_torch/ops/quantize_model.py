@@ -7,7 +7,10 @@
     activations on prefill-shaped calls) or an `Int4Linear` (int4, group 32,
     symmetric, canonical planar layout); in int4 mode a gated MLP becomes one
     `FusedInt4MLP`, and the tied-embedding head is quantized
-    (`QuantEmbedHead` for int8 and int8-a8, `Int4EmbedHead`).
+    (`QuantEmbedHead` for int8 and int8-a8, `Int4EmbedHead`). A `MoEMLP`
+    becomes a `QuantMoEMLP` (int8 expert stacks in every mode, "int4"
+    included, as in the JAX package) and its shared expert is walked like
+    any MLP.
 
 Unlike the JAX package, both work IN PLACE on the torch model (the float
 weights are released as each layer is replaced) and return it. There is one
@@ -287,17 +290,24 @@ def quantize_model(model, mode: str = "int8", min_size: int = 1 << 16,
     Attention modules. quant_embed_head quantizes the projection of a tied
     embedding. on_device=True quantizes with torch ops where the weights lie
     (the fast path for a model already on the card)."""
+    from ..models.moe import MoEMLP, QuantMoEMLP
     from ..models.transformer import MLP, Attention
 
     check_mode(mode)
     if attn_quant is not None:
         check_mode(attn_quant)
 
+    def moe(m):  # int8 per-(expert, out-channel) expert stacks
+        return QuantMoEMLP.from_moe(m) if type(m) is MoEMLP and m.w_gate.numel() >= min_size else m
+
     def walk(mod, lin_mode):
         for name, child in list(mod.named_children()):
             if isinstance(child, Linear):
                 setattr(mod, name, _quant_linear(child, lin_mode, min_size, on_device))
                 continue
+            if type(child) is MoEMLP:
+                child = moe(child)
+                setattr(mod, name, child)
             if mode == "int4" and type(child) is MLP:
                 fused = _fuse_int4_mlp(child, min_size, on_device)
                 if fused is not None:
@@ -306,6 +316,7 @@ def quantize_model(model, mode: str = "int8", min_size: int = 1 << 16,
             walk(child, attn_quant if attn_quant is not None and isinstance(child, Attention)
                  else lin_mode)
 
+    model = moe(model)
     walk(model, mode)
     emb = getattr(model, "embed_tokens", None)
     if quant_embed_head and getattr(model, "lm_head", 1) is None and isinstance(emb, Embedding):

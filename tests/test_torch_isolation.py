@@ -57,6 +57,29 @@ def test_serving_modules_import_no_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+_FAMILIES_PROBE = """
+import sys
+from mllm_tpu_torch.models import bridge, families, loading, moe, registry, transformer
+from mllm_tpu_torch.nn.layers import IRotaryEmbedding, LayerNorm, LongRopeEmbedding
+from mllm_tpu_torch.ops.quantize_model import quantize_model
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib") or m == "mllm_tpu" or m.startswith("mllm_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_moe_and_family_modules_import_no_jax():
+    """The MoE layers, the family loaders and presets and the new layers,
+    imported on their own, pull in neither JAX nor mllm_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _FAMILIES_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 _WAY_IN_PROBE = """
 import sys
 import chip_smoke

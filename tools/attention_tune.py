@@ -37,8 +37,9 @@ bf16 (`bf16_flash_ms` of the smoke); a directory whose entry point takes no
 q_scale (an older tree's kernel, which took q pre-scaled) is timed as its
 wrapper ran it: the elementwise pre-scale of q, then the kernel.
 
-For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (or only the main row,
-`--rows main`), the variants run in turns, in order then in reverse, `--reps`
+For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (with `--wide`,
+FLASH_ROWS_256 or DECODE_ROWS_256 at head_dim 256, chip_smoke.WIDE_GEO; or
+only the main row, `--rows main`), the variants run in turns, in order then in reverse, `--reps`
 times, each timed as chip_smoke.time_ms times a kernel (20 launches behind a
 GPU spin); one JSON line per row and variant gives every time, the median and
 max |kernel - plain version|. Prints the card's name and power limit first.
@@ -316,7 +317,8 @@ def paged_caller(var: dict, q, kp, vp, table, kw, dense):
 
 
 def main_paged(args, variants, dev):
-    """--kernel paged: every row of chip_smoke.PAGED_ROWS (or the main row),
+    """--kernel paged: every row of chip_smoke.PAGED_ROWS (or the main row;
+    with --wide at head_dim 256),
     against decode_attention_paged_ref on the pools with the unseen rows
     zeroed."""
     from mllm_tpu_torch.ops.decode_attention import decode_attention_paged_ref
@@ -326,7 +328,8 @@ def main_paged(args, variants, dev):
         rows = [rows[chip_smoke.MAIN_ROW["decode_attention_paged"]]]
     g = torch.Generator(device=dev).manual_seed(1234)
     for row in rows:
-        q, kp, vp, table, kw, shape, plain_pools, dense = chip_smoke.paged_inputs(row, dev, g)
+        geo = chip_smoke.WIDE_GEO if args.wide else (chip_smoke.H, chip_smoke.HKV, chip_smoke.D)
+        q, kp, vp, table, kw, shape, plain_pools, dense = chip_smoke.paged_inputs(row, dev, g, geo)
         ref = decode_attention_paged_ref(q, *plain_pools, table, **kw).float()
         runs = [paged_caller(var, q, kp, vp, table, kw, dense) for var in variants]
         time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape)["bound_ms"])
@@ -379,6 +382,7 @@ def main():
     ap.add_argument("--variant", action="append", required=True)
     ap.add_argument("--rows", choices=("main", "all"), default="all")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--wide", action="store_true", help="flash / decode rows at head_dim 256")
     args = ap.parse_args()
     chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
@@ -393,13 +397,18 @@ def main():
     if args.kernel == "flash_quant":
         return main_flash_quant(args, variants, dev)
     kind = "flash_attention" if args.kernel == "flash" else "decode_attention"
-    row_list = chip_smoke.FLASH_ROWS if args.kernel == "flash" else chip_smoke.DECODE_ROWS
+    if args.wide:
+        row_list = chip_smoke.FLASH_ROWS_256 if args.kernel == "flash" else chip_smoke.DECODE_ROWS_256
+        geo, main_row = chip_smoke.WIDE_GEO, chip_smoke.MAIN_ROW[kind + "@256"]
+    else:
+        row_list = chip_smoke.FLASH_ROWS if args.kernel == "flash" else chip_smoke.DECODE_ROWS
+        geo, main_row = (chip_smoke.H, chip_smoke.HKV, chip_smoke.D), chip_smoke.MAIN_ROW[kind]
     if args.rows == "main":
-        row_list = [row_list[chip_smoke.MAIN_ROW[kind]]]
+        row_list = [row_list[main_row]]
     plain = flash_attention_ref if args.kernel == "flash" else decode_attention_ref
     g = torch.Generator(device=dev).manual_seed(1234)
     for row in row_list:
-        q, k, v, kp, vp, kw, shape = chip_smoke.attention_inputs(kind, row, dev, g)
+        q, k, v, kp, vp, kw, shape = chip_smoke.attention_inputs(kind, row, dev, g, geo)
         ref = plain(q, kp, vp, **kw).float()
         runs = [caller(args.kernel, var, q, k, v, kw) for var in variants]
         time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape)["bound_ms"])

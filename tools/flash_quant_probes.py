@@ -36,7 +36,7 @@ QUANT = "flash_attention_quant.cu"
 HEADER = "flash_attention.cuh"
 
 PROBES = {
-    "idle": [(HEADER, "  const int it_a = min(ntiles, max(0, (wlo - kb0) / kBK));",
+    "idle": [(HEADER, "  const int it_a = min(ntiles, max(0, (wlo - kb0) / BK));",
               "  const int it_a = ntiles;")],
     "noconv": [(QUANT, "        const uint4 c = scaled_chunk(int8_pair(w[k].x), int8_pair(w[k].x >> 8), int8_pair(w[k].y),\n"
                        "                                     int8_pair(w[k].y >> 8), s[k]);",
