@@ -185,12 +185,48 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      exact attention launches (Gemma-2B at head_dim 256, StableLM, PhoneLM
      and DCLM: the bf16 kernels; Gemma2's softcap and Phi-3's head_dim 96:
      `sdpa`).
+  16. slice_vl: Qwen2-VL-2B as bench.py's image-prefill row builds it (the
+     default tower: depth 32, width 1280, 16 heads of 80, mlp 5120, merge 2,
+     over the LM above with 4096 positions; random bf16 weights): one tower
+     pass launches the head_dim-80 flash kernel 32 times and agrees with the
+     same pass on the plain attention (<= 0.1 x max |embed|); the bench row's
+     prefill (a seeded 1024 px frame resized to 532 px: grid (1, 38, 38),
+     1444 patches, 361 vision tokens, 393 prompt tokens, a 1024-row cache)
+     within 0.1 x max |logit| of the plain route, timed on the RGB and the
+     I420 wire (end to end, device ms by CUDA events with the frame on the
+     card, the host resize; medians of 9 after a warm-up); vl_generate and
+     vl_generate_compiled (64 tokens, equal, within 0.1 x max |logit| of a
+     teacher-forced prefill); vtp_prefill at keep 0.5, prune layer 2 (cache
+     head 212, finite logits); then quantize_model("int8", on_device=True):
+     the prefill timed again, 16 tokens over an int8 KV cache against a
+     teacher-forced prefill over the same cache type, the engine (ENGINE_KW)
+     serving 4 image requests at 448 px (256 vision tokens, patchified on the
+     card) among 8 text requests of 17-300 tokens, 48 new each (every
+     request against a teacher-forced prefill, 32 head_dim-80 launches an
+     image, every window a replay), and, where PIL imports, one PNG chat
+     request through mllm_tpu_torch.serve on 127.0.0.1.
+  17. slice_vl25: Qwen2.5-VL-3B at its published config.json (full depth:
+     the windowed tower on `sdpa` with the same-window bias, the 36-layer
+     LM): one 532 px image prefill (device ms, median of 5) and 32 eager
+     decode tokens against a teacher-forced prefill; no head_dim-80 flash
+     launch (the reference runs these blocks on XLA sdpa).
+  18. slice_clip: bench.py's clip-vitb-scoring row: CLIP ViT-B/32 at HF's
+     default widths, bf16, one 224 px image against 8 texts of 77 tokens:
+     logits_per_image [1, 8] within 5e-2 x max |logit| of the same weights in
+     f32 on the host; score ms a median of 5.
   The kernel check also runs flash_attention and decode_attention at head_dim
   256 (Gemma-2B's 8 / 1 heads: FLASH_ROWS_256, DECODE_ROWS_256, poisoned rows
   included; the `@256` rows of the kernels line, whose launches are those at
   head_dim 256 in head_dim_route and slice_families) and checks
-  decode_attention_paged at 256 over PAGED_ROWS' pools.
-  Phases 9-15 print their seconds (`<phase>_seconds`).
+  decode_attention_paged at 256 over PAGED_ROWS' pools; and flash_attention
+  at head_dim 80 (FLASH80_ROWS: non-causal, 16 / 16 heads, S = 1444, 1024,
+  4096, and 1444 with kv_valid 1300 and NaN / inf past it), the kernel
+  against its plain version (<= 2e-2) timed beside the padded design
+  (`padded_ms`: q/k/v zero-padded to 128 in memory, the D = 128 kernel, the
+  output cropped) and SDPA at D = 80 (`library_ms`): the `@80` row of the
+  kernels line, whose launches are the towers' in slice_vl; int8_matmul adds
+  the tower's (1444, 1280, 3840) and (1444, 5120, 1280).
+  Phases 9-18 print their seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -236,7 +272,9 @@ MAIN_ROW = {"flash_attention": 5, "decode_attention": 1, "int8_matmul": 1, "int4
             # int8 K/V: the 1536-token prefill; the engine's 8 slots at unequal lengths
             "flash_attention_quant": 0, "decode_attention_quant": 1, "decode_attention_paged": 0,
             # head_dim 256 (Gemma-2B's attention): the 1536-token prefill, its last decode step
-            "flash_attention@256": 0, "decode_attention@256": 0}
+            "flash_attention@256": 0, "decode_attention@256": 0,
+            # head_dim 80 (the Qwen2-VL tower): a 532 px image's 1444 patches
+            "flash_attention@80": 0}
 SOURCES = {
     "flash_attention": ("mllm_tpu_torch/csrc/flash_attention.cu",
                         "mllm_tpu/ops/flash_attention.py:230"),
@@ -258,6 +296,8 @@ SOURCES = {
                             "mllm_tpu/ops/flash_attention.py:230"),
     "decode_attention@256": ("mllm_tpu_torch/csrc/decode_attention.cu",
                              "mllm_tpu/ops/decode_attention.py:317"),
+    "flash_attention@80": ("mllm_tpu_torch/csrc/flash_attention.cu",
+                           "mllm_tpu/ops/flash_attention.py:230"),
 }
 MEGA_TOL = 1e-2  # relative, on y and on k_new/v_new
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
@@ -463,6 +503,7 @@ def phase_kernels(dev) -> dict:
     rows.update(mega_kernel_rows(dev, g))
     device_scalar_rows(dev, g, rows)
     rows.update(wide_kernel_rows(dev, g))
+    rows["flash_attention@80"] = flash80_rows(dev, g)
     return rows
 
 
@@ -953,10 +994,11 @@ def int4pack_call(x, packed_e8, scales_p, k):
 # head at decode (b = 1, 8), prefill (the wgmma kernel): 128 tokens of qkv
 # and the 1536-token gate||up, then gate||up at m = 16 and 32 (the largest
 # stream rows), the b=1 head, and the 1536-token down projection (K split
-# over clusters that each take two tiles)
+# over clusters that each take two tiles); then the Qwen2-VL tower's qkv and
+# fc2 over a 532 px image's 1444 patches
 INT8_ROWS = [(1, 1536, 2048), (8, 1536, 17920), (8, 8960, 1536), (8, 1536, 151936),
              (128, 1536, 2048), (1536, 1536, 17920), (16, 1536, 17920), (32, 1536, 17920),
-             (1, 1536, 151936), (1536, 8960, 1536)]
+             (1, 1536, 151936), (1536, 8960, 1536), (1444, 1280, 3840), (1444, 5120, 1280)]
 
 
 def int8_library_calls(x, q, s):
@@ -2206,6 +2248,8 @@ GGML_TYPES = {"F32": 0, "F16": 1, "Q4_0": 2, "Q8_0": 8, "Q4_K": 12, "Q6_K": 14} 
 GGML_BLOCKS = {"Q4_0": (32, 18, (0,)), "Q8_0": (32, 34, (0,)), "Q4_K": (256, 144, (0, 2)),
                "Q6_K": (256, 210, (208,))}  # elements, bytes, f16 scale offsets of a block
 TOKENIZER_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+# Qwen2-VL's vision tokens (the VL processor's pads and brackets), after TOKENIZER_SPECIALS
+VL_SPECIALS = ("<|vision_start|>", "<|vision_end|>", "<|image_pad|>", "<|video_pad|>")
 
 
 def random_blocks(kind: str, n: int, k: int, std: float, rng) -> np.ndarray:
@@ -2229,12 +2273,13 @@ def random_blocks(kind: str, n: int, k: int, std: float, rng) -> np.ndarray:
     return raw.reshape(-1)
 
 
-def synthetic_tokenizer(vocab_size: int, seed: int, byte_level: bool = True) -> dict:
+def synthetic_tokenizer(vocab_size: int, seed: int, byte_level: bool = True,
+                        specials: tuple = TOKENIZER_SPECIALS) -> dict:
     """A tokenizer.json of `vocab_size` entries with merges, made from a seed:
     byte-level BPE over the GPT-2 byte alphabet with Qwen2's split pattern
     (byte_level=True, needs `regex`), or SentencePiece BPE with byte fallback
     (the llama kind). Merges join two earlier tokens drawn at random from the
-    first 4096; the last ids are TOKENIZER_SPECIALS."""
+    first 4096; the last ids are `specials`, in order."""
     from mllm_tpu_torch.tokenizers.base import BYTE_TO_UNICODE
     from mllm_tpu_torch.tokenizers.bpe import QWEN2_PATTERN
 
@@ -2248,7 +2293,7 @@ def synthetic_tokenizer(vocab_size: int, seed: int, byte_level: bool = True) -> 
         base = base + first
     toks, merges = list(base), []
     vocab = {t: i for i, t in enumerate(toks)}
-    n_plain = vocab_size - len(TOKENIZER_SPECIALS)
+    n_plain = vocab_size - len(specials)
     pool = list(first)
     while len(toks) < n_plain:
         for a, b in rng.integers(0, 4096, (4096, 2)):
@@ -2260,7 +2305,7 @@ def synthetic_tokenizer(vocab_size: int, seed: int, byte_level: bool = True) -> 
             merges.append(f"{a} {b}")
             if len(pool) < 4096:
                 pool.append(a + b)
-    added = [{"id": n_plain + i, "content": t, "special": True} for i, t in enumerate(TOKENIZER_SPECIALS)]
+    added = [{"id": n_plain + i, "content": t, "special": True} for i, t in enumerate(specials)]
     model = {"type": "BPE", "vocab": vocab, "merges": merges, "byte_fallback": not byte_level}
     if byte_level:
         pre = {"type": "Sequence", "pretokenizers": [
@@ -2931,6 +2976,83 @@ def wide_kernel_rows(dev, g) -> dict:
     return rows
 
 
+# head_dim 80: the Qwen2-VL vision tower's attention (non-causal, 16 / 16 heads
+# of 80, one image's patches as queries and keys): (B, S, kv_valid, poisoned),
+# Sq = Skv = S; images of 532 x 532, 448 x 448 and 896 x 896 px, and the 532
+# image with kv_valid short of S and the K/V rows past it NaN / inf
+FLASH80_GEO = (16, 16, 80)
+FLASH80_ROWS = [(1, 1444, 1444, False), (1, 1024, 1024, False), (1, 4096, 4096, False),
+                (1, 1444, 1300, True)]
+# max |kernel - plain| / mean |plain|, each design: unit-variance q/k/v give
+# outputs of typical size sqrt(e / S) (0.021 at S = 4096), so TOL (absolute)
+# alone would pass a wrong kernel there; the readings are in PERF.md
+FLASH80_REL_TOL = 0.25
+
+
+def flash80_padded(q, k, v, **kw):
+    """The other design of head_dim 80 (the reference's `attend_padded_head`):
+    q/k/v zero-padded to 128 columns in memory, the D = 128 kernel, the
+    output cropped to 80 columns (a copy, as the model's reshape makes)."""
+    from mllm_tpu_torch.ops.flash_attention import flash_attention
+
+    d = q.shape[-1]
+    pad = lambda t: torch.nn.functional.pad(t, (0, 128 - d))  # noqa: E731
+    return flash_attention(pad(q), pad(k), pad(v), scale=d**-0.5, **kw)[..., :d].contiguous()
+
+
+def flash80_rows(dev, g) -> list:
+    """flash_attention at head_dim 80, non-causal (FLASH80_ROWS): the kernel
+    (rows of 80 columns, TMA's zero fill to the 128 body) and the padded
+    design against the plain version (max abs error <= TOL and <=
+    FLASH80_REL_TOL x mean |plain|, finite, the poisoned row's plain version on
+    the rows zeroed), timed beside the padded design (`padded_ms`), SDPA at D = 80 over
+    the valid keys (`library_ms`) and the bound: q and the output once, each
+    valid K/V row once, 4 Sq kv_valid H 80 FLOPs."""
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    h, hkv, d = FLASH80_GEO
+    rows = []
+    for b, s, kvl, poisoned in FLASH80_ROWS:
+        q = torch.randn(b, s, h, d, device=dev, generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(b, hkv, s, d, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        kp, vp = k, v
+        shape = dict(B=b, Sq=s, Skv=s, H=h, Hkv=hkv, D=d, kv_valid=kvl, causal=False)
+        if poisoned:
+            (k, kp), (v, vp) = poison_outside(k, [0] * b, [kvl] * b), poison_outside(v, [0] * b, [kvl] * b)
+            shape["poisoned"] = "NaN / inf past kv_valid; plain version on the rows zeroed"
+        kw = dict(kv_valid_len=kvl, causal=False)
+        kernel = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: flash_attention_ref(q, kp, vp, **kw)  # noqa: E731
+        padded = lambda: flash80_padded(q, k, v, **kw)  # noqa: E731
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl])
+        out, ref, out_pad = kernel(), plain(), padded()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        err_pad = (out_pad.float() - ref.float()).abs().max().item()
+        mean_ref = ref.float().abs().mean().item()
+        rel, rel_pad = err / mean_ref, err_pad / mean_ref
+        finite = bool(torch.isfinite(out.float()).all())
+        if not bool(torch.isfinite(ref.float()).all()):  # ROADMAP Queue 3's open fault: keep its inputs
+            import os
+
+            os.makedirs("build", exist_ok=True)
+            torch.save(dict(q=q.cpu(), k=kp.cpu(), v=vp.cpu(), kw=kw), f"build/flash80_plain_nan_{s}.pt")
+        del ref, out, out_pad
+        row = dict(phase="kernel_check", kernel="flash_attention@80", shape=shape, max_abs_err=err,
+                   padded_max_abs_err=err_pad, mean_abs_plain=mean_ref, rel_err=rel, padded_rel_err=rel_pad,
+                   rel_tolerance=FLASH80_REL_TOL, finite=finite, ms=time_ms(kernel, 20), padded_ms=time_ms(padded, 20),
+                   plain_ms=time_ms(plain, 3), library_ms=time_ms(library, 20),
+                   **bound(2 * b * s * h * d * 2 + kvl * hkv * d * 2 * 2, 4 * b * s * kvl * h * d))
+        emit(**row)
+        if not finite or not max(err, err_pad) <= TOL or not max(rel, rel_pad) <= FLASH80_REL_TOL:
+            raise AssertionError(f"flash_attention@80 {shape}: max |kernel - plain| {err}, padded {err_pad} "
+                                 f"(tolerance {TOL}); / mean |plain| {rel}, padded {rel_pad} (tolerance "
+                                 f"{FLASH80_REL_TOL}), finite={finite}")
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # MoE: the JAX bench's routed geometry and Qwen1.5-MoE-A2.7B's published width
 # ---------------------------------------------------------------------------
@@ -3285,6 +3407,524 @@ def phase_slice_families(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Vision-language: Qwen2-VL-2B (bench.py's image-prefill row), Qwen2.5-VL-3B,
+# CLIP ViT-B/32
+# ---------------------------------------------------------------------------
+
+VL_IMAGE_PX, VL_RAW_PX, VL_CACHE = 532, 1024, 1024  # the bench row: a 1024 px frame resized to 532 px
+VL_TEXT = (20, 10)  # random text ids before and after the image
+VL_RUNS = 9  # timed runs (medians), after one warm-up
+VL_NEW = 64  # decode tokens of vl_generate / vl_generate_compiled
+VL_ENGINE_PX, VL_ENGINE_IMAGES, VL_ENGINE_TEXT_LENS = 448, 4, (17, 40, 64, 100, 150, 200, 256, 300)
+VL25_NEW = 32
+QWEN25VL_3B_LM = dict(  # Qwen/Qwen2.5-VL-3B-Instruct config.json (the language model)
+    vocab_size=151936, hidden_size=2048, intermediate_size=11008, num_hidden_layers=36, num_attention_heads=16,
+    num_key_value_heads=2, max_position_embeddings=4096, rope_theta=1000000.0, tie_word_embeddings=True,
+    eos_token_id=-2)
+QWEN2VL_VISION: dict = {}  # Qwen2VLVisionConfig's fields: {} = its defaults, Qwen2-VL-2B's tower
+QWEN25VL_VISION: dict = {}  # Qwen25VLVisionConfig's: {} = Qwen2.5-VL-3B's published vision_config
+CLIP_CONFIG: dict = {}  # CLIPConfig's: {} = HF's defaults, CLIP ViT-B/32
+CLIP_TEXTS, CLIP_RUNS = 8, 5
+CLIP_TOL = 5e-2  # x max |logit|: bf16 on the card against f32 on the host
+
+
+def vl_config(lm: dict):
+    """Qwen2VLConfig over the LM dict `lm` (max_position_embeddings 4096, the
+    bench's) and the Qwen2-VL tower of QWEN2VL_VISION."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.models.qwen2_vl import Qwen2VLConfig, Qwen2VLVisionConfig
+
+    text = TextConfig(**dict(lm, max_position_embeddings=4096))
+    return Qwen2VLConfig(text=text, vision=Qwen2VLVisionConfig(**dict(dict(hidden_size=text.hidden_size),
+                                                                      **QWEN2VL_VISION)))
+
+
+def vl_prompt(cfg, grid, rng, text=VL_TEXT):
+    """ids [1, S] (random text, vision start, the image pads, vision end,
+    random text), positions [3, 1, S] and the mrope delta."""
+    from mllm_tpu_torch.models.qwen2_vl import get_rope_index
+
+    n_img = grid[0] * grid[1] * grid[2] // 4
+    ids = np.concatenate([rng.integers(0, 151000, text[0]), [cfg.vision_start_token_id],
+                          np.full(n_img, cfg.image_token_id), [cfg.vision_start_token_id + 1],
+                          rng.integers(0, 151000, text[1])]).astype(np.int64)
+    pos, delta = get_rope_index(ids, [grid], cfg.image_token_id, cfg.video_token_id, 2)
+    return ids[None], pos[:, None, :], delta
+
+
+def event_ms(fn) -> float:
+    """Device ms of one call of fn (CUDA events; the host waits at the end)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def median(xs) -> float:
+    return float(np.median(np.asarray(xs, np.float64)))
+
+
+class plain_attention:
+    """Within the block, the attention of `nn.attention` runs the kernels'
+    plain versions on the card (the reference route of a whole-model check)."""
+
+    def __enter__(self):
+        from mllm_tpu_torch.nn import attention as A
+        from mllm_tpu_torch.ops.decode_attention import decode_attention_ref
+        from mllm_tpu_torch.ops.flash_attention import flash_attention_ref
+
+        self.saved = (A.flash_attention, A.decode_attention)
+        A.flash_attention, A.decode_attention = flash_attention_ref, decode_attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        from mllm_tpu_torch.nn import attention as A
+
+        A.flash_attention, A.decode_attention = self.saved
+
+
+def vl_counts() -> dict:
+    """The launch counters, with flash_attention split by head_dim: "@80"
+    (the vision tower) apart from the rest."""
+    counts = {k: fn.launches for k, fn in wrappers().items()}
+    at80 = wrappers()["flash_attention"].launches_at.get(80, 0)
+    counts["flash_attention"] -= at80
+    counts["flash_attention@80"] = at80
+    return counts
+
+
+def vl_reset() -> None:
+    from mllm_tpu_torch.generation import graphs
+
+    for fn in wrappers().values():
+        fn.launches = 0
+    wrappers()["flash_attention"].launches_at.clear()
+    graphs.reset_counts()
+
+
+def vl_gap(model, dev, ids, patches, grid, toks, kv_dtype: str = "bf16") -> float:
+    """How far below the top of a teacher-forced prefill of the prompt (with
+    its image) + toks[:-1] the generated tokens sit: max over positions of
+    (max logit - logit of the token) / max |logit|."""
+    from mllm_tpu_torch.models.qwen2_vl import get_rope_index
+
+    full = np.concatenate([ids[0], np.asarray(toks[:-1], np.int64)])
+    pos, _ = get_rope_index(full, [grid], model.cfg.image_token_id, model.cfg.video_token_id, 2)
+    with torch.no_grad():
+        logits, _ = model(torch.as_tensor(full[None], device=dev), model.init_cache(1, S_CACHE, kv_dtype=kv_dtype),
+                          patches=patches, grid_thw=grid, positions=torch.as_tensor(pos[:, None], device=dev),
+                          last_only=False)
+    lg = logits[0, ids.shape[1] - 1:].float()
+    chosen = lg.gather(1, torch.as_tensor(np.asarray(toks), device=dev)[:, None])[:, 0]
+    return ((lg.max(-1).values - chosen) / lg.abs().max(-1).values).max().item()
+
+
+def vl_prefill_timings(model, dev, src, ids, pos, grid, name: str) -> dict:
+    """The bench row's image prefill to the first greedy token, both wires:
+    end to end (host resize of the 1024 px frame, I420 conversion for the
+    YUV wire, the upload, the prefill, the token read back), device ms (CUDA
+    events, the frame already on the card) and the host resize alone;
+    medians of VL_RUNS after one warm-up. Returns the row (and checks the two
+    wires' first tokens agree or sit within RAGGED_TOL of each other)."""
+    from mllm_tpu_torch.models.qwen2_vl import vl_image_prefill, vl_image_prefill_yuv
+    from mllm_tpu_torch.processor import image as im
+
+    tl = ids.shape[1]
+    ids_d, pos_d = torch.as_tensor(ids, device=dev), torch.as_tensor(pos, device=dev)
+    cache = model.init_cache(1, VL_CACHE)
+    have_pil = True
+    try:
+        im.resize(src[:8, :8], 4, 4)
+    except RuntimeError:
+        have_pil = False
+    vc = torch.as_tensor(im.bicubic_coeff_matrix(VL_RAW_PX, VL_IMAGE_PX), device=dev)
+
+    def host_resize():
+        if have_pil:
+            return im.resize(src, VL_IMAGE_PX, VL_IMAGE_PX)
+        return im.device_resize_bicubic(torch.as_tensor(src, device=dev), vc, vc).cpu().numpy()
+
+    def rgb(frame):
+        with torch.no_grad():
+            last, _ = vl_image_prefill(model, cache.with_pos(0), ids_d, frame, pos_d, tl, grid)
+        return torch.argmax(last, dim=-1)
+
+    def yuv(planes):
+        with torch.no_grad():
+            last, _ = vl_image_prefill_yuv(model, cache.with_pos(0), ids_d, *planes, pos_d, tl, grid)
+        return torch.argmax(last, dim=-1)
+
+    frame = host_resize()
+    planes_h = im.rgb_to_yuv420(frame)
+    frame_d = torch.tensor(frame[None], device=dev)
+    planes_d = [torch.as_tensor(p[None], device=dev) for p in planes_h]
+    tok_rgb, tok_yuv = int(rgb(frame_d)), int(yuv(planes_d))  # warm-up
+    e2e = {"rgb": [], "yuv": []}
+    for _ in range(VL_RUNS):
+        t0 = time.perf_counter()
+        int(rgb(torch.tensor(host_resize()[None], device=dev)))
+        e2e["rgb"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        int(yuv([torch.as_tensor(p[None], device=dev) for p in im.rgb_to_yuv420(host_resize())]))
+        e2e["yuv"].append((time.perf_counter() - t0) * 1e3)
+    dev_ms = {"rgb": median([event_ms(lambda: rgb(frame_d)) for _ in range(VL_RUNS)]),
+              "yuv": median([event_ms(lambda: yuv(planes_d)) for _ in range(VL_RUNS)])}
+    resize_ms = []
+    for _ in range(VL_RUNS):
+        t0 = time.perf_counter()
+        host_resize()
+        resize_ms.append((time.perf_counter() - t0) * 1e3)
+    dev_resize_ms = median([event_ms(lambda: im.device_resize_bicubic(torch.as_tensor(src, device=dev), vc, vc))
+                            for _ in range(VL_RUNS)])
+    row = dict(phase="slice_vl_image_prefill", model=name, frame=[VL_RAW_PX, VL_RAW_PX, 3],
+               image=[VL_IMAGE_PX, VL_IMAGE_PX], grid=list(grid), prompt_tokens=tl,
+               e2e_ms_rgb=median(e2e["rgb"]), e2e_ms_yuv=median(e2e["yuv"]), device_ms_rgb=dev_ms["rgb"],
+               device_ms_yuv=dev_ms["yuv"], host_resize_ms=median(resize_ms),
+               host_resize_by="PIL" if have_pil else "the card (device_resize_bicubic; no PIL)",
+               device_resize_ms=dev_resize_ms, first_token_rgb=tok_rgb, first_token_yuv=tok_yuv,
+               runs=VL_RUNS, note="medians; e2e: host resize (+ I420) + upload + prefill + token read back")
+    emit(**row)
+    return row
+
+
+def vl_engine_run(model, dev, rng) -> dict:
+    """ContinuousEngine(slots=8, max_len=2048, decode_window=32, pipeline=True)
+    serving VL_ENGINE_IMAGES image requests at VL_ENGINE_PX px (patchified on
+    the card) mixed with 8 text requests of 17-300 tokens, 48 new each: every
+    request returns 48 in-vocabulary tokens, and every request's tokens sit
+    within RAGGED_TOL x max |logit| of a teacher-forced prefill. Returns the
+    launches on the card."""
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
+    from mllm_tpu_torch.models.qwen2_vl import device_patchify
+    from mllm_tpu_torch.processor.image import CLIP_MEAN, CLIP_STD
+    from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessorOutput
+
+    cfg = model.cfg
+    g = VL_ENGINE_PX // 14
+    grid = (1, g, g)
+    images = []
+    for _ in range(VL_ENGINE_IMAGES):
+        ids, pos, delta = vl_prompt(cfg, grid, rng, (10, 10))
+        frame = torch.as_tensor(rng.integers(0, 256, (1, VL_ENGINE_PX, VL_ENGINE_PX, 3), np.uint8), device=dev)
+        patches = device_patchify(torch.cat([frame, frame]), CLIP_MEAN, CLIP_STD)
+        images.append((ids, patches, Qwen2VLProcessorOutput(ids, patches, grid, pos, delta)))
+    texts = [rng.integers(0, 151000, n) for n in VL_ENGINE_TEXT_LENS]
+    torch.cuda.synchronize()
+    eng = ContinuousEngine(model, start_thread=False, **ENGINE_KW)
+    vl_reset()
+    t0 = time.perf_counter()
+    qs = {}
+    for i, txt in enumerate(texts):  # an image request before every other text request
+        if i % 2 == 0 and i // 2 < len(images):
+            qs[("image", i // 2)] = eng.submit_vl(images[i // 2][2], ENGINE_NEW)
+        qs[("text", i)] = eng.submit(txt, ENGINE_NEW)
+    while any(r is not None for r in eng.req) or not eng.pending.empty() or eng._inflight is not None:
+        eng.step()
+    got = {key: collect(q, timeout=5) for key, q in qs.items()}
+    outs = list(got.values())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = graphs.device_launches(vl_counts())
+    capture_s = sum(gr.capture_s for gr in eng._windows.values())
+    V = cfg.text.vocab_size
+    if not all(len(o) == ENGINE_NEW and all(0 <= t < V for t in o) for o in outs):
+        raise AssertionError(f"slice_vl engine: lengths {[len(o) for o in outs]} or a token out of the vocabulary")
+    gaps = [vl_gap(model, dev, ids, patches, grid, got[("image", i)]) for i, (ids, patches, _) in enumerate(images)]
+    gaps += [teacher_forced_gap(model, dev, t, got[("text", i)]) for i, t in enumerate(texts)]
+    replays = sum(gr.replays for gr in eng._windows.values())
+    emit(phase="slice_vl_engine", requests=len(outs), image_requests=len(images), image_px=VL_ENGINE_PX,
+         image_prompt_tokens=int(images[0][0].shape[1]), text_prompt_tokens=list(VL_ENGINE_TEXT_LENS),
+         new_tokens=ENGINE_NEW, wall_s=wall, tok_s=len(outs) * ENGINE_NEW / wall, capture_s=capture_s,
+         tok_s_less_capture=len(outs) * ENGINE_NEW / (wall - capture_s), windows=eng.steps, graph_replays=replays,
+         admissions=eng.admissions, teacher_forced_gap_over_max_logit=max(gaps), tolerance=RAGGED_TOL,
+         launches=launches)
+    if replays != eng.steps or not max(gaps) <= RAGGED_TOL:
+        raise AssertionError(f"slice_vl engine: {replays} replays of {eng.steps} windows, teacher-forced gap "
+                             f"{max(gaps)} (tolerance {RAGGED_TOL})")
+    if launches["flash_attention@80"] != 32 * len(images):
+        raise AssertionError(f"slice_vl engine: {launches['flash_attention@80']} head_dim-80 flash launches, "
+                             f"expected {32 * len(images)} (32 a tower pass)")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vl_serve_png(model, dev) -> None:
+    """One chat request with a PNG image through mllm_tpu_torch.serve on
+    127.0.0.1 (the continuous engine, a synthetic tokenizer whose vision
+    tokens are the model's): 200 and in-vocabulary tokens. Needs PIL; where
+    it is missing a line says so and nothing is checked."""
+    import base64
+    import dataclasses
+    import io
+    import os
+    import tempfile
+
+    from mllm_tpu_torch import serve
+    from mllm_tpu_torch.tokenizers.hf_json import from_tokenizer_json
+
+    try:
+        from PIL import Image
+    except ImportError:
+        emit(phase="slice_vl_serve", skipped="PIL is not installed on this machine: the HTTP image request "
+             "is held by the CPU tests alone (tests/test_torch_serve.py)")
+        return
+    specials = TOKENIZER_SPECIALS + VL_SPECIALS
+    V = model.cfg.text.vocab_size
+    ids = {t: V - len(specials) + i for i, t in enumerate(specials)}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tokenizer.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(synthetic_tokenizer(V, 3, specials=specials), f)
+        tok = from_tokenizer_json(path)
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, image_token_id=ids["<|image_pad|>"], video_token_id=ids["<|video_pad|>"],
+                                    vision_start_token_id=ids["<|vision_start|>"])
+    frontend = serve.ContinuousFrontend(model, tok, model.cfg, max_len=S_CACHE, max_batch=2, image_size=448)
+    server, port = start_server(frontend)
+    try:
+        img = np.random.default_rng(5).integers(0, 256, (600, 800, 3), np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        url = "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+        body = {"messages": [{"role": "user", "content": [{"type": "text", "text": "What is in the picture?"},
+                                                          {"type": "image_url", "image_url": {"url": url}}]}],
+                "max_tokens": 16}
+        t0 = time.perf_counter()
+        status, reply = http(port, "/v1/chat/completions", body)
+        wall = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        frontend.stop()
+        model.cfg = saved
+    out = json.loads(reply)
+    emit(phase="slice_vl_serve", status=status, completion_tokens=out.get("usage", {}).get("completion_tokens"),
+         prompt_tokens=out.get("usage", {}).get("prompt_tokens"), wall_s=wall, image=[600, 800], image_size=448)
+    if status != 200 or not 1 <= out["usage"]["completion_tokens"] <= 16:
+        raise AssertionError(f"slice_vl_serve: status {status}, reply {out}")
+
+
+def phase_slice_vl(dev) -> dict:
+    """Qwen2-VL-2B as bench.py builds it (the tower at Qwen2VLVisionConfig's
+    defaults over QWEN2VL_2B_LM with 4096 positions, random bf16 weights):
+    one tower pass launches the head_dim-80 flash kernel 32 times; the bench
+    row's image prefill (a 1024 px frame resized to 532 px: grid (1, 38, 38),
+    361 vision tokens, 393 prompt tokens, a 1024-row cache) within RAGGED_TOL
+    x max |logit| of the same prefill with the attention on its plain
+    versions, timed on both wires; vl_generate and vl_generate_compiled
+    (VL_NEW tokens, equal, the last steps against a teacher-forced prefill);
+    vtp_prefill at keep 0.5, prune layer 2 (head at 212, finite logits); then
+    quantize_model("int8", on_device=True): the image prefill timed again,
+    over an int8 KV cache (the first 16 tokens against a teacher-forced
+    prefill over the same cache type), the engine with image and text
+    requests, and a PNG chat request through the server. Returns every
+    launch the phase made on the card (the plain-route checks launch none)."""
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.models.qwen2_vl import (Qwen2VLForConditionalGeneration, device_patchify, vl_generate,
+                                                vl_generate_compiled, vtp_prefill)
+    from mllm_tpu_torch.ops.quantize_model import quantize_model
+    from mllm_tpu_torch.processor.image import CLIP_MEAN, CLIP_STD
+    from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessorOutput
+
+    t0 = time.perf_counter()
+    cfg = vl_config(QWEN2VL_2B_LM)
+    model = Qwen2VLForConditionalGeneration.init(cfg, device=dev, dtype=torch.bfloat16,
+                                                 generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    vparams = sum(p.numel() for p in model.visual.parameters())
+    emit(phase="slice_vl_init", seconds=time.perf_counter() - t0, vision_params=vparams,
+         lm_params=sum(p.numel() for p in model.lm.parameters()), weight_bytes=state_bytes(model))
+    rng = np.random.default_rng(21)
+    src = rng.integers(0, 256, (VL_RAW_PX, VL_RAW_PX, 3), np.uint8)
+    grid = (1, VL_IMAGE_PX // 14, VL_IMAGE_PX // 14)
+    ids, pos, delta = vl_prompt(cfg, grid, rng)
+    launches = {}
+
+    def take():  # the launches on the card since the last reset (captures and replays counted), then reset
+        add_launches(launches, graphs.device_launches(vl_counts()))
+        vl_reset()
+
+    # one tower pass: 32 launches of the head_dim-80 kernel, its output against the plain route
+    frame = torch.as_tensor(np.ascontiguousarray(src[:VL_IMAGE_PX, :VL_IMAGE_PX])[None], device=dev)
+    patches = device_patchify(torch.cat([frame, frame]), CLIP_MEAN, CLIP_STD)
+    vl_reset()
+    with torch.no_grad():
+        emb = model.visual(patches, grid)
+        torch.cuda.synchronize()
+        tower = vl_counts()
+        with plain_attention():
+            emb_ref = model.visual(patches, grid)
+    tower_err = ((emb.float() - emb_ref.float()).abs().max() / emb_ref.float().abs().max()).item()
+    take()
+    emit(phase="slice_vl_tower", grid=list(grid), patches=int(patches.shape[0]), embeds=list(emb.shape),
+         flash80_launches=tower["flash_attention@80"], rel_err_vs_plain=tower_err, tolerance=RAGGED_TOL,
+         finite=bool(torch.isfinite(emb.float()).all()))
+    if tower["flash_attention@80"] != cfg.vision.depth or tower["flash_attention"] or not tower_err <= RAGGED_TOL:
+        raise AssertionError(f"slice_vl tower: launches {tower}, rel err vs plain {tower_err}")
+
+    # the image prefill: kernels against the plain route, then the bench row's timings
+    ids_d, pos_d = torch.as_tensor(ids, device=dev), torch.as_tensor(pos, device=dev)
+    with torch.no_grad():
+        last, cache = model(ids_d, model.init_cache(1, VL_CACHE), patches=patches, grid_thw=grid, positions=pos_d,
+                            last_pos=ids.shape[1] - 1)
+        with plain_attention():
+            last_ref, _ = model(ids_d, model.init_cache(1, VL_CACHE), patches=patches, grid_thw=grid,
+                                positions=pos_d, last_pos=ids.shape[1] - 1)
+    err = ((last.float() - last_ref.float()).abs().max() / last_ref.float().abs().max()).item()
+    finite = bool(torch.isfinite(last.float()).all())
+    emit(phase="slice_vl_prefill_check", prompt_tokens=ids.shape[1], logits=list(last.shape), finite=finite,
+         rel_err_vs_plain_attention=err, tolerance=RAGGED_TOL)
+    if not finite or not err <= RAGGED_TOL:
+        raise AssertionError(f"slice_vl prefill: finite {finite}, vs plain attention {err}")
+    vl_prefill_timings(model, dev, src, ids, pos, grid, "bf16")
+    take()
+
+    # generation: eager against compiled, the last steps against a teacher-forced prefill
+    proc = Qwen2VLProcessorOutput(ids, patches, grid, pos, delta)
+    t1 = time.perf_counter()
+    eager, _ = vl_generate(model, proc, model.init_cache(1, S_CACHE), max_new_tokens=VL_NEW)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t1
+    take()
+    compiled_args = (model, ids, patches, grid, pos_d)
+    vl_generate_compiled(*compiled_args, model.init_cache(1, S_CACHE), ids.shape[1], VL_NEW, mrope_delta=delta)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()  # the second call replays the captured loop
+    toks, n = vl_generate_compiled(*compiled_args, model.init_cache(1, S_CACHE), ids.shape[1], VL_NEW,
+                                   mrope_delta=delta)
+    compiled = toks.cpu().numpy()[: int(n)].tolist()
+    t_comp = time.perf_counter() - t1
+    replays = graphs.replays("generate_compiled")
+    take()
+    gap = vl_gap(model, dev, ids, patches, grid, eager)
+    emit(phase="slice_vl_generate", new_tokens=VL_NEW, eager_tok_s=VL_NEW / t_eager, compiled_tok_s=VL_NEW / t_comp,
+         compiled_equals_eager=compiled == eager, teacher_forced_gap_over_max_logit=gap, tolerance=RAGGED_TOL,
+         replays=replays, note="tok/s over wall time, the prefill (vision encode "
+         "included) and the first token in it; compiled: the second call (captured loop replayed)")
+    if compiled != eager or not gap <= RAGGED_TOL:
+        raise AssertionError(f"slice_vl generate: compiled equal {compiled == eager}, gap {gap}")
+
+    # VTP: keep half of the vision tokens from layer 2 on
+    with torch.no_grad():
+        lg, vcache = vtp_prefill(model, ids, model.init_cache(1, VL_CACHE), patches, grid, pos_d, keep_ratio=0.5,
+                                 prune_layer=2)
+    head = int(vcache.pos)
+    want_head = ids.shape[1] - (grid[1] * grid[2] // 4) + int(grid[1] * grid[2] // 4 * 0.5)
+    emit(phase="slice_vl_vtp", keep_ratio=0.5, prune_layer=2, cache_head=head, expected_head=want_head,
+         finite=bool(torch.isfinite(lg.float()).all()))
+    if head != want_head or not bool(torch.isfinite(lg.float()).all()):
+        raise AssertionError(f"slice_vl vtp: head {head} (expected {want_head}) or non-finite logits")
+
+    # the int8 model (the bench row's): timings, an int8 KV cache, the engine, the server
+    t1 = time.perf_counter()
+    quantize_model(model, "int8", on_device=True)
+    torch.cuda.synchronize()
+    emit(phase="slice_vl_quantize", mode="int8", seconds=time.perf_counter() - t1, weight_bytes=state_bytes(model))
+    vl_prefill_timings(model, dev, src, ids, pos, grid, "int8")
+    out8, _ = vl_generate(model, proc, model.init_cache(1, S_CACHE, kv_dtype="int8"), max_new_tokens=16)
+    gap8 = vl_gap(model, dev, ids, patches, grid, out8, kv_dtype="int8")
+    emit(phase="slice_vl_int8_kv", new_tokens=16, teacher_forced_gap_over_max_logit=gap8, tolerance=RAGGED_TOL)
+    if not gap8 <= RAGGED_TOL:
+        raise AssertionError(f"slice_vl int8 KV: gap {gap8}")
+    take()
+    add_launches(launches, vl_engine_run(model, dev, rng))  # it counts from its own reset
+    vl_reset()
+    vl_serve_png(model, dev)
+    take()
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice_vl25(dev) -> dict:
+    """Qwen2.5-VL-3B at its published config.json (Qwen/Qwen2.5-VL-3B-
+    Instruct; full depth, random bf16 weights, the cache at 4096 positions):
+    one 532 px image prefill (windowed tower: the plain `sdpa` with the
+    same-window bias, as the reference) and VL25_NEW eager decode tokens, the
+    last steps against a teacher-forced prefill; the image prefill's device
+    ms."""
+    from mllm_tpu_torch.models.qwen2_5_vl import Qwen25VLVisionConfig, qwen2_5_vl_model
+    from mllm_tpu_torch.models.qwen2_vl import device_patchify, vl_generate
+    from mllm_tpu_torch.processor.image import CLIP_MEAN, CLIP_STD
+    from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessorOutput
+
+    t0 = time.perf_counter()
+    vcfg = Qwen25VLVisionConfig(**QWEN25VL_VISION)  # the published vision_config (depth 32, 1280 wide, 3420, out 2048)
+    cfg = vl_config(QWEN25VL_3B_LM)
+    model = qwen2_5_vl_model(cfg, vcfg, device=dev, dtype=torch.bfloat16,
+                             generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    emit(phase="slice_vl25_init", seconds=time.perf_counter() - t0,
+         params=sum(p.numel() for p in model.parameters()), weight_bytes=state_bytes(model))
+    rng = np.random.default_rng(25)
+    grid = (1, VL_IMAGE_PX // 14, VL_IMAGE_PX // 14)
+    ids, pos, delta = vl_prompt(cfg, grid, rng)
+    frame = torch.as_tensor(rng.integers(0, 256, (1, VL_IMAGE_PX, VL_IMAGE_PX, 3), np.uint8), device=dev)
+    patches = device_patchify(torch.cat([frame, frame]), CLIP_MEAN, CLIP_STD)
+    ids_d, pos_d = torch.as_tensor(ids, device=dev), torch.as_tensor(pos, device=dev)
+
+    def prefill():
+        with torch.no_grad():
+            return model(ids_d, model.init_cache(1, VL_CACHE), patches=patches, grid_thw=grid, positions=pos_d,
+                         last_pos=ids.shape[1] - 1)[0]
+
+    prefill()
+    dev_ms = median([event_ms(prefill) for _ in range(5)])
+    vl_reset()
+    toks, _ = vl_generate(model, Qwen2VLProcessorOutput(ids, patches, grid, pos, delta),
+                          model.init_cache(1, S_CACHE), max_new_tokens=VL25_NEW)
+    launches = vl_counts()
+    gap = vl_gap(model, dev, ids, patches, grid, toks)
+    emit(phase="slice_vl25", layers=cfg.text.num_hidden_layers, vision_depth=vcfg.depth, grid=list(grid),
+         prompt_tokens=ids.shape[1], image_prefill_device_ms=dev_ms, new_tokens=len(toks),
+         teacher_forced_gap_over_max_logit=gap, tolerance=RAGGED_TOL, launches=launches,
+         depth_cut="none: published widths and depths")
+    if len(toks) != VL25_NEW or not gap <= RAGGED_TOL or launches["flash_attention@80"]:
+        raise AssertionError(f"slice_vl25: {len(toks)} tokens, gap {gap}, launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice_clip(dev) -> dict:
+    """bench.py's clip-vitb-scoring row: CLIP ViT-B/32 at HF's default widths
+    (CLIPConfig()), random bf16 weights (CLIPModel.init), one 224 px image
+    against CLIP_TEXTS texts of 77 tokens: logits_per_image [1, 8], finite,
+    within CLIP_TOL x max |logit| of the same weights in f32 on the host;
+    score ms a median of CLIP_RUNS (CUDA events)."""
+    import copy
+
+    from mllm_tpu_torch.models.clip import CLIPConfig, CLIPModel
+
+    cfg = CLIPConfig(**CLIP_CONFIG)
+    model = CLIPModel.init(cfg, device=dev, dtype=torch.bfloat16, generator=torch.Generator(device=dev).manual_seed(2))
+    rng = np.random.default_rng(27)
+    ids = rng.integers(0, cfg.text.vocab_size - 1, (CLIP_TEXTS, cfg.text.max_position_embeddings))
+    ids[np.arange(CLIP_TEXTS), rng.integers(5, 77, CLIP_TEXTS)] = cfg.text.eos_token_id
+    pixel = rng.standard_normal((1, 3, 224, 224)).astype(np.float32)
+    ids_d, px_d = torch.as_tensor(ids, device=dev), torch.as_tensor(pixel, device=dev)
+    with torch.no_grad():
+        logits = model(ids_d, px_d)
+        ms = median([event_ms(lambda: model(ids_d, px_d)) for _ in range(CLIP_RUNS)])
+        host = copy.deepcopy(model).float().cpu()
+        ref = host(torch.as_tensor(ids), torch.as_tensor(pixel))
+    err = ((logits.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+    finite = bool(torch.isfinite(logits).all())
+    emit(phase="slice_clip", logits=list(logits.shape), score_ms=ms, runs=CLIP_RUNS, rel_err_vs_f32_host=err,
+         tolerance=CLIP_TOL, finite=finite, texts=CLIP_TEXTS, text_tokens=cfg.text.max_position_embeddings,
+         params=sum(p.numel() for p in model.parameters()))
+    if list(logits.shape) != [1, CLIP_TEXTS] or not finite or not err <= CLIP_TOL:
+        raise AssertionError(f"slice_clip: logits {list(logits.shape)}, finite {finite}, vs f32 host {err}")
+    del model, host
+    torch.cuda.empty_cache()
+    return {}
+
+
 def timed_phase(name: str, fn):
     """fn(), its wall seconds printed as `<name>_seconds`."""
     t0 = time.perf_counter()
@@ -3315,7 +3955,10 @@ def main():
     torch.cuda.empty_cache()
     results += [timed_phase("slice_moe", lambda: phase_slice_moe(dev)),
                 timed_phase("slice_moe_wide", lambda: phase_slice_moe_wide(dev)),
-                timed_phase("slice_families", lambda: phase_slice_families(dev))]
+                timed_phase("slice_families", lambda: phase_slice_families(dev)),
+                timed_phase("slice_vl", lambda: phase_slice_vl(dev)),
+                timed_phase("slice_vl25", lambda: phase_slice_vl25(dev)),
+                timed_phase("slice_clip", lambda: phase_slice_clip(dev))]
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n
@@ -3329,7 +3972,8 @@ def main():
                       bound_by=main_row["bound_by"], library_ms=main_row["library_ms"])
         if "rel_err" in main_row:
             kernel["max_rel_err"] = max(r["rel_err"] for r in rows[name])
-        for extra in ("dense_sdpa_ms", "bf16_flash_ms", "bf16_decode_ms", "dense_decode_ms", "unfused_ms"):
+        for extra in ("dense_sdpa_ms", "bf16_flash_ms", "bf16_decode_ms", "dense_decode_ms", "unfused_ms",
+                      "padded_ms"):
             if extra in main_row:
                 kernel[extra] = main_row[extra]
         kernels.append(kernel)

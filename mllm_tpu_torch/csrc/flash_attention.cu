@@ -53,6 +53,13 @@
 //    registers) beside S and P (flash_attention.cuh): thread 0 issues Q and
 //    the first two tiles, then refills a stage after its softmax of the next
 //    tile, once both warpgroups are done with it (`InlineTiles`).
+//  - head_dim 80 (the Qwen2-VL / Qwen2.5-VL vision towers, non-causal): the
+//    D = 128 body over rows of 80 columns (`launch<128, 80>`): the tensor
+//    maps describe the rows as they lie and TMA zero-fills columns 80-127 of
+//    the second box in shared memory, Q K^T issues 5 k-steps instead of 8,
+//    and the epilogue stores 80 columns. No padded copy reaches memory. (The
+//    reference pads q/k/v to 128 lanes in memory, `attend_padded_head`; that
+//    design, timed beside this one, is in PERF.md.)
 // The consumer warpgroups' code (products, softmax, turns, tile ranges and
 // the epilogue) is flash_attention.cuh, which flash_attention_quant.cu shares;
 // this file holds the TMA producer and the stale-V-row pass.
@@ -143,7 +150,7 @@ constexpr int smem_bytes() {
 }
 static_assert(smem_bytes<256>() <= 232448, "head_dim 256: Q and two stages of 64-key tiles fit");
 
-template <int D>
+template <int D, int DR>
 __global__ void __launch_bounds__(threads_of<D>(), 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const FlashParams p) {
@@ -193,7 +200,7 @@ __global__ void __launch_bounds__(threads_of<D>(), 1)
       for (int it = 0; it < min(kStages, c.ntiles); ++it) load_tile<D, BK>(&tm_k, &tm_v, sK, sV, full, c.kb0, row, it);
     __syncwarp();
     const InlineTiles<D> tiles{ring, &tm_k, &tm_v, sK, row, c.ntiles};
-    consume<D>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
+    consume<D, DR>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
   } else if (wg == kConsumers) {
     // ---- producer warpgroup: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
@@ -205,29 +212,37 @@ __global__ void __launch_bounds__(threads_of<D>(), 1)
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D>(p, c, sQ, sK, sV, qbar, ring, wg, tid);
+    consume<D, DR>(p, c, sQ, sK, sV, qbar, ring, wg, tid);
   }
 }
 
-template <int D>
+// D is the body's head width, DR the width of a q/k/v/out row in memory:
+// D, or 80 on the D = 128 body. A row of 80 columns is described to TMA as
+// it lies (a 160-byte stride, a multiple of 16 as TMA needs); its second
+// 64-column box then covers columns 64-127, of which 80-127 lie outside the
+// tensor and land in shared memory as zeros (TMA still counts the whole box
+// toward the barrier's bytes). So no padded copy is made in memory, Q K^T
+// skips the k-steps of zeros, and P V runs the D = 128 product whose
+// columns 80-127 are dropped at the store.
+template <int D, int DR = D>
 cudaError_t launch(const void* q, const void* k, const void* v, const FlashParams& p,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   // one kv_valid for the batch: the key rows end there, and TMA fills the
   // rows past it with zeros (a per-sequence kv_valid is zeroed in the kernel)
   const int rows = p.kv_valid_vec ? p.Skv : max(1, min(p.kv_valid, p.Skv));
-  const cuuint64_t kvdims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)p.B * p.Hkv};
-  const cuuint64_t kvstrides[2] = {(cuuint64_t)D * 2, (cuuint64_t)p.Skv * D * 2};
+  const cuuint64_t kvdims[3] = {(cuuint64_t)DR, (cuuint64_t)rows, (cuuint64_t)p.B * p.Hkv};
+  const cuuint64_t kvstrides[2] = {(cuuint64_t)DR * 2, (cuuint64_t)p.Skv * DR * 2};
   const cuuint32_t kvbox[3] = {kSwz, block_k<D>(), 1};
   // bf16 maps whose innermost dimension is D, read in boxes of 64 columns
   // with the 128-byte swizzle; elements outside the tensor load as zeros
-  if (!encode_q_map(&tq, q, p.B, p.Sq, p.H, D) ||
+  if (!encode_q_map(&tq, q, p.B, p.Sq, p.H, DR) ||
       !encode_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kvdims, kvstrides, kvbox,
                          CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kvdims, kvstrides, kvbox,
                          CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  return launch_flash<threads_of<D>()>(flash_fwd_kernel<D>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
+  return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, DR>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
 }
 
 }  // namespace
@@ -251,6 +266,7 @@ extern "C" int mllm_flash_attention_bf16(const void* q, const void* k, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch<64>(q, k, v, p, s);
+    case 80: return launch<128, 80>(q, k, v, p, s);  // the vision towers' heads (Qwen2-VL)
     case 128: return launch<128>(q, k, v, p, s);
     case 256: return launch<256>(q, k, v, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

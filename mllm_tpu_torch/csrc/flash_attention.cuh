@@ -156,15 +156,17 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// S = Q K^T for tile `it`: this warpgroup's 64 rows x kBK keys, over D in
-// k-steps of 16 (both operands K-major, 128-byte swizzled).
-template <int D, int BK = block_k<D>()>
+// S = Q K^T for tile `it`: this warpgroup's 64 rows x kBK keys, over the
+// DR columns that hold data (rounded up to 16) in k-steps of 16 (both operands
+// K-major, 128-byte swizzled). Columns past DR are TMA's zero fill, so the
+// steps that would cover only them are not issued.
+template <int D, int BK = block_k<D>(), int DR = D>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], const bf16* sQ, const bf16* sK, int it,
                                          int wg) {
   constexpr int kDH = D / kSwz;
   const bf16* kt = sK + (it % kStages) * kDH * BK * kSwz;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < (DR + 15) / 16; ++kk) {
     const int j = kk / 4, w = kk % 4;  // 64-column box, 16-column step inside it
     const uint64_t da = wgmma_desc(sQ + (j * kBQ + wg * 64) * kSwz + w * 16, 16, 1024);
     const uint64_t db = wgmma_desc(kt + j * BK * kSwz + w * 16, 16, 1024);
@@ -248,7 +250,10 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pf)[
 // (called by every thread of the warpgroup once Q has landed, before its
 // first product) and `refill(it)` (called after the softmax of tile `it`, or
 // where it would be: a kernel without a producer loads the ring there).
-template <int D, class Tiles, int BK = block_k<D>()>
+// DR is the width of a row of q and the output in memory: D, or fewer columns
+// than the body's D (head_dim 80 on the D = 128 body, whose columns 80-127
+// TMA fills with zeros in shared memory); only DR columns are stored.
+template <int D, int DR = D, class Tiles, int BK = block_k<D>()>
 __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c, bf16* sQ, const bf16* sK,
                                         const bf16* sV, uint64_t* qbar, const Tiles& tiles, int wg,
                                         int tid) {
@@ -308,7 +313,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
       tiles.wait_k(it);
       wait_turn(wg);
       wgmma_fence();
-      issue_qk<D, BK>(s, sQ, sK, it, wg);
+      issue_qk<D, BK, DR>(s, sQ, sK, it, wg);
       pass_turn(wg);
       wgmma_wait<0>();
       wgmma_fence_operands(s);
@@ -334,11 +339,12 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
   const float l0 = quad_sum(st.l0), l1 = quad_sum(st.l1);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const long q_stride = (long)p.H * D;
-  bf16* obase = p.o + ((long)c.b * p.Sq * p.H + c.h) * D;
+  const long q_stride = (long)p.H * DR;
+  bf16* obase = p.o + ((long)c.b * p.Sq * p.H + c.h) * DR;
   const int row0 = c.q0 + r0, row1 = row0 + 8;
+  static_assert(DR % 8 == 0 && DR <= D, "whole 8-column groups of the body's accumulator");
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb) {
+  for (int nb = 0; nb < DR / 8; ++nb) {
     const int col = nb * 8 + t * 2;
     if (row0 < p.Sq)
       *reinterpret_cast<__nv_bfloat162*>(obase + row0 * q_stride + col) =

@@ -31,8 +31,15 @@ right after window N is queued, behind an event; window N+1 is queued, and
 only then does the host wait on N's event, so the copy and the host's
 bookkeeping overlap window N+1 on the card.
 
-Not ported yet (NotImplementedError): vision admission (`submit_vl`, ROADMAP
-Queue 1 item 13) and tensor-parallel serving (`mesh`, item 16).
+A Qwen2-VL model (one with a `visual` tower) takes image and video requests
+too (`submit_vl`): admission encodes the image, splices it into the prompt
+and prefills with the processor's M-RoPE positions; the slot records the
+request's mrope_delta (`SchedState.pos_delta`, 0 for a text request), and
+the decode window gives each slot the rope position head + delta, read on the
+device, so one captured window serves every mix of requests.
+
+Not ported yet (NotImplementedError): tensor-parallel serving (`mesh`,
+ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -55,16 +62,18 @@ from .sampling import SamplingConfig, sample_tokens_batched
 class SchedState:
     """Device-resident scheduler state, one entry per slot: cur (int64, the
     current token), active (bool), budget (int32 tokens left), temperature
-    (f32, <= 0 greedy), top_k (int32, 0 off), top_p (f32, 0 off), and the
+    (f32, <= 0 greedy), top_k (int32, 0 off), top_p (f32, 0 off), pos_delta
+    (int32, the request's M-RoPE offset: 0 for text), and the
     torch.Generator the windows draw from."""
 
-    def __init__(self, cur, active, budget, temperature, top_k, top_p, generator):
+    def __init__(self, cur, active, budget, temperature, top_k, top_p, pos_delta, generator):
         self.cur = cur
         self.active = active
         self.budget = budget
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
+        self.pos_delta = pos_delta
         self.generator = generator
 
     @staticmethod
@@ -73,18 +82,21 @@ class SchedState:
             return torch.zeros(slots, dtype=dtype, device=device)
 
         return SchedState(z(torch.int64), z(torch.bool), z(torch.int32), z(torch.float32),
-                          z(torch.int32), z(torch.float32),
+                          z(torch.int32), z(torch.float32), z(torch.int32),
                           torch.Generator(device=device).manual_seed(seed))
 
-    def set_slots(self, slots, toks, budget, temperature, top_k, top_p) -> None:
+    def set_slots(self, slots, toks, budget, temperature, top_k, top_p, pos_delta=None) -> None:
         """Install admitted requests: slot ids and the per-request values (host
-        sequences; toks a device tensor), in place."""
+        sequences; toks a device tensor), in place; pos_delta None is 0 for
+        every slot (text requests)."""
         dev = self.cur.device
         idx = to_device(np.asarray(slots, np.int64), dev)
         self.cur[idx] = toks.to(torch.int64)
         self.active[idx] = True
+        if pos_delta is None:
+            pos_delta = np.zeros(len(slots), np.int32)
         for dst, vals in ((self.budget, budget), (self.temperature, temperature),
-                          (self.top_k, top_k), (self.top_p, top_p)):
+                          (self.top_k, top_k), (self.top_p, top_p), (self.pos_delta, pos_delta)):
             dst[idx] = to_device(np.asarray(vals), dev, dst.dtype)
 
 
@@ -95,18 +107,24 @@ def _sampling_params(s: SamplingConfig) -> tuple[float, int, float]:
     return s.temperature, s.top_k, s.top_p
 
 
+def text_config(model):
+    """The language model's TextConfig (VL models nest it as `cfg.text`)."""
+    return getattr(model.cfg, "text", model.cfg)
+
+
 def _install_first(model, cache, state: SchedState, slot: int, small, last_hidden, true_len: int,
-                   max_tokens: int, sampling: SamplingConfig):
+                   max_tokens: int, sampling: SamplingConfig, pos_delta: int = 0):
     """Install a prefilled 1-sequence cache into `slot`, sample its first
     token from the hidden state of its last prompt token and record the
-    request in `state`. Returns (tok [1], cache, small with pos = true_len)."""
+    request (and its M-RoPE offset) in `state`. Returns (tok [1], cache,
+    small with pos = true_len)."""
     logits = model.logits(last_hidden)[:, 0]
     cache = cache.admit(slot, small, true_len)
     t, k, p = _sampling_params(sampling)
     dev = logits.device
     tok = sample_tokens_batched(logits, torch.full((1,), t, device=dev), torch.full((1,), k, device=dev),
                                 torch.full((1,), p, device=dev), state.generator, all_greedy=t <= 0)
-    state.set_slots([slot], tok, [max_tokens - 1], [t], [k], [p])  # the host emits the first token
+    state.set_slots([slot], tok, [max_tokens - 1], [t], [k], [p], [pos_delta])  # the host emits the first token
     return tok, cache, small.with_pos(true_len)
 
 
@@ -116,7 +134,7 @@ def _admit_step(model, cache, state: SchedState, slot: int, ids: torch.Tensor, t
     """Prefill `ids` [1, bucket] (true_len valid) into a small cache, install
     it into `slot`, sample the first token on the device and record the slot's
     request in `state`. Returns (tok [1], cache, small). Nothing is read back."""
-    cfg = model.cfg
+    cfg = text_config(model)
     small = cache.make_prefill_cache(1, bucket, cache.n_layers, cfg.num_key_value_heads, cfg.head_dim_)
     hidden, small = model.hidden_states(ids, small)
     return _install_first(model, cache, state, slot, small, hidden[:, true_len - 1 : true_len], true_len,
@@ -146,7 +164,7 @@ def _admit_batch(model, cache, state: SchedState, slot_ids: np.ndarray, ids: tor
     bucket], row a for slot slot_ids[a] (a slot id >= B marks a padding row,
     which is dropped); params [A, 3] = (temperature, top_k, top_p).
     Returns (toks [A], cache, small)."""
-    cfg = model.cfg
+    cfg = text_config(model)
     a = ids.shape[0]
     small = cache.make_prefill_cache(a, bucket, cache.n_layers, cfg.num_key_value_heads, cfg.head_dim_)
     hidden, small = model.hidden_states(ids, small)
@@ -164,6 +182,23 @@ def _admit_batch(model, cache, state: SchedState, slot_ids: np.ndarray, ids: tor
     return toks, cache, small
 
 
+@torch.no_grad()
+def _admit_vl_step(model, cache, state: SchedState, slot: int, ids: torch.Tensor, patches, positions,
+                   true_len: int, pos_delta: int, max_tokens: int, sampling: SamplingConfig, bucket: int,
+                   grid_thw):
+    """Multimodal admission (JAX `_admit_vl_step`): the vision tower on
+    `patches`, the splice into `ids` [1, bucket], the trunk at the
+    processor's M-RoPE `positions` [3, 1, bucket] into a small cache, then
+    `_install_first` with the slot's pos_delta. Returns (tok [1], cache,
+    small)."""
+    cfg = text_config(model)
+    small = cache.make_prefill_cache(1, bucket, cache.n_layers, cfg.num_key_value_heads, cfg.head_dim_)
+    x = model.embed(ids, model.visual(patches, grid_thw))
+    hidden, small = model.trunk(x, positions, small)
+    return _install_first(model, cache, state, slot, small, hidden[:, true_len - 1 : true_len], true_len,
+                          max_tokens, sampling, pos_delta)
+
+
 def _pad_small_seq(small, new_len: int):
     """Grow a small prefill cache along its sequence axis to `new_len` rows,
     in new storage with zeros after the old rows (dense and quantized small
@@ -179,18 +214,19 @@ def _pad_small_seq(small, new_len: int):
 
 @torch.no_grad()
 def _decode_window(model, cache, state: SchedState, eos_ids: torch.Tensor, out: torch.Tensor,
-                   all_greedy: bool) -> None:
+                   all_greedy: bool, model_kw: dict) -> None:
     """out.shape[1] decode iterations with per-slot sampling, all on the device.
 
     A slot emits while it is active with budget left; EOS or an exhausted
     budget deactivates it, and its later positions in the window are -1.
     Writes out [B, steps] (int64, -1 padding) and advances `state` and the
     cache's heads in place: their addresses do not change, so the window can
-    be captured once and replayed."""
+    be captured once and replayed. model_kw: extra arguments of every model
+    call ({"pos_delta": state.pos_delta} for a VL model, JAX's `is_vl`)."""
     toks, active, budget = state.cur, state.active, state.budget
     c = cache
     for i in range(out.shape[1]):
-        logits, c = model(toks[:, None], c, last_only=True)
+        logits, c = model(toks[:, None], c, last_only=True, **model_kw)
         nxt = sample_tokens_batched(logits[:, 0, :], state.temperature, state.top_k, state.top_p,
                                     state.generator, all_greedy=all_greedy)
         emit = active & (budget > 0)
@@ -213,6 +249,7 @@ class _Request:
     out: queue.Queue
     t_submit: float
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
+    vl: Optional[tuple] = None  # (patches, grid_thw, positions [3, 1, S], mrope_delta) of a VL request
 
 
 @dataclass
@@ -233,7 +270,7 @@ class ContinuousEngine:
                  paged: int = 0, mesh=None):
         if mesh is not None:
             raise NotImplementedError("tensor-parallel serving is not ported yet (ROADMAP Queue 1 item 16)")
-        cfg = model.cfg
+        cfg = text_config(model)
         self.model = model
         self.slots = slots
         self.max_len = max_len
@@ -265,6 +302,9 @@ class ContinuousEngine:
         self.emitted = [0] * slots
         self.cur = np.zeros(slots, np.int64)
         self._state = SchedState.init(slots, dev)
+        # a Qwen2-VL model's decode steps take each slot's M-RoPE offset
+        self.is_vl = hasattr(model, "visual")
+        self._decode_kw = {"pos_delta": self._state.pos_delta} if self.is_vl else {}
         self._first: dict = {}  # slot -> first-token device tensor, fetched with the next window
         self.pipeline = pipeline
         self._inflight: Optional[_Window] = None
@@ -301,8 +341,22 @@ class ContinuousEngine:
                                   sampling or SamplingConfig()))
         return out
 
-    def submit_vl(self, proc_out, max_tokens: int = 64, sampling=None):
-        raise NotImplementedError("vision admission is not ported yet (ROADMAP Queue 1 item 13)")
+    def submit_vl(self, proc_out, max_tokens: int = 64,
+                  sampling: Optional[SamplingConfig] = None) -> queue.Queue:
+        """Submit a multimodal (Qwen2-VL) request: `proc_out` a
+        `Qwen2VLProcessorOutput` (input_ids, patches, grid_thw, position_ids,
+        mrope_delta). Image and text requests share the slots."""
+        if not self.is_vl:
+            raise ValueError("the model has no vision tower")
+        out: queue.Queue = queue.Queue()
+        ids = np.asarray(proc_out.input_ids, np.int64).reshape(-1)
+        if len(ids) >= self.max_len:
+            raise ValueError(f"prompt length {len(ids)} >= engine max_len {self.max_len}")
+        max_tokens = min(max_tokens, self.max_len - len(ids))
+        vl = (proc_out.patches, tuple(proc_out.grid_thw), np.asarray(proc_out.position_ids, np.int64),
+              int(proc_out.mrope_delta))
+        self.pending.put(_Request(ids, max_tokens, out, time.perf_counter(), sampling or SamplingConfig(), vl=vl))
+        return out
 
     def stop(self, timeout: float = 60.0):
         """Stop the loop thread (if any) and wait up to `timeout` seconds for
@@ -405,6 +459,30 @@ class ContinuousEngine:
         self._install(slot, r, tok)
         return True
 
+    def _admit_vl(self, slot: int, r: _Request) -> bool:
+        """Vision admission: encode, splice and prefill one request into
+        `slot` (its blocks reserved first on a paged pool); the slot records
+        the request's M-RoPE offset."""
+        patches, grid_thw, positions, delta = r.vl
+        n = len(r.ids)
+        bucket = min(-(-max(n, 1) // self.bucket) * self.bucket, self.max_len)
+        if not self._paged_reserve(slot, n, r.max_tokens, bucket):
+            return False
+        self.admissions += 1
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :n] = r.ids
+        pos = np.zeros((3, 1, bucket), np.int64)
+        pos[:, :, :n] = positions[:, :, :n]
+        # pad positions continue past the last real one (rows no query sees)
+        pos[:, :, n:] = positions[:, :, n - 1 : n] + np.arange(1, bucket - n + 1)[None, None, :]
+        dev = self.model.device
+        p = patches if isinstance(patches, torch.Tensor) else to_device(np.asarray(patches), dev)
+        tok, self.cache, _ = _admit_vl_step(self.model, self.cache, self._state, slot, to_device(ids, dev),
+                                            p.to(dev), to_device(pos, dev), n, delta, r.max_tokens, r.sampling,
+                                            bucket, grid_thw)
+        self._install(slot, r, tok)
+        return True
+
     def _admit_many(self, batch):
         """Admit several one-bucket requests in ONE batched prefill."""
         a = self.slots
@@ -497,7 +575,11 @@ class ContinuousEngine:
                 r = self.pending.get_nowait()
             except queue.Empty:
                 break
-            if len(r.ids) <= self.bucket and self._prefix_match(r.ids) == 0:
+            if r.vl is not None:  # multimodal: the vision admission
+                if not self._admit_vl(slot, r):
+                    self.pending.put(r)
+                    break
+            elif len(r.ids) <= self.bucket and self._prefix_match(r.ids) == 0:
                 if not self._paged_reserve(slot, len(r.ids), r.max_tokens, self.bucket):
                     self.pending.put(r)  # pool full: retry next step
                     break
@@ -537,11 +619,12 @@ class ContinuousEngine:
         then captured and replayed from its first use."""
         if all_greedy not in self._windows:
             def window():
-                _decode_window(self.model, self.cache, self._state, self._eos_arr, self._out, all_greedy)
+                _decode_window(self.model, self.cache, self._state, self._eos_arr, self._out, all_greedy,
+                               self._decode_kw)
 
             def warmup():
                 with torch.no_grad():
-                    self.model(self._state.cur[:, None], self.cache, last_only=True)
+                    self.model(self._state.cur[:, None], self.cache, last_only=True, **self._decode_kw)
 
             gens = () if all_greedy else (self._state.generator,)
             self._windows[all_greedy] = StepGraph(

@@ -243,6 +243,7 @@ class _DecodeLoop:
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.eos = torch.zeros((), dtype=torch.int64, device=dev)
         self.gen = torch.Generator(device=dev)
+        self.model_kw = {}  # extra arguments of every model call, device tensors (a VL loop's pos_delta)
         model = weakref.ref(model)  # the loops cache is keyed weakly by the model
         step = lambda: self.step(model(), scfg)  # noqa: E731
         self.graph = StepGraph(lambda: [step() for _ in range(window)], dev, warmup=step,
@@ -254,7 +255,7 @@ class _DecodeLoop:
         past the budget) computes but writes nothing and moves neither i nor
         the head, so a window may run past the end."""
         live = ~self.done & (self.i < self.limit)
-        logits, cache = model(self.tok[:, None], self.cache, last_only=True)
+        logits, cache = model(self.tok[:, None], self.cache, last_only=True, **self.model_kw)
         nxt = sample_token(logits[:, 0], scfg, self.gen)
         at = self.i.clamp(max=self.tokens.shape[0] - 1).long().reshape(1)
         self.tokens.index_put_((at,), torch.where(live, nxt.to(torch.int32), self.tokens[at]))

@@ -25,6 +25,7 @@ set of counters into launches on the card.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 import weakref
 from typing import Callable, Optional
@@ -124,10 +125,19 @@ class StepGraph:
             graph.register_generator_state(gen)
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")  # a host sync inside the step raises here
+        # A dead engine or loop (a reference cycle) still holds its CUDA
+        # graphs: freed by the cyclic collector inside this capture, a graph's
+        # destruction invalidates the capture. No collection runs during it;
+        # none is forced before it either (a full collection over a server's
+        # heap took longer than the capture).
+        gc_was_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=capture_stream(self.device)):
                 self.fn()
         finally:
+            if gc_was_on:
+                gc.enable()
             torch.cuda.set_sync_debug_mode(mode)
         after = _counts()
         self.captured = {k: after[k] - before[k] for k in after if after[k] != before[k]}

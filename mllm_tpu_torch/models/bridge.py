@@ -182,3 +182,79 @@ def mega_decode_from_jax(params: dict[str, np.ndarray], cfg: TextConfig, device,
                         ops["down_ops"][:2], t["norm1_w"], t["norm2_w"],
                         pick_block_f(cfg.intermediate_size, cap=BLOCK_F_CAP),
                         cfg.hidden_size // ops["qkv_ops"][1].shape[1])
+
+
+# ---------------------------------------------------------------------------
+# Vision-language and encoder models
+# ---------------------------------------------------------------------------
+
+
+def unstacked(params: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """JAX names -> the port's: `blocks.mods.{i}.` -> `blocks.{i}.` anywhere
+    in a name, and a `stacked_blocks.` leaf with a leading [L] axis -> one
+    `blocks.{i}.` leaf a layer."""
+    out: dict[str, np.ndarray] = {}
+    for name, arr in params.items():
+        name = name.replace("blocks.mods.", "blocks.")
+        if "stacked_blocks." in name:
+            head, rest = name.split("stacked_blocks.", 1)
+            for i in range(arr.shape[0]):
+                out[f"{head}blocks.{i}.{rest}"] = arr[i]
+        else:
+            out[name] = arr
+    return out
+
+
+def module_from_jax(module: torch.nn.Module, params: dict[str, np.ndarray], device, dtype=torch.float32,
+                    f32=()) -> torch.nn.Module:
+    """Load JAX parameters (numpy, names as `Module.parameters()` gives them,
+    unrolled or stacked) into a port module built with the same structure: a
+    Linear whose names say int8 or int4 becomes that layer (`_linear`); the
+    names in `f32` stay f32. Strict; returns the module."""
+    state = {k: (torch.from_numpy(np.array(v, np.float32)).to(device) if k in f32 else _to_torch(k, v, device, dtype))
+             for k, v in unstacked(params).items()}
+    for path, lin in list(module.named_modules()):
+        if isinstance(lin, Linear) and f"{path}.weight" not in state:
+            parent, _, name = path.rpartition(".")
+            setattr(module.get_submodule(parent) if parent else module, name, _linear(state, path))
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def qwen2_vl_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32,
+                             vision_cfg=None, vision_eps: float = 1e-6):
+    """The port's Qwen2VLForConditionalGeneration from a JAX one's parameters:
+    the LM (`lm.*`) through `causal_lm_from_jax_params`, the tower
+    (`visual.*`) into `Qwen2VLVisionTower(cfg.vision)`, or with `vision_cfg`
+    (a Qwen25VLVisionConfig) into `Qwen25VLVisionTower`; the rotary tables
+    (`mrope.*`, `visual.inv_freq`) are rebuilt. vision_eps: the towers'
+    norms' eps (1e-6 for a loaded checkpoint, 1e-5 for the JAX `init`'s
+    LayerNorms)."""
+    from .qwen2_5_vl import Qwen25VLVisionTower
+    from .qwen2_vl import Qwen2VLForConditionalGeneration, Qwen2VLVisionTower
+
+    lm = causal_lm_from_jax_params({k[3:]: v for k, v in params.items() if k.startswith("lm.")}, cfg.text,
+                                   device, dtype)
+    if vision_cfg is None:
+        tower = Qwen2VLVisionTower(cfg.vision, device=device, dtype=dtype, eps=vision_eps)
+    else:
+        tower = Qwen25VLVisionTower(vision_cfg, device=device, dtype=dtype, eps=vision_eps)
+    module_from_jax(tower, {k[7:]: v for k, v in params.items()
+                            if k.startswith("visual.") and k != "visual.inv_freq"}, device, dtype)
+    return Qwen2VLForConditionalGeneration(tower, lm, cfg)
+
+
+def clip_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's CLIPModel from a JAX CLIPModel's parameters (logit_scale f32)."""
+    from .clip import CLIPModel
+
+    return module_from_jax(CLIPModel(cfg, device=device, dtype=dtype), params, device, dtype, f32=("logit_scale",))
+
+
+def vit_from_jax_params(params: dict[str, np.ndarray], cfg, num_labels: int, device, dtype=torch.float32,
+                        id2label=None):
+    """The port's ViTForImageClassification from a JAX one's parameters."""
+    from .vit import vit_classifier
+
+    return module_from_jax(vit_classifier(cfg, num_labels, device=device, dtype=dtype, id2label=id2label), params,
+                           device, dtype)

@@ -1,12 +1,14 @@
 """Model registry and auto loading from a checkpoint directory: counterpart
-of `mllm_tpu/models/registry.py` for the text families, dense and MoE.
+of `mllm_tpu/models/registry.py` for the text families (dense and MoE),
+Qwen2-VL, Qwen2.5-VL, CLIP and ViT.
 
 `auto_model(path)` reads an HF `config.json` (or takes a named preset),
 builds the CausalLM, loads its weights from safetensors or `.mllm`
 container(s) and returns (model, tokenizer, config), the tokenizer read
-from the directory's `tokenizer.json`. Architectures and options this slice
-does not port raise NotImplementedError naming the ROADMAP item that brings
-them.
+from the directory's `tokenizer.json`; a vision-language or encoder
+checkpoint goes to `auto_model_any`, which returns (model, kind).
+Architectures and options the port does not have yet raise
+NotImplementedError naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -31,10 +33,12 @@ DENSE_TYPES = ("qwen2", "qwen3", "llama", "mistral", "gemma", "gemma2", "stablel
 MOE_TYPES = ("mixtral", "qwen2_moe", "minicpm_moe", "bailing_moe", "smallthinker")
 
 _LATER = {
-    **dict.fromkeys(("opt", "bert", "clip", "vit"), "ROADMAP Queue 1 item 14"),
-    **dict.fromkeys(("qwen2_vl", "qwen2_5_vl", "llava", "fuyu", "phi3_v", "phi3v"),
-                    "ROADMAP Queue 1 item 13"),
+    **dict.fromkeys(("opt", "bert"), "ROADMAP Queue 1 item 14"),
+    **dict.fromkeys(("llava", "fuyu", "phi3_v", "phi3v"), "ROADMAP Queue 1 item 13"),
 }
+# model_types that are not bare CausalLMs: `auto_model` hands them to
+# `auto_model_any` (JAX `_ANY_TYPES`)
+ANY_TYPES = ("opt", "bert", "clip", "llava", "vit", "fuyu", "phi3_v", "phi3v", "qwen2_vl", "qwen2_5_vl")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -92,6 +96,43 @@ def auto_config(path_or_preset: str, **overrides) -> TextConfig:
     return from_hf_config(cfg_json, **overrides)
 
 
+def auto_model_any(path: str, dtype=torch.bfloat16, quant=None, *, device=None):
+    """(model, kind) for any checkpoint directory (JAX `auto_model_any`):
+    qwen2_vl, qwen2_5_vl (quant applies to the LM's Linears, as there), clip
+    and vit, or a CausalLM ("causal_lm"). opt, bert, llava, fuyu and phi3_v /
+    phi3v raise NotImplementedError naming their ROADMAP item. The model goes
+    to the card unless `device` says otherwise."""
+    with open(os.path.join(path, "config.json")) as f:
+        mt = json.load(f).get("model_type", "")
+    if mt in _LATER:
+        raise _not_ported(f"model_type {mt!r}", _LATER[mt])
+    if quant is not None:
+        check_mode(quant)
+    dev = device or default_device()
+    if mt == "clip":
+        from .clip import clip_config_from_hf, load_clip
+
+        return load_clip(open_loader(path), clip_config_from_hf(path), device=dev, dtype=dtype), "clip"
+    if mt == "vit":
+        from .vit import load_vit_classifier, vit_config_from_hf
+
+        vcfg, n_labels, id2label = vit_config_from_hf(path)
+        return load_vit_classifier(open_loader(path), vcfg, n_labels, device=dev, dtype=dtype,
+                                   id2label=id2label), "vit"
+    if mt == "qwen2_5_vl":
+        from .qwen2_5_vl import load_qwen2_5_vl, qwen2_5_vl_configs_from_hf
+
+        base, vcfg = qwen2_5_vl_configs_from_hf(path)
+        return load_qwen2_5_vl(open_loader(path), base, vcfg, device=dev, dtype=dtype, quant=quant), "qwen2_5_vl"
+    if mt == "qwen2_vl":
+        from .qwen2_vl import load_qwen2_vl, qwen2_vl_config_from_hf
+
+        return load_qwen2_vl(open_loader(path), qwen2_vl_config_from_hf(path), device=dev, dtype=dtype,
+                             quant=quant), "qwen2_vl"
+    model, _, _ = auto_model(path, dtype, quant, with_tokenizer=False, device=dev)
+    return model, "causal_lm"
+
+
 def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[TextConfig] = None,
                with_tokenizer: bool = True, *, device=None, **overrides):
     """Load (model, tokenizer, cfg) from an HF-style model directory (JAX
@@ -101,9 +142,12 @@ def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[Tex
     quant="int8" | "int8-a8" | "int4" quantizes the checkpoint's float Linears
     at load (ggml blocks repack whatever quant says); other modes raise
     NotImplementedError. The model goes to the card unless `device` says
-    otherwise."""
+    otherwise. A vision-language or encoder checkpoint (ANY_TYPES) is loaded
+    by `auto_model_any`; its config is then the model's `cfg` (None for a ViT
+    classifier), as in the JAX package."""
     if quant is not None:
         check_mode(quant)
+    model = None
     if config is None and os.path.isdir(path):
         cfg_json = os.path.join(path, "config.json")
         if os.path.exists(cfg_json):
@@ -111,9 +155,13 @@ def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[Tex
                 mt = json.load(f).get("model_type", "")
             if mt in _LATER:
                 raise _not_ported(f"model_type {mt!r}", _LATER[mt])
-    cfg = config or auto_config(path, **overrides)
-    model = build_model(cfg, open_loader(path), device=device or default_device(), dtype=dtype,
-                        quant=quant)
+            if mt in ANY_TYPES:
+                model, _ = auto_model_any(path, dtype, quant, device=device)
+                cfg = getattr(model, "cfg", None)
+    if model is None:
+        cfg = config or auto_config(path, **overrides)
+        model = build_model(cfg, open_loader(path), device=device or default_device(), dtype=dtype,
+                            quant=quant)
     tok = None
     if with_tokenizer and os.path.isdir(path) and os.path.exists(os.path.join(path, "tokenizer.json")):
         from ..tokenizers.hf_json import auto_tokenizer

@@ -4,6 +4,9 @@
 
 Layouts: q is [B, Sq, H, D]; k/v are in cache layout [B, H_kv, Skv, D].
 
+`attend_padded_head` is the vision towers' non-causal attention: the flash
+kernel on the card (head_dim 80 included), `sdpa` on the CPU.
+
 `attend` sends a single-token query (Sq == 1) to `ops.decode_attention` and
 every other query length to `ops.flash_attention`. Each wrapper runs its
 plain version on CPU tensors and its kernel on CUDA tensors; the TPU
@@ -24,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from ..ops._common import KERNEL_HEAD_DIMS, QUANT_KERNEL_HEAD_DIMS
+from ..ops._common import FLASH_HEAD_DIMS, KERNEL_HEAD_DIMS, QUANT_KERNEL_HEAD_DIMS
 from ..ops.decode_attention import decode_attention, decode_attention_paged, decode_attention_quant
 from ..ops.flash_attention import flash_attention, flash_attention_quant
 
@@ -146,6 +149,25 @@ def attend(
                                 scale=scale, window=window)
     return flash_attention(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
                            kv_start=kv_start, causal=causal, window=window, scale=scale)
+
+
+def attend_padded_head(q, k, v, *, causal: bool = False, scale: Optional[float] = None):
+    """A vision tower's attention (JAX `attend_padded_head`): q [B, Sq, H, D],
+    k/v [B, H_kv, Skv, D], every key visible (non-causal). On the CPU it is
+    the port's `sdpa`, as the reference's off the TPU. On the card a
+    non-causal call at a head_dim in FLASH_HEAD_DIMS goes to the flash kernel,
+    which takes head_dim 80 itself (rows of 80 columns, zero-filled to its 128
+    body in shared memory): the reference's zero padding of q/k/v to 128
+    lanes in memory is a Mosaic constraint the port does not copy. A kernel
+    that fails raises; nothing falls back to `sdpa`. A causal call takes
+    `sdpa`, as in the reference; so does a head_dim the kernel does not take
+    (where the reference pads any head_dim to 128 lanes)."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = d**-0.5
+    if q.device.type != "cpu" and not causal and d in FLASH_HEAD_DIMS:
+        return flash_attention(q, k, v, causal=False, scale=scale)
+    return sdpa(q, k, v, causal=causal, scale=scale)
 
 
 def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None, kv_start=None,

@@ -504,3 +504,119 @@ def apply_rotary(x, sin, cos, style: str = "hf", rot_dim: Optional[int] = None):
     if rot_dim < d:
         out = torch.cat([out, x_pass], dim=-1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Vision-language: M-RoPE, the vision rotary, masks, convolutions
+# ---------------------------------------------------------------------------
+
+
+class MultimodalRotaryEmbedding(nn.Module):
+    """Qwen2-VL M-RoPE (`mllm_tpu` MultimodalRotaryEmbedding): positions
+    [3, B, S] on three axes (temporal, height, width); the first
+    mrope_section[0] frequencies of the half rotation take axis 0's position,
+    the next mrope_section[1] axis 1's, the rest axis 2's. f32 sin/cos tables
+    [max_pos, head_dim/2]; positions outside the table clamp to its ends (only
+    idle slots of a serving window reach them)."""
+
+    def __init__(self, sin: torch.Tensor, cos: torch.Tensor, mrope_section):
+        super().__init__()
+        self.register_buffer("sin", sin, persistent=False)
+        self.register_buffer("cos", cos, persistent=False)
+        self.mrope_section = tuple(int(s) for s in mrope_section)
+
+    @staticmethod
+    def make(head_dim: int, max_position: int, theta: float, mrope_section, *, device,
+             dtype=torch.float32) -> "MultimodalRotaryEmbedding":
+        freqs = np.outer(np.arange(max_position, dtype=np.float64), rope_inv_freq(head_dim, theta))
+        return MultimodalRotaryEmbedding(torch.tensor(np.sin(freqs), device=device, dtype=dtype),
+                                         torch.tensor(np.cos(freqs), device=device, dtype=dtype), mrope_section)
+
+    def _gather(self, table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """[3, B, S] positions -> [B, S, rot/2]: each section from its axis."""
+        positions = positions.clamp(0, table.shape[0] - 1)
+        chunks, start = [], 0
+        for ax, sec in enumerate(self.mrope_section):
+            chunks.append(table[:, start : start + sec][positions[ax]])
+            start += sec
+        return torch.cat(chunks, dim=-1)
+
+    def forward(self, x, positions):
+        """x: [B, S, H, D]; positions: int [3, B, S] (or [3, 1, S])."""
+        sin = self._gather(self.sin, positions)[..., None, :]
+        cos = self._gather(self.cos, positions)[..., None, :]
+        return apply_rotary(x, sin, cos, "hf")
+
+
+class VisionRotaryEmbedding(nn.Module):
+    """Qwen2-VL's vision rotary over the (h, w) patch grid (`mllm_tpu`
+    VisionRotaryEmbedding): inv_freq [head_dim/4] for each spatial axis."""
+
+    def __init__(self, inv_freq: torch.Tensor):
+        super().__init__()
+        self.register_buffer("inv_freq", inv_freq, persistent=False)
+
+    @staticmethod
+    def make(head_dim: int, theta: float = 10000.0, *, device, dtype=torch.float32) -> "VisionRotaryEmbedding":
+        dim = head_dim // 2
+        inv = 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+        return VisionRotaryEmbedding(torch.tensor(inv, device=device, dtype=dtype))
+
+    def freqs(self, grid_hw) -> torch.Tensor:
+        """grid positions [S, 2] (h_idx, w_idx) -> rotary freqs [S, head_dim/2]."""
+        hw = torch.as_tensor(np.asarray(grid_hw), device=self.inv_freq.device).float()
+        return torch.cat([hw[:, :1] * self.inv_freq[None, :], hw[:, 1:2] * self.inv_freq[None, :]], dim=-1)
+
+
+NEG_INF = -1e30  # large-but-finite: a fully masked row stays finite
+
+
+def causal_mask_bias(q_len: int, kv_len: int, q_offset, dtype=torch.float32, window: Optional[int] = None,
+                     device=None) -> torch.Tensor:
+    """Additive attention bias [q_len, kv_len] (`mllm_tpu` causal_mask_bias):
+    0 where key j <= q_offset + i (and j > q_offset + i - window), else NEG_INF."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    ok = k_pos <= q_pos
+    if window is not None:
+        ok = ok & (k_pos > q_pos - window)
+    return torch.where(ok, 0.0, NEG_INF).to(dtype)
+
+
+def softmax_f32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return torch.softmax(x.float(), dim=dim)
+
+
+class Conv2d(nn.Module):
+    """NHWC convolution, VALID padding, weight [out, in, kh, kw] (torch
+    layout), computed in f32 and rounded once to x's dtype (`mllm_tpu` Conv2d)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: tuple, stride: tuple, bias: bool = True, *,
+                 device, dtype):
+        super().__init__()
+        self.weight = _param(out_channels, in_channels, *kernel, device=device, dtype=dtype)
+        self.bias = _param(out_channels, device=device, dtype=dtype) if bias else None
+        self.stride = tuple(stride)
+
+    def forward(self, x):  # [B, H, W, C]
+        y = F.conv2d(x.permute(0, 3, 1, 2).float(), self.weight.float(),
+                     None if self.bias is None else self.bias.float(), stride=self.stride)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class Conv3d(nn.Module):
+    """The 3-D patch-embed convolution (stride == kernel) as one product over
+    the pre-unfolded patch matrix [N, in*kt*kh*kw] (`mllm_tpu` Conv3d); weight
+    [out, in, kt, kh, kw]."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: tuple, bias: bool = True, *, device, dtype):
+        super().__init__()
+        self.weight = _param(out_channels, in_channels, *kernel, device=device, dtype=dtype)
+        self.bias = _param(out_channels, device=device, dtype=dtype) if bias else None
+        self.kernel = tuple(kernel)
+
+    def forward(self, patches):
+        y = matmul_f32(patches, self.weight.reshape(self.weight.shape[0], -1))
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(patches.dtype)

@@ -8,6 +8,9 @@ from typing import Optional
 import torch
 
 KERNEL_HEAD_DIMS = (64, 128, 256)  # the bf16 flash, decode and paged decode kernels
+# the bf16 flash kernel also takes 80 (the vision towers' heads, reached through
+# `nn.attention.attend_padded_head` only: `attention_route` keeps 80 on `sdpa`)
+FLASH_HEAD_DIMS = (64, 80, 128, 256)
 QUANT_KERNEL_HEAD_DIMS = (64, 128)  # the kernels over int8 / int4 K/V
 
 
@@ -78,8 +81,10 @@ def masked_softmax(s: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     return p / l
 
 
-def check_kernel_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything the CUDA attention kernels do not take."""
+def check_kernel_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      head_dims: tuple = KERNEL_HEAD_DIMS) -> None:
+    """Raise on anything the CUDA attention kernels do not take (a head_dim
+    outside `head_dims` among it)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: tensors must lie on the CPU or on a CUDA card, got {q.device}")
     if k.device != q.device or v.device != q.device:
@@ -92,8 +97,8 @@ def check_kernel_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     b, _, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[1] != 0:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k/v {tuple(k.shape)}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    if d not in head_dims:
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim in {head_dims}, got {d}")
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous")

@@ -29,8 +29,8 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._common import (check_kernel_args, check_quant_kv_args, flash_visible_keys, kv_len_arg,
-                      kv_start_arg, masked_exp, masked_softmax, offset_arg)
+from ._common import (FLASH_HEAD_DIMS, check_kernel_args, check_quant_kv_args, flash_visible_keys,
+                      kv_len_arg, kv_start_arg, masked_exp, masked_softmax, offset_arg)
 
 LOG2E = 1.4426950408889634
 
@@ -80,12 +80,16 @@ def flash_attention(
     q_offset is a host int or a one-element tensor on the card (a write head,
     as the JAX kernel's scalar prefetch); kv_valid_len an int or a tensor of
     one or B entries. Device values are read by the kernel, never by the host,
-    so the launch is the same at every position and replays in a CUDA graph."""
+    so the launch is the same at every position and replays in a CUDA graph.
+
+    head_dim is 64, 128, 256 or 80 (`FLASH_HEAD_DIMS`); 80 runs the 128 body
+    over rows of 80 columns, TMA filling the rest with zeros in shared memory
+    (`csrc/flash_attention.cu`)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                    kv_start=kv_start, causal=causal, window=window, scale=scale)
     b, sq, h, d = q.shape
-    check_kernel_args("flash_attention", q, k, v)
+    check_kernel_args("flash_attention", q, k, v, FLASH_HEAD_DIMS)
     hkv, skv = k.shape[1], k.shape[2]
     offset_int, offset_dev = offset_arg("flash_attention", q_offset, q.device)
     valid_int, valid_vec = kv_len_arg("flash_attention", kv_valid_len, b, skv, q.device)
@@ -103,10 +107,12 @@ def flash_attention(
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_at[d] = flash_attention.launches_at.get(d, 0) + 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_at = {}  # head_dim -> launches (counted with `launches`)
 
 
 @functools.cache

@@ -19,10 +19,22 @@ Three schedulers:
 
 `make_handler` serves /v1/completions and /v1/chat/completions (the chat
 template by model_type, `stop` truncation, SSE streaming with the
-mid-codepoint hold-back), /metrics (Prometheus text) and /healthz. Image and
-video requests answer 400: vision-language serving is not ported yet
-(ROADMAP Queue 1 item 13). Importing this module starts nothing; `main`
-loads the model and serves.
+mid-codepoint hold-back), /metrics (Prometheus text) and /healthz. A
+Qwen2-VL / Qwen2.5-VL model on the continuous engine also takes images and
+videos: `image_b64` (a base64 image), a chat part {"type": "image_url",
+"image_url": {"url": "data:image/...;base64,..."}} or `video_b64` (a list of
+base64 frames); the VL processor resizes each to the fixed `--image-size`
+square (one tower shape for every request), applies its chat template with
+the vision tokens around the users' text and the engine serves the request
+in a shared slot. Images need PIL (imported when one is decoded). An image
+or video sent to a model without a vision tower, or to the window or sd
+engine, answers 400. Importing this module starts nothing; `main` loads the
+model and serves.
+
+    curl localhost:8000/v1/chat/completions -d '{"messages": [{"role": "user", "content": [
+        {"type": "text", "text": "What is in the picture?"},
+        {"type": "image_url", "image_url": {"url": "data:image/png;base64,iVBOR..."}}]}]}'
+
 
 Differences from the JAX server, each deliberate: the frontends record the
 time to the first token as the first token reaches the host (the JAX
@@ -47,7 +59,7 @@ import torch
 from .utils.log import get_logger
 from .utils.metrics import GLOBAL, GenerationMetrics, Metrics
 
-VISION_NOT_PORTED = "image and video requests are not ported yet: ROADMAP Queue 1 item 13"
+NO_VISION = "this server takes no images or videos: the model has no vision tower, or the engine is not continuous"
 
 
 class _Frontend:
@@ -102,10 +114,12 @@ DECODE_WINDOW = 32  # decode steps a replayed window graph (the best or within 1
 
 class ContinuousFrontend(_Frontend):
     """ContinuousEngine scheduling (on its loop thread, pipelined, decode
-    windows of DECODE_WINDOW steps) and serving metrics."""
+    windows of DECODE_WINDOW steps) and serving metrics. A model with a
+    vision tower also takes images and videos (`submit_image`), resized to
+    image_size x image_size (None: each image's own smart_resize grid)."""
 
     def __init__(self, model, tok, cfg, max_len=2048, max_batch=8, kv_dtype="bf16",
-                 prefix_cache=0, paged=0, metrics: Metrics | None = None):
+                 prefix_cache=0, paged=0, metrics: Metrics | None = None, image_size=None):
         from .generation.engine import ContinuousEngine
 
         super().__init__(model, tok, cfg, metrics)
@@ -113,6 +127,28 @@ class ContinuousFrontend(_Frontend):
                                        eos_token_id=getattr(tok, "eos_token_id", None),
                                        kv_dtype=kv_dtype, prefix_cache=prefix_cache, paged=paged,
                                        decode_window=DECODE_WINDOW, pipeline=True)
+        self.vl_proc = None
+        if hasattr(model, "visual"):
+            from .processor.image import Qwen2VLImageProcessor
+            from .processor.qwen2_vl import Qwen2VLProcessor
+
+            ip = Qwen2VLImageProcessor(fixed_resolution=(image_size, image_size) if image_size else None)
+            self.vl_proc = Qwen2VLProcessor(tok, image_processor=ip, image_token_id=model.cfg.image_token_id,
+                                            video_token_id=model.cfg.video_token_id)
+
+    def submit_image(self, text: str, image, max_tokens, video=None, sampling=None) -> tuple[queue.Queue, int]:
+        """A multimodal request: an image (or `video`, a list of frames; each
+        an RGB uint8 array or encoded bytes) and the user's text through the
+        VL processor, served by the engine in a shared slot. Returns (a queue
+        that receives the token list, the prompt's tokens)."""
+        if video is not None:
+            out = self.vl_proc(self.vl_proc.chat_text(text, video=True), videos=video)
+        else:
+            out = self.vl_proc(self.vl_proc.chat_text(text), images=[image])
+        n_prompt = int(out.input_ids.shape[1])
+        t0 = time.perf_counter()
+        stream = self.engine.submit_vl(out, max_tokens, sampling=sampling)
+        return self._relay(stream, n_prompt, t0, queue.Queue(), whole=True), n_prompt
 
     def submit(self, prompt_ids, max_tokens, sampling=None) -> queue.Queue:
         """A queue that receives the request's token list when it ends."""
@@ -229,10 +265,11 @@ class Engine(_Frontend):
                 done.put(out)
 
 
-def _messages_text(req: dict) -> tuple[list, bool]:
+def _messages_text(req: dict) -> tuple[list, bool, str | None]:
     """OpenAI-style messages with list contents flattened to their text
-    parts, and whether any part was an image."""
-    messages, image = [], False
+    parts, whether any part was an image, and the base64 payload of the last
+    data-URI image part (None when there is none)."""
+    messages, image, b64 = [], False, None
     for m in req.get("messages", []):
         content = m.get("content", "")
         if isinstance(content, list):
@@ -242,9 +279,12 @@ def _messages_text(req: dict) -> tuple[list, bool]:
                     texts.append(part.get("text", ""))
                 elif part.get("type") == "image_url":
                     image = True
+                    url = (part.get("image_url") or {}).get("url", "")
+                    if url.startswith("data:") and "," in url:
+                        b64 = url.split(",", 1)[1]
             content = "\n".join(texts)
         messages.append({**m, "content": content})
-    return messages, image
+    return messages, image, b64
 
 
 def make_handler(engine):
@@ -288,23 +328,31 @@ def make_handler(engine):
                 self._error(400, "invalid JSON body")
                 return
             try:
-                text, image, sampling, stop, max_tokens = self._fields(req)
+                text, vision, sampling, stop, max_tokens = self._fields(req)
             except (AttributeError, TypeError, ValueError) as e:
                 self._error(400, f"bad request: {e}")
                 return
-            if image:
-                self._error(400, VISION_NOT_PORTED)
-                return
-            ids = np.asarray(engine.tok.encode(text, bos=True), np.int64)
-            stream = bool(req.get("stream")) and hasattr(engine, "submit_stream")
-            try:
-                q = (engine.submit_stream if stream else engine.submit)(ids, max_tokens, sampling=sampling)
-            except ValueError as e:  # a prompt the engine cannot take (longer than its cache)
-                self._error(400, str(e))
-                return
-            if stream:
-                self._stream_response(q, stop)
-                return
+            if vision is not None:
+                if getattr(engine, "vl_proc", None) is None:
+                    self._error(400, NO_VISION)
+                    return
+                try:
+                    q, n_prompt = self._submit_vision(text, vision, max_tokens, sampling)
+                except (RuntimeError, ValueError, OSError) as e:  # undecodable or too long, or no PIL
+                    self._error(400, f"bad image request: {e}")
+                    return
+                ids = np.zeros(n_prompt, np.int64)  # for the usage report
+            else:
+                ids = np.asarray(engine.tok.encode(text, bos=True), np.int64)
+                stream = bool(req.get("stream")) and hasattr(engine, "submit_stream")
+                try:
+                    q = (engine.submit_stream if stream else engine.submit)(ids, max_tokens, sampling=sampling)
+                except ValueError as e:  # a prompt the engine cannot take (longer than its cache)
+                    self._error(400, str(e))
+                    return
+                if stream:
+                    self._stream_response(q, stop)
+                    return
             out_ids = q.get()
             if isinstance(out_ids, Exception):
                 self._error(500, f"{type(out_ids).__name__}: {out_ids}")
@@ -322,19 +370,43 @@ def make_handler(engine):
             }
             self._send(200, json.dumps(resp).encode(), "application/json")
 
+        def _submit_vision(self, text: str, vision: dict, max_tokens: int, sampling):
+            """Decode the request's image (or video frames) and submit it."""
+            import base64
+
+            from .processor.image import load_image
+
+            if vision.get("video"):
+                frames = [load_image(base64.b64decode(f)) for f in vision["video"]]
+                return engine.submit_image(text, None, max_tokens, video=frames, sampling=sampling)
+            if not vision.get("image"):
+                raise ValueError("an image_url part must be a base64 data URI")
+            return engine.submit_image(text, load_image(base64.b64decode(vision["image"])), max_tokens,
+                                       sampling=sampling)
+
         def _fields(self, req: dict):
-            """(prompt text, whether an image or video came, SamplingConfig,
-            stop strings, max_tokens) of a request body; raises on a field of
-            the wrong type or out of range."""
+            """(prompt text, the vision payload: None, or {"image": base64 or
+            None, "video": [base64 frames] or None}, SamplingConfig, stop
+            strings, max_tokens) of a request body; raises on a field of the
+            wrong type or out of range. With an image or video, the text is the
+            users' messages joined (the VL processor applies its own template)."""
             if not isinstance(req, dict):
                 raise TypeError("the body must be a JSON object")
-            image = bool(req.get("image_b64") or req.get("video_b64"))
+            image_b64, video_b64 = req.get("image_b64"), req.get("video_b64")
+            if video_b64 is not None and not isinstance(video_b64, list):
+                raise TypeError("video_b64 must be a list of base64 frames")
+            has_image = False
             if self.path.endswith("chat/completions"):
-                messages, has_image = _messages_text(req)
-                image |= has_image
-                text = render(engine.cfg.model_type, messages)
-            else:
+                messages, has_image, part_b64 = _messages_text(req)
+                image_b64 = image_b64 or part_b64
+            vision = ({"image": image_b64, "video": video_b64}
+                      if has_image or image_b64 or video_b64 else None)
+            if not self.path.endswith("chat/completions"):
                 text = str(req.get("prompt", ""))
+            elif vision is not None:
+                text = "\n".join(m["content"] for m in messages if m.get("role") == "user")
+            else:
+                text = render(getattr(engine.cfg, "text", engine.cfg).model_type, messages)
             temp = float(req.get("temperature", 0.0))
             sampling = SamplingConfig(do_sample=temp > 0, temperature=temp or 0.7,
                                       top_k=int(req.get("top_k", 0)), top_p=float(req.get("top_p", 0.0)))
@@ -343,7 +415,7 @@ def make_handler(engine):
             max_tokens = int(req.get("max_tokens", 64))
             if max_tokens < 1:
                 raise ValueError(f"max_tokens must be at least 1, got {max_tokens}")
-            return text, image, sampling, stop, max_tokens
+            return text, vision, sampling, stop, max_tokens
 
         def _stream_response(self, q, stop):
             """OpenAI-style SSE from the token queue `q`: one `data: {...}`
@@ -395,13 +467,14 @@ def make_handler(engine):
 
 
 def make_frontend(kind: str, model, tok, cfg, *, max_len=2048, max_batch=8, kv_dtype="bf16",
-                  paged=0, prefix_cache=0, window_ms=30, metrics: Metrics | None = None):
+                  paged=0, prefix_cache=0, window_ms=30, metrics: Metrics | None = None, image_size=None):
     """The frontend of `--engine kind` ("continuous", "window" or "sd")."""
     if kind == "sd":
         return SpeculativeFrontend(model, tok, cfg, max_len, metrics=metrics)
     if kind == "continuous":
         return ContinuousFrontend(model, tok, cfg, max_len, max_batch, kv_dtype=kv_dtype,
-                                  prefix_cache=prefix_cache, paged=paged, metrics=metrics)
+                                  prefix_cache=prefix_cache, paged=paged, metrics=metrics,
+                                  image_size=image_size)
     if kind == "window":
         return Engine(model, tok, cfg, max_len, window_ms, max_batch, metrics=metrics)
     raise ValueError(f"unknown engine {kind!r}")
@@ -428,8 +501,8 @@ def parse_args(argv=None):
                     help="keep the KV of the last N admitted prompts; a request sharing a bucket-aligned "
                          "prefix skips its prefill")
     ap.add_argument("--image-size", type=int, default=448, metavar="PX",
-                    help="accepted for the JAX server's command line and ignored: vision-language serving "
-                         "is not ported yet (ROADMAP Queue 1 item 13)")
+                    help="vision-language models: every image is resized to PX x PX (a multiple of 28), "
+                         "one vision-tower shape for every request; 0 = each image's own smart_resize grid")
     return ap.parse_args(argv)
 
 
@@ -438,14 +511,12 @@ def main(argv=None):
     from .utils.log import log_info
 
     args = parse_args(argv)
-    log_info("--image-size is ignored: vision-language serving is not ported yet (ROADMAP Queue 1 item 13)",
-             image_size=args.image_size)
     model, tok, cfg = auto_model(args.model, dtype=torch.bfloat16, quant=args.quant)
     if tok is None:
         raise SystemExit(f"{args.model} holds no tokenizer.json: the server needs one")
     engine = make_frontend(args.engine, model, tok, cfg, max_len=args.limits, max_batch=args.max_batch,
                            kv_dtype=args.kv, paged=args.paged, prefix_cache=args.prefix_cache,
-                           window_ms=args.batch_window_ms)
+                           window_ms=args.batch_window_ms, image_size=args.image_size or None)
     server = ThreadingHTTPServer((args.host, args.port), make_handler(engine))
     log_info("serving", model=os.path.abspath(args.model), port=server.server_address[1],
              quant=args.quant or "bf16", engine=args.engine)

@@ -121,6 +121,34 @@ def test_step_graph_runs_eagerly_on_the_cpu():
     assert g.replays == 0 and graphs.device_launches({"flash_attention": 3}) == {"flash_attention": 3}
 
 
+def test_capture_runs_no_garbage_collection(monkeypatch):
+    """The cyclic collector is off while a graph is captured, where freeing a
+    dead engine's CUDA graph invalidates the capture, and is on again after
+    (the card's calls stubbed)."""
+    import contextlib
+    import gc
+
+    during = []
+
+    class FakeGraph:
+        def register_generator_state(self, gen):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph, stream=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda mode: None)
+    monkeypatch.setattr(graphs, "capture_stream", lambda device: None)
+    g = graphs.StepGraph(lambda: during.append(gc.isenabled()), "cuda")
+    was_on = gc.isenabled()
+    g._capture()
+    assert during == [False] and gc.isenabled() == was_on
+    g2 = graphs.StepGraph(lambda: 1 / 0, "cuda")  # a capture that raises turns it on again too
+    with pytest.raises(ZeroDivisionError):
+        g2._capture()
+    assert gc.isenabled() == was_on
+
+
 @pytest.mark.parametrize("kind", ["dense", "int8", "int4"])
 def test_cache_storage_and_head_equal_jax(kind):
     """A prefill-shaped append at the head, then steps of one row each with

@@ -243,7 +243,7 @@ def test_unported_options_raise(pair):
     assert _engine(tm, prefix_cache=4)._pcache is not None  # ported: no longer raises
     with pytest.raises(NotImplementedError, match="item 16"):
         _engine(tm, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="no vision tower"):  # ported: a text model takes no images
         _engine(tm).submit_vl(None)
 
 

@@ -107,6 +107,34 @@ def test_way_in_modules_and_smoke_import_no_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+_VL_PROBE = """
+import sys
+from mllm_tpu_torch.models import clip, qwen2_5_vl, qwen2_vl, vit
+from mllm_tpu_torch.models.bridge import clip_from_jax_params, qwen2_vl_from_jax_params, vit_from_jax_params
+from mllm_tpu_torch.models.registry import auto_model_any
+from mllm_tpu_torch.nn.attention import attend_padded_head
+from mllm_tpu_torch.nn.layers import Conv2d, Conv3d, MultimodalRotaryEmbedding, VisionRotaryEmbedding
+from mllm_tpu_torch.processor import image, qwen2_vl as processor
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib") or m == "mllm_tpu" or m.startswith("mllm_tpu."))
+assert not bad, bad
+assert "PIL" not in sys.modules, "importing the processors imported PIL"
+print("ok")
+"""
+
+
+def test_vision_language_modules_import_no_jax():
+    """The processors, the Qwen2-VL / Qwen2.5-VL / CLIP / ViT models, their
+    bridge and the VL layers pull in neither JAX nor mllm_tpu, and PIL waits
+    until an image is decoded or resized on the host."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _VL_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "library_path", lambda: str(tmp_path / "libmissing.so"))

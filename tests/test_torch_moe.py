@@ -310,8 +310,8 @@ def test_other_moe_types_build_and_match_jax(tmp_path, model_type, quant, monkey
     assert _rel(tl, jl) < (1e-5 if quant is None else 2e-3)  # int4: the JAX kernels' bf16 group sums
 
 
-@pytest.mark.parametrize("model_type,item", [("opt", "item 14"), ("bert", "item 14"), ("clip", "item 14"),
-                                             ("vit", "item 14"), ("qwen2_vl", "item 13"), ("llava", "item 13")])
+@pytest.mark.parametrize("model_type,item", [("opt", "item 14"), ("bert", "item 14"), ("fuyu", "item 13"),
+                                             ("phi3_v", "item 13"), ("phi3v", "item 13"), ("llava", "item 13")])
 def test_unported_types_name_their_item(tmp_path, model_type, item):
     (tmp_path / "config.json").write_text(json.dumps({"model_type": model_type}))
     with pytest.raises(NotImplementedError, match=item):

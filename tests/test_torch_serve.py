@@ -8,10 +8,16 @@
   from a JAX CausalLM and a synthetic byte-level tokenizer:
   /v1/completions, /v1/chat/completions (the chat template by model_type),
   SSE (reassembled text equal to the plain response), `stop`, 400 on a bad
-  JSON body and on an image, 404, /metrics and /healthz. The continuous
-  frontend's greedy tokens equal the JAX `ContinuousEngine`'s on the same
-  weights (f32 caches: exactly); the window and SD frontends' equal the
-  port's own ragged_batched_generate and generate.
+  JSON body and on an image to a model with no vision tower, 404, /metrics
+  and /healthz. The continuous frontend's greedy tokens equal the JAX
+  `ContinuousEngine`'s on the same weights (f32 caches: exactly); the window
+  and SD frontends' equal the port's own ragged_batched_generate and
+  generate.
+- vision-language serving: a tiny Qwen2-VL (the JAX `init`s, bridged) behind
+  the continuous frontend at a fixed 56 px image size: a PNG chat request
+  (data-URI image_url), `image_b64` and `video_b64` completions answer 200
+  with the tokens of the JAX `vl_generate` over the JAX processor's output for
+  the same image and text (exactly, f32); the window engine answers 400.
 """
 
 import json
@@ -229,9 +235,10 @@ def test_bad_requests(continuous):
                                            body)
         assert status == 400 and json.loads(reply)["error"].startswith("bad request"), body
     image = {"messages": [{"role": "user", "content": [{"type": "image_url", "image_url": {"url": "data:,x"}}]}]}
-    for path, body in (("/v1/chat/completions", image), ("/v1/completions", {"prompt": "a", "image_b64": "eA=="})):
-        status, reply = continuous.request(path, body)
-        assert status == 400 and "item 13" in json.loads(reply)["error"]
+    for path, body in (("/v1/chat/completions", image), ("/v1/completions", {"prompt": "a", "image_b64": "eA=="}),
+                       ("/v1/completions", {"prompt": "a", "video_b64": ["eA=="]})):
+        status, reply = continuous.request(path, body)  # a model with no vision tower
+        assert status == 400 and "no vision tower" in json.loads(reply)["error"]
     assert continuous.request("/v1/nothing", {"prompt": "a"})[0] == 404
     assert continuous.request("/nothing")[0] == 404
     status, reply = continuous.request("/v1/completions", {"prompt": "x " * MAX_LEN})  # longer than the cache
@@ -350,3 +357,125 @@ def test_stream_chunks_add_up_to_the_plain_text(toks, stop):
     chunks = [json.loads(line[len("data: "):])["choices"][0]["text"] for line in raw.decode().split("\n")
               if line.startswith("data: {")]
     assert not any(c.endswith("\ufffd") for c in chunks[:-1])  # held back while a codepoint is open
+
+
+# ---------------------------------------------------------------------------
+# vision-language serving
+# ---------------------------------------------------------------------------
+
+VL_SIZE = 56  # px: the fixed serving resolution (grid (1, 4, 4), 4 image tokens)
+
+
+@pytest.fixture(scope="module")
+def vl_setup(tmp_path_factory):
+    """(JAX Qwen2-VL, the port's on the same f32 weights, the port's and the
+    JAX tokenizer of one tokenizer.json whose last ids are the vision tokens)."""
+    from mllm_tpu.models import qwen2_vl as jvl
+    from mllm_tpu.tokenizers.hf_json import from_tokenizer_json as jax_tokenizer
+    from mllm_tpu_torch.models import qwen2_vl as tvl
+    from mllm_tpu_torch.models.bridge import qwen2_vl_from_jax_params
+
+    specials = chip_smoke.TOKENIZER_SPECIALS + chip_smoke.VL_SPECIALS
+    vocab = CFG_KW["vocab_size"]
+    ids = {t: vocab - len(specials) + i for i, t in enumerate(specials)}
+    path = tmp_path_factory.mktemp("vltok") / "tokenizer.json"
+    path.write_text(json.dumps(chip_smoke.synthetic_tokenizer(vocab, seed=7, specials=specials)), encoding="utf-8")
+    kw = dict(CFG_KW, model_type="qwen2", attention_bias=True)
+    vkw = dict(depth=1, embed_dim=32, hidden_size=CFG_KW["hidden_size"], num_heads=4)
+    ckw = dict(image_token_id=ids["<|image_pad|>"], video_token_id=ids["<|video_pad|>"],
+               vision_start_token_id=ids["<|vision_start|>"], mrope_section=(2, 3, 3))
+    jvc = jvl.Qwen2VLVisionConfig(**vkw)
+    jm = jvl.Qwen2VLForConditionalGeneration(jvl.Qwen2VLVisionTower.init(jax.random.PRNGKey(8), jvc),
+                                             JaxCausalLM.init(jax.random.PRNGKey(9), JaxTextConfig(**kw)),
+                                             jvl.Qwen2VLConfig(text=JaxTextConfig(**kw), vision=jvc, **ckw))
+    tcfg = tvl.Qwen2VLConfig(text=TextConfig(**kw), vision=tvl.Qwen2VLVisionConfig(**vkw), **ckw)
+    tm = qwen2_vl_from_jax_params({k: np.asarray(v) for k, v in jm.parameters().items()}, tcfg, CPU, vision_eps=1e-5)
+    return jm, tm, from_tokenizer_json(path), jax_tokenizer(path)
+
+
+def _png(seed: int) -> bytes:
+    import io
+
+    from PIL import Image
+
+    img = np.random.default_rng(seed).integers(0, 256, (70, 90, 3), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _jax_vl_tokens(vl_setup, text: str, frames: list, video: bool = False) -> list:
+    """The JAX processor (at the server's fixed size) and the JAX vl_generate."""
+    import io
+
+    from PIL import Image
+
+    from mllm_tpu.models import qwen2_vl as jvl
+    from mllm_tpu.processor.image import Qwen2VLImageProcessor
+    from mllm_tpu.processor.qwen2_vl import Qwen2VLProcessor
+
+    jm, _, _, jtok = vl_setup
+    proc = Qwen2VLProcessor(jtok, image_processor=Qwen2VLImageProcessor(fixed_resolution=(VL_SIZE, VL_SIZE)),
+                            image_token_id=jm.cfg.image_token_id, video_token_id=jm.cfg.video_token_id)
+    imgs = [np.asarray(Image.open(io.BytesIO(f)).convert("RGB")) for f in frames]
+    out = (proc(proc.chat_text(text, video=True), videos=imgs) if video
+           else proc(proc.chat_text(text), images=[imgs[0]]))
+    toks, _ = jvl.vl_generate(jm, out, jm.init_cache(1, MAX_LEN, jnp.float32), max_new_tokens=NEW)
+    return toks
+
+
+@pytest.fixture(scope="module")
+def vl_server(vl_setup):
+    _, tm, tok, _ = vl_setup
+    server = Server(serve.ContinuousFrontend(tm, tok, tm.cfg, max_len=MAX_LEN, max_batch=2, kv_dtype=torch.float32,
+                                             metrics=Metrics(), image_size=VL_SIZE))
+    yield server
+    server.close()
+
+
+def test_vl_chat_png_request(vl_setup, vl_server):
+    import base64
+
+    png = _png(1)
+    url = "data:image/png;base64," + base64.b64encode(png).decode()
+    body = {"messages": [{"role": "user", "content": [{"type": "text", "text": "What is in the picture?"},
+                                                      {"type": "image_url", "image_url": {"url": url}}]}],
+            "max_tokens": NEW}
+    status, reply = vl_server.request("/v1/chat/completions", body)
+    assert status == 200, reply
+    reply = json.loads(reply)
+    want = _jax_vl_tokens(vl_setup, "What is in the picture?", [png])
+    assert reply["choices"][0]["text"] == vl_setup[2].decode(want)
+    assert reply["usage"]["completion_tokens"] == NEW and reply["usage"]["prompt_tokens"] > 4
+
+
+def test_vl_image_and_video_completions(vl_setup, vl_server):
+    import base64
+
+    frames = [_png(2), _png(3)]
+    status, reply = vl_server.request("/v1/completions", {"prompt": "describe", "max_tokens": NEW,
+                                                          "image_b64": base64.b64encode(frames[0]).decode()})
+    assert status == 200
+    assert json.loads(reply)["choices"][0]["text"] == vl_setup[2].decode(_jax_vl_tokens(vl_setup, "describe",
+                                                                                         frames[:1]))
+    status, reply = vl_server.request("/v1/completions", {
+        "prompt": "what happens?", "max_tokens": NEW, "video_b64": [base64.b64encode(f).decode() for f in frames]})
+    assert status == 200
+    want = _jax_vl_tokens(vl_setup, "what happens?", frames, video=True)
+    assert json.loads(reply)["choices"][0]["text"] == vl_setup[2].decode(want)
+    status, reply = vl_server.request("/v1/completions", {"prompt": "x", "image_b64": "bm90IGFuIGltYWdl"})
+    assert status == 400 and "bad image request" in json.loads(reply)["error"]
+    _complete(vl_server, PROMPTS[0])  # text requests share the VL model's slots
+
+
+def test_vl_model_on_the_window_engine_answers_400(vl_setup):
+    import base64
+
+    _, tm, tok, _ = vl_setup
+    server = Server(serve.make_frontend("window", tm, tok, tm.cfg, max_len=MAX_LEN, metrics=Metrics()))
+    try:
+        status, reply = server.request("/v1/completions", {"prompt": "a",
+                                                           "image_b64": base64.b64encode(_png(4)).decode()})
+    finally:
+        server.close()
+    assert status == 400 and "no vision tower" in json.loads(reply)["error"]
