@@ -214,10 +214,38 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      default widths, bf16, one 224 px image against 8 texts of 77 tokens:
      logits_per_image [1, 8] within 5e-2 x max |logit| of the same weights in
      f32 on the host; score ms a median of 5.
+  19. slice_kvq256: Gemma-2B (published widths and depth, 18 layers, random
+     bf16 weights) over int8 and int4 KV caches, driven as slice_kvq (drive():
+     generate, ragged_batched_generate at b=8, sampled), generate_compiled
+     over int8 KV and the engine (ENGINE_KW) over an int8 SlotQuantKVCache:
+     exactly 18 flash_attention_quant launches a prefill or admission and 18
+     decode_attention_quant a decode step (head_dim 256), eager and captured,
+     no bf16 attention kernel and no call of `nn.attention.sdpa`.
+  20-22. slice_llava, slice_phi3v, slice_fuyu: LLaVA-1.5-7B (CLIP ViT-L/14 at
+     336 px, 576 image tokens, the 32-layer LM), Phi-3-V (the same tower, 157
+     image tokens, the Phi-3 LM with LongRope; head_dim 96 on `sdpa`) and
+     Fuyu-8B (a 480 x 640 image as 336 patches of 30 px spliced at |SPEAKER|,
+     the 36-layer Persimmon LM) at their published configs, random bf16
+     weights: an image prefill and 32 greedy tokens through forward, the last
+     decode step within 0.1 x max |logit| of a fresh prefill with the image,
+     exact attention launches (2 x L flash_attention, 31 x L
+     decode_attention; none for Phi-3-V).
+  23. slice_imagebind: bench.py's imagebind-trimodal row (ImageBind-huge, 1
+     video x 3 texts x 3 audio clips): both score matrices within 5e-2 x max
+     of the same weights in f32 on the host; score ms a median of 5.
+  24. slice_opt_bert: OPT-1.3B (a 100-token prefill, 32 greedy tokens through
+     forward, as examples/demo_opt.py; decode vs prefill; exact flash /
+     decode launches at head_dim 64), then BERT-base encoding 8 sentences of
+     64 tokens into unit sentence embeddings within 5e-2 x max of f32 on the
+     host.
   The kernel check also runs flash_attention and decode_attention at head_dim
   256 (Gemma-2B's 8 / 1 heads: FLASH_ROWS_256, DECODE_ROWS_256, poisoned rows
   included; the `@256` rows of the kernels line, whose launches are those at
-  head_dim 256 in head_dim_route and slice_families) and checks
+  head_dim 256 in head_dim_route and slice_families), flash_attention_quant
+  and decode_attention_quant at 256, int8 and int4 (QUANT_FLASH_ROWS_256,
+  QUANT_DECODE_ROWS at 8 / 1 heads, stale rows included; `route_sdpa_ms`
+  times the port's `sdpa` over the same keys dequantized, which served these
+  calls before; their launches are slice_kvq256's), and checks
   decode_attention_paged at 256 over PAGED_ROWS' pools; and flash_attention
   at head_dim 80 (FLASH80_ROWS: non-causal, 16 / 16 heads, S = 1444, 1024,
   4096, and 1444 with kv_valid 1300 and NaN / inf past it), the kernel
@@ -226,7 +254,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   output cropped) and SDPA at D = 80 (`library_ms`): the `@80` row of the
   kernels line, whose launches are the towers' in slice_vl; int8_matmul adds
   the tower's (1444, 1280, 3840) and (1444, 5120, 1280).
-  Phases 9-18 print their seconds (`<phase>_seconds`).
+  Phases 9-24 print their seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -274,7 +302,9 @@ MAIN_ROW = {"flash_attention": 5, "decode_attention": 1, "int8_matmul": 1, "int4
             # head_dim 256 (Gemma-2B's attention): the 1536-token prefill, its last decode step
             "flash_attention@256": 0, "decode_attention@256": 0,
             # head_dim 80 (the Qwen2-VL tower): a 532 px image's 1444 patches
-            "flash_attention@80": 0}
+            "flash_attention@80": 0,
+            # head_dim 256 over int8 K/V (Gemma-2B): the 1536-token prefill; the engine's 8 slots
+            "flash_attention_quant@256": 0, "decode_attention_quant@256": 1}
 SOURCES = {
     "flash_attention": ("mllm_tpu_torch/csrc/flash_attention.cu",
                         "mllm_tpu/ops/flash_attention.py:230"),
@@ -298,6 +328,10 @@ SOURCES = {
                              "mllm_tpu/ops/decode_attention.py:317"),
     "flash_attention@80": ("mllm_tpu_torch/csrc/flash_attention.cu",
                            "mllm_tpu/ops/flash_attention.py:230"),
+    "flash_attention_quant@256": ("mllm_tpu_torch/csrc/flash_attention_quant.cu",
+                                  "mllm_tpu/ops/flash_attention.py:309"),
+    "decode_attention_quant@256": ("mllm_tpu_torch/csrc/decode_attention_quant.cu",
+                                   "mllm_tpu/ops/decode_attention.py:244"),
 }
 MEGA_TOL = 1e-2  # relative, on y and on k_new/v_new
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
@@ -819,15 +853,17 @@ def quant_flash_inputs(row, bits, dev, g):
     return q, kernel_ops, plain_ops, kw, shape, (kd, vd)
 
 
-def quant_decode_inputs(row, bits, dev, g):
-    """One QUANT_DECODE_ROWS row at `bits`: (q, kernel operands (k, v, k_scale,
-    v_scale), plain operands, kwargs, shape, dense bf16 K and V of the plain
-    operands). A poisoned row's kernel operands hold 127 and NaN / inf scales
-    outside [kv_start, kv_valid); its plain operands have those integers and
-    scales zeroed (else they are the kernel's)."""
+def quant_decode_inputs(row, bits, dev, g, geo=(H, HKV, D)):
+    """One QUANT_DECODE_ROWS row at `bits` (heads, KV heads and head_dim
+    `geo`): (q, kernel operands (k, v, k_scale, v_scale), plain operands,
+    kwargs, shape, dense bf16 K and V of the plain operands). A poisoned row's
+    kernel operands hold 127 and NaN / inf scales outside [kv_start,
+    kv_valid); its plain operands have those integers and scales zeroed (else
+    they are the kernel's)."""
+    H, HKV, D = geo  # noqa: N806
     b, kvl, start, window, poisoned = row
     q = torch.randn(b, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
-    (kq, ks, kd), (vq, vs, vd) = quant_kv(b, S_CACHE, bits, dev, g)
+    (kq, ks, kd), (vq, vs, vd) = quant_kv(b, S_CACHE, bits, dev, g, HKV, D)
     ivec = lambda xs: torch.tensor(xs, device=dev, dtype=torch.int32)  # noqa: E731
     kw = dict(kv_valid_len=ivec(kvl), kv_start=None if start is None else ivec(start), window=window)
     shape = dict(B=b, H=H, Hkv=HKV, D=D, S=S_CACHE, kv_valid=[min(n, S_CACHE) for n in kvl],
@@ -894,6 +930,86 @@ def paged_inputs(row, dev, g, geo=(H, HKV, D)):
     return q, kp, vp, table, kw, shape, (kpp, vpp), (gather_pages(kpp, table), gather_pages(vpp, table))
 
 
+def check_kv_row(name, kernel, plain, shape, key_bytes, dense, extra=None) -> dict:
+    """One quantized- or paged-cache attention row: the kernel against its
+    plain version (finite, within TOL), timed beside its plain version, its
+    bound (key_bytes a key and KV head), SDPA over the same keys in a dense
+    bf16 cache (`dense_sdpa_ms`) and the `extra` calls, each timed under its
+    name."""
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, finite=finite,
+               ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5), library_ms=None,
+               dense_sdpa_ms=time_ms(dense, 20), **{k: time_ms(f, 20) for k, f in (extra or {}).items()},
+               **attention_bound(shape, key_bytes))
+    emit(**row)
+    if not finite or not err <= TOL:
+        raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
+                             f"finite={finite}")
+    return row
+
+
+def decode_mask(dev, kvl, s, start=None, window=None):
+    """[B, 1, 1, S] bool: the keys one decode query sees (an SDPA mask)."""
+    def ivec(xs):
+        return torch.tensor(xs, device=dev, dtype=torch.int32)
+
+    j = torch.arange(s, device=dev)
+    kv = ivec(kvl)[:, None]
+    ok = j[None] < kv
+    if start is not None:
+        ok &= j[None] >= ivec(start)[:, None]
+    if window:
+        ok &= j[None] > kv - 1 - window
+    return ok[:, None, None, :]
+
+
+def quant_attention_rows(dev, g, flash_rows, decode_rows, geo=(H, HKV, D), suffix: str = "",
+                         route_sdpa: bool = False) -> dict:
+    """flash_attention_quant (`flash_rows`, QUANT_FLASH_ROWS-shaped) and
+    decode_attention_quant (`decode_rows` at heads / KV heads / head_dim
+    `geo`) at int8 then int4 through `check_kv_row`, named with `suffix`:
+    beside SDPA over the same keys dequantized (`dense_sdpa_ms`) and the bf16
+    kernel over them (`bf16_flash_ms` / `bf16_decode_ms`); with route_sdpa
+    also the port's `nn.attention.sdpa` over them (`route_sdpa_ms`: what
+    served these calls while the route sent them to `sdpa`)."""
+    from mllm_tpu_torch.nn.attention import sdpa as route
+    from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_quant,
+                                                     decode_attention_quant_ref)
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_quant, flash_attention_quant_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fname, dname = "flash_attention_quant" + suffix, "decode_attention_quant" + suffix
+    rows = {fname: [], dname: []}
+    for bits in (8, 4):
+        for row in flash_rows:
+            q, kops, pops, kw, shape, (kd, vd) = quant_flash_inputs(row, bits, dev, g)
+            kvl, qoff, d = shape["kv_valid"], shape["q_offset"], shape["D"]
+            extra = {"bf16_flash_ms": lambda: flash_attention(q, kd, vd, **kw)}
+            if route_sdpa:
+                extra["route_sdpa_ms"] = lambda: route(q, kd, vd, **kw)
+            rows[fname].append(check_kv_row(
+                fname, lambda: flash_attention_quant(q, *kops, **kw),
+                lambda: flash_attention_quant_ref(q, *pops, **kw), shape, 2 * (d if bits == 8 else d // 2) + 8,
+                lambda: sdpa(q.transpose(1, 2), kd[:, :, :kvl], vd[:, :, :kvl], is_causal=qoff == 0,
+                             enable_gqa=True), extra))
+        for row in decode_rows:
+            q, kops, pops, kw, shape, (kd, vd) = quant_decode_inputs(row, bits, dev, g, geo)
+            d = shape["D"]
+            m = decode_mask(dev, shape["kv_valid"], S_CACHE, row[2], row[3])
+            extra = {"bf16_decode_ms": lambda: decode_attention(q, kd, vd, **kw)}
+            if route_sdpa:
+                qpos = torch.tensor(row[1], device=dev) - 1  # the query sits at the last valid key
+                extra["route_sdpa_ms"] = lambda: route(q, kd, vd, q_offset=qpos, **kw)
+            rows[dname].append(check_kv_row(
+                dname, lambda: decode_attention_quant(q, *kops, **kw),
+                lambda: decode_attention_quant_ref(q, *pops, **kw), shape, 2 * (d if bits == 8 else d // 2) + 8,
+                lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True), extra))
+    return rows
+
+
 def kv_kernel_rows(dev, g) -> dict:
     """The kernels of the quantized and paged caches against their plain
     versions (H=12, H_kv=2, D=128, one quantized prefill row at D=64 with 8/8
@@ -908,65 +1024,15 @@ def kv_kernel_rows(dev, g) -> dict:
     that dense cache (twice the bytes at int8), its yardstick; on
     the paged rows `dense_decode_ms` the same kernel over the dense view of the
     slots' blocks (the same bytes), the paged kernel's yardstick."""
-    from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
-                                                     decode_attention_paged_ref, decode_attention_quant,
-                                                     decode_attention_quant_ref)
-    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_quant, flash_attention_quant_ref
+    from mllm_tpu_torch.ops.decode_attention import decode_attention, decode_attention_paged, decode_attention_paged_ref
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def ivec(xs):
-        return torch.tensor(xs, device=dev, dtype=torch.int32)
-
-    def mask(kvl, s, start=None, window=None):  # [B, 1, 1, S] keys one decode query sees
-        j = torch.arange(s, device=dev)
-        kv = ivec(kvl)[:, None]
-        ok = j[None] < kv
-        if start is not None:
-            ok &= j[None] >= ivec(start)[:, None]
-        if window:
-            ok &= j[None] > kv - 1 - window
-        return ok[:, None, None, :]
-
-    def check(name, kernel, plain, shape, key_bytes, dense, extra=None):
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        finite = bool(torch.isfinite(out.float()).all())
-        row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, finite=finite,
-                   ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5), library_ms=None,
-                   dense_sdpa_ms=time_ms(dense, 20), **{k: time_ms(f, 20) for k, f in (extra or {}).items()},
-                   **attention_bound(shape, key_bytes))
-        emit(**row)
-        if not finite or not err <= TOL:
-            raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
-                                 f"finite={finite}")
-        return row
-
-    rows = {"flash_attention_quant": [], "decode_attention_quant": [], "decode_attention_paged": []}
-    for bits in (8, 4):
-        kb = 2 * (D if bits == 8 else D // 2) + 8
-        for row in QUANT_FLASH_ROWS:
-            q, kops, pops, kw, shape, (kd, vd) = quant_flash_inputs(row, bits, dev, g)
-            kvl, qoff, d = shape["kv_valid"], shape["q_offset"], shape["D"]
-            rows["flash_attention_quant"].append(check(
-                "flash_attention_quant", lambda: flash_attention_quant(q, *kops, **kw),
-                lambda: flash_attention_quant_ref(q, *pops, **kw), shape, 2 * (d if bits == 8 else d // 2) + 8,
-                lambda: sdpa(q.transpose(1, 2), kd[:, :, :kvl], vd[:, :, :kvl], is_causal=qoff == 0,
-                             enable_gqa=True),
-                {"bf16_flash_ms": lambda: flash_attention(q, kd, vd, **kw)}))
-        for row in QUANT_DECODE_ROWS:
-            q, kops, pops, kw, shape, (kd, vd) = quant_decode_inputs(row, bits, dev, g)
-            m = mask(shape["kv_valid"], S_CACHE, row[2], row[3])
-            rows["decode_attention_quant"].append(check(
-                "decode_attention_quant", lambda: decode_attention_quant(q, *kops, **kw),
-                lambda: decode_attention_quant_ref(q, *pops, **kw), shape, kb,
-                lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True),
-                {"bf16_decode_ms": lambda: decode_attention(q, kd, vd, **kw)}))
+    rows = quant_attention_rows(dev, g, QUANT_FLASH_ROWS, QUANT_DECODE_ROWS)
+    rows["decode_attention_paged"] = []
     for row in PAGED_ROWS:
         q, kp, vp, table, kw, shape, (kpp, vpp), (kd, vd) = paged_inputs(row, dev, g)
-        m = mask(kw["kv_valid_len"].tolist(), kd.shape[2], window=row[2])
-        rows["decode_attention_paged"].append(check(
+        m = decode_mask(dev, kw["kv_valid_len"].tolist(), kd.shape[2], window=row[2])
+        rows["decode_attention_paged"].append(check_kv_row(
             "decode_attention_paged", lambda: decode_attention_paged(q, kp, vp, table, **kw),
             lambda: decode_attention_paged_ref(q, kpp, vpp, table, **kw), shape, None,
             lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True),
@@ -1515,7 +1581,7 @@ def replay_ms(name: str) -> float:
     return start.elapsed_time(end)
 
 
-def compiled_run(model, dev, name: str, kv_dtype: str = "bf16", sampled: bool = False) -> dict:
+def compiled_run(model, dev, name: str, kv_dtype: str = "bf16", sampled: bool = False, expected_per=None) -> dict:
     """slice_compiled on one model: generate_compiled (prompts of 100 and
     1500 tokens, 256 new, eos never hit) against the eager generate on the
     same model and cache type, and with sampled=True a sampled run (top-k
@@ -1526,7 +1592,10 @@ def compiled_run(model, dev, name: str, kv_dtype: str = "bf16", sampled: bool = 
     Prints tok/s of both over wall time, wall ms a token, device ms a step
     (CUDA events around one replay / COMPILED_WINDOW) and the card's busy
     share (device ms a step / graph wall ms a token). Returns the launches on
-    the card (graphs.device_launches)."""
+    the card (graphs.device_launches); with expected_per(prefills, decode
+    steps) -> {kernel: launches} they must be exactly those (a prefill for
+    each generate_compiled and eager generate; a window's replay is W steps,
+    an eager generate's steps its tokens less one)."""
     from mllm_tpu_torch.generation import graphs
     from mllm_tpu_torch.generation.generate import COMPILED_WINDOW, generate, generate_compiled, pad_to_bucket
     from mllm_tpu_torch.generation.sampling import SamplingConfig
@@ -1551,12 +1620,15 @@ def compiled_run(model, dev, name: str, kv_dtype: str = "bf16", sampled: bool = 
         fn.launches = 0
     graphs.reset_counts()
     runs, ok = [], True
+    prefills = steps = 0
     for n_prompt in COMPILED_PROMPTS:
         prompt = rng.integers(0, V, n_prompt)
         before = graphs.replays("generate_compiled")
         toks, t_graph = compiled(prompt, greedy, COMPILED_NEW)
         reps = graphs.replays("generate_compiled") - before
         (res, _), t_eager = timed(lambda: generate(model, prompt, cache(), greedy))
+        prefills += 2
+        steps += reps * W + len(res.tokens) - 1
         want_reps = -(-(COMPILED_NEW - 1) // W)
         runs.append(dict(prompt_tokens=n_prompt, new_tokens=len(toks), equal=toks == res.tokens,
                          first_divergence=first_divergence(toks, res.tokens), graph_replays=reps,
@@ -1569,8 +1641,11 @@ def compiled_run(model, dev, name: str, kv_dtype: str = "bf16", sampled: bool = 
     sampled_run = None
     if sampled:
         prompt = rng.integers(0, V, 100)
+        before = graphs.replays("generate_compiled")
         toks, _ = compiled(prompt, sample, 64, seed=7)
         res, _ = generate(model, prompt, cache(), sample, seed=7)
+        prefills += 2
+        steps += (graphs.replays("generate_compiled") - before) * W + len(res.tokens) - 1
         sampled_run = dict(prompt_tokens=100, new_tokens=len(toks), equal=toks == res.tokens,
                            first_divergence=first_divergence(toks, res.tokens))
         ok &= toks == res.tokens and len(toks) == 64
@@ -1584,6 +1659,10 @@ def compiled_run(model, dev, name: str, kv_dtype: str = "bf16", sampled: bool = 
     if not ok:
         raise AssertionError(f"slice_compiled {name}: generate_compiled differs from eager generate, or "
                              f"not one replay a window: {runs} {sampled_run}")
+    if expected_per is not None:
+        want = expected_per(prefills, steps)
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"slice_compiled {name}: launches {launches}, expected {want}")
     return launches
 
 
@@ -2176,17 +2255,17 @@ def phase_slice_mega(dev) -> dict:
 
 ATTENTION_KERNELS = ("flash_attention", "decode_attention", "flash_attention_quant",
                      "decode_attention_quant", "decode_attention_paged")
-# (head_dim, heads, kv heads): 256 reaches the bf16 kernels (not the
-# quantized ones), 80 no attention kernel
+# (head_dim, heads, kv heads): 256 reaches the kernels of every cache (the
+# dense runs here the bf16 ones), 80 no attention kernel
 HEAD_DIM_ROUTE = ((256, 8, 2), (80, 8, 2))
-HEAD_DIM_ROUTES = {256: ["decode", "decode_paged", "flash", "sdpa"], 80: ["sdpa"]}
+HEAD_DIM_ROUTES = {256: ["decode", "decode_paged", "decode_quant", "flash", "flash_quant"], 80: ["sdpa"]}
 
 
 def phase_head_dim_route(dev) -> dict:
     """A 2-layer qwen2-type model at head_dim 256, then 80 (8 / 2 heads,
     random bf16 weights) through generate and generate_compiled on the card:
     no raise; at 256 the dense cache's calls take flash_attention and
-    decode_attention (and a quantized cache would take `sdpa`), at 80 only
+    decode_attention (and a quantized cache the quantized kernels), at 80 only
     `sdpa` serves attention (every attention kernel's counter stays 0);
     finite logits, and the last decode step within RAGGED_TOL x max |logit|
     of a fresh prefill. The launches at 256 count as the @256 rows'."""
@@ -2944,14 +3023,28 @@ DECODE_ROWS_256 = [
     (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256, False),                   # window
     (4, [0, 77, 2083, 1531], [0, 13, 100, 700], None, True),             # stale rows; a slot past the cache
 ]
-WIDE_KERNELS = {"flash_attention@256": "flash_attention", "decode_attention@256": "decode_attention"}
+# the quantized prefill at head_dim 256 (QUANT_FLASH_ROWS' fields, Gemma-2B's 8 / 1 heads)
+QUANT_FLASH_ROWS_256 = [
+    (1, 1536, 1536, 0, 1536, None, None, False, WIDE_GEO),           # a 1500-token prompt's bucket
+    (8, 128, 128, 0, 128, None, None, False, WIDE_GEO),              # a batched admission (B = 8)
+    (1, 128, 1536, 1408, 1536, None, None, False, WIDE_GEO),         # the last chunk of a chunked prefill
+    (4, 256, 256, 0, 256, [0, 17, 64, 150], None, False, WIDE_GEO),  # a left-padded ragged batch
+    (1, 512, 1536, 1024, 1536, None, 256, False, WIDE_GEO),          # a sliding window over a chunk
+    # stale rows: integers and scales outside [kv_start, kv_valid) hold 127 and NaN / inf
+    (4, 256, 256, 0, 200, [0, 17, 64, 150], None, True, WIDE_GEO),
+]
 
 
 def wide_kernel_rows(dev, g) -> dict:
     """flash_attention and decode_attention at head_dim 256 against their
     plain versions (FLASH_ROWS_256, DECODE_ROWS_256 at WIDE_GEO: causal,
     windowed, kv_start, q_offset, B = 1 and 8, poisoned rows), timed beside
-    their bounds, the main rows beside SDPA; then decode_attention_paged at
+    their bounds, the main rows beside SDPA; flash_attention_quant and
+    decode_attention_quant at 256, int8 and int4 (QUANT_FLASH_ROWS_256,
+    QUANT_DECODE_ROWS at WIDE_GEO: the same cases, stale integers and NaN /
+    inf scales), each beside its bound, the bf16 kernel at 256 over the same
+    keys dequantized, SDPA over them and the port's `sdpa` that served these
+    calls before the kernels took 256 (`route_sdpa_ms`); then decode_attention_paged at
     256 over PAGED_ROWS' pools, checked only (no path of this smoke pages a
     head_dim 256 cache)."""
     from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
@@ -2962,6 +3055,8 @@ def wide_kernel_rows(dev, g) -> dict:
                                                   flash_attention_ref, FLASH_ROWS_256, dev, g, WIDE_GEO),
             "decode_attention@256": attention_rows("decode_attention@256", "decode_attention", decode_attention,
                                                    decode_attention_ref, DECODE_ROWS_256, dev, g, WIDE_GEO)}
+    rows.update(quant_attention_rows(dev, g, QUANT_FLASH_ROWS_256, QUANT_DECODE_ROWS, WIDE_GEO, "@256",
+                                     route_sdpa=True))
     worst = 0.0
     for row in PAGED_ROWS:
         q, kp, vp, table, kw, shape, (kpp, vpp), _ = paged_inputs(row, dev, g, WIDE_GEO)
@@ -3925,6 +4020,336 @@ def phase_slice_clip(dev) -> dict:
     return {}
 
 
+# ---------------------------------------------------------------------------
+# Gemma-2B over int8 / int4 KV: the quantized kernels at head_dim 256
+# ---------------------------------------------------------------------------
+
+
+class counting:
+    """Within the block, the calls of `module.name` are counted in `.calls`."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.saved(*args, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def phase_slice_kvq256(dev) -> dict:
+    """Gemma-2B (families.PRESETS["gemma-2b"]: published widths and depth, 18
+    layers, random bf16 weights) over int8 and int4 KV caches, driven as
+    phase_slice_kvq drives the Qwen2-VL LM (drive(): generate at b=1 with
+    prompts of 100 and 1500 tokens, ragged_batched_generate at b=8, a sampled
+    generate), then generate_compiled over int8 KV (the kernels under
+    capture) and the engine over an int8 SlotQuantKVCache (ENGINE_KW): every
+    prefill and admission 18 flash_attention_quant launches and every decode
+    step 18 decode_attention_quant, exactly, eager and captured; no bf16
+    attention kernel and not one call of `nn.attention.sdpa`. Returned under
+    the @256 names."""
+    from mllm_tpu_torch.models.families import PRESETS
+    from mllm_tpu_torch.nn import attention as A
+
+    cfg = PRESETS["gemma-2b"].replace(eos_token_id=-2)
+    L = cfg.num_hidden_layers
+    model = init_model(cfg, dev)
+    others = {"flash_attention": 0, "decode_attention": 0, "decode_attention_paged": 0}
+
+    def expected(prefills, steps):
+        return {"flash_attention_quant": L * prefills, "decode_attention_quant": L * steps, **others}
+
+    launches, sdpa_calls = {}, {}
+    for kv in ("int8", "int4"):
+        want = {}
+
+        def recorded(prefills, steps, want=want):
+            want.update(expected(prefills, steps))
+            return want
+
+        with counting(A, "sdpa") as sd:
+            got = drive(model, cfg, dev, f"slice_kvq256_{kv}", (17, 40, 64, 90, 128, 150, 180, 200), recorded, kv)
+        sdpa_calls[f"drive_{kv}"] = sd.calls
+        if any(got[k] != n for k, n in want.items()):
+            raise AssertionError(f"slice_kvq256 {kv}: launches {got}, expected exactly {want}")
+        add_launches(launches, got)
+    with counting(A, "sdpa") as sd:
+        add_launches(launches, compiled_run(model, dev, "gemma-2b_kv_int8", kv_dtype="int8", expected_per=expected))
+    sdpa_calls["compiled_int8"] = sd.calls
+    with counting(A, "sdpa") as sd:
+        add_launches(launches, serve(model, dev, "engine_gemma-2b_int8", {"kv_dtype": "int8"}, expected))
+    sdpa_calls["engine_int8"] = sd.calls
+    emit(phase="slice_kvq256", layers=L, head_dim=cfg.head_dim_, heads=[cfg.num_attention_heads,
+         cfg.num_key_value_heads], launches={k: launches[k] for k in ("flash_attention_quant", "decode_attention_quant")},
+         sdpa_calls=sdpa_calls)
+    if any(sdpa_calls.values()):
+        raise AssertionError(f"slice_kvq256: `sdpa` served attention on a kernel path: {sdpa_calls}")
+    del model
+    torch.cuda.empty_cache()
+    return {f"{k}@256": launches[k] for k in ("flash_attention_quant", "decode_attention_quant")}
+
+
+# ---------------------------------------------------------------------------
+# The rest of auto_model_any: LLaVA, Phi-3-V, Fuyu, ImageBind, OPT, BERT
+# ---------------------------------------------------------------------------
+
+LLAVA15_7B = dict(  # llava-hf/llava-1.5-7b-hf config.json
+    model_type="llava", image_token_index=32000, vision_feature_layer=-2,
+    text_config=dict(model_type="llama", vocab_size=32064, hidden_size=4096, intermediate_size=11008,
+                     num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+                     max_position_embeddings=4096, rms_norm_eps=1e-5, rope_theta=10000.0),
+    vision_config=dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+                       image_size=336, patch_size=14, hidden_act="quick_gelu"))
+PHI3V_128K = dict(  # microsoft/Phi-3-vision-128k-instruct config.json; the LongRope factors are synthetic
+    model_type="phi3_v", vocab_size=32064, hidden_size=3072, intermediate_size=8192, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=32, max_position_embeddings=131072,
+    original_max_position_embeddings=4096, rope_theta=10000.0, rms_norm_eps=1e-5, tie_word_embeddings=False,
+    rope_scaling=dict(type="longrope", short_factor=[1.0 + 0.01 * i for i in range(48)],
+                      long_factor=[1.0 + 0.5 * i for i in range(48)]),
+    img_processor=dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+                       image_size=336, patch_size=14))
+FUYU_8B = dict(  # adept/fuyu-8b config.json
+    model_type="fuyu", patch_size=30, num_channels=3, image_token_id=71011,
+    text_config=dict(model_type="persimmon", vocab_size=262144, hidden_size=4096, intermediate_size=16384,
+                     num_hidden_layers=36, num_attention_heads=64, max_position_embeddings=16384,
+                     rope_theta=25000.0, partial_rotary_factor=0.5, qk_layernorm=True, hidden_act="relu2",
+                     layer_norm_eps=1e-5, tie_word_embeddings=False))
+OPT_13B = dict(vocab_size=50272, hidden_size=2048, ffn_dim=8192, num_hidden_layers=24,  # facebook/opt-1.3b
+               num_attention_heads=32, max_position_embeddings=2048, do_layer_norm_before=True)
+FUYU_IMAGE_HW = (480, 640)  # 16 x 21 patches of 30 px
+VL_DECODE_NEW, VL_DECODE_CACHE, VL_DECODE_TEXT = 32, 1024, (20, 10)
+OPT_PROMPT = 100
+IMAGEBIND_RUNS = 5
+ENCODER_TOL = 5e-2  # x max |value|: bf16 on the card against f32 on the host
+BERT_SENTENCES, BERT_TOKENS = 8, 64
+
+
+def decode_run(name: str, model, dev, ids, image_kw: dict, L: int, kernels_expected: bool) -> dict:
+    """The reference's decode of a model whose forward is (ids, cache, ...):
+    a prefill (with the image in `image_kw`), then VL_DECODE_NEW greedy tokens
+    through forward without it, one a call (the token stays on the card); the
+    last decode step against a fresh prefill of the prompt and the first
+    VL_DECODE_NEW - 1 tokens with the image (<= RAGGED_TOL x max |logit|),
+    finite logits, and exact attention launches: with kernels_expected L
+    flash_attention a prefill (2) and L decode_attention a step, else none."""
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    ids_d = torch.as_tensor(ids, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        start.record()
+        logits, cache = model(ids_d, model.init_cache(1, VL_DECODE_CACHE), last_only=True, **image_kw)
+        end.record()
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks = [tok]
+        t0 = time.perf_counter()
+        for _ in range(VL_DECODE_NEW - 1):
+            logits, cache = model(tok, cache, last_only=True)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        toks = torch.cat(toks, 1)[0].tolist()
+        full = np.concatenate([np.asarray(ids)[0], np.asarray(toks[:-1])])[None]
+        fresh, _ = model(torch.as_tensor(full, device=dev), model.init_cache(1, VL_DECODE_CACHE), last_only=True,
+                         **image_kw)
+        fresh = fresh[:, -1].float()
+        gap = ((logits[:, -1].float() - fresh).abs().max() / fresh.abs().max()).item()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    want = ({"flash_attention": 2 * L, "decode_attention": L * (VL_DECODE_NEW - 1)} if kernels_expected
+            else {"flash_attention": 0, "decode_attention": 0})
+    want.update({k: 0 for k in ATTENTION_KERNELS if k not in want})
+    finite = bool(finite)
+    emit(phase=name, prompt_tokens=int(np.asarray(ids).shape[1]), new_tokens=len(toks),
+         prefill_ms=start.elapsed_time(end), decode_tok_s=(VL_DECODE_NEW - 1) / decode_s,
+         last_decode_vs_prefill=gap, tolerance=RAGGED_TOL, logits_finite=finite,
+         launches={k: launches[k] for k in ATTENTION_KERNELS}, launches_expected=want,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), params=sum(p.numel() for p in model.parameters()))
+    if not finite or not gap <= RAGGED_TOL or not all(0 <= t < model_vocab(model) for t in toks):
+        raise AssertionError(f"{name}: finite {finite}, decode vs prefill {gap}, tokens {toks}")
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    return {k: launches[k] for k in ("flash_attention", "decode_attention")}
+
+
+def model_vocab(model) -> int:
+    cfg = model.cfg
+    return cfg.text.vocab_size if hasattr(cfg, "text") else cfg.vocab_size
+
+
+def vl_text(rng, vocab: int, image: list) -> np.ndarray:
+    """[1, S] ids: VL_DECODE_TEXT random ids around the image positions."""
+    a, b = VL_DECODE_TEXT
+    return np.concatenate([rng.integers(3, vocab - 100, a), image, rng.integers(3, vocab - 100, b)])[None]
+
+
+def phase_slice_llava(dev) -> dict:
+    """LLaVA-1.5-7B at its published config (LLAVA15_7B: the 32-layer LM of
+    4096, 32 / 32 heads of 128; CLIP ViT-L/14 at 336 px, 24 blocks of 1024;
+    576 image tokens), random bf16 weights: one 336 px image prefill and 32
+    greedy tokens (`decode_run`: the LM's attention on the bf16 kernels)."""
+    from mllm_tpu_torch.models.llava import LlavaForConditionalGeneration, llava_config_from_hf
+
+    cfg = llava_config_from_hf(LLAVA15_7B)
+    torch.cuda.reset_peak_memory_stats()
+    model = LlavaForConditionalGeneration.init(cfg, device=dev, dtype=torch.bfloat16,
+                                               generator=torch.Generator(device=dev).manual_seed(41))
+    rng = np.random.default_rng(41)
+    n_img = (cfg.vision.image_size // cfg.vision.patch_size) ** 2
+    ids = vl_text(rng, cfg.text.vocab_size, [cfg.image_token_id] * n_img)
+    pixel = torch.as_tensor(rng.standard_normal((1, 3, 336, 336)), dtype=torch.float32, device=dev)
+    out = decode_run("slice_llava", model, dev, ids, {"pixel_values": pixel}, cfg.text.num_hidden_layers, True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_phi3v(dev) -> dict:
+    """Phi-3-V at microsoft/Phi-3-vision-128k-instruct's widths (PHI3V_128K:
+    the Phi-3 LM of 3072, 32 layers, 32 heads of 96, LongRope over 128k
+    positions; the same CLIP tower; 157 image tokens after the HD transform),
+    random bf16 weights: one 336 px image prefill and 32 greedy tokens. Its
+    head_dim 96 takes `sdpa` (no attention kernel), as in the reference."""
+    from mllm_tpu_torch.models.phi3v import Phi3VForCausalLM, phi3v_config_from_hf
+
+    cfg = phi3v_config_from_hf(PHI3V_128K)
+    torch.cuda.reset_peak_memory_stats()
+    model = Phi3VForCausalLM.init(cfg, device=dev, dtype=torch.bfloat16,
+                                  generator=torch.Generator(device=dev).manual_seed(42))
+    rng = np.random.default_rng(42)
+    ids = vl_text(rng, cfg.text.vocab_size, [-1] * model.num_image_tokens)
+    pixel = torch.as_tensor(rng.standard_normal((1, 3, 336, 336)), dtype=torch.float32, device=dev)
+    out = decode_run("slice_phi3v", model, dev, ids, {"pixel_values": pixel}, cfg.text.num_hidden_layers, False)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_fuyu(dev) -> dict:
+    """Fuyu-8B at its published config (FUYU_8B: the Persimmon LM of 4096, 36
+    layers, 64 heads of 64, ffn 16384, vocab 262144, partial rotary 0.5, q/k
+    LayerNorms, relu^2; 30 px patches), random bf16 weights: one 480 x 640
+    image (336 patches, patchified on the host) spliced at |SPEAKER| and 32
+    greedy tokens, on the bf16 attention kernels."""
+    from mllm_tpu_torch.models.fuyu import FuyuForCausalLM, fuyu_config_from_hf, patchify_image
+
+    cfg = fuyu_config_from_hf(FUYU_8B)
+    torch.cuda.reset_peak_memory_stats()
+    model = FuyuForCausalLM.init(cfg, device=dev, dtype=torch.bfloat16,
+                                 generator=torch.Generator(device=dev).manual_seed(43))
+    rng = np.random.default_rng(43)
+    patches = patchify_image(rng.standard_normal((3, *FUYU_IMAGE_HW)).astype(np.float32), cfg.patch_size)
+    ids = vl_text(rng, cfg.text.vocab_size, [cfg.image_token_id] * patches.shape[0])
+    out = decode_run("slice_fuyu", model, dev, ids, {"image_patches": torch.as_tensor(patches, device=dev)},
+                     cfg.text.num_hidden_layers, True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_f32(model):
+    """The same weights in f32 on the host (the reference of an encoder's check)."""
+    import copy
+
+    return copy.deepcopy(model).float().cpu()
+
+
+def phase_slice_imagebind(dev) -> dict:
+    """bench.py's imagebind-trimodal row: ImageBind-huge (ImageBindConfig()
+    defaults: vision 1280 x 32 blocks, text 1024 x 24, audio 768 x 12),
+    random bf16 weights (ImageBindModel.init), 1 video x 3 texts (77 tokens,
+    12 random, EOT at 12) x 3 audio clips of 128 x 204 fbank bins: both score
+    matrices, finite, within ENCODER_TOL x max of the same weights in f32 on
+    the host; score ms a median of IMAGEBIND_RUNS CUDA-event-timed calls."""
+    from mllm_tpu_torch.models.imagebind import ImageBindConfig, ImageBindModel
+
+    cfg = ImageBindConfig()
+    model = ImageBindModel.init(cfg, device=dev, dtype=torch.bfloat16,
+                                generator=torch.Generator(device=dev).manual_seed(44))
+    rng = np.random.default_rng(0)
+    ids = np.zeros((3, cfg.max_positions), np.int64)
+    ids[:, :12] = rng.integers(1, cfg.vocab_size - 2, (3, 12))
+    eot = np.full((3,), 12, np.int64)
+    patches = (rng.standard_normal((1, cfg.vision_seq - 1, 3 * cfg.patch_time * cfg.patch ** 2)) * 0.1).astype(np.float32)
+    fbanks = (rng.standard_normal((cfg.audio_clips, 1, cfg.audio_h, cfg.audio_w)) * 0.1).astype(np.float32)
+    args = [torch.as_tensor(a) for a in (ids, eot, patches, fbanks)]
+    dargs = [a.to(dev) for a in args[:2]] + [a.to(dev, torch.bfloat16) for a in args[2:]]
+    with torch.no_grad():
+        vt, va = model(*dargs)
+        ms = median([event_ms(lambda: model(*dargs)) for _ in range(IMAGEBIND_RUNS)])
+        host = host_f32(model)
+        rvt, rva = host(*args)
+    errs = [((a.float().cpu() - b).abs().max() / b.abs().max()).item() for a, b in ((vt, rvt), (va, rva))]
+    finite = bool(torch.isfinite(vt).all() and torch.isfinite(va).all())
+    emit(phase="slice_imagebind", vision_x_text=list(vt.shape), vision_x_audio=list(va.shape), score_ms=ms,
+         runs=IMAGEBIND_RUNS, rel_err_vs_f32_host=errs, tolerance=ENCODER_TOL, finite=finite,
+         params=sum(p.numel() for p in model.parameters()), batch="1 video x 3 texts x 3 audio clips")
+    if list(vt.shape) != [1, 3] or list(va.shape) != [1, 1] or not finite or not max(errs) <= ENCODER_TOL:
+        raise AssertionError(f"slice_imagebind: shapes {list(vt.shape)} {list(va.shape)}, finite {finite}, "
+                             f"vs f32 host {errs}")
+    del host
+    del model
+    torch.cuda.empty_cache()
+    return {}
+
+
+def phase_slice_opt_bert(dev) -> dict:
+    """OPT-1.3B (OPT_13B, random bf16 weights) as examples/demo_opt.py drives
+    it: a 100-token prefill (bos first) and 32 greedy tokens through forward
+    (`decode_run`: head_dim 64 on the bf16 flash and decode kernels, exact
+    launches); then BERT-base (BertConfig(): bert-base-uncased's widths)
+    encoding BERT_SENTENCES sentences of BERT_TOKENS tokens (valid lengths
+    32-64) into sentence embeddings, finite, unit norm, within ENCODER_TOL x
+    max of the same weights in f32 on the host; encode ms a median of 5."""
+    from mllm_tpu_torch.models.bert import BertConfig, BertModel
+    from mllm_tpu_torch.models.opt import OPTForCausalLM, opt_config_from_hf
+
+    cfg = opt_config_from_hf(OPT_13B)
+    torch.cuda.reset_peak_memory_stats()
+    model = OPTForCausalLM.init(cfg, device=dev, dtype=torch.bfloat16,
+                                generator=torch.Generator(device=dev).manual_seed(45))
+    rng = np.random.default_rng(45)
+    ids = np.concatenate([[cfg.bos_token_id], rng.integers(3, cfg.vocab_size, OPT_PROMPT - 1)])[None]
+    out = decode_run("slice_opt", model, dev, ids, {}, cfg.num_hidden_layers, True)
+    del model
+    torch.cuda.empty_cache()
+
+    bcfg = BertConfig()
+    bert = BertModel.init(bcfg, device=dev, dtype=torch.bfloat16, generator=torch.Generator(device=dev).manual_seed(46))
+    ids = torch.as_tensor(rng.integers(1000, bcfg.vocab_size, (BERT_SENTENCES, BERT_TOKENS)))
+    lens = torch.as_tensor(rng.integers(32, BERT_TOKENS + 1, BERT_SENTENCES))
+    mask = (torch.arange(BERT_TOKENS)[None] < lens[:, None]).to(torch.int64)
+    with torch.no_grad():
+        emb = bert.sentence_embedding(ids.to(dev), mask.to(dev))
+        ms = median([event_ms(lambda: bert.sentence_embedding(ids.to(dev), mask.to(dev))) for _ in range(5)])
+        ref = host_f32(bert).sentence_embedding(ids, mask)
+    err = ((emb.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+    norms = torch.linalg.norm(emb.float(), dim=-1)
+    finite = bool(torch.isfinite(emb).all())
+    emit(phase="slice_bert", sentences=BERT_SENTENCES, tokens=BERT_TOKENS, valid_lengths=lens.tolist(), encode_ms=ms,
+         rel_err_vs_f32_host=err, tolerance=ENCODER_TOL, finite=finite, norm_range=[norms.min().item(),
+         norms.max().item()], params=sum(p.numel() for p in bert.parameters()))
+    if list(emb.shape) != [BERT_SENTENCES, bcfg.hidden_size] or not finite or not err <= ENCODER_TOL or \
+            not bool(((norms - 1).abs() < 1e-2).all()):
+        raise AssertionError(f"slice_bert: shape {list(emb.shape)}, finite {finite}, vs f32 host {err}, norms {norms}")
+    del bert
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed_phase(name: str, fn):
     """fn(), its wall seconds printed as `<name>_seconds`."""
     t0 = time.perf_counter()
@@ -3958,7 +4383,13 @@ def main():
                 timed_phase("slice_families", lambda: phase_slice_families(dev)),
                 timed_phase("slice_vl", lambda: phase_slice_vl(dev)),
                 timed_phase("slice_vl25", lambda: phase_slice_vl25(dev)),
-                timed_phase("slice_clip", lambda: phase_slice_clip(dev))]
+                timed_phase("slice_clip", lambda: phase_slice_clip(dev)),
+                timed_phase("slice_kvq256", lambda: phase_slice_kvq256(dev)),
+                timed_phase("slice_llava", lambda: phase_slice_llava(dev)),
+                timed_phase("slice_phi3v", lambda: phase_slice_phi3v(dev)),
+                timed_phase("slice_fuyu", lambda: phase_slice_fuyu(dev)),
+                timed_phase("slice_imagebind", lambda: phase_slice_imagebind(dev)),
+                timed_phase("slice_opt_bert", lambda: phase_slice_opt_bert(dev))]
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n
@@ -3973,7 +4404,7 @@ def main():
         if "rel_err" in main_row:
             kernel["max_rel_err"] = max(r["rel_err"] for r in rows[name])
         for extra in ("dense_sdpa_ms", "bf16_flash_ms", "bf16_decode_ms", "dense_decode_ms", "unfused_ms",
-                      "padded_ms"):
+                      "padded_ms", "route_sdpa_ms"):
             if extra in main_row:
                 kernel[extra] = main_row[extra]
         kernels.append(kernel)

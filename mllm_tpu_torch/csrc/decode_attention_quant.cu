@@ -57,6 +57,10 @@
 //    then the cluster's ranks merge in rank order through distributed shared
 //    memory. One launch a call, no workspace, no atomics, an order of
 //    summation that does not depend on scheduling.
+//  - head_dim 256 (Gemma-2B; the reference runs its Pallas kernel there too):
+//    the same design with 256-byte int8 rows staged at a 272-byte stride, O
+//    in 32 fragments (128 registers a thread) and a 128 KB merge area: one
+//    CTA an SM (150 KB of shared memory at int8), up to 255 registers a thread.
 #include "hopper.cuh"
 #include "int4_stream.cuh"
 
@@ -100,8 +104,9 @@ template <int D, bool kInt4>
 struct Geo {
   static constexpr int kRB = kInt4 ? D / 2 : D;          // bytes of a stored row
   static constexpr int kKB = kRB / 4, kVB = kRB / 8;    // bytes a lane takes of a K / V row
-  static constexpr int kLdK = kRB == 128 ? 144 : kRB;   // staged row strides
-  static constexpr int kLdV = kRB == 128 ? 144 : 80;
+  // staged row strides (kRB 256: int8 at head_dim 256)
+  static constexpr int kLdK = kRB == 128 ? 144 : kRB == 256 ? 272 : kRB;
+  static constexpr int kLdV = kRB == 128 ? 144 : kRB == 256 ? 272 : 80;
   static constexpr int kSteps = D / 16;                 // k-steps of Q K^T
   static constexpr int kND = D / 8;                     // 8-column blocks of O
   // one stage: K rows, V rows, K scales, V scales
@@ -178,8 +183,11 @@ __device__ __forceinline__ void half_sync(int half) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(1 + half), "r"(kHalfThreads) : "memory");
 }
 
+// head_dim 256 keeps O in 128 registers a thread and a merge area of 128 KB:
+// one CTA an SM, up to 255 registers a thread.
 template <int D, bool kInt4>
-__global__ void __launch_bounds__(kThreads, kHalves == 2 ? 2 : 3) decode_quant_kernel(const QuantDecodeParams p) {
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3))
+    decode_quant_kernel(const QuantDecodeParams p) {
   using G = Geo<D, kInt4>;
   constexpr int kSteps = G::kSteps, kND = G::kND;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -529,5 +537,7 @@ extern "C" int mllm_decode_attention_quant(const void* q, const void* k, const v
   if (D == 128 && bits == 4) return launch<128, true>(p, splits, s);
   if (D == 64 && bits == 8) return launch<64, false>(p, splits, s);
   if (D == 64 && bits == 4) return launch<64, true>(p, splits, s);
+  if (D == 256 && bits == 8) return launch<256, false>(p, splits, s);
+  if (D == 256 && bits == 4) return launch<256, true>(p, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -160,11 +160,11 @@ __device__ __forceinline__ float quad_max(float x) {
 // DR columns that hold data (rounded up to 16) in k-steps of 16 (both operands
 // K-major, 128-byte swizzled). Columns past DR are TMA's zero fill, so the
 // steps that would cover only them are not issued.
-template <int D, int BK = block_k<D>(), int DR = D>
+template <int D, int BK = block_k<D>(), int DR = D, int NS = kStages>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], const bf16* sQ, const bf16* sK, int it,
                                          int wg) {
   constexpr int kDH = D / kSwz;
-  const bf16* kt = sK + (it % kStages) * kDH * BK * kSwz;
+  const bf16* kt = sK + (it % NS) * kDH * BK * kSwz;
 #pragma unroll
   for (int kk = 0; kk < (DR + 15) / 16; ++kk) {
     const int j = kk / 4, w = kk % 4;  // 64-column box, 16-column step inside it
@@ -177,11 +177,11 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], const bf16* sQ, con
 
 // O += P V for tile `it`: V is [keys][64-column boxes], MN-major for wgmma
 // (transpose bit); LBO steps between the boxes, SBO between 8-key groups.
-template <int D, int BK = block_k<D>()>
+template <int D, int BK = block_k<D>(), int NS = kStages>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[BK / 16][4],
                                          const bf16* sV, int it) {
   constexpr int kDH = D / kSwz;
-  const bf16* vt = sV + (it % kStages) * kDH * BK * kSwz;
+  const bf16* vt = sV + (it % NS) * kDH * BK * kSwz;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
     wgmma_rs(o, pf[kk], wgmma_desc(vt + kk * 16 * kSwz, BK * kSwz * 2, 1024));
@@ -252,8 +252,9 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pf)[
 // where it would be: a kernel without a producer loads the ring there).
 // DR is the width of a row of q and the output in memory: D, or fewer columns
 // than the body's D (head_dim 80 on the D = 128 body, whose columns 80-127
-// TMA fills with zeros in shared memory); only DR columns are stored.
-template <int D, int DR = D, class Tiles, int BK = block_k<D>()>
+// TMA fills with zeros in shared memory); only DR columns are stored. NS is
+// the number of ring stages (tile `it` in stage it % NS).
+template <int D, int DR = D, class Tiles, int BK = block_k<D>(), int NS = kStages>
 __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c, bf16* sQ, const bf16* sK,
                                         const bf16* sV, uint64_t* qbar, const Tiles& tiles, int wg,
                                         int tid) {
@@ -313,7 +314,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
       tiles.wait_k(it);
       wait_turn(wg);
       wgmma_fence();
-      issue_qk<D, BK, DR>(s, sQ, sK, it, wg);
+      issue_qk<D, BK, DR, NS>(s, sQ, sK, it, wg);
       pass_turn(wg);
       wgmma_wait<0>();
       wgmma_fence_operands(s);
@@ -326,7 +327,7 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
       tiles.wait_v(it);
       wait_turn(wg);
       wgmma_fence();
-      issue_pv<D, BK>(o, pf, sV, it);
+      issue_pv<D, BK, NS>(o, pf, sV, it);
       pass_turn(wg);
       wgmma_wait<0>();
       wgmma_fence_operands(o);

@@ -66,6 +66,12 @@
 //    consumers take kConsumerRegs (128 * 72 + 256 * 216 = 384 * 168, the
 //    registers the CTA holds at launch; ptxas compiles every thread's code in
 //    the 168 that 384 threads leave, and no split measured faster).
+// head_dim 256 (Gemma-2B; the reference runs its Pallas kernel there too):
+// the bf16 kernel's 256-wide consumers (64-key tiles, 256 threads, no
+// producer warpgroup: Q is 64 KB and O alone 128 registers a thread), which
+// convert each tile's K and V themselves when they reach it and share one
+// bf16 stage of each; the raw stages, loaded by TMA three or four tiles
+// ahead, take the room of the second stage (`WideTiles`, below).
 #include "flash_attention.cuh"
 
 namespace mllm {
@@ -157,26 +163,28 @@ __device__ __forceinline__ uint4 scaled_chunk(uint32_t x02, uint32_t x13, uint32
 }
 
 // The element offset of 16-byte chunk `chunk` (head dims 8 chunk ..) of key
-// row r in a [kDH][kBK][64] stage with the 128-byte swizzle.
+// row r in a [kDH][SB][64] stage with the 128-byte swizzle.
+template <int SB>
 __device__ __forceinline__ int swizzled(int chunk, int r) {
-  return ((chunk / 8) * kBK + r) * kSwz + ((chunk % 8) ^ (r % 8)) * 8;
+  return ((chunk / 8) * SB + r) * kSwz + ((chunk % 8) ^ (r % 8)) * 8;
 }
 
-// Raw stage `st` (the K or V rows of keys key0 .., rows row0 .. of the tile)
-// into the bf16 stage `dst`. Producer thread p takes unit p % kUnits of the
-// rows p / kUnits + kRowStep j: a warp reads whole rows, and every row a
-// thread takes has the same row % 8, so its swizzled places are one offset
-// apart. kEdge: the stage cuts [lo, hi), whose outside is written as zeros.
-template <int D, bool kInt4, bool kEdge>
+// Raw stage `st` (ROWS stored K or V rows of keys key0 .., rows row0 .. of
+// the tile, then their scales) into the bf16 stage `dst` of SB key rows, by
+// NT threads. Thread p takes unit p % kUnits of the rows p / kUnits +
+// (NT / kUnits) j: a warp reads whole rows, and every row a thread takes has
+// the same row % 8, so its swizzled places are one offset apart. kEdge: the
+// stage cuts [lo, hi), whose outside is written as zeros.
+template <int D, bool kInt4, bool kEdge, int NT = kProducerThreads, int ROWS = kRawRows, int SB = kBK>
 __device__ __forceinline__ void convert_part(const uint8_t* st, bf16* dst, int row0, int key0, int lo, int hi,
                                              int ptid) {
-  using G = Geo<D, kInt4>;
-  constexpr int U = G::kUnits, RS = G::kRowStep, kSteps = kRawRows / RS;
+  constexpr int kDS = kInt4 ? D / 2 : D, U = kDS / 8, RS = NT / U, kSteps = ROWS / RS;
+  static_assert(RS % 8 == 0 && ROWS % RS == 0, "a converter's rows share their swizzle");
   constexpr int kB = kBatch < kSteps ? kBatch : kSteps;
   const int u = ptid % U, r0 = ptid / U;
-  const uint8_t* src = st + r0 * G::kDS + u * 8;
-  const float* sc = reinterpret_cast<const float*>(st + G::kRawRowsBytes) + r0;
-  const int at_lo = swizzled(u, row0 + r0), at_hi = swizzled(D / 16 + u, row0 + r0);
+  const uint8_t* src = st + r0 * kDS + u * 8;
+  const float* sc = reinterpret_cast<const float*>(st + ROWS * kDS) + r0;
+  const int at_lo = swizzled<SB>(u, row0 + r0), at_hi = swizzled<SB>(D / 16 + u, row0 + r0);
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
   for (int j0 = 0; j0 < kSteps; j0 += kB) {
@@ -184,7 +192,7 @@ __device__ __forceinline__ void convert_part(const uint8_t* st, bf16* dst, int r
     float s[kB];
 #pragma unroll
     for (int k = 0; k < kB; ++k) {  // every load of the batch first
-      w[k] = *reinterpret_cast<const uint2*>(src + (j0 + k) * RS * G::kDS);
+      w[k] = *reinterpret_cast<const uint2*>(src + (j0 + k) * RS * kDS);
       s[k] = sc[(j0 + k) * RS];
     }
 #pragma unroll
@@ -374,20 +382,153 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// head_dim 256 (Gemma-2B over an int8 or int4 cache)
+// ---------------------------------------------------------------------------
+//
+// The bf16 kernel's 256-wide body (flash_attention.cuh: 64-key tiles, two
+// consumer warpgroups, no producer warpgroup, 256 threads so a thread may
+// hold O's 128 registers beside S and P). Q takes 64 KB; a producer
+// warpgroup converting beside them would have to fit 384 x 168 registers.
+// So the consumers convert: a tile's K (V) is turned into bf16 by all 256
+// threads when both warpgroups reach it (`WideTiles::wait_k` / `wait_v`),
+// then they meet at a named barrier and thread 0 reissues the freed raw
+// slot. Both warpgroups pass every conversion in order, and a warpgroup
+// reaches the conversion of tile it's K only after the other has waited for
+// its S of tile it - 1 (both met at V of it - 1), and of V only after both
+// finished P V of it - 1 (both met at K of it): so one bf16 stage of K and
+// one of V suffice, and the shared memory they free holds the raw stages
+// (`WideGeo::kRaw`: six of int8 K or V, eight of int4), each one tile's K or
+// V with its scales by TMA, loaded three (int8) or four (int4) tiles ahead.
+// What bounds it is the conversion's issue on the consumers' own schedulers
+// (~1.4x the bf16 kernel on the same keys): two raw stages or four ran
+// within 1.5 % of six, and converting each share right after issuing a
+// product (so it runs beside the tensor cores), also with per-warp mbarrier
+// arrivals and two bf16 stages so that neither warpgroup waits for the
+// other's softmax, within 3 % (tools/attention_tune.py --kernel flash_quant
+// --wide; PERF.md).
+constexpr int kWideRawStages = 8;  // raw stages at most (WideGeo::kRaw: what fits)
+
 template <int D, bool kInt4>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs, float q_scale,
-                   const FlashParams& p, cudaStream_t stream) {
-  using G = Geo<D, kInt4>;
+struct WideGeo {
+  static constexpr int kDS = kInt4 ? D / 2 : D;  // bytes of a stored row
+  static constexpr int kRowsBytes = kBKWide * kDS;
+  static constexpr int kRawStage = kRowsBytes + kBKWide * 4;  // one tile's K (V) rows and scales
+  static constexpr int bytes(int raw) { return 1024 + (kBQ + 2 * kBKWide) * D * 2 + raw * kRawStage + 8 * (1 + raw); }
+  static constexpr int fit(int raw) { return raw <= 1 || bytes(raw) <= kSmemLimit ? raw : fit(raw - 1); }
+  static constexpr int kRaw = fit(kWideRawStages);
+  static constexpr int kSmem = bytes(kRaw);
+  static_assert(kSmem <= kSmemLimit && kRaw >= 2, "Q, one bf16 stage of K and V and two raw stages fit");
+  static_assert(kRowsBytes % 1024 == 0 && kRawStage % 128 == 0, "TMA destinations stay 128-byte aligned");
+};
+
+// The ring of the 256-wide kernel: part q of the stream is K (q even) or V
+// (q odd) of tile q / 2, loaded into raw slot q % kRaw and converted into the
+// one bf16 stage of its matrix by every thread of the CTA.
+template <int D, bool kInt4>
+struct WideTiles {
+  using W = WideGeo<D, kInt4>;
+  const CUtensorMap *tm_k, *tm_v, *tm_ks, *tm_vs;
+  bf16 *sK, *sV;
+  uint8_t* raw;
+  uint64_t* raw_full;  // [kRaw], one arrival (thread 0's expect_tx) and the TMA bytes
+  float q_scale;
+  int plane, Skv, kb0, lo, hi, parts, tid;
+
+  // Part q's rows and scales, a TMA box each, on its slot's barrier (thread 0).
+  __device__ __forceinline__ void issue(int q) const {
+    uint8_t* st = raw + (q % W::kRaw) * W::kRawStage;
+    uint64_t* bar = &raw_full[q % W::kRaw];
+    const int key0 = kb0 + (q / 2) * kBKWide;
+    mbar_arrive_expect_tx(bar, W::kRawStage);
+    tma_load_3d(st, (q & 1) ? tm_v : tm_k, bar, 0, key0, plane);
+    tma_load_1d(st + W::kRowsBytes, (q & 1) ? tm_vs : tm_ks, bar, plane * Skv + key0);
+  }
+  // Part q into its bf16 stage by all kThreadsWide threads; then the slot is
+  // free and thread 0 loads part q + kRaw into it.
+  __device__ __forceinline__ void convert(int q) const {
+    const uint8_t* st = raw + (q % W::kRaw) * W::kRawStage;
+    mbar_wait(&raw_full[q % W::kRaw], (q / W::kRaw) & 1);
+    bf16* dst = (q & 1) ? sV : sK;
+    const int key0 = kb0 + (q / 2) * kBKWide;
+    if (key0 >= lo && key0 + kBKWide <= hi)
+      convert_part<D, kInt4, false, kThreadsWide, kBKWide, kBKWide>(st, dst, 0, key0, lo, hi, tid);
+    else
+      convert_part<D, kInt4, true, kThreadsWide, kBKWide, kBKWide>(st, dst, 0, key0, lo, hi, tid);
+    fence_proxy_async();  // this thread's bf16 rows reach wgmma's (async-proxy) reads
+    named_barrier_sync(kBarTile, kThreadsWide);
+    if (tid == 0 && q + W::kRaw < parts) issue(q + W::kRaw);
+  }
+  __device__ __forceinline__ void wait_k(int it) const { convert(2 * it); }
+  __device__ __forceinline__ void release_k(int) const {}
+  __device__ __forceinline__ void wait_v(int it) const { convert(2 * it + 1); }
+  __device__ __forceinline__ void release_v(int) const {}
+  __device__ __forceinline__ void refill(int) const {}
+  __device__ __forceinline__ void prepare_q(bf16* sQ, int wg, int wtid) const {
+    const QuantTiles<D> scaler{Ring{}, q_scale, false};
+    scaler.prepare_q(sQ, wg, wtid);
+  }
+};
+
+template <int D, bool kInt4>
+__global__ void __launch_bounds__(kThreadsWide, 1)
+    flash_quant_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_ks,
+                            const __grid_constant__ CUtensorMap tm_vs, const float q_scale, const FlashParams p) {
+  using W = WideGeo<D, kInt4>;
+  constexpr int kDH = D / kSwz;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(base);                            // [kDH][kBQ][64]
+  bf16* sK = sQ + kBQ * D;                                             // [kDH][kBKWide][64]
+  bf16* sV = sK + kBKWide * D;                                         // [kDH][kBKWide][64]
+  uint8_t* raw = reinterpret_cast<uint8_t*>(sV + kBKWide * D);         // [kRaw][rows | scales]
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(raw + W::kRaw * W::kRawStage);
+  uint64_t* raw_full = qbar + 1;
+
+  const CtaTiles c = cta_tiles<kBKWide>(p);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    tma_prefetch(&tm_q);
+    tma_prefetch(&tm_k);
+    tma_prefetch(&tm_v);
+    tma_prefetch(&tm_ks);
+    tma_prefetch(&tm_vs);
+    mbar_init(qbar, 1);
+    for (int i = 0; i < W::kRaw; ++i) mbar_init(&raw_full[i], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const WideTiles<D, kInt4> tiles{&tm_k, &tm_v, &tm_ks, &tm_vs, sK, sV, raw, raw_full, q_scale,
+                                  c.b * p.Hkv + c.hk, p.Skv, c.kb0, c.lo, c.hi, 2 * c.ntiles, tid};
+  if (tid == 0 && c.ntiles > 0) {
+    mbar_arrive_expect_tx(qbar, kBQ * D * 2);
+#pragma unroll
+    for (int j = 0; j < kDH; ++j) tma_load_4d(sQ + j * kBQ * kSwz, &tm_q, qbar, j * kSwz, c.h, c.q0, c.b);
+    for (int q = 0; q < min(W::kRaw, tiles.parts); ++q) tiles.issue(q);
+  }
+  __syncwarp();
+  consume<D, D, WideTiles<D, kInt4>, kBKWide, 1>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
+}
+
+// The stored rows (kRows a box) and scales maps of one call, and the launch
+// of `kernel` over `smem` bytes with Threads threads.
+template <int D, bool kInt4, int kRows, int Threads, class Kernel>
+cudaError_t launch_maps(Kernel kernel, int smem, const void* q, const void* k, const void* v, const void* ks,
+                        const void* vs, float q_scale, const FlashParams& p, cudaStream_t stream) {
+  constexpr int kDS = kInt4 ? D / 2 : D;
   CUtensorMap tq, tk, tv, tks, tvs;
   // the stored rows of each (b, KV head), DS bytes each; rows past the cache load as zeros
-  const cuuint64_t dims[3] = {(cuuint64_t)G::kDS, (cuuint64_t)p.Skv, (cuuint64_t)p.B * p.Hkv};
-  const cuuint64_t strides[2] = {(cuuint64_t)G::kDS, (cuuint64_t)p.Skv * G::kDS};
-  const cuuint32_t box[3] = {(cuuint32_t)G::kDS, kRawRows, 1};
-  // the scales as one run of B * Hkv * Skv floats, kRawRows a box (a 1-D map
+  const cuuint64_t dims[3] = {(cuuint64_t)kDS, (cuuint64_t)p.Skv, (cuuint64_t)p.B * p.Hkv};
+  const cuuint64_t strides[2] = {(cuuint64_t)kDS, (cuuint64_t)p.Skv * kDS};
+  const cuuint32_t box[3] = {(cuuint32_t)kDS, kRows, 1};
+  // the scales as one run of B * Hkv * Skv floats, kRows a box (a 1-D map
   // puts no alignment on where a box starts)
   const cuuint64_t sdims[1] = {(cuuint64_t)p.B * p.Hkv * p.Skv};
   const cuuint64_t sstrides[1] = {0};
-  const cuuint32_t sbox[1] = {kRawRows};
+  const cuuint32_t sbox[1] = {kRows};
   if (!encode_q_map(&tq, q, p.B, p.Sq, p.H, D) ||
       !encode_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, k, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !encode_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, v, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE) ||
@@ -396,7 +537,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
       !encode_tensor_map(&tvs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, vs, sdims, sstrides, sbox,
                          CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
-  return launch_flash(flash_quant_kernel<D, kInt4>, p, G::kSmem, stream, tq, tk, tv, tks, tvs, q_scale, p);
+  return launch_flash<Threads>(kernel, p, smem, stream, tq, tk, tv, tks, tvs, q_scale, p);
+}
+
+template <int D, bool kInt4>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* ks, const void* vs, float q_scale,
+                        const FlashParams& p, cudaStream_t stream) {
+  return launch_maps<D, kInt4, kBKWide, kThreadsWide>(flash_quant_wide_kernel<D, kInt4>, WideGeo<D, kInt4>::kSmem,
+                                                      q, k, v, ks, vs, q_scale, p, stream);
+}
+
+template <int D, bool kInt4>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs, float q_scale,
+                   const FlashParams& p, cudaStream_t stream) {
+  return launch_maps<D, kInt4, kRawRows, kThreads>(flash_quant_kernel<D, kInt4>, Geo<D, kInt4>::kSmem, q, k, v, ks,
+                                                   vs, q_scale, p, stream);
 }
 
 }  // namespace
@@ -427,5 +582,7 @@ extern "C" int mllm_flash_attention_quant(const void* q, const void* k, const vo
   if (D == 128 && bits == 4) return launch<128, true>(q, k, v, ks, vs, q_scale, p, s);
   if (D == 64 && bits == 8) return launch<64, false>(q, k, v, ks, vs, q_scale, p, s);
   if (D == 64 && bits == 4) return launch<64, true>(q, k, v, ks, vs, q_scale, p, s);
+  if (D == 256 && bits == 8) return launch_wide<256, false>(q, k, v, ks, vs, q_scale, p, s);
+  if (D == 256 && bits == 4) return launch_wide<256, true>(q, k, v, ks, vs, q_scale, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -258,3 +258,67 @@ def vit_from_jax_params(params: dict[str, np.ndarray], cfg, num_labels: int, dev
 
     return module_from_jax(vit_classifier(cfg, num_labels, device=device, dtype=dtype, id2label=id2label), params,
                            device, dtype)
+
+
+def _under(params: dict[str, np.ndarray], prefix: str) -> dict[str, np.ndarray]:
+    """The parameters under `prefix`, with the prefix taken off."""
+    return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def llava_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's LlavaForConditionalGeneration from a JAX one's parameters
+    (`vision_tower.*`, `projector.*`, `lm.*`)."""
+    from .llava import LlavaForConditionalGeneration, LlavaProjector, clip_tower
+
+    tower = module_from_jax(clip_tower(cfg.vision, device=device, dtype=dtype), _under(params, "vision_tower."),
+                            device, dtype)
+    proj = module_from_jax(LlavaProjector(cfg.vision.hidden_size, cfg.text.hidden_size, device=device, dtype=dtype),
+                           _under(params, "projector."), device, dtype)
+    lm = causal_lm_from_jax_params(_under(params, "lm."), cfg.text, device, dtype)
+    return LlavaForConditionalGeneration(tower, proj, lm, cfg)
+
+
+def phi3v_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's Phi3VForCausalLM from a JAX one's parameters
+    (`image_embed.*`: the tower, separators and projector; `lm.*`)."""
+    from .llava import clip_tower
+    from .phi3v import Phi3VForCausalLM, Phi3VImageEmbedding
+
+    emb = Phi3VImageEmbedding(clip_tower(cfg.vision, device=device, dtype=dtype), cfg, device=device, dtype=dtype)
+    module_from_jax(emb, _under(params, "image_embed."), device, dtype)
+    return Phi3VForCausalLM(emb, causal_lm_from_jax_params(_under(params, "lm."), cfg.text, device, dtype), cfg)
+
+
+def fuyu_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's FuyuForCausalLM from a JAX one's parameters (`vision_embed.*`
+    and the Persimmon LM under `lm.*`: per-head LayerNorms, biased q/k/v, a
+    non-gated MLP, as the names say)."""
+    from .fuyu import FuyuForCausalLM
+
+    state = _under(params, "vision_embed.")
+    emb = Linear.from_tensors(_to_torch("weight", state["weight"], device, dtype),
+                              _to_torch("bias", state["bias"], device, dtype) if "bias" in state else None)
+    return FuyuForCausalLM(emb, causal_lm_from_jax_params(_under(params, "lm."), cfg.text, device, dtype), cfg)
+
+
+def opt_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's OPTForCausalLM from a JAX one's parameters."""
+    from .opt import OPTForCausalLM
+
+    model = OPTForCausalLM(cfg, final_ln="final_ln.weight" in params,
+                           bias="blocks.mods.0.attn.q_proj.bias" in params, device=device, dtype=dtype)
+    return module_from_jax(model, params, device, dtype)
+
+
+def bert_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's BertModel from a JAX one's parameters."""
+    from .bert import BertModel
+
+    return module_from_jax(BertModel(cfg, device=device, dtype=dtype), params, device, dtype)
+
+
+def imagebind_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's ImageBindModel from a JAX one's parameters."""
+    from .imagebind import ImageBindModel
+
+    return module_from_jax(ImageBindModel(cfg, device=device, dtype=dtype), params, device, dtype)

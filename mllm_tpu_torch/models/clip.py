@@ -118,12 +118,14 @@ class CLIPModel(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _tower_blocks(prefix: str, n_layers: int) -> dict:
-    """Port key -> HF name of the blocks of CLIP's tower `prefix`."""
+def tower_block_names(prefix: str, n_layers: int, hf_prefix: Optional[str] = None) -> dict:
+    """Port key -> HF name of the blocks of CLIP's tower `prefix`, stored
+    under `hf_prefix` (the same name by default)."""
+    hf_prefix = hf_prefix or prefix
     sub = {"ln1": "layer_norm1", "ln2": "layer_norm2", "attn.q_proj": "self_attn.q_proj",
            "attn.k_proj": "self_attn.k_proj", "attn.v_proj": "self_attn.v_proj",
            "attn.out_proj": "self_attn.out_proj", "mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2"}
-    return {f"{prefix}.blocks.{i}.{p}.{w}": f"{prefix}.encoder.layers.{i}.{h}.{w}"
+    return {f"{prefix}.blocks.{i}.{p}.{w}": f"{hf_prefix}.encoder.layers.{i}.{h}.{w}"
             for i in range(n_layers) for p, h in sub.items() for w in ("weight", "bias")}
 
 
@@ -143,8 +145,8 @@ def load_clip(loader, cfg: CLIPConfig, *, device, dtype=torch.float32) -> CLIPMo
         "vision_model.post_ln.bias": "vision_model.post_layernorm.bias",
         "text_projection.weight": "text_projection.weight",
         "visual_projection.weight": "visual_projection.weight",
-        **_tower_blocks("text_model", cfg.text.num_hidden_layers),
-        **_tower_blocks("vision_model", cfg.vision.num_hidden_layers),
+        **tower_block_names("text_model", cfg.text.num_hidden_layers),
+        **tower_block_names("vision_model", cfg.vision.num_hidden_layers),
         "logit_scale": "logit_scale",
     }
     load_params(model, loader, names, device=device, dtype=dtype, f32=("logit_scale",))

@@ -8,7 +8,9 @@ them losslessly into the kernels' layouts: Q4_0 -> symmetric `Int4Linear`,
 Q4_K -> affine `Int4Linear` (with zeros), Q8_0 / Q8_0F -> `QuantLinear`
 (requantized to one scale a row); other block types decode to float and
 follow `quant`. Fused q||k||v and gate||up checkpoints (phi3) are split by
-rows at load and each part kept float or quantized from float, as there.
+rows at load and each part kept float or quantized from float, as there; an
+interleaved q/k/v (Persimmon / Fuyu: rows [H, (q, k, v), hd], with a bias)
+is split per head into float Linears, whatever `quant` says, as there.
 `mlp_builder` builds a block's MLP itself (the MoE families).
 """
 
@@ -37,6 +39,7 @@ class NameMap:
     attn_v = "self_attn.v_proj"
     attn_o = "self_attn.o_proj"
     attn_qkv = "self_attn.qkv_proj"  # fused variant (phi3)
+    attn_qkv_interleaved = None  # persimmon / fuyu: rows packed [H, (q, k, v), hd]
     q_norm = "self_attn.q_norm.weight"
     k_norm = "self_attn.k_norm.weight"
     gate = "mlp.gate_proj"
@@ -145,6 +148,22 @@ def _split_rows(loader, name: str, splits: list[int], in_f: int) -> list[np.ndar
     return np.split(w, np.cumsum(splits)[:-1], axis=0)
 
 
+def _split_interleaved(loader, base: str, cfg: TextConfig, device, dtype) -> list:
+    """An interleaved fused q/k/v `base` (weight [H * 3 * hd, D], rows packed
+    [H, (q, k, v), hd]; bias [H * 3 * hd] when present) -> float Linears for
+    q, k and v (JAX `load_causal_lm`'s `attn_qkv_interleaved` branch)."""
+    h, hd, d = cfg.num_attention_heads, cfg.head_dim_, cfg.hidden_size
+    w = np.array(loader.load(base + ".weight", (h, 3, hd, d), np.float32), np.float32)
+    b = (np.array(loader.load(base + ".bias", (h, 3, hd), np.float32), np.float32)
+         if base + ".bias" in loader else None)
+
+    def part(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return [Linear.from_tensors(part(w[:, j].reshape(h * hd, d)),
+                                None if b is None else part(b[:, j].reshape(h * hd))) for j in range(3)]
+
+
 def _from_float(w: np.ndarray, quant: str | None, *, device, dtype):
     """A float [out, in] part of a fused weight -> Linear, or quantized from
     float (JAX `_maybe_quant_from_float`; no bias)."""
@@ -192,7 +211,11 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
             elif p + nm.q_norm.replace(".weight", ".bias") in loader:  # per-head LayerNorm
                 attn.q_norm, attn.k_norm = (LayerNorm(hd, cfg.rms_norm_eps, device=device, dtype=dtype)
                                             for _ in range(2))
-        if p + nm.attn_qkv + ".weight" in loader:
+        if nm.attn_qkv_interleaved and p + nm.attn_qkv_interleaved + ".weight" in loader:
+            for name, lin in zip(("q_proj", "k_proj", "v_proj"),
+                                 _split_interleaved(loader, p + nm.attn_qkv_interleaved, cfg, device, dtype)):
+                fused[f"blocks.{i}.attn.{name}"] = lin
+        elif p + nm.attn_qkv + ".weight" in loader:
             h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hidden_size
             parts = _split_rows(loader, p + nm.attn_qkv + ".weight", [h * hd, hkv * hd, hkv * hd], d)
             for name, w in zip(("q_proj", "k_proj", "v_proj"), parts):

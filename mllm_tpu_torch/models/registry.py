@@ -1,14 +1,14 @@
 """Model registry and auto loading from a checkpoint directory: counterpart
 of `mllm_tpu/models/registry.py` for the text families (dense and MoE),
-Qwen2-VL, Qwen2.5-VL, CLIP and ViT.
+Qwen2-VL, Qwen2.5-VL, LLaVA, Phi-3-V, Fuyu, CLIP, ViT, OPT and BERT.
 
 `auto_model(path)` reads an HF `config.json` (or takes a named preset),
 builds the CausalLM, loads its weights from safetensors or `.mllm`
 container(s) and returns (model, tokenizer, config), the tokenizer read
 from the directory's `tokenizer.json`; a vision-language or encoder
 checkpoint goes to `auto_model_any`, which returns (model, kind).
-Architectures and options the port does not have yet raise
-NotImplementedError naming the ROADMAP item that brings them.
+Options the port does not have yet raise NotImplementedError naming the
+ROADMAP item that brings them; so does a model_type the port does not build.
 """
 
 from __future__ import annotations
@@ -32,10 +32,6 @@ DENSE_TYPES = ("qwen2", "qwen3", "llama", "mistral", "gemma", "gemma2", "stablel
                "phonelm", "smollm", "dclm", "tinyllama", "minicpm")
 MOE_TYPES = ("mixtral", "qwen2_moe", "minicpm_moe", "bailing_moe", "smallthinker")
 
-_LATER = {
-    **dict.fromkeys(("opt", "bert"), "ROADMAP Queue 1 item 14"),
-    **dict.fromkeys(("llava", "fuyu", "phi3_v", "phi3v"), "ROADMAP Queue 1 item 13"),
-}
 # model_types that are not bare CausalLMs: `auto_model` hands them to
 # `auto_model_any` (JAX `_ANY_TYPES`)
 ANY_TYPES = ("opt", "bert", "clip", "llava", "vit", "fuyu", "phi3_v", "phi3v", "qwen2_vl", "qwen2_5_vl")
@@ -68,8 +64,7 @@ def build_model(cfg: TextConfig, loader, *, device, dtype=torch.bfloat16, quant=
                                     shared_gate_name="shared_expert_gate", **kw)
         return load_causal_lm(loader, cfg, device=device, dtype=dtype, quant=quant,
                               mlp_builder=mlp_builder)
-    raise _not_ported(f"model_type {cfg.model_type!r}",
-                      _LATER.get(cfg.model_type, "no ROADMAP item names it"))
+    raise _not_ported(f"model_type {cfg.model_type!r}", "no ROADMAP item names it")
 
 
 def open_loader(path: str):
@@ -98,17 +93,38 @@ def auto_config(path_or_preset: str, **overrides) -> TextConfig:
 
 def auto_model_any(path: str, dtype=torch.bfloat16, quant=None, *, device=None):
     """(model, kind) for any checkpoint directory (JAX `auto_model_any`):
-    qwen2_vl, qwen2_5_vl (quant applies to the LM's Linears, as there), clip
-    and vit, or a CausalLM ("causal_lm"). opt, bert, llava, fuyu and phi3_v /
-    phi3v raise NotImplementedError naming their ROADMAP item. The model goes
-    to the card unless `device` says otherwise."""
+    opt, bert, clip, llava, vit, fuyu, phi3_v / phi3v (kind "phi3v"),
+    qwen2_vl and qwen2_5_vl (quant applies to the LM's Linears of the
+    vision-language ones, as there), or a CausalLM ("causal_lm"). The model
+    goes to the card unless `device` says otherwise."""
     with open(os.path.join(path, "config.json")) as f:
         mt = json.load(f).get("model_type", "")
-    if mt in _LATER:
-        raise _not_ported(f"model_type {mt!r}", _LATER[mt])
     if quant is not None:
         check_mode(quant)
     dev = device or default_device()
+    if mt == "opt":
+        from .opt import load_opt, opt_config_from_hf
+
+        return load_opt(open_loader(path), opt_config_from_hf(path), device=dev, dtype=dtype), "opt"
+    if mt == "bert":
+        from .bert import bert_config_from_hf, load_bert
+
+        return load_bert(open_loader(path), bert_config_from_hf(path), device=dev, dtype=dtype), "bert"
+    if mt == "llava":
+        from .llava import llava_config_from_hf, load_llava
+
+        return load_llava(open_loader(path), llava_config_from_hf(path), device=dev, dtype=dtype,
+                          quant=quant), "llava"
+    if mt == "fuyu":
+        from .fuyu import fuyu_config_from_hf, load_fuyu
+
+        return load_fuyu(open_loader(path), fuyu_config_from_hf(path), device=dev, dtype=dtype,
+                         quant=quant), "fuyu"
+    if mt in ("phi3_v", "phi3v"):
+        from .phi3v import load_phi3v, phi3v_config_from_hf
+
+        return load_phi3v(open_loader(path), phi3v_config_from_hf(path), device=dev, dtype=dtype,
+                          quant=quant), "phi3v"
     if mt == "clip":
         from .clip import clip_config_from_hf, load_clip
 
@@ -153,8 +169,6 @@ def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[Tex
         if os.path.exists(cfg_json):
             with open(cfg_json) as f:
                 mt = json.load(f).get("model_type", "")
-            if mt in _LATER:
-                raise _not_ported(f"model_type {mt!r}", _LATER[mt])
             if mt in ANY_TYPES:
                 model, _ = auto_model_any(path, dtype, quant, device=device)
                 cfg = getattr(model, "cfg", None)

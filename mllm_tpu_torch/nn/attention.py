@@ -16,9 +16,8 @@ apply. `attention_route` decides, the same on every device: an additive
 over a quantized cache with per-slot lengths and a head_dim outside
 KERNEL_HEAD_DIMS (64, 128, 256) go through the port's own `sdpa` (on the card
 too), as the reference sends them to XLA `sdpa`: no Pallas kernel takes them
-there, so no Hopper kernel is owed. A quantized cache at a head_dim above 128
-also takes `sdpa`: the reference runs its quantized Pallas kernels there, the
-port has no such kernel yet (ROADMAP Queue 2).
+there, so no Hopper kernel is owed. Every cache at a head_dim of
+KERNEL_HEAD_DIMS reaches its kernels, as the reference's Pallas ones.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from ..ops._common import FLASH_HEAD_DIMS, KERNEL_HEAD_DIMS, QUANT_KERNEL_HEAD_DIMS
+from ..ops._common import FLASH_HEAD_DIMS, KERNEL_HEAD_DIMS
 from ..ops.decode_attention import decode_attention, decode_attention_paged, decode_attention_quant
 from ..ops.flash_attention import flash_attention, flash_attention_quant
 
@@ -105,8 +104,8 @@ def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=N
     and `sdpa` is plain PyTorch on both. A head_dim the kernels do not take
     (not in KERNEL_HEAD_DIMS) goes to `sdpa` on every cache, as the reference
     sends every `d % 128 != 0` call to XLA (Phi-3's 96, for one); 256 reaches
-    the bf16 kernels as it reaches the Pallas ones there (Gemma-2B), and over
-    a quantized cache (wider than QUANT_KERNEL_HEAD_DIMS) takes `sdpa`.
+    the kernels of every cache, the quantized ones included, as it reaches
+    the Pallas ones there (Gemma-2B).
     Counterpart of the choice between XLA `sdpa` and the Pallas kernels in
     `mllm_tpu/nn/attention.py:145-175,192-212`."""
     if bias is not None or logit_softcap is not None:
@@ -116,8 +115,6 @@ def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=N
     if cache == "paged":
         return "decode_paged" if sq == 1 and kv_start is None else _dense_route(sq)
     if cache == "quant":
-        if head_dim is not None and head_dim > max(QUANT_KERNEL_HEAD_DIMS):
-            return "sdpa"
         if sq == 1:
             return "decode_quant"
         per_slot = isinstance(kv_valid_len, torch.Tensor) and kv_valid_len.dim() > 0

@@ -11,7 +11,7 @@ KERNEL_HEAD_DIMS = (64, 128, 256)  # the bf16 flash, decode and paged decode ker
 # the bf16 flash kernel also takes 80 (the vision towers' heads, reached through
 # `nn.attention.attend_padded_head` only: `attention_route` keeps 80 on `sdpa`)
 FLASH_HEAD_DIMS = (64, 80, 128, 256)
-QUANT_KERNEL_HEAD_DIMS = (64, 128)  # the kernels over int8 / int4 K/V
+QUANT_KERNEL_HEAD_DIMS = (64, 128, 256)  # the kernels over int8 / int4 K/V
 
 
 def visible_keys(b: int, skv: int, kv_valid_len, kv_start: Optional[torch.Tensor],

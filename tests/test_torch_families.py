@@ -315,9 +315,9 @@ def test_tree_speculative_gemma2_flavour_equals_jax_and_greedy():
 
 @pytest.mark.parametrize("head_dim", [64, 128, 256])
 def test_attention_route_by_head_dim(head_dim):
-    """head_dim 256 reaches the bf16 kernels on the dense and paged caches (as
-    the reference runs its Pallas kernels at 256) and `sdpa` over quantized
-    caches (no quantized kernel at 256); a bias or softcap is `sdpa` always."""
+    """head_dim 256 reaches the kernels of every cache, the quantized ones
+    included (as the reference runs its Pallas kernels at 256); a bias or
+    softcap is `sdpa` always."""
     from mllm_tpu_torch.ops._common import KERNEL_HEAD_DIMS
 
     with pytest.MonkeyPatch.context() as mp:
@@ -325,7 +325,7 @@ def test_attention_route_by_head_dim(head_dim):
         route = port_attention.attention_route
         assert route(1, head_dim=head_dim) == "decode" and route(64, head_dim=head_dim) == "flash"
         assert route(1, cache="paged", head_dim=head_dim) == "decode_paged"
-        quant = ("decode_quant", "flash_quant") if head_dim <= 128 else ("sdpa", "sdpa")
+        quant = ("decode_quant", "flash_quant")
         assert (route(1, cache="quant", head_dim=head_dim), route(64, cache="quant", head_dim=head_dim)) == quant
         assert route(1, head_dim=head_dim, logit_softcap=50.0) == "sdpa"
         assert route(64, head_dim=96) == "sdpa"  # Phi-3's head_dim: no kernel, as in the reference

@@ -135,6 +135,30 @@ def test_vision_language_modules_import_no_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+_ANY_PROBE = """
+import sys
+from mllm_tpu_torch.models import bert, fuyu, imagebind, llava, opt, phi3v
+from mllm_tpu_torch.models.bridge import (bert_from_jax_params, fuyu_from_jax_params, imagebind_from_jax_params,
+                                          llava_from_jax_params, opt_from_jax_params, phi3v_from_jax_params)
+from mllm_tpu_torch.processor import audio
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib") or m == "mllm_tpu" or m.startswith("mllm_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_auto_model_any_families_import_no_jax():
+    """LLaVA, Phi-3-V, Fuyu, ImageBind, OPT, BERT, their bridge and the audio
+    copy pull in neither JAX nor mllm_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _ANY_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "library_path", lambda: str(tmp_path / "libmissing.so"))

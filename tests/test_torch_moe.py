@@ -312,10 +312,23 @@ def test_other_moe_types_build_and_match_jax(tmp_path, model_type, quant, monkey
 
 @pytest.mark.parametrize("model_type,item", [("opt", "item 14"), ("bert", "item 14"), ("fuyu", "item 13"),
                                              ("phi3_v", "item 13"), ("phi3v", "item 13"), ("llava", "item 13")])
-def test_unported_types_name_their_item(tmp_path, model_type, item):
+def test_unported_types_name_their_item(tmp_path, monkeypatch, model_type, item):
+    """The types the port took in ROADMAP items 13 and 14 (`item`) no longer
+    raise: auto_model hands them to auto_model_any, as the JAX package does,
+    and returns the model's config."""
+    from mllm_tpu_torch.models import registry
+
+    seen = []
+
+    class Loaded:
+        cfg = "cfg"
+
+    monkeypatch.setattr(registry, "auto_model_any",
+                        lambda path, dtype, quant, device: seen.append((path, quant, device)) or (Loaded(), "kind"))
     (tmp_path / "config.json").write_text(json.dumps({"model_type": model_type}))
-    with pytest.raises(NotImplementedError, match=item):
-        auto_model(str(tmp_path), device=CPU)
+    model, tok, cfg = auto_model(str(tmp_path), device=CPU)
+    assert isinstance(model, Loaded) and cfg == "cfg" and tok is None
+    assert seen == [(str(tmp_path), None, CPU)]
 
 
 def test_init_draws_moe_scale_and_runs():

@@ -42,8 +42,8 @@ from test_torch_model import _jax_forward, _pair, _rel
     (dict(sq=1), "decode"),
     (dict(sq=5, kv_valid_len=torch.tensor([5, 3])), "flash"),
     *[(dict(sq=sq, cache=cache, head_dim=d),
-       "sdpa" if d != 256 or cache == "quant" else {1: "decode", 16: "flash"}[sq] if cache == "dense"
-       else {1: "decode_paged", 16: "flash"}[sq])
+       "sdpa" if d != 256 else {"dense": {1: "decode", 16: "flash"}, "paged": {1: "decode_paged", 16: "flash"},
+                                "quant": {1: "decode_quant", 16: "flash_quant"}}[cache][sq])
       for d in (80, 96, 256) for cache in ("dense", "paged", "quant") for sq in (1, 16)],
     *[(dict(sq=sq, cache=cache, head_dim=d), want) for d in (64, 128)
       for cache, sq, want in (("dense", 1, "decode"), ("dense", 16, "flash"), ("paged", 1, "decode_paged"),
@@ -61,10 +61,9 @@ def test_attention_route(case, want):
     """The route of a call, the same on a card as here: the calls the
     reference sends to XLA sdpa (a bias, a softcap, a per-slot quantized
     prefill, a head_dim the kernels do not take: 80 and 96 on every cache)
-    go to the port's sdpa, and 256 over a quantized cache (no quantized
-    kernel takes it); 256 reaches the bf16 kernels on the dense and paged
-    caches, as the reference runs its Pallas kernels there. No other call
-    moves."""
+    go to the port's sdpa; 256 reaches the kernels of every cache, the
+    quantized ones included, as the reference runs its Pallas kernels there.
+    No other call moves."""
     case = dict(case)
     sq = case.pop("sq")
     assert attention_route(sq, **case) == want
@@ -98,20 +97,22 @@ def test_head_dim_outside_the_kernels_takes_sdpa(monkeypatch, head_dim):
     """attend and attend_from_cache (dense, paged, int8 and int4 caches) at a
     head_dim no kernel takes call none of the kernels' wrappers, whose CUDA
     entries would raise on it, and give `sdpa` over the (dequantized or
-    gathered) layer; a 2-layer model at that head_dim generates. At 256 only
-    the quantized caches are outside the kernels: the dense and paged calls
-    reach the bf16 kernels' plain versions, within 1e-5 of `sdpa`."""
+    gathered) layer; a 2-layer model at that head_dim generates. 256 is
+    inside the kernels of every cache: the dense and paged calls reach the
+    bf16 kernels' plain versions, within 1e-5 of `sdpa`, and the quantized
+    caches' calls the quantized kernels' plain version on the stored K/V."""
     import mllm_tpu_torch.nn.attention as att
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.generation.generate import generate
     from mllm_tpu_torch.generation.sampling import SamplingConfig
     from mllm_tpu_torch.kv.cache import PagedKVCache, Quant4KVCache
     from mllm_tpu_torch.models.transformer import CausalLM
+    from mllm_tpu_torch.ops.flash_attention import flash_attention_quant_ref
 
     bf16_kernels = head_dim == 256
-    for name in ("flash_attention", "decode_attention", "flash_attention_quant", "decode_attention_quant",
-                 "decode_attention_paged")[2 * bf16_kernels:]:
-        if not (bf16_kernels and name == "decode_attention_paged"):
+    if not bf16_kernels:
+        for name in ("flash_attention", "decode_attention", "flash_attention_quant", "decode_attention_quant",
+                     "decode_attention_paged"):
             monkeypatch.setattr(att, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} at head_dim {head_dim}"))
 
     def same(a, b, kernel_route):
@@ -136,8 +137,10 @@ def test_head_dim_outside_the_kernels_takes_sdpa(monkeypatch, head_dim):
             cache = cache.with_tables(np.array([[0, 1], [2, 3]], np.int32))
         cache = cache.update_layer(0, t(2, 8, 2, head_dim), t(2, 8, 2, head_dim))
         out = attend_from_cache(q8, cache, 0, kv_valid_len=8)
-        quant = isinstance(cache, (QuantKVCache, Quant4KVCache))
-        assert same(out, sdpa(q8, *cache.layer(0), kv_valid_len=8), bf16_kernels and not quant)
+        if bf16_kernels and isinstance(cache, (QuantKVCache, Quant4KVCache)):
+            assert torch.equal(out, flash_attention_quant_ref(q8, *cache.layer_quant(0), kv_valid_len=8))
+        else:
+            assert same(out, sdpa(q8, *cache.layer(0), kv_valid_len=8), bf16_kernels)
     cfg = TextConfig(vocab_size=64, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                      num_attention_heads=4, num_key_value_heads=2, head_dim=head_dim, eos_token_id=-1)
     model = CausalLM.init(cfg, device="cpu")

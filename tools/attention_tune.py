@@ -38,7 +38,9 @@ q_scale (an older tree's kernel, which took q pre-scaled) is timed as its
 wrapper ran it: the elementwise pre-scale of q, then the kernel.
 
 For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (with `--wide`,
-FLASH_ROWS_256 or DECODE_ROWS_256 at head_dim 256, chip_smoke.WIDE_GEO; or
+FLASH_ROWS_256 or DECODE_ROWS_256 at head_dim 256, chip_smoke.WIDE_GEO; the
+quantized kernels' and the paged one's rows at WIDE_GEO, flash_quant's
+QUANT_FLASH_ROWS_256; or
 only the main row, `--rows main`), the variants run in turns, in order then in reverse, `--reps`
 times, each timed as chip_smoke.time_ms times a kernel (20 launches behind a
 GPU spin); one JSON line per row and variant gives every time, the median and
@@ -156,11 +158,14 @@ def build_variants(kind: str, variants: list, out_dir: str) -> list:
         fn = getattr(handle, ENTRY[kind])
         var["with_splits"] = "int splits" in text
         var["with_q_scale"] = "float q_scale" in text
+        # the device-scalar pointers of the flash entries: kv_valid_vec and
+        # q_offset_dev (flash_quant), q_offset_dev (flash), passed as null
+        var["dev_scalars"] = ("q_offset_dev" in text) * (2 if kind == "flash_quant" else 1)
         splits = [_I] if var["with_splits"] else []
         if kind == "flash_quant":
-            fn.argtypes = [_P] * 7 + [_I] * 11 + ([_F] if var["with_q_scale"] else []) + [_P]
+            fn.argtypes = [_P] * (7 + var["dev_scalars"]) + [_I] * 11 + ([_F] if var["with_q_scale"] else []) + [_P]
         elif kind == "flash":
-            fn.argtypes = [_P] * 6 + [_I] * 10 + [_F] + splits + [_P]
+            fn.argtypes = [_P] * (6 + var["dev_scalars"]) + [_I] * 10 + [_F] + splits + [_P]
         elif kind == "decode":
             fn.argtypes = [_P] * 6 + [_I] * 7 + [_F] + splits + [_P]
         elif kind == "paged":
@@ -193,7 +198,7 @@ def caller(kind: str, var: dict, q, k, v, kw):
     scale = d**-0.5 * LOG2E
     window = int(kw.get("window") or 0)
     if kind == "flash":
-        args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(vec), ptr(start), b, sq, h, hkv, skv, d,
+        args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(vec), ptr(start), *[None] * var["dev_scalars"], b, sq, h, hkv, skv, d,
                 kw["q_offset"], 0 if vec is not None else int(kvl), 1, window, scale,
                 *([var["splits"] or 1] if var["with_splits"] else []), stream)
     else:
@@ -256,7 +261,7 @@ def flash_quant_caller(var: dict, q, ops, kw, dense):
             int(kw["window"] or 0))
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
-            start.data_ptr() if start is not None else None)
+            start.data_ptr() if start is not None else None, *[None] * var["dev_scalars"])
     c = torch.tensor(d**-0.5 * LOG2E, dtype=q.dtype, device=q.device)
 
     def run():
@@ -277,9 +282,9 @@ def main_flash_quant(args, variants, dev):
     and int4 (or the main row at both), against flash_attention_quant_ref."""
     from mllm_tpu_torch.ops.flash_attention import flash_attention_quant_ref
 
-    rows = chip_smoke.QUANT_FLASH_ROWS
+    rows = chip_smoke.QUANT_FLASH_ROWS_256 if args.wide else chip_smoke.QUANT_FLASH_ROWS
     if args.rows == "main":
-        rows = [rows[chip_smoke.MAIN_ROW["flash_attention_quant"]]]
+        rows = [rows[chip_smoke.MAIN_ROW["flash_attention_quant" + ("@256" if args.wide else "")]]]
     g = torch.Generator(device=dev).manual_seed(1234)
     for bits in (8, 4):
         for row in rows:
@@ -365,14 +370,15 @@ def main_quant(args, variants, dev):
 
     rows = chip_smoke.QUANT_DECODE_ROWS
     if args.rows == "main":
-        rows = [rows[chip_smoke.MAIN_ROW["decode_attention_quant"]]]
+        rows = [rows[chip_smoke.MAIN_ROW["decode_attention_quant" + ("@256" if args.wide else "")]]]
+    geo = chip_smoke.WIDE_GEO if args.wide else (chip_smoke.H, chip_smoke.HKV, chip_smoke.D)
     g = torch.Generator(device=dev).manual_seed(1234)
     for bits in (8, 4):
         for row in rows:
-            q, kops, pops, kw, shape, dense = chip_smoke.quant_decode_inputs(row, bits, dev, g)
+            q, kops, pops, kw, shape, dense = chip_smoke.quant_decode_inputs(row, bits, dev, g, geo)
             ref = decode_attention_quant_ref(q, *pops, **kw).float()
             runs = [quant_caller(var, q, kops, kw, dense) for var in variants]
-            kb = 2 * (chip_smoke.D if bits == 8 else chip_smoke.D // 2) + 8
+            kb = 2 * (geo[2] if bits == 8 else geo[2] // 2) + 8
             time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape, kb)["bound_ms"])
 
 
@@ -382,7 +388,7 @@ def main():
     ap.add_argument("--variant", action="append", required=True)
     ap.add_argument("--rows", choices=("main", "all"), default="all")
     ap.add_argument("--reps", type=int, default=2)
-    ap.add_argument("--wide", action="store_true", help="flash / decode rows at head_dim 256")
+    ap.add_argument("--wide", action="store_true", help="the kernel's rows at head_dim 256")
     args = ap.parse_args()
     chip_smoke.phase_device()
     dev = torch.device("cuda", 0)

@@ -41,7 +41,7 @@ PROBES = {
     "noconv": [(QUANT, "        const uint4 c = scaled_chunk(int8_pair(w[k].x), int8_pair(w[k].x >> 8), int8_pair(w[k].y),\n"
                        "                                     int8_pair(w[k].y >> 8), s[k]);",
                 "        const uint4 c = zero;"),
-               (QUANT, "      w[k] = *reinterpret_cast<const uint2*>(src + (j0 + k) * RS * G::kDS);\n"
+               (QUANT, "      w[k] = *reinterpret_cast<const uint2*>(src + (j0 + k) * RS * kDS);\n"
                        "      s[k] = sc[(j0 + k) * RS];",
                 "      w[k] = make_uint2(0u, 0u);\n      s[k] = 0.f;"),
                (QUANT, "        const uint4 lo_c = scaled_chunk(nibble_pair(w[k].x), nibble_pair(w[k].x >> 8), nibble_pair(w[k].y),\n"
