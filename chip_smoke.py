@@ -238,6 +238,39 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      decode launches at head_dim 64), then BERT-base encoding 8 sentences of
      64 tokens into unit sentence embeddings within 5e-2 x max of f32 on the
      host.
+  25. slice_openelm: OpenELM-1_1B (apple/OpenELM-1_1B's config: 28 layers of
+     16-32 query / 4-8 KV heads of 64, FFN 1024-8192; random bf16 weights)
+     through forward, a 1500-token prefill and 32 greedy tokens at b=1 and
+     at b=4 lockstep (where the narrower layers' live KV heads are copied
+     contiguous): exactly 28 flash_attention@64 launches a prefill and 28
+     decode_attention@64 a step, no `sdpa` call, the last step within 0.1 x
+     max |logit| of a fresh prefill; then the copy's ms beside the kernels'
+     over the copied heads (`slice_openelm_contiguity`).
+  26. slice_deepseek: MiniCPM3-4B (openbmb/MiniCPM3-4B's config, 62 layers,
+     MLA K 96 / V 64) with a 1500-token prompt and DeepSeek-V3's widths at
+     depth 2 (layer 0 dense, layer 1 the 256-expert MoE layer, group-limited
+     routing over a random correction bias; ~28 GB) with a 512-token prompt,
+     each through generate and generate_compiled (`gen_pair`: 32 tokens, the
+     last step against a fresh prefill, compiled equal to eager up to
+     near-ties, no attention kernel: MLA is the port's `sdpa`).
+  27. slice_elastic: the Qwen2-VL-2B LM: elastic_model(1.0) bit-equal, then
+     the full model, elastic_model(0.5, 0.5) (6 / 1 heads, FFN 4480),
+     sparse_model(threshold 0) and, after quantize_model("int8"),
+     elastic_model(0.5, 0.5) of it through `gen_pair` (1500-token prompt,
+     32 tokens): exact flash / decode launches, and 7 int8_matmul a layer
+     plus the head's a forward at the sliced shapes.
+  28. slice_mbp: Qwen1.5-MoE-A2.7B's widths, 4 layers, through to_mbp (16
+     and 4 device entries; experts in pinned host memory) and mbp_forward:
+     128 prompt tokens and 32 greedy ones, every step within 0.1 x max
+     |logit| of the resident model's forward and within 1e-2 x max |logit|
+     of the resident model routed onto MBP's own experts (`RouteTap`; near
+     ties flip experts between the unforced two); hit rate, bytes copied,
+     ms a token.
+  29. slice_persist: the main-geometry LM over a dense and an int8 cache:
+     1500 prompt tokens and 8 greedy ones, save_cache / load_cache, 8 more,
+     token-identical to 16 uninterrupted; a SlotKVCache round trip
+     bit-equal; Profiler.report, torch_trace over 4 decode steps (CUDA
+     kernels in the trace), cost_table of one eager decode step.
   The kernel check also runs flash_attention and decode_attention at head_dim
   256 (Gemma-2B's 8 / 1 heads: FLASH_ROWS_256, DECODE_ROWS_256, poisoned rows
   included; the `@256` rows of the kernels line, whose launches are those at
@@ -254,7 +287,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   output cropped) and SDPA at D = 80 (`library_ms`): the `@80` row of the
   kernels line, whose launches are the towers' in slice_vl; int8_matmul adds
   the tower's (1444, 1280, 3840) and (1444, 5120, 1280).
-  Phases 9-24 print their seconds (`<phase>_seconds`).
+  It checks flash_attention and decode_attention at head_dim 64 at
+  OpenELM-1_1B's widest layer (32 / 8 heads: FLASH_ROWS_64 with the 1536-
+  and 1500-token prefills, DECODE_ROWS_64 with the b=4 step at 1531 keys,
+  poisoned rows included; <= 2e-2 and <= 0.1 by `row_rel_err`, which a
+  plain version short of 64 keys must exceed), beside their bounds and SDPA:
+  the `@64` rows of the kernels line, whose launches are slice_openelm's.
+  Phases 9-29 print their seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -304,7 +343,9 @@ MAIN_ROW = {"flash_attention": 5, "decode_attention": 1, "int8_matmul": 1, "int4
             # head_dim 80 (the Qwen2-VL tower): a 532 px image's 1444 patches
             "flash_attention@80": 0,
             # head_dim 256 over int8 K/V (Gemma-2B): the 1536-token prefill; the engine's 8 slots
-            "flash_attention_quant@256": 0, "decode_attention_quant@256": 1}
+            "flash_attention_quant@256": 0, "decode_attention_quant@256": 1,
+            # head_dim 64 (OpenELM-1_1B's widest layer): the 1536-token prefill; the b=4 step at 1531 keys
+            "flash_attention@64": 0, "decode_attention@64": 0}
 SOURCES = {
     "flash_attention": ("mllm_tpu_torch/csrc/flash_attention.cu",
                         "mllm_tpu/ops/flash_attention.py:230"),
@@ -332,6 +373,10 @@ SOURCES = {
                                   "mllm_tpu/ops/flash_attention.py:309"),
     "decode_attention_quant@256": ("mllm_tpu_torch/csrc/decode_attention_quant.cu",
                                    "mllm_tpu/ops/decode_attention.py:244"),
+    "flash_attention@64": ("mllm_tpu_torch/csrc/flash_attention.cu",
+                           "mllm_tpu/ops/flash_attention.py:230"),
+    "decode_attention@64": ("mllm_tpu_torch/csrc/decode_attention.cu",
+                            "mllm_tpu/ops/decode_attention.py:317"),
 }
 MEGA_TOL = 1e-2  # relative, on y and on k_new/v_new
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense tensor cores
@@ -538,29 +583,47 @@ def phase_kernels(dev) -> dict:
     device_scalar_rows(dev, g, rows)
     rows.update(wide_kernel_rows(dev, g))
     rows["flash_attention@80"] = flash80_rows(dev, g)
+    rows.update(head_dim64_rows(dev, g))
     return rows
 
 
-def check_attention_row(name, kernel, plain, shape, library=None) -> dict:
+def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest, over the output rows (one query of one head) whose plain
+    version is not all zero, of max |kernel - plain| / mean |plain| in that
+    row. An output row over n keys is ~n^-1/2 in size, so the absolute TOL
+    alone would pass a kernel that drops a tile of keys from a long row."""
+    d = ref.shape[-1]
+    err = (out.float() - ref.float()).abs().reshape(-1, d).amax(-1)
+    mean = ref.float().abs().reshape(-1, d).mean(-1)
+    live = mean > 0
+    return (err[live] / mean[live]).max().item() if bool(live.any()) else 0.0
+
+
+def check_attention_row(name, kernel, plain, shape, library=None, rel_tol=None) -> dict:
     """One bf16 attention row: the kernel against its plain version (every
     row compared: both write zeros where a row sees no key), finite, within
-    TOL; ms, plain ms, the library call's ms and the bound."""
+    TOL and, given `rel_tol`, within it by row_rel_err; ms, plain ms, the
+    library call's ms and the bound."""
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(out, ref) if rel_tol is not None else None
     finite = bool(torch.isfinite(out.float()).all())
+    del out, ref
     row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err,
                finite=finite, ms=time_ms(kernel, 20), plain_ms=time_ms(plain, 5),
                library_ms=time_ms(library, 20) if library is not None else None,
                **attention_bound(shape))
+    if rel_tol is not None:
+        row.update(rel_err=rel, rel_tolerance=rel_tol)
     emit(**row)
-    if not finite or not err <= TOL:
+    if not finite or not err <= TOL or (rel_tol is not None and not rel <= rel_tol):
         raise AssertionError(f"{name} {shape}: max |kernel - plain| {err} (tolerance {TOL}), "
-                             f"finite={finite}")
+                             f"by row / mean |plain| {rel} (tolerance {rel_tol}), finite={finite}")
     return row
 
 
-def attention_rows(name, kind, kernel, plain, row_list, dev, g, geo=(H, HKV, D)) -> list:
+def attention_rows(name, kind, kernel, plain, row_list, dev, g, geo=(H, HKV, D), rel_tol=None) -> list:
     """check_attention_row over FLASH_ROWS- or DECODE_ROWS-shaped rows; the
     main row (MAIN_ROW[name]) also times one SDPA over the valid keys (GQA)."""
     out = []
@@ -573,7 +636,7 @@ def attention_rows(name, kind, kernel, plain, row_list, dev, g, geo=(H, HKV, D))
                 q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl], is_causal=kind == "flash_attention",
                 enable_gqa=True))
         out.append(check_attention_row(name, lambda: kernel(q, k, v, **kw), lambda: plain(q, kp, vp, **kw),
-                                       shape, library))
+                                       shape, library, rel_tol))
     return out
 
 
@@ -4350,6 +4413,608 @@ def phase_slice_opt_bert(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The last single-device modules: OpenELM (head_dim 64), MLA (MiniCPM3,
+# DeepSeek-V3), elastic and predictor-sparse models, MBP, cache snapshots
+# ---------------------------------------------------------------------------
+
+# head_dim 64 at OpenELM-1_1B's widest layer (32 / 8 heads): (B, Sq, q_offset,
+# kv_valid, kv_start, window, poisoned) and (B, kv_valid, kv_start, window,
+# poisoned) as FLASH_ROWS / DECODE_ROWS, over the 2048-row cache
+GEO64 = (32, 8, 64)
+FLASH_ROWS_64 = [
+    (1, 1536, 0, 1536, None, None, False),                               # a 1500-token prompt's bucket
+    (1, 1500, 0, 1500, None, None, False),                               # OpenELM's unpadded 1500-token prefill
+    (4, 256, 0, [256, 200, 131, 250], [0, 17, 64, 150], None, True),    # kv_start, stale NaN / inf rows
+]
+DECODE_ROWS_64 = [
+    (4, [1531, 1531, 1531, 1531], None, None, False),                    # the b=4 lockstep decode at 1531 keys
+    (4, [1531, 1200, 700, 77], None, None, False),                       # unequal lengths
+    (4, [0, 77, 2083, 1531], [0, 13, 100, 700], None, True),            # stale rows; a slot past the cache
+]
+
+
+# row_rel_err of the @64 rows: sound kernels read 0.025-0.039, the plain
+# version with its last 64 keys dropped 2.35-3.04 (NVIDIA H100 80GB HBM3,
+# 700.00 W; head64_gate_power checks the latter each run)
+HEAD64_REL_TOL = 0.1
+
+
+def head_dim64_rows(dev, g) -> dict:
+    """flash_attention and decode_attention at head_dim 64 (GEO64: OpenELM-1_1B's
+    widest layer) against their plain versions (<= TOL, and <= HEAD64_REL_TOL
+    by row_rel_err), timed beside their
+    bounds and, on the main rows, SDPA: the `@64` rows of the kernels line,
+    whose launches are slice_openelm's."""
+    from mllm_tpu_torch.ops.decode_attention import decode_attention, decode_attention_ref
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    rows = {"flash_attention@64": attention_rows("flash_attention@64", "flash_attention", flash_attention,
+                                                 flash_attention_ref, FLASH_ROWS_64, dev, g, GEO64, HEAD64_REL_TOL),
+            "decode_attention@64": attention_rows("decode_attention@64", "decode_attention", decode_attention,
+                                                  decode_attention_ref, DECODE_ROWS_64, dev, g, GEO64,
+                                                  HEAD64_REL_TOL)}
+    head64_gate_power(dev, g)
+    return rows
+
+
+def head64_gate_power(dev, g) -> None:
+    """The @64 gate sees a dropped tile: on each main row, the kernel against
+    the plain version over its last 64 valid keys dropped must read more than
+    HEAD64_REL_TOL by row_rel_err."""
+    from mllm_tpu_torch.ops.decode_attention import decode_attention, decode_attention_ref
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    for kind, kernel, plain, row in (("decode_attention", decode_attention, decode_attention_ref, DECODE_ROWS_64[0]),
+                                     ("flash_attention", flash_attention, flash_attention_ref, FLASH_ROWS_64[0])):
+        q, k, v, kp, vp, kw, shape = attention_inputs(kind, row, dev, g, GEO64)
+        short = dict(kw, kv_valid_len=kw["kv_valid_len"] - 64)
+        rel = row_rel_err(kernel(q, k, v, **kw), plain(q, kp, vp, **short))
+        emit(phase="kernel_check_gate_power", kernel=f"{kind}@64", shape=shape, keys_dropped=64,
+             rel_err=rel, rel_tolerance=HEAD64_REL_TOL)
+        if not rel > HEAD64_REL_TOL:
+            raise AssertionError(f"{kind}@64 {shape}: 64 keys dropped read {rel} by row, within the "
+                                 f"tolerance {HEAD64_REL_TOL}: the gate cannot see a dropped tile")
+
+
+def openelm_1_1b() -> dict:
+    """apple/OpenELM-1_1B's config.json fields (model_dim 2048, 28 layers,
+    head_dim 64, num_gqa_groups 4, qkv_multipliers [0.5, 1.0],
+    ffn_multipliers [0.5, 4.0], ffn_dim_divisor 256, vocab 32000, context
+    2048, rope_freq_constant 10000), with the per-layer lists its
+    configuration_openelm.py derives: multipliers linspace(lo, hi, 28) rounded
+    to 2 places, query heads make_divisible(2048 m, 64 x 4) / 64 (16 to 32),
+    KV heads a quarter of them."""
+    from mllm_tpu_torch.models.openelm import _make_divisible
+
+    n, dim, hd, groups = 28, 2048, 64, 4
+    qkv = [round(float(v), 2) for v in np.linspace(0.5, 1.0, n)]
+    q_heads = [_make_divisible(dim * m, hd * groups) // hd for m in qkv]
+    return dict(num_transformer_layers=n, model_dim=dim, head_dim=hd, num_query_heads=q_heads,
+                num_kv_heads=[q // groups for q in q_heads],
+                ffn_multipliers=[round(float(v), 2) for v in np.linspace(0.5, 4.0, n)], ffn_dim_divisor=256,
+                vocab_size=32000, max_context_length=2048, rope_freq_constant=10000)
+
+
+OPENELM_PROMPT, OPENELM_NEW = 1500, 32
+
+
+def flash64_launches() -> int:
+    from mllm_tpu_torch.ops.flash_attention import flash_attention
+
+    return flash_attention.launches_at.get(64, 0)
+
+
+def openelm_run(model, dev, b: int, rng) -> dict:
+    """b prompts of OPENELM_PROMPT tokens through forward (one prefill), then
+    OPENELM_NEW - 1 greedy steps one a call, lockstep: exactly L flash @64
+    launches the prefill and L decode launches a step, no `sdpa` call; the
+    last step within RAGGED_TOL x max |logit| of a fresh prefill of each row's
+    prompt and tokens; finite logits, tokens in the vocabulary."""
+    from mllm_tpu_torch.nn import attention as A
+
+    kernels = wrappers()
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    ids = torch.as_tensor(rng.integers(3, V, (b, OPENELM_PROMPT)), device=dev)
+    with torch.no_grad():  # a warm-up prefill of the same shape (cuBLAS picks its kernels once)
+        model(ids, model.init_cache(b, S_CACHE))
+    for fn in kernels.values():
+        fn.launches = 0
+    kernels["flash_attention"].launches_at.clear()
+    with counting(A, "sdpa") as sd, torch.no_grad():
+        cache = model.init_cache(b, S_CACHE)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits, cache = model(ids, cache)
+        end.record()
+        after_prefill = (flash64_launches(), kernels["decode_attention"].launches)
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        toks = [tok]
+        t0 = time.perf_counter()
+        for _ in range(OPENELM_NEW - 1):
+            logits, cache = model(tok, cache)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        steps = (flash64_launches(), kernels["decode_attention"].launches)
+        toks = torch.cat(toks, 1)
+        full = torch.cat([ids, toks[:, :-1]], 1)
+        fresh, _ = model(full, model.init_cache(b, S_CACHE))
+        fresh = fresh[:, -1].float()
+        gap = ((logits[:, -1].float() - fresh).abs().amax(-1) / fresh.abs().amax(-1)).max().item()
+    torch.cuda.synchronize()
+    out = dict(phase="slice_openelm", batch=b, prompt_tokens=OPENELM_PROMPT, new_tokens=toks.shape[1],
+               prefill_ms=start.elapsed_time(end), decode_tok_s=b * (OPENELM_NEW - 1) / decode_s,
+               last_decode_vs_prefill=gap, tolerance=RAGGED_TOL, logits_finite=bool(finite),
+               flash64_after_prefill=after_prefill[0], decode_after_prefill=after_prefill[1],
+               flash64_after_steps=steps[0], decode_after_steps=steps[1], sdpa_calls=sd.calls,
+               expected=dict(flash64_per_prefill=L, decode_per_step=L))
+    emit(**out)
+    in_vocab = bool(((toks >= 0) & (toks < V)).all())
+    if not out["logits_finite"] or not gap <= RAGGED_TOL or not in_vocab:
+        raise AssertionError(f"slice_openelm b={b}: finite {finite}, decode vs prefill {gap}, in vocab {in_vocab}")
+    if after_prefill != (L, 0) or steps != (L, L * (OPENELM_NEW - 1)) or sd.calls:
+        raise AssertionError(f"slice_openelm b={b}: launches after the prefill {after_prefill}, after the steps "
+                             f"{steps} (expected ({L}, 0), ({L}, {L * (OPENELM_NEW - 1)})), sdpa calls {sd.calls}")
+    return {"flash_attention@64": flash64_launches(), "decode_attention@64": kernels["decode_attention"].launches}
+
+
+def openelm_contiguity(model, dev) -> dict:
+    """The live KV heads of a padded layer at b=4 (layer 0: 4 of 8 heads, a
+    strided view) are copied contiguous before the kernels; a batch stride
+    in the kernels would read the same bytes in place. Times, at the b=4
+    decode step over 1531 keys and the b=4 prefill of 1500 tokens: the two
+    copies (K and V), and each kernel over the copied heads, which is what a
+    strided kernel would cost at best."""
+    from mllm_tpu_torch.ops.decode_attention import decode_attention
+    from mllm_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator(device=dev).manual_seed(64)
+    n_kv, n_q, hd = model.cfg.num_kv_heads[0], model.cfg.num_query_heads[0], model.cfg.head_dim
+    k_layer = torch.randn(4, model.n_kv_max, S_CACHE, hd, device=dev, generator=g).to(torch.bfloat16)
+    v_layer = torch.randn(4, model.n_kv_max, S_CACHE, hd, device=dev, generator=g).to(torch.bfloat16)
+    kc, vc = k_layer[:, :n_kv].contiguous(), v_layer[:, :n_kv].contiguous()
+    q1 = torch.randn(4, 1, n_q, hd, device=dev, generator=g).to(torch.bfloat16)
+    qp = torch.randn(4, OPENELM_PROMPT, n_q, hd, device=dev, generator=g).to(torch.bfloat16)
+    kvl = torch.full((4,), 1531, dtype=torch.int32, device=dev)
+    copy_ms = time_ms(lambda: (k_layer[:, :n_kv].contiguous(), v_layer[:, :n_kv].contiguous()), 20)
+    decode_ms = time_ms(lambda: decode_attention(q1, kc, vc, kv_valid_len=kvl), 20)
+    flash_ms = time_ms(lambda: flash_attention(qp, kc, vc, kv_valid_len=OPENELM_PROMPT), 10)
+    padded = sum(1 for n in model.cfg.num_kv_heads if n < model.n_kv_max)
+    out = dict(phase="slice_openelm_contiguity", batch=4, layer_heads=[n_q, n_kv], n_kv_max=model.n_kv_max,
+               cache_rows=S_CACHE, copy_ms=copy_ms, decode_kernel_ms=decode_ms, flash_kernel_ms=flash_ms,
+               padded_layers=padded, copies_ms_per_step=copy_ms * padded,
+               note="copy: the live heads of a padded layer copied contiguous (the port's choice); a batch-strided "
+                    "kernel would cost at least the kernel over the copy")
+    emit(**out)
+    return out
+
+
+def phase_slice_openelm(dev) -> dict:
+    """OpenELM-1_1B (`openelm_1_1b`: full width and depth, random bf16 weights)
+    at b=1 and at b=4 lockstep (`openelm_run`: where the narrower layers'
+    live KV heads are copied contiguous), then the copy's cost beside the
+    kernels' (`openelm_contiguity`). Returns the @64 rows' launches."""
+    from mllm_tpu_torch.models.openelm import OpenELMConfig, OpenELMForCausalLM
+
+    cfg = OpenELMConfig.from_hf(openelm_1_1b())
+    model = OpenELMForCausalLM.init(cfg, device=dev, dtype=torch.bfloat16,
+                                    generator=torch.Generator(device=dev).manual_seed(47))
+    emit(phase="slice_openelm_model", layers=cfg.num_layers, query_heads=list(cfg.num_query_heads),
+         kv_heads=list(cfg.num_kv_heads), ffn_dims=list(cfg.ffn_dims), params=sum(p.numel() for p in model.parameters()),
+         weight_bytes=state_bytes(model))
+    rng = np.random.default_rng(47)
+    launches = {}
+    for b in (1, 4):
+        add_launches(launches, openelm_run(model, dev, b, rng))
+    openelm_contiguity(model, dev)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+MINICPM3_4B = dict(  # openbmb/MiniCPM3-4B config.json (its LongRope scaling is not read)
+    model_type="minicpm3", vocab_size=73448, hidden_size=2560, intermediate_size=6400, num_hidden_layers=62,
+    num_attention_heads=40, num_key_value_heads=40, max_position_embeddings=32768, rope_theta=10000.0,
+    q_lora_rank=768, kv_lora_rank=256, qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64,
+    scale_emb=12, scale_depth=1.4, dim_model_base=256, hidden_act="silu", rms_norm_eps=1e-5,
+    tie_word_embeddings=False, eos_token_id=-2)
+DEEPSEEK_V3_2L = dict(  # deepseek-ai/DeepSeek-V3 config.json; depth 61 -> 2, first_k_dense_replace 3 -> 1
+    model_type="deepseek_v3", vocab_size=129280, hidden_size=7168, intermediate_size=18432,
+    moe_intermediate_size=2048, num_hidden_layers=2, num_attention_heads=128, num_key_value_heads=128,
+    n_shared_experts=1, n_routed_experts=256, routed_scaling_factor=2.5, kv_lora_rank=512, q_lora_rank=1536,
+    qk_rope_head_dim=64, v_head_dim=128, qk_nope_head_dim=128, n_group=8, topk_group=4, num_experts_per_tok=8,
+    first_k_dense_replace=1, norm_topk_prob=True, hidden_act="silu", max_position_embeddings=163840,
+    rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=False, eos_token_id=-2)
+GEN_NEW = 32
+MINICPM3_PROMPT, V3_PROMPT = 1500, 512
+
+
+def tf_gap(model, dev, prompt, toks, cache_fn) -> float:
+    """teacher_forced_gap over a cache from cache_fn()."""
+    ids = np.concatenate([np.asarray(prompt), np.asarray(toks[:-1])])
+    with torch.no_grad():
+        logits, _ = model(torch.as_tensor(ids[None], device=dev), cache_fn(), last_only=False)
+    lg = logits[0, len(prompt) - 1 :].float()
+    chosen = lg.gather(1, torch.as_tensor(np.asarray(toks), device=dev)[:, None])[:, 0]
+    return ((lg.max(-1).values - chosen) / lg.abs().max(-1).values).max().item()
+
+
+def gen_pair(name: str, model, dev, prompt, cache_fn, expected_eager=None, **fields) -> dict:
+    """generate (eager) and generate_compiled (GEN_NEW greedy tokens, timed on
+    its second call, after the first's eager step and capture) on one model:
+    finite logits, the last eager step within RAGGED_TOL x max |logit| of a
+    fresh prefill, compiled tokens equal to the eager ones up to near-ties
+    (a divergence must sit within RAGGED_TOL of the top of a teacher-forced
+    prefill), every token in the vocabulary; the eager generate's launches
+    exactly `expected_eager(prefills=1, steps)` where given. Prints tok/s of
+    both over wall time (the prefill included), the compiled loop's device
+    ms a step (CUDA events around one replay / COMPILED_WINDOW), the time to
+    first token (after a warm-up generate at the prompt's shape) and peak
+    memory; returns the launches of the phase on the card."""
+    from mllm_tpu_torch.generation import graphs
+    from mllm_tpu_torch.generation.generate import (COMPILED_WINDOW, generate, generate_compiled, pad_to_bucket,
+                                                    prefill)
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+
+    scfg = SamplingConfig(max_new_tokens=GEN_NEW)
+    V = model.cfg.vocab_size
+    generate(model, prompt, cache_fn(), SamplingConfig(max_new_tokens=2))  # warm-up at the prompt's shape
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    graphs.reset_counts()
+    spy, restore = logits_spy(model, dev)
+    (res, _), t_eager = timed(lambda: generate(model, prompt, cache_fn(), scfg))
+    restore()
+    eager = {k: fn.launches for k, fn in kernels.items()}
+    finite = bool(spy["finite"])
+    ids = np.concatenate([prompt, res.tokens[:-1]])
+    with torch.no_grad():
+        fresh, _ = prefill(model, cache_fn(), torch.as_tensor(pad_to_bucket(ids[None]), device=dev), len(ids))
+    fresh = fresh.float()
+    gap = ((spy["last"][:, -1].float() - fresh).abs().max() / fresh.abs().max()).item()
+
+    def compiled():
+        toks, n = generate_compiled(model, pad_to_bucket(prompt[None]), cache_fn(), len(prompt), GEN_NEW, scfg)
+        return toks.cpu().numpy()[: int(n)].tolist()
+
+    compiled()
+    toks, t_graph = timed(compiled)
+    torch.cuda.synchronize()
+    on_card = graphs.device_launches({k: fn.launches for k, fn in kernels.items()})
+    step_ms = replay_ms("generate_compiled") / COMPILED_WINDOW
+    div = first_divergence(toks, res.tokens)
+    gap_tf = None if div < 0 else tf_gap(model, dev, prompt, toks, cache_fn)
+    want = expected_eager(1, len(res.tokens) - 1) if expected_eager else None
+    out = dict(phase=name, prompt_tokens=len(prompt), new_tokens=[len(res.tokens), len(toks)],
+               prefill_ms=res.ttft_s * 1e3, eager_decode_tok_s=res.decode_tps, compiled_tok_s=len(toks) / t_graph,
+               compiled_device_ms_per_step=step_ms,
+               compiled_equals_eager=div < 0, first_divergence=div, compiled_teacher_forced_gap=gap_tf,
+               last_decode_vs_prefill=gap, tolerance=RAGGED_TOL, logits_finite=finite,
+               eager_launches={k: n for k, n in eager.items() if n}, eager_launches_expected=want,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(), **fields)
+    emit(**out)
+    in_vocab = all(0 <= t < V for t in res.tokens + toks)
+    if not finite or not gap <= RAGGED_TOL or not in_vocab or len(toks) != GEN_NEW or \
+            (div >= 0 and not gap_tf <= RAGGED_TOL):
+        raise AssertionError(f"{name}: finite {finite}, decode vs prefill {gap}, in vocab {in_vocab}, "
+                             f"compiled {toks} vs eager {res.tokens} (teacher-forced gap {gap_tf})")
+    if want is not None and any(eager.get(k, 0) != n for k, n in want.items()):
+        raise AssertionError(f"{name}: eager launches {eager}, expected {want}")
+    # the fresh prefill's launches are on the card too
+    return add_launches(dict(on_card), {k: n for k, n in eager.items()})
+
+
+def phase_slice_deepseek(dev) -> dict:
+    """MLA on the card: MiniCPM3-4B (MINICPM3_4B, full width and depth) with a
+    1500-token prompt, then DeepSeek-V3's widths at depth 2 (DEEPSEEK_V3_2L:
+    layer 0 dense, layer 1 the 256-expert MoE layer with the shared expert and
+    group-limited routing over a random non-zero correction bias) with a
+    512-token prompt, each through generate and generate_compiled
+    (`gen_pair`), random bf16 weights. Attention is the port's `sdpa` (K 96 /
+    V 64 and K 192 / V 128: no kernel), so no attention kernel launches.
+    Prints weight bytes and peak memory; frees each model before the next."""
+    from mllm_tpu_torch.models.deepseek import DeepseekForCausalLM, deepseek_config_from_hf, minicpm3_config_from_hf
+
+    launches = {}
+    rng = np.random.default_rng(48)
+    for name, raw, reader, n_prompt, cut in (
+            ("slice_deepseek_minicpm3_4b", MINICPM3_4B, minicpm3_config_from_hf, MINICPM3_PROMPT,
+             "none; LongRope not read"),
+            ("slice_deepseek_v3_2l", DEEPSEEK_V3_2L, deepseek_config_from_hf, V3_PROMPT,
+             "depth 61 -> 2, first_k_dense_replace 3 -> 1")):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        text, mla, moe_cfg = reader(raw)
+        model = DeepseekForCausalLM.init(text, mla, moe_cfg, device=dev, dtype=torch.bfloat16,
+                                         generator=torch.Generator(device=dev).manual_seed(48))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        got = gen_pair(name, model, dev, rng.integers(0, text.vocab_size, n_prompt),
+                       lambda: model.init_cache(1, S_CACHE),
+                       lambda prefills, steps: {k: 0 for k in ATTENTION_KERNELS},
+                       layers=text.num_hidden_layers, head_dims=[mla.qk_head_dim, mla.v_head_dim],
+                       weight_bytes=state_bytes(model), init_seconds=init_s, cut=cut)
+        add_launches(launches, got)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+ELASTIC_PROMPT = 1500
+
+
+def phase_slice_elastic(dev) -> dict:
+    """The Qwen2-VL-2B LM (QWEN2VL_2B_LM, full depth, random bf16 weights):
+    elastic_model(1.0, 1.0) gives prefill logits bit-equal to the model's;
+    the full model, elastic_model(0.5, 0.5) (6 / 1 heads, FFN 4480) and
+    sparse_model(threshold 0.0, make_predictors rank 128) in bf16, then
+    quantize_model("int8", on_device=True) on the model (projections not
+    fused) and elastic_model(0.5, 0.5) of it, each through `gen_pair` (a
+    1500-token prompt, 32 tokens): exact flash / decode launches a prefill
+    and a step, and for the int8 elastic model exactly 7 int8_matmul
+    launches a layer and one for the head a forward, its int8 weights at the
+    sliced shapes only."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.models.elastic import elastic_model, make_predictors, sparse_model
+    from mllm_tpu_torch.ops.quantize_model import quantize_model
+
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    L = cfg.num_hidden_layers
+    model = init_model(cfg, dev)
+    rng = np.random.default_rng(49)
+    prompt = rng.integers(0, cfg.vocab_size, ELASTIC_PROMPT)
+    ids = torch.as_tensor(prompt[None, :128], device=dev)
+    with torch.no_grad():
+        same = torch.equal(elastic_model(model, 1.0, 1.0)(ids, model.init_cache(1, S_CACHE), last_only=False)[0],
+                           model(ids, model.init_cache(1, S_CACHE), last_only=False)[0])
+    emit(phase="slice_elastic_ratio1", bit_equal=same)
+    if not same:
+        raise AssertionError("slice_elastic: elastic_model(1.0, 1.0) logits differ from the model's")
+
+    def attention(prefills, steps):
+        return {"flash_attention": L * prefills, "decode_attention": L * steps}
+
+    launches = {}
+    runs = (("full", lambda m: m), ("elastic_0.5", lambda m: elastic_model(m, 0.5, 0.5)),
+            ("sparse_0.0", lambda m: sparse_model(m, make_predictors(
+                m, 128, torch.Generator(device=dev).manual_seed(50)), 0.0)))
+    for tag, make in runs:
+        m = make(model)
+        add_launches(launches, gen_pair(f"slice_elastic_{tag}", m, dev, prompt, lambda m=m: m.init_cache(1, S_CACHE),
+                                        attention, heads=[m.cfg.num_attention_heads, m.cfg.num_key_value_heads],
+                                        ffn=m.blocks[0].mlp.gate_proj.weight.shape[0]))
+        del m
+    quantize_model(model, "int8", on_device=True)
+    el8 = elastic_model(model, 0.5, 0.5)
+    def int8(prefills, steps):
+        return {**attention(prefills, steps), "int8_matmul": (7 * L + 1) * (prefills + steps)}
+
+    got = gen_pair("slice_elastic_int8_0.5", el8, dev, prompt, lambda: el8.init_cache(1, S_CACHE), int8,
+                   heads=[el8.cfg.num_attention_heads, el8.cfg.num_key_value_heads],
+                   ffn=el8.blocks[0].mlp.gate_proj.qweight_t.shape[1])
+    shapes = {tuple(m.qweight_t.shape) for m in el8.modules() if hasattr(m, "qweight_t")}
+    d, hd, ffn = cfg.hidden_size, cfg.head_dim_, el8.blocks[0].mlp.gate_proj.qweight_t.shape[1]
+    q, kv = el8.cfg.num_attention_heads * hd, el8.cfg.num_key_value_heads * hd
+    want = {(d, q), (d, kv), (q, d), (d, ffn), (ffn, d), (d, cfg.vocab_size)}
+    emit(phase="slice_elastic_int8_shapes", weight_shapes=sorted(shapes), expected=sorted(want))
+    if shapes != want:
+        raise AssertionError(f"slice_elastic int8: int8 weight shapes {sorted(shapes)}, expected {sorted(want)}")
+    add_launches(launches, got)
+    del el8, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+MBP_LAYERS, MBP_PROMPT, MBP_NEW = 4, 128, 32
+# each step's logits against the resident model routed onto MBP's experts, x
+# max |logit|: sound runs read 0.0055-0.0065, while a step with 3 experts
+# flipped reads 0.0796 against the unforced resident model (NVIDIA H100 80GB
+# HBM3, 700.00 W)
+MBP_FORCED_TOL = 1e-2
+
+
+class RouteTap:
+    """Patches `models.moe.route` (the resident MoEMLP's and MBP's router)
+    while entered: records each call's (top_p, top_i) in `calls`, or, given
+    `replay` (such a list), keeps the call's own softmax but takes the
+    experts of the replayed call in the same order, their probabilities
+    renormalised as the router does."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        from mllm_tpu_torch.models import moe
+        from mllm_tpu_torch.nn.layers import matmul_f32
+
+        self.moe, self.route = moe, moe.route
+
+        def tapped(xf, router_weight, top_k, norm_topk_prob):
+            if self.replay is None:
+                top_p, top_i = self.route(xf, router_weight, top_k, norm_topk_prob)
+            else:
+                top_i = self.replay[len(self.calls)][1]
+                top_p = torch.softmax(matmul_f32(xf, router_weight), dim=-1).gather(1, top_i)
+                if norm_topk_prob:
+                    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+            self.calls.append((top_p, top_i))
+            return top_p, top_i
+
+        moe.route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def route_flips(a: list, b: list) -> int:
+    """Tokens, over all layers of one step, whose routed expert sets differ."""
+    return sum(int((x[1].sort(-1).values != y[1].sort(-1).values).any(-1).sum()) for x, y in zip(a, b))
+
+
+def phase_slice_mbp(dev) -> dict:
+    """Qwen1.5-MoE-A2.7B's widths (QWEN15_MOE_A27B, depth 24 -> 4: 60 experts
+    of 2048 x 1408, top-4, the shared expert 5632 with its sigmoid gate;
+    random bf16 weights) through to_mbp with 16 and with 4 device entries
+    (the experts in pinned host memory, ~4.2 GB): a 128-token prompt and 32
+    greedy tokens through mbp_forward. Every step's logits within RAGGED_TOL
+    x max |logit| of the resident model's forward on the same tokens, and
+    within MBP_FORCED_TOL of the resident model routed onto MBP's experts
+    (RouteTap): the two differ by rounding alone there (MBP sums the experts
+    in f32, the resident model in bf16), which in the free run also flips
+    near-tied top-k choices (`route_flips` per step). Prints the hit rate,
+    the bytes copied to the card and ms a token. Host-driven by design: no
+    speed is claimed."""
+    from mllm_tpu_torch.models.moe import mbp_forward, to_mbp
+
+    def step_err(lg, ref):
+        ref = ref[:, -1].float()
+        return ((lg[:, -1].float() - ref).abs().max() / ref.abs().max()).item()
+
+    cfg, model = moe_model({**QWEN15_MOE_A27B, "num_hidden_layers": MBP_LAYERS}, dev, "bf16", shared_gate=True)
+    ids = torch.as_tensor(np.random.default_rng(51).integers(0, cfg.vocab_size, (1, MBP_PROMPT)), device=dev)
+    launches = {}
+    for entries in (16, 4):
+        t0 = time.perf_counter()
+        mb, store = to_mbp(model, max_device_entries=entries)
+        setup_s = time.perf_counter() - t0
+        kernels = wrappers()
+        for fn in kernels.values():
+            fn.launches = 0
+        free, forced, flips, finite, toks = [], [], [], True, []
+        with torch.no_grad():
+            cache, ref_cache, forced_cache = (m.init_cache(1, S_CACHE) for m in (mb, model, model))
+            x, t_mbp = ids, 0.0
+            for step in range(MBP_NEW):
+                with RouteTap() as tap:
+                    (lg, cache), dt = timed(lambda x=x, cache=cache: mbp_forward(mb, x, cache))
+                t_mbp += dt if step else 0.0
+                with RouteTap() as free_tap:
+                    ref, ref_cache = model(x, ref_cache)
+                with RouteTap(replay=tap.calls):
+                    ref_forced, forced_cache = model(x, forced_cache)
+                free.append(step_err(lg, ref))
+                forced.append(step_err(lg, ref_forced))
+                flips.append(route_flips(tap.calls, free_tap.calls))
+                finite &= bool(torch.isfinite(lg).all())
+                x = lg[:, -1].argmax(-1, keepdim=True)
+                toks.append(int(x))
+        store.wait()
+        out = dict(phase="slice_mbp", max_device_entries=entries, layers=MBP_LAYERS, experts=cfg.num_experts,
+                   host_expert_bytes=sum(t.numel() * t.element_size() for ts in store.host.values() for t in ts),
+                   setup_seconds=setup_s, prompt_tokens=MBP_PROMPT, new_tokens=len(toks), hits=store.hits,
+                   misses=store.misses, hit_rate=store.hit_rate, bytes_copied=store.bytes_copied,
+                   decode_ms_per_token=t_mbp / (MBP_NEW - 1) * 1e3, max_step_vs_resident=max(free),
+                   tolerance=RAGGED_TOL, max_step_vs_forced_routing=max(forced), forced_tolerance=MBP_FORCED_TOL,
+                   step_vs_resident=free, step_vs_forced_routing=forced, route_flips_per_step=flips,
+                   max_step_vs_resident_without_flips=max([e for e, f in zip(free, flips) if not f], default=None),
+                   logits_finite=finite, depth_cut=f"{QWEN15_MOE_A27B['num_hidden_layers']} -> "
+                   f"{MBP_LAYERS} layers; widths as published", launches={k: f.launches for k, f in kernels.items() if f.launches})
+        emit(**out)
+        if (not finite or not max(free) <= RAGGED_TOL or not max(forced) <= MBP_FORCED_TOL
+                or not all(0 <= t < cfg.vocab_size for t in toks)):
+            raise AssertionError(f"slice_mbp entries={entries}: finite {finite}, vs resident {max(free)}, "
+                                 f"vs forced routing {max(forced)}, tokens {toks}")
+        add_launches(launches, {k: f.launches for k, f in kernels.items()})
+        del mb, store
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+PERSIST_PROMPT, PERSIST_HALF = 1500, 8
+PERSIST_DIR = "build/smoke_persist"
+
+
+def phase_slice_persist(dev) -> dict:
+    """The main-geometry LM (QWEN2VL_2B_LM, bf16) over a dense cache and over
+    an int8 cache (flash_attention_quant / decode_attention_quant): a
+    1500-token prompt and 8 greedy tokens, save_cache with the tokens in
+    `extra`, load_cache onto the card, 8 more tokens; token-identical to an
+    uninterrupted 16-token run. A SlotKVCache round trip bit-equal.
+    Profiler.report of the uninterrupted bf16 run's figures; torch_trace
+    over 4 decode steps writes a non-empty trace with CUDA kernels in it;
+    cost_table of one eager decode step's aten part (the attention kernel
+    is a CUDA extension it does not see) against the H100's peaks."""
+    import os
+
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation.generate import decode_step, generate
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.kv.cache import SlotKVCache
+    from mllm_tpu_torch.kv.persist import load_cache, save_cache
+    from mllm_tpu_torch.utils.metrics import cost_table
+    from mllm_tpu_torch.utils.profiling import Profiler, torch_trace
+
+    os.makedirs(PERSIST_DIR, exist_ok=True)
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    t0 = time.perf_counter()
+    model = init_model(cfg, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(52).integers(0, cfg.vocab_size, PERSIST_PROMPT)
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    results = {}
+    with torch.no_grad():
+        for kv in ("bf16", "int8"):
+            whole, _ = generate(model, prompt, model.init_cache(1, S_CACHE, kv_dtype=kv),
+                                SamplingConfig(max_new_tokens=2 * PERSIST_HALF))
+            first, cache = generate(model, prompt, model.init_cache(1, S_CACHE, kv_dtype=kv),
+                                    SamplingConfig(max_new_tokens=PERSIST_HALF))
+            path = os.path.join(PERSIST_DIR, f"state_{kv}.npz")
+            (_, save_s) = timed(lambda: save_cache(path, cache, extra={"tokens": np.asarray(first.tokens)}))
+            (restored, extras), load_cache_s = timed(lambda: load_cache(path, extra_keys=("tokens",), device=dev))
+            toks = [int(t) for t in extras["tokens"]]
+            for _ in range(PERSIST_HALF):
+                logits, restored = decode_step(model, restored, torch.tensor([toks[-1]], device=dev))
+                toks.append(int(logits[0].argmax()))
+            results[kv] = dict(cache=type(restored).__name__, equal=toks == whole.tokens,
+                               first_divergence=first_divergence(toks, whole.tokens), file_bytes=os.path.getsize(path),
+                               save_s=save_s, load_s=load_cache_s, head_on=str(restored.pos.device))
+            if kv == "bf16":
+                prof = Profiler(load_s=load_s, prefill_tps=whole.prefill_tps, ttft_s=whole.ttft_s,
+                                decode_tps=whole.decode_tps)
+        g = torch.Generator(device=dev).manual_seed(53)
+        slot = SlotKVCache(torch.randn(2, 4, 2, 256, 128, device=dev, generator=g).to(torch.bfloat16),
+                           torch.randn(2, 4, 2, 256, 128, device=dev, generator=g).to(torch.bfloat16),
+                           torch.tensor([3, 250, 0, 17], dtype=torch.int32, device=dev))
+        save_cache(os.path.join(PERSIST_DIR, "slot.npz"), slot)
+        back, _ = load_cache(os.path.join(PERSIST_DIR, "slot.npz"), device=dev)
+        slot_equal = all(torch.equal(getattr(back, n), getattr(slot, n)) and getattr(back, n).dtype ==
+                         getattr(slot, n).dtype for n in ("k", "v", "pos"))
+        launches = {k: f.launches for k, f in kernels.items()}
+        prof.report(f"slice_persist: the uninterrupted bf16 run ({torch.cuda.get_device_name(dev)}, random weights)")
+        _, cache = generate(model, prompt, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=2))
+        tok = torch.tensor([1], device=dev)
+        with torch_trace(os.path.join(PERSIST_DIR, "trace")) as trace_path:
+            for _ in range(4):
+                _, cache = decode_step(model, cache, tok)
+        with open(trace_path) as f:
+            events = json.load(f).get("traceEvents", [])
+        gpu_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        costs = cost_table(lambda: decode_step(model, cache, tok))
+    emit(phase="slice_persist", prompt_tokens=PERSIST_PROMPT, runs=results, slot_round_trip_bit_equal=slot_equal,
+         trace_bytes=os.path.getsize(trace_path), trace_events=len(events), trace_gpu_kernels=gpu_kernels,
+         cost_table_one_step=costs, launches={k: n for k, n in launches.items() if n})
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    if not all(r["equal"] for r in results.values()) or not slot_equal:
+        raise AssertionError(f"slice_persist: resumed runs {results}, slot round trip {slot_equal}")
+    if not events or not gpu_kernels or not costs["flops"] > 0:
+        raise AssertionError(f"slice_persist: trace events {len(events)}, GPU kernels {gpu_kernels}, costs {costs}")
+    if not launches["flash_attention_quant"] or not launches["decode_attention_quant"]:
+        raise AssertionError(f"slice_persist: the int8 cache did not reach its kernels: {launches}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timed_phase(name: str, fn):
     """fn(), its wall seconds printed as `<name>_seconds`."""
     t0 = time.perf_counter()
@@ -4389,7 +5054,12 @@ def main():
                 timed_phase("slice_phi3v", lambda: phase_slice_phi3v(dev)),
                 timed_phase("slice_fuyu", lambda: phase_slice_fuyu(dev)),
                 timed_phase("slice_imagebind", lambda: phase_slice_imagebind(dev)),
-                timed_phase("slice_opt_bert", lambda: phase_slice_opt_bert(dev))]
+                timed_phase("slice_opt_bert", lambda: phase_slice_opt_bert(dev)),
+                timed_phase("slice_openelm", lambda: phase_slice_openelm(dev)),
+                timed_phase("slice_deepseek", lambda: phase_slice_deepseek(dev)),
+                timed_phase("slice_elastic", lambda: phase_slice_elastic(dev)),
+                timed_phase("slice_mbp", lambda: phase_slice_mbp(dev)),
+                timed_phase("slice_persist", lambda: phase_slice_persist(dev))]
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n

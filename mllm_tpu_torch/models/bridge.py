@@ -322,3 +322,38 @@ def imagebind_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=
     from .imagebind import ImageBindModel
 
     return module_from_jax(ImageBindModel(cfg, device=device, dtype=dtype), params, device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA, OpenELM, predictor-sparse models
+# ---------------------------------------------------------------------------
+
+
+def _without_rope(params: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    return {k: v for k, v in params.items() if not k.startswith("rope.")}
+
+
+def deepseek_from_jax_params(params: dict[str, np.ndarray], text, mla, moe_cfg: dict, device,
+                             dtype=torch.float32):
+    """The port's DeepseekForCausalLM (DeepSeek-V3 or MiniCPM3) from a JAX
+    one's parameters; the routers' weights and correction biases stay f32."""
+    from .deepseek import DeepseekForCausalLM
+
+    params = _without_rope(params)
+    model = DeepseekForCausalLM(text, mla, moe_cfg, device=device, dtype=dtype, lm_head="lm_head.weight" in params,
+                                attention_bias=any(k.endswith("attn.kv_a.bias") for k in params))
+    f32 = tuple(k.replace("blocks.mods.", "blocks.") for k in params if ".mlp.router." in k)
+    return module_from_jax(model, params, device, dtype, f32=f32)
+
+
+def openelm_from_jax_params(params: dict[str, np.ndarray], cfg, device, dtype=torch.float32):
+    """The port's OpenELMForCausalLM from a JAX one's parameters."""
+    from .openelm import OpenELMForCausalLM
+
+    return module_from_jax(OpenELMForCausalLM(cfg, device=device, dtype=dtype), _without_rope(params), device, dtype)
+
+
+def predictors_from_jax(predictors, device) -> list:
+    """`sparse_model`'s predictors from the JAX `make_predictors` output (one
+    (pred_down [r, d], pred_up [ff, r]) a layer, as numpy): f32 tensors."""
+    return [tuple(torch.from_numpy(np.array(a, np.float32)).to(device) for a in pair) for pair in predictors]

@@ -1,5 +1,7 @@
 """Mixture-of-Experts: counterpart of `mllm_tpu/models/moe.py` (`MoEMLP`,
-`QuantMoEMLP`, `_quant_expert_stack`, `load_moe_mlp`).
+`QuantMoEMLP`, `_quant_expert_stack`, `load_moe_mlp`, and the MBP layer
+`MBPMoEMLP` / `to_mbp` / `mbp_forward`, whose experts live in host memory:
+`utils/mbp.py`).
 
 A router (f32 logits, softmax, top-k with ties to the lower expert index, as
 `jax.lax.top_k` gives them) picks k experts a token; the experts' gated FFNs
@@ -38,7 +40,7 @@ from torch import nn
 
 from ..core.config import TextConfig
 from ..kv.cache import _capturing
-from ..nn.layers import ACT_FN, _param, matmul_f32
+from ..nn.layers import ACT_FN, _param, matmul_f32, shallow_copy
 from .transformer import MLP
 
 
@@ -111,6 +113,33 @@ def grouped_mm(xs: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.T
     return torch._grouped_mm(xs, w.to(xs.dtype), offs=offs)
 
 
+def ragged_experts(xf, top_p, top_i, n_experts: int, expert_ffn):
+    """The ragged branch: the [T*k] routed (token, expert) pairs sorted
+    stably by expert, the rows gathered, the group sizes a scatter-add into
+    zeros(E) (static size, no host read), `expert_ffn(xs, sizes,
+    expert_sorted)` over them, then unsorted and combined sum_k(y * p) in the
+    product's dtype."""
+    t, d = xf.shape
+    k = top_i.shape[1]
+    flat = top_i.reshape(-1)  # [T*k]
+    order = torch.sort(flat, stable=True).indices
+    xs = xf[order // k]  # [T*k, d]
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=xf.device).scatter_add_(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+    ys = expert_ffn(xs, sizes, flat[order])
+    y_pairs = torch.empty_like(ys).index_copy_(0, order, ys).reshape(t, k, d)
+    return (y_pairs * top_p[..., None].to(ys.dtype)).sum(dim=1)
+
+
+def grouped_ffn(xs, sizes, w_gate, w_up, w_down, act: str):
+    """The gated FFN of each expert over its rows of xs (rows grouped by
+    expert, `sizes` [E] on the device): one grouped product a projection."""
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    h = grouped_mm(xs, w_gate, offs)
+    u = grouped_mm(xs, w_up, offs)
+    return grouped_mm(ACT_FN[act](h) * u, w_down, offs)
+
+
 class MoEMLP(nn.Module):
     """Top-k routed expert FFN with an optional shared expert (JAX `MoEMLP`).
 
@@ -164,24 +193,10 @@ class MoEMLP(nn.Module):
         return y.reshape(b, s, d).to(x.dtype)
 
     def _ragged(self, xf, top_p, top_i):
-        """The routed pairs sorted by expert, one grouped product a
-        projection, unsorted and combined in xf's dtype."""
-        t, d = xf.shape
-        k, e = self.top_k, self.num_experts
-        flat = top_i.reshape(-1)  # [T*k]
-        order = torch.sort(flat, stable=True).indices
-        xs = xf[order // k]  # [T*k, d]
-        sizes = torch.zeros(e, dtype=torch.int32, device=xf.device).scatter_add_(
-            0, flat, torch.ones_like(flat, dtype=torch.int32))
-        ys = self._expert_ffn(xs, sizes, flat[order])
-        y_pairs = torch.empty_like(ys).index_copy_(0, order, ys).reshape(t, k, d)
-        return (y_pairs * top_p[..., None].to(ys.dtype)).sum(dim=1)
+        return ragged_experts(xf, top_p, top_i, self.num_experts, self._expert_ffn)
 
     def _expert_ffn(self, xs, sizes, expert_sorted):
-        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
-        h = grouped_mm(xs, self.w_gate, offs)
-        u = grouped_mm(xs, self.w_up, offs)
-        return grouped_mm(ACT_FN[self.act](h) * u, self.w_down, offs)
+        return grouped_ffn(xs, sizes, self.w_gate, self.w_up, self.w_down, self.act)
 
     def _dense_probs(self, t, top_p, top_i):
         return torch.zeros(t, self.num_experts, dtype=torch.float32, device=top_p.device).scatter_(
@@ -341,3 +356,94 @@ def load_moe_mlp(loader, prefix: str, cfg: TextConfig, *, device, dtype=torch.bf
         moe = quantize_model(moe, "int8" if quant == "int8-a8" else quant, min_size=1,
                              quant_embed_head=False)
     return moe.to(device)
+
+
+# -- MBP: experts in host memory -------------------------------------------------
+
+
+class MBPMoEMLP(nn.Module):
+    """MoE FFN whose experts live in a host `HostExpertStore` (JAX
+    `MBPMoEMLP`): each call routes on the device, copies only the routed
+    experts (LRU-cached on the card) and prefetches them for the next layer.
+    The router, the shared expert and its sigmoid gate stay on the device.
+
+    Host-driven by construction (the routed set is read on the host), so it
+    runs eagerly: a call inside a CUDA-graph capture raises, as the JAX layer
+    raises under jit."""
+
+    def __init__(self, router_weight, store, layer: int, n_layers: int, top_k: int, norm_topk_prob: bool,
+                 act: str, shared_expert=None, shared_gate=None):
+        super().__init__()
+        self.router_weight = router_weight
+        self.store = store
+        self.layer, self.n_layers = layer, n_layers
+        self.top_k, self.norm_topk_prob, self.act = top_k, norm_topk_prob, act
+        self.shared_expert = shared_expert
+        self.shared_gate = shared_gate
+
+    def forward(self, x):
+        if _capturing():
+            raise RuntimeError("MBPMoEMLP routes data-dependently through a host expert store and cannot "
+                               "run inside a CUDA-graph capture: call the model eagerly (mbp_forward)")
+        from ..utils.mbp import mbp_moe_forward
+
+        b, s, d = x.shape
+        xf = x.reshape(b * s, d)
+        y = mbp_moe_forward(xf, self.router_weight, self.store, self.layer, self.n_layers, self.top_k,
+                            ACT_FN[self.act], norm_topk=self.norm_topk_prob)
+        if self.shared_expert is not None:
+            sh = self.shared_expert(xf)
+            if self.shared_gate is not None:
+                sh = sh * torch.sigmoid(matmul_f32(xf, self.shared_gate)).to(sh.dtype)
+            y = y + sh.to(y.dtype)
+        return y.reshape(b, s, d).to(x.dtype)
+
+
+def _host_experts(mlp: MoEMLP, ei: int) -> tuple:
+    """Expert ei's (gate [ff, d], up [ff, d], down [d, ff]) on the host, HF
+    row-major; int8 experts dequantized to f32 (values times their
+    per-out-channel scales)."""
+    if isinstance(mlp, QuantMoEMLP):
+        ws = ((mlp.w_gate, mlp.s_gate), (mlp.w_up, mlp.s_up), (mlp.w_down, mlp.s_down))
+        return tuple((w[ei].float() * s[ei][None, :]).T.contiguous().cpu() for w, s in ws)
+    return tuple(w[ei].T.contiguous().cpu() for w in (mlp.w_gate, mlp.w_up, mlp.w_down))
+
+
+def to_mbp(model, max_device_entries: int = 16, device=None):
+    """A loaded MoE model in MBP form (JAX `to_mbp`): every `MoEMLP` /
+    `QuantMoEMLP` expert stack moves into one `HostExpertStore` (device: the
+    model's by default) and the layer becomes an `MBPMoEMLP`. Returns
+    (mbp_model, store); the source model is left as it was, the other
+    tensors are shared. `store.hit_rate` reports the prefetch's hits."""
+    from ..utils.mbp import HostExpertStore
+
+    blocks = list(model.blocks)
+    weights = {}
+    for li, blk in enumerate(blocks):
+        if isinstance(blk.mlp, MoEMLP):
+            for ei in range(blk.mlp.num_experts):
+                weights[(li, ei)] = _host_experts(blk.mlp, ei)
+    if not weights:
+        raise ValueError("model has no MoEMLP layers to offload")
+    store = HostExpertStore(weights, device=device if device is not None else model.device,
+                            max_device_entries=max_device_entries)
+    new_blocks = []
+    for li, blk in enumerate(blocks):
+        mlp = blk.mlp
+        if isinstance(mlp, MoEMLP):
+            blk = shallow_copy(blk)
+            blk.mlp = MBPMoEMLP(mlp.router_weight, store, li, len(blocks), mlp.top_k, mlp.norm_topk_prob,
+                                mlp.act, mlp.shared_expert, mlp.shared_gate)
+        new_blocks.append(blk)
+    new = shallow_copy(model)
+    new.blocks = nn.ModuleList(new_blocks)
+    return new, store
+
+
+def mbp_forward(model, ids, cache, last_only: bool = True):
+    """Forward an MBP model (JAX `mbp_forward`): returns (logits, cache with
+    its head advanced). The JAX package runs the dense halves of each block
+    (embedding, attention half, residual, head) as one jitted program each;
+    here they are the model's own eager calls, and only the expert streaming
+    is host-driven."""
+    return model(ids, cache, last_only=last_only)

@@ -32,8 +32,8 @@ from ..nn.layers import (ACT_FN, Embedding, IRotaryEmbedding, LayerNorm, Linear,
 def check_supported(cfg: TextConfig) -> None:
     """Raise NotImplementedError for config features the port lacks."""
     if cfg.hidden_act not in ACT_FN:
-        raise NotImplementedError(f"mllm_tpu_torch does not port activation {cfg.hidden_act} yet "
-                                  "(ROADMAP Queue 1 item 3)")
+        raise NotImplementedError(f"activation {cfg.hidden_act} is not one of ACT_FN's "
+                                  "(the JAX package's table, copied whole)")
     if cfg.norm_type not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(f"mllm_tpu_torch does not port norm_type={cfg.norm_type}")
 

@@ -12,6 +12,7 @@ Quantized layers hold their integer weights, scales and bias as buffers.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Optional
 
@@ -64,6 +65,16 @@ ACT_FN: dict[str, Callable] = {
 
 def _param(*shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype), requires_grad=False)
+
+
+def shallow_copy(mod: nn.Module) -> nn.Module:
+    """A new module object over the same tensors and submodules, whose
+    attributes can be replaced without touching `mod`."""
+    new = copy.copy(mod)
+    new._modules = dict(mod._modules)
+    new._parameters = dict(mod._parameters)
+    new._buffers = dict(mod._buffers)
+    return new
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -215,6 +226,54 @@ class Embedding(nn.Module):
 
     def as_lm_head(self, x):
         return matmul_f32(x, self.weight)
+
+
+class ElasticLinear(nn.Module):
+    """Width-elastic linear (`mllm_tpu` ElasticLinear, the reference's
+    ElasticLinear): a call uses only the first int(out * out_ratio) output and
+    int(in * in_ratio) input features of weight [out, in]; f32 accumulation,
+    the bias added in f32, one rounding to x's dtype."""
+
+    def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.bias = None if bias is None else nn.Parameter(bias, requires_grad=False)
+
+    def forward(self, x, out_ratio: float = 1.0, in_ratio: float = 1.0):
+        o, i = self.weight.shape
+        oa, ia = max(1, int(o * out_ratio)), max(1, int(i * in_ratio))
+        y = matmul_f32(x[..., :ia], self.weight[:oa, :ia])
+        if self.bias is not None:
+            y = y + self.bias[:oa].float()
+        return y.to(x.dtype)
+
+
+class PredictorSparseMLP(nn.Module):
+    """PowerInfer-style predictor-gated FFN (`mllm_tpu` PredictorSparseMLP):
+    a low-rank predictor (pred_down [r, in], pred_up [ff, r], f32 products)
+    scores the FFN neurons of each token, and the neurons scoring at most
+    `threshold` are masked to exactly zero. Dense compute, then the mask on
+    act(gate) * up before down, as the JAX package computes it."""
+
+    def __init__(self, pred_down: torch.Tensor, pred_up: torch.Tensor, gate_proj, up_proj, down_proj,
+                 act: str = "relu", threshold: float = 0.0):
+        super().__init__()
+        self.pred_down = nn.Parameter(pred_down, requires_grad=False)
+        self.pred_up = nn.Parameter(pred_up, requires_grad=False)
+        self.gate_proj, self.up_proj, self.down_proj = gate_proj, up_proj, down_proj
+        self.act = act
+        self.threshold = threshold
+
+    def neuron_scores(self, x):
+        """f32 [..., ff]: (x @ pred_down^T) @ pred_up^T in f32."""
+        return F.linear(F.linear(x.float(), self.pred_down.float()), self.pred_up.float())
+
+    def forward(self, x):
+        mask = (self.neuron_scores(x) > self.threshold).to(x.dtype)
+        h = ACT_FN[self.act](self.gate_proj(x))
+        if self.up_proj is not None:
+            h = h * self.up_proj(x)
+        return self.down_proj(h * mask)
 
 
 # ---------------------------------------------------------------------------

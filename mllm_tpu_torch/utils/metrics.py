@@ -6,9 +6,9 @@ The reference's observability is profiling printouts + per-op latency tables
     Prometheus-text export (structured metrics the reference lacks);
   - `GenerationMetrics`: per-request serving metrics into a registry.
 
-Copied from `mllm_tpu/utils/metrics.py`. Its `cost_table` compiles with XLA;
-here it raises NotImplementedError until `utils/profiling.py` on
-`torch.profiler` comes (ROADMAP Queue 1 item 15).
+Copied from `mllm_tpu/utils/metrics.py`, but for `cost_table`: there XLA's
+cost analysis of the compiled program, here the aten operations of one eager
+call counted as it runs (see its docstring).
 """
 
 from __future__ import annotations
@@ -113,15 +113,64 @@ GLOBAL = Metrics()
 
 
 # ---------------------------------------------------------------------------
-# Compiled-program cost analysis: not ported
+# Cost analysis of one call (DEBUGOPTIME analogue)
 # ---------------------------------------------------------------------------
+
+# the H100 SXM's peaks (PERF.md uses the same): HBM bandwidth, dense bf16 tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 989e12
+
+
+def _aten_bytes_mode():
+    """A dispatch mode that sums the bytes of every aten operation's tensor
+    inputs and outputs (each counted once an operation), the counterpart of
+    XLA's "bytes accessed". Views move nothing and are not counted; an
+    operation that reads part of an input (an embedding lookup, a row
+    written in place) counts the whole input."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class _Bytes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.is_view:
+                return out
+            for t in tree_flatten((args, kwargs or {}, out))[0]:
+                if isinstance(t, torch.Tensor):
+                    self.bytes += t.numel() * t.element_size()
+            return out
+
+    return _Bytes()
 
 
 def cost_table(fn, *args, **kwargs) -> dict:
-    """The JAX package reports XLA's cost analysis of a compiled program; the
-    port has no compiler to ask yet."""
-    raise NotImplementedError("mllm_tpu_torch does not port cost_table yet (it compiles with XLA in "
-                              "mllm_tpu): ROADMAP Queue 1 item 15, utils/profiling.py on torch.profiler")
+    """Run `fn(*args, **kwargs)` once and report its FLOPs
+    (`torch.utils.flop_counter.FlopCounterMode`), the bytes its aten
+    operations read and write, and the implied roofline time on an H100
+    (3.35 TB/s, bf16 989 TFLOP/s); the JAX `cost_table`'s keys.
+
+    As XLA's cost analysis sees nothing inside a Pallas custom call, these
+    counters see nothing inside the port's CUDA kernels (ctypes launches, no
+    aten operation): a call that runs them counts only its aten part."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    nbytes = _aten_bytes_mode()
+    with FlopCounterMode(display=False) as flop_mode, nbytes:
+        fn(*args, **kwargs)
+    flops = float(flop_mode.get_total_flops())
+    bytes_ = float(nbytes.bytes)
+    return {
+        "flops": flops,
+        "bytes_accessed": bytes_,
+        "roofline_compute_ms": flops / PEAK_FLOP_PER_S * 1e3,
+        "roofline_memory_ms": bytes_ / PEAK_BYTES_PER_S * 1e3,
+        "bound": "memory" if bytes_ / PEAK_BYTES_PER_S > flops / PEAK_FLOP_PER_S else "compute",
+    }
 
 
 @dataclass

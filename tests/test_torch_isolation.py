@@ -183,3 +183,30 @@ def test_sources_are_the_kernels():
                                       "mllm_fused_int4_mlp_bf16", "mllm_fused_int4_mlp_blocks",
                                       "mllm_fused_decode_step_bf16",
                                       "mllm_fused_decode_step_batched_bf16"}
+
+
+_LAST_MODULES_PROBE = """
+import sys
+from mllm_tpu_torch.kv.persist import load_cache, save_cache
+from mllm_tpu_torch.models import deepseek, elastic, openelm
+from mllm_tpu_torch.models.moe import MBPMoEMLP, mbp_forward, to_mbp
+from mllm_tpu_torch.nn.layers import ElasticLinear, PredictorSparseMLP
+from mllm_tpu_torch.utils import mbp, profiling
+from mllm_tpu_torch.utils.metrics import cost_table
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib") or m == "mllm_tpu" or m.startswith("mllm_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_mla_openelm_elastic_mbp_persist_profiling_import_no_jax():
+    """DeepSeek / MiniCPM3, OpenELM, the elastic and sparse models, MBP, the
+    cache snapshots and the profiling tools, imported on their own, pull in
+    neither JAX nor mllm_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _LAST_MODULES_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"

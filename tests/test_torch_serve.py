@@ -111,8 +111,12 @@ def test_generation_metrics():
 
 
 def test_cost_table_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cost_table(lambda a: a, np.zeros(3))
+    """cost_table counts the aten operations a call runs (held against the JAX
+    one in tests/test_torch_profiling.py): the identity on a numpy array runs
+    none and counts nothing, under the JAX keys."""
+    assert cost_table(lambda a: a, np.zeros(3)) == {
+        "flops": 0.0, "bytes_accessed": 0.0, "roofline_compute_ms": 0.0, "roofline_memory_ms": 0.0,
+        "bound": "compute"}
 
 
 # ---------------------------------------------------------------------------
