@@ -271,6 +271,24 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      token-identical to 16 uninterrupted; a SlotKVCache round trip
      bit-equal; Profiler.report, torch_trace over 4 decode steps (CUDA
      kernels in the trace), cost_table of one eager decode step.
+  30. slice_train: LoRA rank 8 on q/k/v/o of the main-geometry LM (bf16, 28
+     layers), AdamW, 8 steps on one B=2 x S=512 batch: the loss falls, the
+     base tensors stay bit-equal, no attention kernel launches in a loss that
+     needs gradients (those calls take `sdpa`), remat gradients equal within
+     1e-2 x max |grad|, the merged model within 0.1 x max |logit| of the
+     adapted one and within 0.05 x their gap to the base (which the adapters
+     at half their scale exceed), and
+     save_safetensors_model -> auto_model reloads it with equal greedy
+     tokens; ms a step and peak memory with and without remat.
+  31. slice_parallel: a world of 1 over NCCL: sharded_generate against
+     generate_compiled (full width, tokens equal, decode tok/s sharded and
+     plain), the TP engine against the plain one over bf16 and int8 slot
+     caches (8 slots, window 32; tokens equal, tok/s), sgd_train_step (the
+     f32 update of each parameter within 1e-2 of its largest),
+     pipeline_lm_loss, ring and Ulysses trunks (4 layers, full width) and
+     moe_forward_ep (QWEN2_MOE_08B's widths, 2 layers) against their
+     single-device counterparts, then `python -m
+     mllm_tpu_torch.parallel.dryrun --device cuda`.
   The kernel check also runs flash_attention and decode_attention at head_dim
   256 (Gemma-2B's 8 / 1 heads: FLASH_ROWS_256, DECODE_ROWS_256, poisoned rows
   included; the `@256` rows of the kernels line, whose launches are those at
@@ -293,7 +311,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   poisoned rows included; <= 2e-2 and <= 0.1 by `row_rel_err`, which a
   plain version short of 64 keys must exceed), beside their bounds and SDPA:
   the `@64` rows of the kernels line, whose launches are slice_openelm's.
-  Phases 9-29 print their seconds (`<phase>_seconds`).
+  Phases 9-31 print their seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -312,9 +330,11 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -5015,6 +5035,329 @@ def phase_slice_persist(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training and the parallel axes
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 2, 512, 8, 2e-3
+TRAIN_DIR = "build/smoke_train"
+TRAIN_NEW = 16
+REMAT_TOL = 1e-2  # x max |grad|: the two backwards round the recomputed activations alike, not bitwise
+MERGE_TOL = 0.1  # x max |logit|
+MERGE_GAP_TOL = 0.05  # x the adapted-vs-base gap: the merge read 0.0037, the adapters at half scale 0.255
+PAR_LAYERS = 4  # depth of the parallel phase's train / pipeline / sequence models (full width)
+PAR_TOL = 2e-2  # x max |.|: bf16 through f32 attention against the flash kernel, or one bf16 rounding apart
+SGD_LR = 1.0  # the f32 SGD comparison's rate: every update far above an ulp of its weight
+SGD_TOL = 1e-2  # x max |update| of each parameter (floored at SGD_FLOOR x the largest): a zero or doubled gradient reads 1
+SGD_FLOOR = 1e-4  # parameters updated less (k_proj.bias: no gradient in exact arithmetic) are held to that floor
+ENGINE_TP_LENS = (17, 40, 64, 100, 128, 150, 200, 256)
+ENGINE_TP_NEW = 32
+
+
+def attention_launches(kernels: dict) -> int:
+    return sum(kernels[k].launches for k in ATTENTION_KERNELS)
+
+
+def train_steps(state, step, ids, tgt, n: int, kernels: dict):
+    """n optimizer steps: (losses, ms a step, peak bytes, attention-kernel
+    launches during the steps)."""
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, loss = step(state, ids, tgt)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    return [float(x) for x in losses], ms, torch.cuda.max_memory_allocated(), attention_launches(kernels)
+
+
+def phase_slice_train(dev) -> dict:
+    """LoRA fine-tuning of the main-geometry LM (QWEN2VL_2B_LM, bf16, random
+    weights, 28 layers): rank 8 on q/k/v/o, AdamW, TRAIN_STEPS steps on one
+    batch of B=2 x S=512. Checks: the loss falls; the base tensors are
+    bit-equal afterwards; no attention kernel launches during a loss that
+    needs gradients; the gradients with remat equal those without within
+    REMAT_TOL x max |grad|; the merged model's logits lie within MERGE_TOL x
+    max |logit| of the adapted forward's and within MERGE_GAP_TOL x the
+    adapted-vs-base gap, which the adapted forward at half the adapters'
+    scale (what a merge with the wrong scale gives) must exceed;
+    save_safetensors_model of the merged model reloads through
+    auto_model with greedy tokens equal to the merged model's. Prints ms a
+    step and peak memory with and without remat."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.core.param_loader import save_safetensors_model
+    from mllm_tpu_torch.generation.generate import generate
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.models.registry import auto_model
+    from mllm_tpu_torch.training import (LoRALinear, TrainState, add_lora, lora_params_filter, make_train_step,
+                                         merge_lora)
+    from mllm_tpu_torch.training.train import partition
+
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    model = init_model(cfg, dev)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(61)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S)), device=dev)
+    tgt = torch.roll(ids, -1, dims=1)
+    probe = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 64)), device=dev)
+    kernels = wrappers()
+    with torch.no_grad():
+        base_logits = model(probe, None, last_only=False)[0]
+    add_lora(model, torch.Generator(device=dev).manual_seed(7), rank=8)
+    factory = lambda ps: torch.optim.AdamW(ps, lr=TRAIN_LR, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)  # noqa: E731
+    state = TrainState.create(model, factory, trainable=lora_params_filter)
+    n_adapter = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    step = make_train_step(trainable=lora_params_filter)
+    step_remat = make_train_step(loss_fn=lambda m, i, t: m.loss(i, t, remat=True), trainable=lora_params_filter)
+    state, _ = step(state, ids, tgt)  # warm-up (allocator, cuBLAS plans)
+    losses, ms, peak, att = train_steps(state, step, ids, tgt, TRAIN_STEPS, kernels)
+    _, ms_remat, peak_remat, att_remat = train_steps(state, step_remat, ids, tgt, 2, kernels)
+    params = partition(model, lora_params_filter)
+    g0 = torch.autograd.grad(model.loss(ids, tgt), params)
+    g1 = torch.autograd.grad(model.loss(ids, tgt, remat=True), params)
+    remat_err = max(float((a - b).abs().max()) for a, b in zip(g0, g1)) / max(float(g.abs().max()) for g in g0)
+    adapter_grad_min = min(float(g.abs().max()) for g in g0)
+    partition(model, lambda name: False)
+    base_equal = all(torch.equal(model.state_dict()[k], v) for k, v in base.items())
+    del base, g0, g1
+    with torch.no_grad():
+        adapted = model(probe, None, last_only=False)[0]
+        loras = [m for m in model.modules() if isinstance(m, LoRALinear)]
+        for m in loras:
+            m.scale *= 0.5
+        half = model(probe, None, last_only=False)[0]
+        for m in loras:
+            m.scale *= 2.0
+        merge_lora(model)
+        merged = model(probe, None, last_only=False)[0]
+    scale = float(adapted.abs().max())
+    merge_gap = float((merged - adapted).abs().max())
+    adapt_gap = float((adapted - base_logits).abs().max())
+    half_scale_gap = float((half - adapted).abs().max())
+    del half
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    with open(os.path.join(TRAIN_DIR, "config.json"), "w") as f:
+        json.dump({**hf_config(cfg), "tie_word_embeddings": cfg.tie_word_embeddings}, f)
+    (_, save_s) = timed(lambda: save_safetensors_model(os.path.join(TRAIN_DIR, "out"), model, TRAIN_DIR))
+    (reloaded, _, _), load_s = timed(lambda: auto_model(os.path.join(TRAIN_DIR, "out"), dtype=torch.bfloat16,
+                                                        with_tokenizer=False, device=dev))
+    file_bytes = os.path.getsize(os.path.join(TRAIN_DIR, "out", "model.safetensors"))
+    for fn in kernels.values():
+        fn.launches = 0
+    prompt = rng.integers(0, cfg.vocab_size, 100)
+    with torch.no_grad():
+        want, _ = generate(model, prompt, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=TRAIN_NEW))
+        got, _ = generate(reloaded, prompt, reloaded.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=TRAIN_NEW))
+    launches = {k: f.launches for k, f in kernels.items()}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    emit(phase="slice_train", device=torch.cuda.get_device_name(dev), batch=TRAIN_B, seq=TRAIN_S,
+         lora_rank=8, adapter_params=n_adapter, steps=TRAIN_STEPS, losses=losses, step_ms=ms,
+         peak_bytes=peak, step_ms_remat=ms_remat, peak_bytes_remat=peak_remat,
+         attention_launches_in_loss=att + att_remat, remat_grad_err=remat_err, adapter_grad_min_max=adapter_grad_min,
+         base_bit_equal=base_equal, merge_gap=merge_gap, adapt_gap=adapt_gap, half_scale_gap=half_scale_gap,
+         max_logit=scale,
+         safetensors_bytes=file_bytes, save_s=save_s, load_s=load_s, reload_tokens_equal=got.tokens == want.tokens,
+         launches={k: n for k, n in launches.items() if n})
+    if not losses[-1] < losses[0] or not base_equal or att + att_remat:
+        raise AssertionError(f"slice_train: losses {losses}, base bit-equal {base_equal}, "
+                             f"attention launches in the loss {att + att_remat}")
+    if not remat_err <= REMAT_TOL or not adapter_grad_min > 0:
+        raise AssertionError(f"slice_train: remat gradient error {remat_err}, adapter grads {adapter_grad_min}")
+    if (not merge_gap <= MERGE_TOL * scale or not merge_gap <= MERGE_GAP_TOL * adapt_gap
+            or not half_scale_gap > MERGE_GAP_TOL * adapt_gap):
+        raise AssertionError(f"slice_train: merged vs adapted {merge_gap}, adapted vs base {adapt_gap}, "
+                             f"half scale vs adapted {half_scale_gap}, max {scale}")
+    if got.tokens != want.tokens or not launches["flash_attention"] or not launches["decode_attention"]:
+        raise AssertionError(f"slice_train: reloaded tokens {got.tokens} vs {want.tokens}, launches {launches}")
+    del model, reloaded, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rel_gap(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+def engine_tokens(model, dev, prompts, kv: str, mesh=None):
+    """Greedy tokens of `prompts` through a ContinuousEngine (8 slots, window
+    32), and its tokens a second over the run."""
+    from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
+
+    eng = ContinuousEngine(model, slots=8, max_len=S_CACHE, prompt_bucket=128, decode_window=32, kv_dtype=kv,
+                           eos_token_id=-2, start_thread=False, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qs = [eng.submit(p, ENGINE_TP_NEW) for p in prompts]
+    while (any(r is not None for r in eng.req) or not eng.pending.empty() or not eng._mirror.empty()
+           or eng._inflight is not None):
+        eng.step()
+    outs = [collect(q, timeout=60) for q in qs]
+    wall = time.perf_counter() - t0
+    return outs, sum(len(o) for o in outs) / wall
+
+
+def sgd_update_err(cfg, dev, mesh, ids, tgt):
+    """One f32 sgd_train_step at SGD_LR over the model sharded on `mesh`
+    and over the plain model, from the same weights: (the largest over the
+    parameters of max |update_tp - update| / max(max |update|, SGD_FLOOR x
+    the largest update), the largest update, (tp loss, plain loss)). The
+    updates are held in f32, where lr x grad is far above an ulp of the
+    weight; in bf16 most of them round away."""
+    from mllm_tpu_torch.models.transformer import CausalLM
+    from mllm_tpu_torch.parallel.sharding import sgd_train_step, shard_model
+
+    f32 = lambda: CausalLM.init(cfg, device=dev, dtype=torch.float32,  # noqa: E731
+                                generator=torch.Generator(device=dev).manual_seed(0))
+    before = f32().state_dict()
+    plain, plain_loss = sgd_train_step(f32(), ids, tgt, lr=SGD_LR)
+    tp_model, tp_loss = sgd_train_step(shard_model(f32(), mesh), ids, tgt, lr=SGD_LR)
+    tp_state = {k.replace(".inner.", "."): v for k, v in tp_model.state_dict().items()}
+    upd = {k: (v - before[k], tp_state[k] - before[k]) for k, v in plain.state_dict().items()}
+    top = max(float(d.abs().max()) for d, _ in upd.values())
+    err = max(float((t - d).abs().max()) / max(float(d.abs().max()), SGD_FLOOR * top) for d, t in upd.values())
+    del before, plain, tp_model, tp_state, upd
+    torch.cuda.empty_cache()
+    return err, top, (float(tp_loss), float(plain_loss))
+
+
+def phase_slice_parallel(dev) -> dict:
+    """The parallel axes at world 1 over NCCL on the card (tp = dp = pp = ep
+    = sp = 1; every collective runs, on one rank): sharded_generate against
+    generate_compiled at full width (greedy tokens equal; decode tok/s of
+    generate_compiled over the sharded and the plain model); the TP engine
+    against the plain engine over bf16 and int8 slot caches (tokens equal,
+    tok/s); one sgd_train_step in f32 against the plain step
+    (`sgd_update_err`), pipeline_lm_loss
+    against model.loss, ring and Ulysses attention in the trunk against the
+    plain trunk (PAR_LAYERS layers, full width); moe_forward_ep against the
+    MoE layer at QWEN2_MOE_08B's widths (2 layers); then `python -m
+    mllm_tpu_torch.parallel.dryrun --device cuda` in a process of its own."""
+    import torch.distributed as dist
+
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation.generate import generate_compiled
+    from mllm_tpu_torch.parallel.comm import make_axis_mesh
+    from mllm_tpu_torch.parallel.expert import moe_forward_ep
+    from mllm_tpu_torch.parallel.heads import pad_heads_for_tp
+    from mllm_tpu_torch.parallel.pipeline import pipeline_lm_loss
+    from mllm_tpu_torch.parallel.sharding import make_mesh, shard_model, sharded_generate
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    kernels = wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
+    out = {}
+    try:
+        mesh = make_mesh(1, 1)
+        cfg = TextConfig(**QWEN2VL_2B_LM)
+        model = init_model(cfg, dev)
+        rng = np.random.default_rng(71)
+        prompt = rng.integers(0, cfg.vocab_size, (1, 100))
+        with torch.no_grad():
+            (toks_tp, gen_s) = timed(lambda: sharded_generate(model, prompt, mesh, 64, S_CACHE,
+                                                              cache_dtype=torch.bfloat16))
+            toks_tp = [int(t) for t in toks_tp[0]]
+            sharded = shard_model(pad_heads_for_tp(model, 1), mesh)
+            rates = {}
+            for name, m in (("plain", model), ("sharded", sharded), ("plain_again", model)):
+                ids = torch.as_tensor(prompt, device=dev)
+                toks, _ = generate_compiled(m, ids, m.init_cache(1, S_CACHE), 100, 64)  # capture
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks, _ = generate_compiled(m, ids, m.init_cache(1, S_CACHE), 100, 64)
+                torch.cuda.synchronize()
+                rates[name] = 64 / (time.perf_counter() - t0)
+                if name == "plain":
+                    want = [int(t) for t in toks]
+            prompts = [rng.integers(0, cfg.vocab_size, n) for n in ENGINE_TP_LENS]
+            engines = {}
+            for kv in ("bf16", "int8"):
+                plain_toks, plain_rate = engine_tokens(model, dev, prompts, kv)
+                tp_toks, tp_rate = engine_tokens(sharded, dev, prompts, kv, mesh=mesh)
+                engines[kv] = dict(equal=tp_toks == plain_toks, tok_s=tp_rate, plain_tok_s=plain_rate)
+        out.update(sharded_generate_equal=toks_tp == want, sharded_generate_s=gen_s,
+                   decode_tok_s=rates, engine=engines)
+        del model, sharded
+        torch.cuda.empty_cache()
+
+        small = TextConfig(**{**QWEN2VL_2B_LM, "num_hidden_layers": PAR_LAYERS})
+        ids = torch.as_tensor(rng.integers(0, small.vocab_size, (4, 256)), device=dev)
+        tgt = torch.roll(ids, -1, dims=1)
+        sgd_err, sgd_top, sgd_loss = sgd_update_err(small, dev, mesh, ids, tgt)
+        out.update(sgd_loss=sgd_loss, sgd_update_err=sgd_err, sgd_max_update=sgd_top)
+        plain = init_model(small, dev)
+        pp = make_axis_mesh("pp", 1)
+        sp = make_axis_mesh("sp", 1)
+        with torch.no_grad():
+            want_loss = float(plain.loss(ids, tgt))
+            pp_loss = float(pipeline_lm_loss(plain, ids, tgt, pp, n_microbatches=2))
+            hid, _ = plain.hidden_states(ids[:1], None)
+            seq = {}
+            for mode in ((), ("ulysses",)):
+                h, _ = plain.hidden_states(ids[:1], None, ring=(sp, "sp", *mode))
+                seq["_".join(mode) or "ring"] = dict(hidden_err=rel_gap(h, hid),
+                                                     loss=float(plain.loss(ids, tgt, ring=(sp, "sp", *mode))))
+        out.update(pipeline_loss=(pp_loss, want_loss), sequence=seq)
+        del plain
+        torch.cuda.empty_cache()
+
+        _, moe_model_ = moe_model(dict(QWEN2_MOE_08B, num_hidden_layers=2), dev, "bf16")
+        ep = make_axis_mesh("ep", 1)
+        x = torch.randn(MOE_BATCH, MOE_PROMPT, QWEN2_MOE_08B["hidden_size"], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(72)).to(torch.bfloat16)
+        ep_rows = []
+        with torch.no_grad():
+            for blk in moe_model_.blocks:
+                y_ep, y = moe_forward_ep(blk.mlp, x, ep), blk.mlp(x)
+                ep_rows.append(dict(err=rel_gap(y_ep, y), ep_ms=time_ms(lambda: moe_forward_ep(blk.mlp, x, ep), 5),
+                                    module_ms=time_ms(lambda: blk.mlp(x), 5)))
+        out.update(moe_ep=ep_rows)
+        del moe_model_
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    launches = {k: f.launches for k, f in kernels.items()}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mllm_tpu_torch.parallel.dryrun", "--device", "cuda"],
+                          capture_output=True, text=True, timeout=300)
+    out.update(dryrun_rc=proc.returncode, dryrun_s=time.perf_counter() - t0,
+               dryrun_last=(proc.stdout.strip().splitlines() or [""])[-1])
+    emit(phase="slice_parallel", device=torch.cuda.get_device_name(dev), **out,
+         launches={k: n for k, n in launches.items() if n})
+    bad = []
+    if not out["sharded_generate_equal"]:
+        bad.append("sharded_generate tokens")
+    bad += [f"engine {kv} tokens" for kv, e in out["engine"].items() if not e["equal"]]
+    loss, plain_loss = out["sgd_loss"]
+    if abs(loss - plain_loss) > 1e-3 * abs(plain_loss) or not out["sgd_update_err"] <= SGD_TOL:
+        bad.append(f"sgd step {out['sgd_loss']} {out['sgd_update_err']}")
+    if abs(pp_loss - want_loss) > 1e-3 * abs(want_loss):
+        bad.append(f"pipeline loss {pp_loss} vs {want_loss}")
+    for mode, r in seq.items():
+        if r["hidden_err"] > PAR_TOL or abs(r["loss"] - want_loss) > 1e-2 * abs(want_loss):
+            bad.append(f"{mode} {r}")
+    bad += [f"moe_forward_ep {r}" for r in ep_rows if r["err"] > MOE_BRANCH_TOL]
+    if proc.returncode != 0:
+        bad.append(f"dryrun rc {proc.returncode}: {proc.stderr[-2000:]}")
+    if not launches["flash_attention"] or not launches["decode_attention"] or not launches["decode_attention_quant"]:
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"slice_parallel: {bad}")
+    return launches
+
+
 def timed_phase(name: str, fn):
     """fn(), its wall seconds printed as `<name>_seconds`."""
     t0 = time.perf_counter()
@@ -5059,7 +5402,9 @@ def main():
                 timed_phase("slice_deepseek", lambda: phase_slice_deepseek(dev)),
                 timed_phase("slice_elastic", lambda: phase_slice_elastic(dev)),
                 timed_phase("slice_mbp", lambda: phase_slice_mbp(dev)),
-                timed_phase("slice_persist", lambda: phase_slice_persist(dev))]
+                timed_phase("slice_persist", lambda: phase_slice_persist(dev)),
+                timed_phase("slice_train", lambda: phase_slice_train(dev)),
+                timed_phase("slice_parallel", lambda: phase_slice_parallel(dev))]
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n

@@ -324,3 +324,117 @@ def write_vocab(path: str | os.PathLike, tokens: list[str], scores=None):
             f.write(struct.pack("<ii", i, len(tb)))
             f.write(tb)
             f.write(struct.pack("<f", scores[i] if scores else 0.0))
+
+
+# ---------------------------------------------------------------------------
+# Safetensors writer (the format written by hand: the card has no
+# `safetensors` package)
+# ---------------------------------------------------------------------------
+
+_NP_TO_ST = {np.dtype(np.float32): "F32", np.dtype(np.float16): "F16", np.dtype(np.int8): "I8",
+             np.dtype(np.uint8): "U8", np.dtype(np.int32): "I32", np.dtype(np.int64): "I64"}
+
+
+def write_safetensors(path: str | os.PathLike, tensors: dict, metadata: dict | None = None) -> None:
+    """Write numpy arrays as one safetensors file: an 8-byte little-endian
+    header length, the JSON header (name -> dtype, shape, data_offsets, and
+    `__metadata__`), padded with spaces to a multiple of 8 bytes, then each
+    tensor's raw little-endian bytes in name order."""
+    names = sorted(tensors)
+    header: dict = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    blobs = []
+    for name in names:
+        arr = np.ascontiguousarray(tensors[name])
+        if arr.dtype not in _NP_TO_ST:
+            raise ValueError(f"write_safetensors: {name} has dtype {arr.dtype}")
+        data = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": _NP_TO_ST[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        offset += len(data)
+        blobs.append(data)
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def save_safetensors_model(out_dir: str, model, src_dir: str | None = None, names=None) -> str:
+    """Write a CausalLM back to an HF-style checkpoint directory (the inverse
+    of `load_causal_lm` for the dense layout: q/k/v/o, gate/up/down, norms),
+    every tensor f32 under its HF name, as the JAX package writes it; the
+    directory loads with `auto_model` and with transformers. Copies
+    config.json and the tokenizer files from `src_dir` when given. Fused,
+    quantized, adapter-wrapped or non-dense MLP layers raise: merge, unfuse
+    or dequantize first."""
+    import shutil
+
+    from ..models.loading import NameMap
+
+    nm = names or NameMap()
+    t: dict = {}
+
+    def put(name, tensor):
+        if tensor is not None:
+            t[name] = tensor.detach().float().cpu().numpy()
+
+    def put_linear(prefix, lin):
+        if lin is None:
+            return
+        if type(lin).__name__ != "Linear":
+            raise ValueError(f"save_safetensors_model: {prefix} is {type(lin).__name__}; "
+                             "merge/unfuse/dequantize before saving")
+        put(prefix + ".weight", lin.weight)
+        put(prefix + ".bias", lin.bias)
+
+    def put_norm(name, norm):
+        if norm is None:
+            return
+        base = name[: -len(".weight")] if name.endswith(".weight") else name
+        put(base + ".weight", norm.weight)
+        if getattr(norm, "bias", None) is not None:
+            put(base + ".bias", norm.bias)
+
+    if type(model.embed_tokens).__name__ != "Embedding":
+        raise ValueError(f"save_safetensors_model: embed_tokens is {type(model.embed_tokens).__name__}")
+    put(nm.token_embd, model.embed_tokens.weight)
+    put_norm(nm.final_norm, model.norm)
+    if model.lm_head is not None:
+        put_linear(nm.lm_head[: -len(".weight")], model.lm_head)
+    for i, blk in enumerate(model.blocks):
+        p = nm.blk.format(i=i)
+        a = blk.attn
+        if a.qkv_proj is not None:
+            raise ValueError("save_safetensors_model: unfuse qkv_proj first")
+        put_linear(p + nm.attn_q, a.q_proj)
+        put_linear(p + nm.attn_k, a.k_proj)
+        put_linear(p + nm.attn_v, a.v_proj)
+        put_linear(p + nm.attn_o, a.o_proj)
+        if a.q_norm is not None:
+            put_norm(p + nm.q_norm, a.q_norm)
+            put_norm(p + nm.k_norm, a.k_norm)
+        m = blk.mlp
+        if type(m).__name__ != "MLP":
+            raise ValueError(f"save_safetensors_model: layer {i} mlp is {type(m).__name__} (dense MLP only)")
+        if m.gateup_proj is not None:
+            raise ValueError("save_safetensors_model: unfuse gateup_proj first")
+        put_linear(p + nm.gate, m.gate_proj)
+        put_linear(p + nm.up, m.up_proj)
+        put_linear(p + nm.down, m.down_proj)
+        put_norm(p + nm.attn_norm, blk.input_norm)
+        put_norm(p + nm.ffn_norm, blk.post_attn_norm)
+        put_norm(p + nm.pre_ffn_norm, blk.pre_ffn_norm)
+        put_norm(p + nm.post_ffn_norm, blk.post_ffn_norm)
+
+    os.makedirs(out_dir, exist_ok=True)
+    write_safetensors(os.path.join(out_dir, "model.safetensors"), t, metadata={"format": "pt"})
+    if src_dir:
+        for f in ("config.json", "generation_config.json", "tokenizer.json", "tokenizer_config.json",
+                  "vocab.json", "merges.txt"):
+            s = os.path.join(src_dir, f)
+            if os.path.exists(s):
+                shutil.copy(s, os.path.join(out_dir, f))
+    return out_dir

@@ -38,8 +38,16 @@ request's mrope_delta (`SchedState.pos_delta`, 0 for a text request), and
 the decode window gives each slot the rope position head + delta, read on the
 device, so one captured window serves every mix of requests.
 
-Not ported yet (NotImplementedError): tensor-parallel serving (`mesh`,
-ROADMAP Queue 1 item 16).
+Tensor-parallel serving (`mesh=`, a `parallel.sharding.make_mesh` mesh and
+a model from `shard_model(pad_heads_for_tp(model, tp), mesh)`): every rank
+runs the engine over its shard; the model's local cfg gives each rank's slot
+cache its own kv heads. Every rank takes part in each collective, so every
+rank must admit the same requests at the same step: rank 0 of the mesh owns
+the request queue, and at each step broadcasts what it took from it (and
+whether to stop); each rank's `submit` returns a queue that receives the
+tokens of the request with the same submission number on rank 0. Under NCCL
+the windows are CUDA graphs with the collectives captured in them; under
+gloo, which no graph captures, they run eagerly as on the CPU.
 """
 
 from __future__ import annotations
@@ -250,6 +258,7 @@ class _Request:
     t_submit: float
     sampling: SamplingConfig = field(default_factory=SamplingConfig)
     vl: Optional[tuple] = None  # (patches, grid_thw, positions [3, 1, S], mrope_delta) of a VL request
+    seq: int = -1  # submission number (a tp engine's ranks match requests by it)
 
 
 @dataclass
@@ -268,8 +277,14 @@ class ContinuousEngine:
                  eos_token_id=None, kv_dtype="bf16", start_thread: bool = True,
                  decode_window: int = 8, pipeline: bool = False, prefix_cache: int = 0,
                  paged: int = 0, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel serving is not ported yet (ROADMAP Queue 1 item 16)")
+        if mesh is not None and (paged > 0 or hasattr(model, "visual")):
+            raise NotImplementedError("tensor-parallel serving takes text models over slot caches (dense, "
+                                      "int8, int4); the paged pool and image requests are not split over tp")
+        self.mesh = mesh
+        self._seq = 0  # submissions on this rank (a request's number)
+        self._outs: dict = {}  # request number -> its queue, on ranks other than 0
+        self._mirror: queue.Queue = queue.Queue()  # the requests rank 0 broadcast
+        self._agreed_stop = False  # rank 0's stop flag as broadcast at the last step
         cfg = text_config(model)
         self.model = model
         self.slots = slots
@@ -337,8 +352,12 @@ class ContinuousEngine:
         if len(ids) >= self.max_len:
             raise ValueError(f"prompt length {len(ids)} >= engine max_len {self.max_len}")
         max_tokens = min(max_tokens, self.max_len - len(ids))
-        self.pending.put(_Request(ids, max_tokens, out, time.perf_counter(),
-                                  sampling or SamplingConfig()))
+        if self.mesh is not None and not self._leader():
+            self._outs[self._seq] = out  # filled from rank 0's request of this number
+        else:
+            self.pending.put(_Request(ids, max_tokens, out, time.perf_counter(),
+                                      sampling or SamplingConfig(), seq=self._seq))
+        self._seq += 1
         return out
 
     def submit_vl(self, proc_out, max_tokens: int = 64,
@@ -366,6 +385,40 @@ class ContinuousEngine:
             self._thread.join(timeout)
             if not self._thread.is_alive():
                 self._thread = None
+
+    # -- tensor parallelism ------------------------------------------------
+    def _leader(self) -> bool:
+        from ..parallel.comm import axis_rank
+
+        return axis_rank(self.mesh, "tp") == 0
+
+    def _sync_requests(self) -> None:
+        """Rank 0 moves every pending request into the mirror queue and
+        broadcasts them (with its stop flag); every other rank puts the same
+        requests, with its own output queues, into its mirror queue."""
+        import torch.distributed as dist
+
+        from ..parallel.comm import axis_group
+
+        taken = []
+        if self._leader():
+            while True:
+                try:
+                    taken.append(self.pending.get_nowait())
+                except queue.Empty:
+                    break
+        group = axis_group(self.mesh, "tp")
+        box = [(self._stop, [(r.seq, r.ids, r.max_tokens, r.sampling) for r in taken])]
+        dist.broadcast_object_list(box, dist.get_global_rank(group, 0), group=group)
+        stop, items = box[0]
+        self._agreed_stop = stop
+        if self._leader():
+            for r in taken:
+                self._mirror.put(r)
+            return
+        for seq, ids, max_tokens, sampling in items:
+            out = self._outs.pop(seq, None) or queue.Queue()
+            self._mirror.put(_Request(ids, max_tokens, out, time.perf_counter(), sampling, seq=seq))
 
     # -- scheduler ---------------------------------------------------------
     def _free_slot(self) -> Optional[int]:
@@ -560,8 +613,12 @@ class ContinuousEngine:
         self._paged_release()  # this drain proves the prior window finished
 
     def step(self) -> bool:
-        """One scheduler iteration; returns True if any work was done."""
+        """One scheduler iteration; returns True if any work was done. Under a
+        mesh every rank calls it in step with the others."""
         worked = False
+        if self.mesh is not None:
+            self._sync_requests()
+        source = self._mirror if self.mesh is not None else self.pending
         if self._inflight is None and all(r is None for r in self.req):
             # nothing queued on the card: the whole quarantine is safe to release
             self._paged_release()
@@ -572,21 +629,21 @@ class ContinuousEngine:
             if slot is None:
                 break
             try:
-                r = self.pending.get_nowait()
+                r = source.get_nowait()
             except queue.Empty:
                 break
             if r.vl is not None:  # multimodal: the vision admission
                 if not self._admit_vl(slot, r):
-                    self.pending.put(r)
+                    source.put(r)
                     break
             elif len(r.ids) <= self.bucket and self._prefix_match(r.ids) == 0:
                 if not self._paged_reserve(slot, len(r.ids), r.max_tokens, self.bucket):
-                    self.pending.put(r)  # pool full: retry next step
+                    source.put(r)  # pool full: retry next step
                     break
                 self.req[slot] = r  # reserved; installed by _admit_many below
                 batch.append((slot, r))
             elif not self._admit(slot, r):
-                self.pending.put(r)
+                source.put(r)
                 break
             worked = True
         if batch:
@@ -633,7 +690,14 @@ class ContinuousEngine:
         return self._windows[all_greedy]
 
     def run(self):
-        while not self._stop:
+        while not self._stop or self.mesh is not None:
+            if self.mesh is not None:  # every rank steps with rank 0, which says when to stop
+                worked = self.step()
+                if self._agreed_stop:
+                    break
+                if not worked:
+                    time.sleep(0.005)
+                continue
             if not self.step():
                 try:
                     r = self.pending.get(timeout=0.05)

@@ -166,6 +166,10 @@ class KVCache:
         """Full-length K/V for one layer: ([B, H_kv, max_len, D], same)."""
         return self.k[layer], self.v[layer]
 
+    def dtype_bytes(self) -> int:
+        """Bytes of one stored K or V element."""
+        return self.k.element_size()
+
     def advance(self, n) -> "KVCache":
         return KVCache(self.k, self.v, self.pos + n)
 

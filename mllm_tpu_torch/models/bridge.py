@@ -10,7 +10,8 @@ The model may have gone through `fuse_projections` and/or `quantize_model`
 (int8 or int4, any flags): the port's structure is read from the names
 (`qkv_proj`, `gateup_proj`, `qweight_t`/`scales`, `packed_t`/`scales_t`
 [/`zeros_t`], `mlp.gate_ops.0/1[/2]`, `embed_tokens.qweight_t`,
-`embed_tokens.proj.packed_t`). MoE blocks take `mlp.router_weight`,
+`embed_tokens.proj.packed_t`); a projection with `lora_a` / `lora_b` (the
+JAX `add_lora`) becomes a `training.lora.LoRALinear`. MoE blocks take `mlp.router_weight`,
 `mlp.w_gate` / `w_up` / `w_down` (float: `MoEMLP`; with `mlp.s_gate` /
 `s_up` / `s_down`: `QuantMoEMLP`), `mlp.shared_expert.*` (float, int8 or
 fused int4) and `mlp.shared_gate`. LayerNorm biases, per-head q/k
@@ -39,7 +40,7 @@ from .megadecode import BLOCK_F_CAP, MegaDecodeLM
 from .moe import MoEMLP, QuantMoEMLP
 from .transformer import MLP, CausalLM
 
-_F32_NAMES = ("scales", "scales_t", "zeros_t", "1", "2", "s_gate", "s_up", "s_down")  # kept in f32
+_F32_NAMES = ("scales", "scales_t", "zeros_t", "1", "2", "s_gate", "s_up", "s_down", "lora_a", "lora_b")  # kept in f32
 
 
 def port_state_dict(params: dict[str, np.ndarray], n_layers: int) -> dict[str, np.ndarray]:
@@ -69,10 +70,18 @@ def _to_torch(name: str, arr: np.ndarray, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=want)
 
 
-def _linear(state: dict, prefix: str, required: bool = True):
+def _linear(state: dict, prefix: str, required: bool = True, lora_scale=None):
     """The layer that the names under `prefix` describe (None when there is
-    none and it is not required)."""
+    none and it is not required). `lora_a` / `lora_b` beside the weight make
+    a LoRALinear (the JAX LoRALinear's leaves) with scale `lora_scale`
+    (alpha / rank: a static field there, not a parameter)."""
     get = lambda k: state.get(f"{prefix}.{k}")  # noqa: E731
+    if get("lora_a") is not None:
+        from ..training.lora import LoRALinear
+
+        if lora_scale is None:
+            raise ValueError(f"{prefix} holds LoRA adapters: pass lora_scale (alpha / rank)")
+        return LoRALinear(get("weight"), get("bias"), get("lora_a"), get("lora_b"), lora_scale)
     if get("qweight_t") is not None:
         return QuantLinear(get("qweight_t"), get("scales"), get("bias"))
     if get("packed_t") is not None:
@@ -88,7 +97,7 @@ def _operands(state: dict, prefix: str) -> Int4Operands:
     return Int4Operands(*(state.get(f"{prefix}.{i}") for i in range(3)))
 
 
-def _mlp(state: dict, prefix: str, mlp: MLP, cfg: TextConfig):
+def _mlp(state: dict, prefix: str, mlp: MLP, cfg: TextConfig, lora_scale=None):
     """The MLP (or FusedInt4MLP) that the names under `prefix` describe,
     filling `mlp`'s projections."""
     if prefix + "gate_ops.0" in state:
@@ -102,7 +111,7 @@ def _mlp(state: dict, prefix: str, mlp: MLP, cfg: TextConfig):
         mlp.gate_proj = mlp.up_proj = None
     for name in ("gate_proj", "up_proj", "down_proj"):
         if getattr(mlp, name) is not None:
-            setattr(mlp, name, _linear(state, prefix + name, required=name != "up_proj"))
+            setattr(mlp, name, _linear(state, prefix + name, required=name != "up_proj", lora_scale=lora_scale))
     return mlp
 
 
@@ -124,7 +133,9 @@ def _moe(state: dict, prefix: str, moe: MoEMLP, cfg: TextConfig):
 
 
 def causal_lm_from_jax_params(params: dict[str, np.ndarray], cfg: TextConfig, device,
-                              dtype=torch.float32) -> CausalLM:
+                              dtype=torch.float32, lora_scale=None) -> CausalLM:
+    """lora_scale: the adapters' alpha / rank, for a model that went through
+    the JAX `add_lora` (its LoRALinear leaves become the port's LoRALinear)."""
     model = CausalLM(cfg, device=device, dtype=dtype)
     state = {k: _to_torch(k, v, device, dtype)
              for k, v in port_state_dict(params, cfg.num_hidden_layers).items()}
@@ -146,10 +157,11 @@ def causal_lm_from_jax_params(params: dict[str, np.ndarray], cfg: TextConfig, de
             attn.q_proj = attn.k_proj = attn.v_proj = None
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             if getattr(attn, name) is not None:
-                setattr(attn, name, _linear(state, p + "attn." + name))
-        blk.mlp = _moe(state, p + "mlp.", mlp, cfg) if isinstance(mlp, MoEMLP) else _mlp(state, p + "mlp.", mlp, cfg)
+                setattr(attn, name, _linear(state, p + "attn." + name, lora_scale=lora_scale))
+        blk.mlp = (_moe(state, p + "mlp.", mlp, cfg) if isinstance(mlp, MoEMLP)
+                   else _mlp(state, p + "mlp.", mlp, cfg, lora_scale=lora_scale))
     if model.lm_head is not None:
-        model.lm_head = _linear(state, "lm_head")
+        model.lm_head = _linear(state, "lm_head", lora_scale=lora_scale)
     if "embed_tokens.qweight_t" in state:
         model.embed_tokens = QuantEmbedHead(model.embed_tokens, state["embed_tokens.qweight_t"],
                                             state["embed_tokens.scales"])

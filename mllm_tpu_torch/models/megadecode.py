@@ -258,6 +258,10 @@ class MegaDecodeLM(nn.Module):
     def logits(self, hidden):
         return self.base.logits(hidden)
 
+    def loss(self, *a, **k):
+        """The base model's training loss (JAX `MegaDecodeLM.loss`)."""
+        return self.base.loss(*a, **k)
+
     def _mega_eligible(self, input_ids, cache, inputs_embeds, pad_lens) -> bool:
         # SlotKVCache: the serving engine's per-slot write heads, which the
         # batched kernel takes natively

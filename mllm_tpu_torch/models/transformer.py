@@ -12,7 +12,12 @@ names there, with `blocks.{i}` in place of `blocks.mods.{i}`.
 `mlp.gateup_proj` (gate||up) in place of the split projections, as in the
 JAX package; `quantize_model` then swaps Linears for quantized layers.
 
-Not ported: stacked weights, ring attention and `loss`.
+`CausalLM.loss` is the training path: the cacheless trunk (each block under
+`torch.utils.checkpoint` with `remat=True`; with `ring=(mesh, axis[,
+"ulysses"])` sequence-parallel attention from `parallel/`), f32 logits and
+the mean next-token cross-entropy. The JAX package's leaf-stacked blocks are
+not a layout here: `torch.nn.ModuleList` holds the blocks, and the bridge
+unstacks stacked JAX parameters.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.config import TextConfig
@@ -73,10 +79,13 @@ class Attention(nn.Module):
         return None
 
     def forward(self, x, rope: RotaryEmbedding, cache: Optional[KVCache], positions, kv_start=None,
-                bias=None, causal=True):
+                bias=None, causal=True, ring=None):
         """bias/causal: tree speculative decoding passes an additive attention
         bias with causal=False (JAX `Attention.__call__`); it reaches `sdpa`
-        through `attention_route`, as the reference sends it to XLA."""
+        through `attention_route`, as the reference sends it to XLA.
+        ring: (mesh, axis) or (mesh, axis, "ulysses") on a cacheless call: x
+        holds this rank's sequence block, and attention runs over the whole
+        sequence by ring attention or by Ulysses' all-to-alls."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
@@ -102,7 +111,19 @@ class Attention(nn.Module):
             cache = cache.update_layer(self.layer_idx, k, v)
             out = attend_from_cache(q, cache, self.layer_idx, q_offset=cache.pos,
                                     kv_valid_len=valid_len(cache, s), **kw)
-        else:  # cacheless (scoring) path
+        elif ring is not None:  # sequence-parallel exact attention
+            if bias is not None or self._window() is not None or cfg.attn_logit_softcap is not None:
+                raise ValueError("sequence-parallel attention takes plain causal or dense attention only")
+            mesh, axis, *mode = ring
+            if mode and mode[0] == "ulysses":  # all-to-all head/sequence reshard
+                from ..parallel.ulysses import ulysses_attention
+
+                out = ulysses_attention(q, k, v, mesh, axis=axis, causal=causal, scale=scale)
+            else:  # K/V blocks rotate around the ring
+                from ..parallel.ring_attention import ring_attention
+
+                out = ring_attention(q, k, v, mesh, axis=axis, causal=causal, scale=scale)
+        else:  # cacheless (training / scoring) path
             out = attend(q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
                          q_offset=0, kv_valid_len=None, **kw)
         return self.o_proj(out.reshape(b, s, h * hd)), cache
@@ -160,10 +181,11 @@ class DecoderBlock(nn.Module):
         self.post_ffn_norm = make_norm(cfg, d, **kw) if cfg.post_norm else None
         self.residual_multiplier = cfg.residual_multiplier  # MiniCPM scale_depth/sqrt(L)
 
-    def forward(self, x, rope, cache, positions, kv_start=None, bias=None, causal=True):
+    def forward(self, x, rope, cache, positions, kv_start=None, bias=None, causal=True, ring=None):
         rm = self.residual_multiplier
+        seq = {} if ring is None else {"ring": ring}  # MLA attention (models/deepseek.py) takes no ring
         h, cache = self.attn(self.input_norm(x), rope, cache, positions, kv_start=kv_start, bias=bias,
-                             causal=causal)
+                             causal=causal, **seq)
         if self.pre_ffn_norm is not None:
             h = self.pre_ffn_norm(h)
         x = x + (h if rm == 1.0 else h * in_dtype(rm, h.dtype))
@@ -229,7 +251,7 @@ class CausalLM(nn.Module):
         return KVCache.init(*args, device=self.device, dtype=dtype)
 
     def hidden_states(self, input_ids, cache: Optional[KVCache], inputs_embeds=None,
-                      pad_lens=None):
+                      pad_lens=None, ring=None, remat: bool = False):
         """Run the trunk; returns (hidden [B,S,D], cache with pos advanced by S).
 
         Positions and attention lengths come from the cache's write head on
@@ -239,7 +261,15 @@ class CausalLM(nn.Module):
 
         pad_lens: [B] left-pad tokens per sequence (ragged batching); rope
         positions shift back by pad_lens (clamped at 0) and the pad prefix is
-        masked in attention."""
+        masked in attention.
+
+        ring: (mesh, axis[, "ulysses"]) runs a cacheless trunk with
+        sequence-parallel attention: input_ids hold this rank's block of the
+        sequence, rope positions start at the block's offset, and the hidden
+        states returned are the block's.
+        remat: on a cacheless forward, each block runs under
+        `torch.utils.checkpoint` (use_reentrant=False): its activations are
+        recomputed in the backward instead of kept (JAX `jax.checkpoint`)."""
         x = inputs_embeds if inputs_embeds is not None else self.embed_tokens(input_ids)
         if self.cfg.embedding_multiplier != 1.0:
             x = x * in_dtype(self.cfg.embedding_multiplier, x.dtype)
@@ -248,15 +278,51 @@ class CausalLM(nn.Module):
         if cache is not None:  # per-slot write heads [B]: positions [B, S]
             pos0 = cache.pos[:, None] if cache.pos.dim() == 1 else cache.pos
             positions = (pos0 + positions).clamp(max=self.rope.sin.shape[0] - 1)
+        elif ring is not None:  # this rank's block of the sequence
+            from ..parallel.comm import axis_rank
+
+            positions = positions + axis_rank(ring[0], ring[1]) * s
         kv_start = None
         if pad_lens is not None:
             pad = torch.as_tensor(pad_lens, device=x.device)
             positions = (positions - pad[:, None]).clamp_min(0)  # [B, S]
             kv_start = pad.to(torch.int32)
         for blk in self.blocks:
-            x, cache = blk(x, self.rope, cache, positions, kv_start=kv_start)
+            if cache is None and remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    lambda xc, blk=blk: blk(xc, self.rope, None, positions, kv_start=kv_start, ring=ring)[0],
+                    x, use_reentrant=False)
+            else:
+                x, cache = blk(x, self.rope, cache, positions, kv_start=kv_start, ring=ring)
         x = self.norm(x)
         return x, (cache.advance(s) if cache is not None else None)
+
+    def loss(self, input_ids, targets, mask=None, ring=None, remat: bool = False):
+        """Next-token cross-entropy over a cacheless forward: the training
+        path (JAX `CausalLM.loss`). f32 logits, `log_softmax`, the nll at each
+        target; the mean, or with `mask` sum(nll * mask) / max(sum(mask), 1).
+        ring: sequence-parallel attention (see hidden_states): input_ids and
+        targets are this rank's block, and the loss is the whole sequence's,
+        its sums all-reduced over the axis (the all-reduce's backward is the
+        identity: each rank's gradients are its block's share, summed over
+        the axis as data parallelism sums). remat: per-block recomputation."""
+        hidden, _ = self.hidden_states(input_ids, None, ring=ring, remat=remat)
+        logp = torch.log_softmax(self.logits(hidden), dim=-1)
+        nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+        if ring is not None:
+            from ..parallel.comm import reduce_from_axis
+
+            if mask is None:
+                sums = torch.stack([nll.sum(), nll.new_tensor(float(nll.numel()))])
+            else:
+                m = mask.to(nll.dtype)
+                sums = torch.stack([(nll * m).sum(), m.sum()])
+            sums = reduce_from_axis(sums, ring[0], ring[1])
+            return sums[0] / sums[1].clamp_min(1.0)
+        if mask is not None:
+            mask = mask.to(nll.dtype)
+            return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        return nll.mean()
 
     def logits(self, hidden):
         """f32 logits."""

@@ -11,7 +11,8 @@ kernel on the card (head_dim 80 included), `sdpa` on the CPU.
 every other query length to `ops.flash_attention`. Each wrapper runs its
 plain version on CPU tensors and its kernel on CUDA tensors; the TPU
 package's shape thresholds (D % 128, Sq % 128, batch/length switches) do not
-apply. `attention_route` decides, the same on every device: an additive
+apply. `attention_route` decides, the same on every device: a call that
+must carry a gradient (grad mode on and q, k or v requiring grad), an additive
 `bias` (tree speculation), an attention `logit_softcap` (gemma2), a prefill
 over a quantized cache with per-slot lengths and a head_dim outside
 KERNEL_HEAD_DIMS (64, 128, 256) go through the port's own `sdpa` (on the card
@@ -95,8 +96,15 @@ def sdpa(
     return out.to(q.dtype)
 
 
+def needs_grad(*tensors) -> bool:
+    """True when grad mode is on and one of `tensors` requires grad: the call
+    must carry a gradient, so it takes `sdpa` (the kernels have no backward)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=None,
-                    kv_valid_len=None, kv_start=None, head_dim: Optional[int] = None) -> str:
+                    kv_valid_len=None, kv_start=None, head_dim: Optional[int] = None,
+                    grad: bool = False) -> str:
     """Which function serves an attention call: "sdpa", "decode", "flash",
     "decode_paged", "decode_quant" or "flash_quant". `cache` is "dense",
     "paged" or "quant". The route does not depend on the device: the kernels'
@@ -105,10 +113,13 @@ def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=N
     (not in KERNEL_HEAD_DIMS) goes to `sdpa` on every cache, as the reference
     sends every `d % 128 != 0` call to XLA (Phi-3's 96, for one); 256 reaches
     the kernels of every cache, the quantized ones included, as it reaches
-    the Pallas ones there (Gemma-2B).
+    the Pallas ones there (Gemma-2B). A call that must carry a gradient
+    (`grad`, from `needs_grad`) takes `sdpa` on every device, as the reference
+    sends every call off the TPU to XLA `sdpa`, which JAX differentiates
+    (`mllm_tpu/nn/attention.py:190-196`): no kernel has a backward.
     Counterpart of the choice between XLA `sdpa` and the Pallas kernels in
     `mllm_tpu/nn/attention.py:145-175,192-212`."""
-    if bias is not None or logit_softcap is not None:
+    if grad or bias is not None or logit_softcap is not None:
         return "sdpa"
     if head_dim is not None and head_dim not in KERNEL_HEAD_DIMS:
         return "sdpa"
@@ -136,7 +147,8 @@ def attend(
     The decode kernel measures a window from the last valid key, so it
     assumes the query sits at position kv_valid_len - 1 (as every decode
     step does)."""
-    route = attention_route(q.shape[1], bias=bias, logit_softcap=logit_softcap, head_dim=q.shape[-1])
+    route = attention_route(q.shape[1], bias=bias, logit_softcap=logit_softcap, head_dim=q.shape[-1],
+                            grad=needs_grad(q, k, v))
     if route == "sdpa":
         return sdpa(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start,
                     causal=causal, window=window, bias=bias, scale=scale,
@@ -156,13 +168,14 @@ def attend_padded_head(q, k, v, *, causal: bool = False, scale: Optional[float] 
     which takes head_dim 80 itself (rows of 80 columns, zero-filled to its 128
     body in shared memory): the reference's zero padding of q/k/v to 128
     lanes in memory is a Mosaic constraint the port does not copy. A kernel
-    that fails raises; nothing falls back to `sdpa`. A causal call takes
+    that fails raises; nothing falls back to `sdpa`. A call that must carry a
+    gradient takes `sdpa`, as `attention_route` sends it. A causal call takes
     `sdpa`, as in the reference; so does a head_dim the kernel does not take
     (where the reference pads any head_dim to 128 lanes)."""
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
-    if q.device.type != "cpu" and not causal and d in FLASH_HEAD_DIMS:
+    if q.device.type != "cpu" and not causal and d in FLASH_HEAD_DIMS and not needs_grad(q, k, v):
         return flash_attention(q, k, v, causal=False, scale=scale)
     return sdpa(q, k, v, causal=causal, scale=scale)
 
@@ -191,7 +204,8 @@ def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None
     kind = ("paged" if isinstance(cache, PagedKVCache)
             else "quant" if isinstance(cache, (QuantKVCache, SlotQuantKVCache)) else "dense")
     route = attention_route(q.shape[1], cache=kind, bias=bias, logit_softcap=logit_softcap,
-                            kv_valid_len=kv_valid_len, kv_start=kv_start, head_dim=q.shape[-1])
+                            kv_valid_len=kv_valid_len, kv_start=kv_start, head_dim=q.shape[-1],
+                            grad=needs_grad(q))
     if route == "decode_paged":
         return decode_attention_paged(q, cache.k[layer_idx], cache.v[layer_idx], cache.table,
                                       kv_valid_len=kv_valid_len, scale=scale, window=window)

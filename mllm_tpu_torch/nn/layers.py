@@ -6,7 +6,9 @@ Compute conventions, as in the JAX package:
   - normalisation and rotary embedding run in f32;
   - every constructor takes an explicit `device` and `dtype`.
 
-Parameters do not require gradients: this slice is inference only.
+Parameters are built frozen (requires_grad False), for inference;
+`training.train.partition` turns gradients on for the ones a training step
+updates.
 Quantized layers hold their integer weights, scales and bias as buffers.
 """
 
@@ -77,13 +79,37 @@ def shallow_copy(mod: nn.Module) -> nn.Module:
     return new
 
 
+class _MatmulF32(torch.autograd.Function):
+    """x2 [M, K] @ w.T on the card's bf16 tensor cores with an f32 result,
+    differentiable (`torch.mm(..., out_dtype=)` has no derivative): the
+    backward's products take the f32 gradient rounded to the operands'
+    dtype, as autocast's do, and accumulate in f32."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        dx = torch.mm(g, w, out_dtype=torch.float32).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(g.t(), x2, out_dtype=torch.float32).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w.T accumulated in f32, with an f32 result (the JAX package's
     `dot_general(..., preferred_element_type=f32)`)."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return F.linear(x, w)
     if x.is_cuda:  # bf16 tensor cores, f32 output
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            y = _MatmulF32.apply(x2, w)
+        else:
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[0])
     return F.linear(x.float(), w.float())
 
@@ -170,12 +196,16 @@ class QuantLinearA8(QuantLinear):
         super()._load_from_state_dict(*args, **kwargs)
         self.qweight_nk = self.qweight_t.t().contiguous()
 
+    @staticmethod
+    def takes_a8(x) -> bool:
+        """Whether a call on x is prefill-shaped (the W8A8 product)."""
+        m = x.numel() // x.shape[-1]
+        return m >= 16 and (x.shape[-2] if x.dim() >= 3 else m) > 1
+
     def forward(self, x):
         from ..ops.quant_matmul import int8_matmul, int8_matmul_a8
 
-        m = x.numel() // x.shape[-1]
-        seq = x.shape[-2] if x.dim() >= 3 else m
-        if m >= 16 and seq > 1:
+        if self.takes_a8(x):
             y = int8_matmul_a8(x, self.qweight_nk, self.scales)
         else:
             y = int8_matmul(x, self.qweight_t, self.scales)

@@ -81,6 +81,31 @@ def masked_softmax(s: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     return p / l
 
 
+def on_cpu(t: torch.Tensor) -> bool:
+    """The wrappers' device test: a CPU tensor takes the plain version, any
+    other launches the kernel or raises."""
+    return t.device.type == "cpu"
+
+
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise when grad mode is on and an input (a tensor, or a tuple of them)
+    requires grad. A CUDA kernel is a launch outside autograd: its output
+    would carry no gradient and nothing would say so. Each wrapper calls this
+    first on its device branch; a loss that needs gradients through attention
+    takes `sdpa` (`nn.attention.attention_route`), as the reference sends
+    every call off the TPU to XLA."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(inputs)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (tuple, list)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(f"{name}: an input requires grad, and the CUDA kernel has no backward; "
+                               "run it under torch.no_grad() or take the plain PyTorch route")
+
+
 def check_kernel_args(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       head_dims: tuple = KERNEL_HEAD_DIMS) -> None:
     """Raise on anything the CUDA attention kernels do not take (a head_dim

@@ -31,7 +31,8 @@ import torch
 
 from . import _build
 from ._common import (KERNEL_HEAD_DIMS, check_kernel_args, check_quant_kv_args,
-                      decode_visible_keys, kv_len_arg, kv_start_arg, masked_exp, masked_softmax)
+                      decode_visible_keys, kv_len_arg, kv_start_arg, masked_exp, masked_softmax, on_cpu,
+                      refuse_grad)
 from .flash_attention import LOG2E
 from .quant_matmul import sm_count
 
@@ -126,9 +127,10 @@ def decode_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Decode attention; same signature and masking as `decode_attention_ref`."""
-    if q.device.type == "cpu":
+    if on_cpu(q):
         return decode_attention_ref(q, k, v, kv_valid_len=kv_valid_len, kv_start=kv_start,
                                     scale=scale, window=window)
+    refuse_grad("decode_attention", q, k, v)
     b, sq, h, d = q.shape
     if sq != 1:
         raise ValueError("decode_attention is single-token; use flash_attention for prefill")
@@ -202,9 +204,10 @@ def decode_attention_quant(
 ) -> torch.Tensor:
     """Decode attention over int8 or packed-int4 K/V; same signature and
     arithmetic as `decode_attention_quant_ref`."""
-    if q.device.type == "cpu":
+    if on_cpu(q):
         return decode_attention_quant_ref(q, k, v, k_scale, v_scale, kv_valid_len=kv_valid_len,
                                           kv_start=kv_start, scale=scale, window=window)
+    refuse_grad("decode_attention_quant", q, k, v, k_scale, v_scale)
     name = "decode_attention_quant"
     b, sq, h, d = q.shape
     if sq != 1:
@@ -270,9 +273,10 @@ def decode_attention_paged(
 ) -> torch.Tensor:
     """Paged decode attention; same signature and masking as
     `decode_attention_paged_ref`."""
-    if q.device.type == "cpu":
+    if on_cpu(q):
         return decode_attention_paged_ref(q, k_pool, v_pool, table, kv_valid_len=kv_valid_len,
                                           scale=scale, window=window)
+    refuse_grad("decode_attention_paged", q, k_pool, v_pool)
     name = "decode_attention_paged"
     b, sq, h, d = q.shape
     if sq != 1:

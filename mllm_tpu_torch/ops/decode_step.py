@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._common import on_cpu, refuse_grad
 from .fused_mlp import _ACT, _ACT_ID, dequant_down_blockplanar
 from .quant_matmul import check_operands, dequant_int4_canonical, launch_or_raise, pow2_rows, sm_count
 
@@ -351,11 +352,12 @@ def fused_decode_step(x, pos, rope_r, qkv_ops, o_ops, gate_ops, up_ops, down_ops
     Returns (y [1, d] f32, k_new [L, Hkv, hd] f32 roped, v_new [L, Hkv, hd] f32)."""
     name = "fused_decode_step"
     _check_window(name, pos, kv_start, k_cache.shape[3])
-    if x.device.type == "cpu":
+    if on_cpu(x):
         return fused_decode_step_ref(
             x, pos, rope_r, qkv_ops, o_ops, gate_ops, up_ops, down_ops, norm1_w, norm2_w, k_cache,
             v_cache, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, act=act, eps=eps, rm=rm,
             scale=scale, group_a=group_a, group_d=group_d, block_f=block_f, kv_start=kv_start)
+    refuse_grad(name, x, qkv_ops, o_ops, gate_ops, up_ops, down_ops, norm1_w, norm2_w, k_cache, v_cache)
     geo = _geometry(name, x, qkv_ops, gate_ops, k_cache, n_heads, n_kv_heads, head_dim, group_a, block_f)
     start = int(kv_start or 0)
     if isinstance(pos, torch.Tensor) and pos.device.type != "cpu":
@@ -394,12 +396,13 @@ def fused_decode_step_batched(x, pos, sin_rows, cos_rows, qkv_ops, o_ops, gate_o
     k_new [L, b, Hkv, hd] f32 roped, v_new [L, b, Hkv, hd] f32)."""
     name = "fused_decode_step_batched"
     _check_window(name, pos, kv_start, k_cache.shape[3])
-    if x.device.type == "cpu":
+    if on_cpu(x):
         return fused_decode_step_batched_ref(
             x, pos, sin_rows, cos_rows, qkv_ops, o_ops, gate_ops, up_ops, down_ops, norm1_w, norm2_w,
             k_cache, v_cache, n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim, act=act,
             eps=eps, rm=rm, scale=scale, group_a=group_a, group_d=group_d, block_f=block_f,
             kv_start=kv_start)
+    refuse_grad(name, x, qkv_ops, o_ops, gate_ops, up_ops, down_ops, norm1_w, norm2_w, k_cache, v_cache)
     b = x.shape[0]
     geo = _geometry(name, x, qkv_ops, gate_ops, k_cache, n_heads, n_kv_heads, head_dim, group_a, block_f)
     x2 = _f32_rows(x, b, geo[1])

@@ -30,7 +30,8 @@ import torch
 
 from . import _build
 from ._common import (FLASH_HEAD_DIMS, check_kernel_args, check_quant_kv_args, flash_visible_keys,
-                      kv_len_arg, kv_start_arg, masked_exp, masked_softmax, offset_arg)
+                      kv_len_arg, kv_start_arg, masked_exp, masked_softmax, offset_arg, on_cpu,
+                      refuse_grad)
 
 LOG2E = 1.4426950408889634
 
@@ -85,9 +86,10 @@ def flash_attention(
     head_dim is 64, 128, 256 or 80 (`FLASH_HEAD_DIMS`); 80 runs the 128 body
     over rows of 80 columns, TMA filling the rest with zeros in shared memory
     (`csrc/flash_attention.cu`)."""
-    if q.device.type == "cpu":
+    if on_cpu(q):
         return flash_attention_ref(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                    kv_start=kv_start, causal=causal, window=window, scale=scale)
+    refuse_grad("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     check_kernel_args("flash_attention", q, k, v, FLASH_HEAD_DIMS)
     hkv, skv = k.shape[1], k.shape[2]
@@ -189,10 +191,11 @@ def flash_attention_quant(
     goes in raw: the kernel rounds bf16(f32(q) * q_scale) in shared memory,
     q_scale = f32(bf16(scale * log2 e)) (`quant_q_scale`), the product the
     plain version takes in q's dtype."""
-    if q.device.type == "cpu":
+    if on_cpu(q):
         return flash_attention_quant_ref(q, k, v, k_scale, v_scale, q_offset=q_offset,
                                          kv_valid_len=kv_valid_len, kv_start=kv_start,
                                          causal=causal, window=window, scale=scale)
+    refuse_grad("flash_attention_quant", q, k, v, k_scale, v_scale)
     name = "flash_attention_quant"
     b, sq, h, d = q.shape
     bits = check_quant_kv_args(name, q, k, v, k_scale, v_scale)

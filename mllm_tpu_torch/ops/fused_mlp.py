@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._common import on_cpu, refuse_grad
 from .quant_matmul import (GROUP, INT4_KERNEL_MAX_M, SMEM_PER_BLOCK, SMEM_PER_SM,
                            STAGE_ROWS, TILE_N, bf16_rows, check_operands, dequant_int4_canonical,
                            launch_or_raise, pow2_rows, sm_count, tile_counters)
@@ -205,9 +206,10 @@ def fused_int4_mlp(x, gate_ops, up_ops, down_ops, *, act: str = "silu",
     gate_ops/up_ops: canonical (packed [khp_d, ff], scales, zeros) over K = d.
     down_ops: block-planar (packed [ff/2, d_out], scales, zeros).
     zeros are all None (symmetric) or all set (affine)."""
-    if x.device.type == "cpu":
+    if on_cpu(x):
         return fused_int4_mlp_ref(x, gate_ops, up_ops, down_ops, act=act, group=group,
                                   block_f=block_f)
+    refuse_grad("fused_int4_mlp", x, gate_ops, up_ops, down_ops)
     gp, gs, gz = gate_ops
     up, us, uz = up_ops
     dp, ds, dz = down_ops

@@ -45,6 +45,7 @@ import torch
 
 from ..core import dtypes as _dt
 from . import _build
+from ._common import on_cpu, refuse_grad
 
 GROUP = 32  # the int4 kernels' quant group
 INT4_KERNEL_MAX_M = 32  # larger m dequantizes and runs one matmul (JAX quant_matmul.py:339)
@@ -283,8 +284,9 @@ def int8_matmul(x: torch.Tensor, qweight_t: torch.Tensor, scales: torch.Tensor) 
     On the card x is rounded to bf16 (as the JAX wrapper does); m <=
     INT8_STREAM_MAX_M runs the weight-stream kernel (plan `int8_plan`), larger
     m the TMA + wgmma kernel (plan `int8_gemm_plan`), prefill included."""
-    if x.device.type == "cpu":
+    if on_cpu(x):
         return int8_matmul_ref(x, qweight_t, scales)
+    refuse_grad("int8_matmul", x, scales)
     k, n = qweight_t.shape
     x2 = bf16_rows("int8_matmul", x, k)
     check_operands("int8_matmul", x2, (qweight_t, torch.int8), (scales, torch.float32))
@@ -321,13 +323,20 @@ int8_matmul.launches = 0
 A8_MIN_ROWS = 17  # torch._int_mm on a card takes more than 16 rows of x
 
 
-def a8_quantize(x: torch.Tensor, k: int):
+def a8_amax(x: torch.Tensor, k: int) -> torch.Tensor:
+    """max |x| of each token of x [..., K], f32 [m, 1] (exact in x's dtype)."""
+    return torch.linalg.vector_norm(x.reshape(-1, k), ord=float("inf"), dim=-1, keepdim=True).float()
+
+
+def a8_quantize(x: torch.Tensor, k: int, amax: torch.Tensor | None = None):
     """Per-token symmetric int8: x [..., K] -> (int8 [m, K], f32 scales [m, 1]).
     The scale is amax * f32(1/127), as XLA compiles the JAX package's
-    `amax / 127.0` under jit. max |x| is exact in x's dtype, and the division
-    widens x to f32 as it reads it: four passes over x, no f32 copy of it."""
+    `amax / 127.0` under jit; `amax` defaults to `a8_amax(x, k)` (a
+    row-parallel caller passes the whole row's). The division widens x to
+    f32 as it reads it: four passes over x, no f32 copy of it."""
     x2 = x.reshape(-1, k)
-    amax = torch.linalg.vector_norm(x2, ord=float("inf"), dim=-1, keepdim=True).float()
+    if amax is None:
+        amax = a8_amax(x2, k)
     xs = torch.where(amax > 0, amax * _RECIP_127, torch.ones_like(amax))
     return torch.div(x2, xs).round_().clamp_(-127, 127).to(torch.int8), xs
 
@@ -348,18 +357,26 @@ def int8_matmul_a8(x: torch.Tensor, qweight_nk: torch.Tensor, scales: torch.Tens
     rows and sliced off. On the CPU it is an int32 `torch.mm`."""
     n, k = qweight_nk.shape
     xq, xs = a8_quantize(x, k)
+    return a8_scale(a8_int_product(xq, qweight_nk), xs, scales).reshape(*x.shape[:-1], n)
+
+
+def a8_int_product(xq: torch.Tensor, qweight_nk: torch.Tensor) -> torch.Tensor:
+    """The exact s8 x s8 -> s32 product xq [m, K] @ qweight_nk[N, K].T."""
+    n, k = qweight_nk.shape
     m = xq.shape[0]
-    if x.device.type == "cpu":
-        acc = xq.to(torch.int32) @ qweight_nk.to(torch.int32).t()
-    else:
-        if k % 8 or n % 8:
-            raise ValueError(f"int8_matmul_a8: torch._int_mm needs K and N multiples of 8, got K = {k}, "
-                             f"N = {n}")
-        if m < A8_MIN_ROWS:
-            xq = torch.cat([xq, xq.new_zeros(A8_MIN_ROWS - m, k)])
-        acc = torch._int_mm(xq, qweight_nk.t())[:m]
-    y = torch.mul(acc, xs).mul_(scales.float()[None, :])  # (f32(acc) * xs) * scales, two passes
-    return y.reshape(*x.shape[:-1], n)
+    if xq.device.type == "cpu":
+        return xq.to(torch.int32) @ qweight_nk.to(torch.int32).t()
+    if k % 8 or n % 8:
+        raise ValueError(f"int8_matmul_a8: torch._int_mm needs K and N multiples of 8, got K = {k}, "
+                         f"N = {n}")
+    if m < A8_MIN_ROWS:
+        xq = torch.cat([xq, xq.new_zeros(A8_MIN_ROWS - m, k)])
+    return torch._int_mm(xq, qweight_nk.t())[:m]
+
+
+def a8_scale(acc: torch.Tensor, xs: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(f32(acc) * xs) * scales, two passes: the W8A8 product's f32 result."""
+    return torch.mul(acc, xs).mul_(scales.float()[None, :])
 
 
 TILE_N = 512  # output columns a work item of int4_matmul covers (csrc/int4_matmul.cu kTileN)
@@ -549,8 +566,9 @@ def int4_matmul(x: torch.Tensor, packed_e8: torch.Tensor, scales_p: torch.Tensor
     Operands come from `prepare_int4`. On the card, m <= 32 runs the kernel
     on x rounded to bf16; larger m dequantizes the weight to bf16 and runs
     one `torch.mm` with f32 output (the JAX package's fallback route)."""
-    if x.device.type == "cpu":
+    if on_cpu(x):
         return int4_matmul_ref(x, packed_e8, scales_p, group, zeros_p)
+    refuse_grad("int4_matmul", x, scales_p, zeros_p)
     k = x.shape[-1]
     khp, n = packed_e8.shape
     m = x.numel() // k

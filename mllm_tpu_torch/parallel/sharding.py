@@ -1,0 +1,466 @@
+"""Tensor and data parallelism over a (dp, tp) `DeviceMesh`: counterpart of
+`mllm_tpu/parallel/sharding.py`.
+
+The JAX package lays parameters out with `NamedSharding`s and lets GSPMD
+insert the collectives. Here every rank holds its own slices as plain local
+tensors (the CUDA kernels take plain tensors; no DTensor), and the
+collectives are explicit, Megatron-style (`comm.py`):
+
+  q/k/v/gate/up [out, in]  column parallel: rows split over tp; the input
+                           enters through `copy_to_axis` (all-reduce of its
+                           gradient)
+  o/down        [out, in]  row parallel: columns split over tp; the f32
+                           partial products are summed by `reduce_from_axis`,
+                           then the bias is added and the sum rounds once
+  embedding     [V, D]     vocab parallel: each rank looks up its rows, the
+                           partial embeddings are summed
+  lm_head       [V, D]     vocab parallel: each rank's logits are all-gathered
+  norms, MoE experts, biases of row-parallel layers: replicated
+  KV cache      [L, B, Hkv, S, D]: batch rows over dp, kv heads over tp
+
+A dim that the axis does not divide stays whole on every rank, with the
+"sharding dropped" warning of the JAX package; attention is cut only when
+both head counts divide tp (run `heads.pad_heads_for_tp` first), the MLP
+only when its width does. The sharded model's `cfg` is this rank's:
+its head counts are the local ones, so `init_cache` and the engine's caches
+hold this rank's kv heads.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from ..nn.layers import Embedding, Linear, QuantLinear, QuantLinearA8, matmul_f32, shallow_copy
+from ..utils.log import log_warn
+from .comm import (axis_group, axis_rank, axis_size, check_world, copy_to_axis, dp_mean,
+                   gather_from_axis, mesh_device, reduce_from_axis)
+
+
+def make_mesh(dp: int = 1, tp: int = 1, device=None):
+    """A `DeviceMesh` with dims ("dp", "tp") over ranks 0..dp*tp-1 of the
+    initialised world, rank = dp_index * tp + tp_index. device: "cuda" (NCCL)
+    or "cpu" (gloo); None is the card, and raises without one. On the card it
+    raises when fewer GPUs than dp x tp exist (the JAX one falls back to CPU
+    devices; this one does not)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..utils.runtime import default_device
+
+    dev = torch.device(device) if device is not None else default_device()
+    check_world(dp * tp, dev)
+    return DeviceMesh(dev.type, torch.arange(dp * tp).reshape(dp, tp), mesh_dim_names=("dp", "tp"))
+
+
+# path regex -> which axis of the weight is split (weights are [out, in])
+_COLUMN = re.compile(r"(q_proj|k_proj|v_proj|gate_proj|up_proj|lm_head|qkv_proj)\.weight")
+_ROW = re.compile(r"(o_proj|down_proj)\.weight")
+_COLUMN_BIAS = re.compile(r"(q_proj|k_proj|v_proj|gate_proj|up_proj|lm_head|qkv_proj)\.bias")
+_EMBED = re.compile(r"embed_tokens\.weight")
+
+# the int8 QuantLinear holds qweight_t [in, out] + scales [out] ("out last"),
+# so column parallel splits its last axis and row parallel its first; the
+# canonical planar int4 layout stays whole
+_COL_NAMES = r"(q_proj|k_proj|v_proj|gate_proj|up_proj|lm_head)"
+_ROW_NAMES = r"(o_proj|down_proj)"
+_COLUMN_QLEAF = re.compile(_COL_NAMES + r"\.(qweight_t|packed_n|scales_g|zshift_g)")
+_ROW_QLEAF = re.compile(_ROW_NAMES + r"\.(qweight_t|packed_n|scales_g|zshift_g)")
+_COLUMN_QSCALE = re.compile(_COL_NAMES + r"\.scales$")
+
+
+def param_spec(path: str, ndim: int) -> tuple:
+    """Which axis of a parameter is split over "tp", as a tuple of one entry
+    per dim ("tp" or None; () for replicated), the JAX PartitionSpec's
+    entries. The same regexes as the JAX package."""
+    if _EMBED.search(path) or _COLUMN.search(path):
+        spec = ("tp", None)
+    elif _ROW.search(path):
+        spec = (None, "tp")
+    elif _COLUMN_QLEAF.search(path):
+        spec = (None, "tp")
+    elif _ROW_QLEAF.search(path):
+        spec = ("tp", None)
+    elif _COLUMN_BIAS.search(path) or _COLUMN_QSCALE.search(path):
+        spec = ("tp",)
+    else:
+        return ()
+    if ndim == len(spec) + 1:  # a leading layer axis
+        spec = (None, *spec)
+    return spec
+
+
+def _divides(mesh, axis: str, size: int, path: str, dim: int) -> bool:
+    """True when `axis` divides `size`; otherwise warn as the JAX package's
+    `_validate_spec` does (the dim stays whole)."""
+    n = axis_size(mesh, axis)
+    if size % n == 0:
+        return True
+    log_warn("sharding dropped: dim not divisible by mesh axis", param=path or "<anon>", dim=dim,
+             size=int(size), axis=axis, axis_size=int(n))
+    return False
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel layers
+# ---------------------------------------------------------------------------
+
+
+def _rows(lin, ranges):
+    """A Linear / QuantLinear holding the output channels in `ranges` (a list
+    of (start, stop)), in that order."""
+    idx = torch.cat([torch.arange(a, b) for a, b in ranges])
+    if type(lin) is Linear:
+        w = lin.weight.detach()[idx.to(lin.weight.device)].contiguous()
+        b = None if lin.bias is None else lin.bias.detach()[idx.to(lin.bias.device)].contiguous()
+        return Linear.from_tensors(w, b)
+    if isinstance(lin, QuantLinear):
+        i = idx.to(lin.qweight_t.device)
+        return type(lin)(lin.qweight_t[:, i].contiguous(), lin.scales[i].contiguous(),
+                         None if lin.bias is None else lin.bias[i].contiguous())
+    raise NotImplementedError(f"shard_model: cannot split {type(lin).__name__}")
+
+
+def _shardable(lin) -> bool:
+    return type(lin) is Linear or isinstance(lin, QuantLinear)
+
+
+class ColumnParallelLinear(nn.Module):
+    """This rank's output channels of a column-parallel projection: the input
+    enters through `copy_to_axis` (its gradient is all-reduced over tp);
+    with `gather`, the outputs are all-gathered (the vocab-parallel head)."""
+
+    def __init__(self, inner: nn.Module, mesh, gather: bool = False):
+        super().__init__()
+        self.inner = inner
+        self.mesh = mesh
+        self.gather = gather
+
+    def forward(self, x):
+        y = self.inner(copy_to_axis(x, self.mesh, "tp"))
+        return gather_from_axis(y, self.mesh, "tp") if self.gather else y
+
+
+class RowParallelLinear(nn.Module):
+    """This rank's input channels of a row-parallel projection (weight
+    [out, in/tp], or an int8 qweight_t [in/tp, out] with its scales): the f32
+    partial products are all-reduced over tp, then the bias (replicated) is
+    added in f32 and the sum rounds once to x's dtype, as the unsplit Linear
+    rounds. A QuantLinearA8's prefill-shaped calls take `_a8`."""
+
+    def __init__(self, inner: nn.Module, bias: Optional[torch.Tensor], mesh):
+        super().__init__()
+        self.inner = inner
+        self.bias = None if bias is None else nn.Parameter(bias.detach(), requires_grad=False)
+        self.mesh = mesh
+
+    def forward(self, x):
+        if isinstance(self.inner, QuantLinearA8) and self.inner.takes_a8(x):
+            return self._a8(x)
+        if isinstance(self.inner, QuantLinear):
+            from ..ops.quant_matmul import int8_matmul
+
+            y = int8_matmul(x, self.inner.qweight_t, self.inner.scales)
+        else:
+            y = matmul_f32(x, self.inner.weight)
+        y = reduce_from_axis(y, self.mesh, "tp")
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+    def _a8(self, x):
+        """W8A8 over this rank's input channels, equal bit for bit to the
+        unsplit product: each token's amax is max-reduced over tp before x is
+        quantized, and the int32 partial products are summed over tp (exact)
+        before the scales. Inference only: int8 weights take no gradient."""
+        from ..ops.quant_matmul import a8_amax, a8_int_product, a8_quantize, a8_scale
+
+        group = axis_group(self.mesh, "tp")
+        k = self.inner.qweight_nk.shape[1]
+        amax = a8_amax(x, k)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        xq, xs = a8_quantize(x, k, amax)
+        acc = a8_int_product(xq, self.inner.qweight_nk)
+        dist.all_reduce(acc, group=group)
+        y = a8_scale(acc, xs, self.inner.scales)
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype).reshape(*x.shape[:-1], -1)
+
+
+def _row_parallel(lin, mesh):
+    n, r = axis_size(mesh, "tp"), axis_rank(mesh, "tp")
+    if type(lin) is Linear:
+        k = lin.weight.shape[1] // n
+        inner = Linear.from_tensors(lin.weight.detach()[:, r * k:(r + 1) * k].contiguous())
+    else:
+        k = lin.qweight_t.shape[0] // n
+        inner = type(lin)(lin.qweight_t[r * k:(r + 1) * k].contiguous(), lin.scales, None)
+    return RowParallelLinear(inner, lin.bias, mesh)
+
+
+class VocabParallelEmbedding(nn.Module):
+    """This rank's rows [start, start + V/tp) of the embedding table: ids
+    outside them look up zeros, and the partial embeddings are summed over
+    tp (`reduce_from_axis`). As the tied lm_head, each rank's logits are
+    all-gathered."""
+
+    def __init__(self, weight: torch.Tensor, start: int, mesh):
+        super().__init__()
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.start = start
+        self.mesh = mesh
+
+    def forward(self, ids):
+        local = ids - self.start
+        inside = (local >= 0) & (local < self.weight.shape[0])
+        x = torch.nn.functional.embedding(torch.where(inside, local, 0), self.weight)
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+        return reduce_from_axis(x, self.mesh, "tp")
+
+    def as_lm_head(self, x):
+        return gather_from_axis(matmul_f32(copy_to_axis(x, self.mesh, "tp"), self.weight), self.mesh, "tp")
+
+
+def _shard_attention(attn, mesh, path: str):
+    """The rank's heads of an attention block (q/k/v column parallel, o row
+    parallel, local head counts in its cfg); the block itself when its head
+    counts or projection types do not allow it."""
+    cfg, tp = attn.cfg, axis_size(mesh, "tp")
+    h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    projs = [attn.qkv_proj] if attn.qkv_proj is not None else [attn.q_proj, attn.k_proj, attn.v_proj]
+    if not all(_shardable(p) for p in projs + [attn.o_proj]):
+        return attn
+    ok = (_divides(mesh, "tp", h * hd, f"{path}.q_proj.weight", 0)
+          & _divides(mesh, "tp", hkv * hd, f"{path}.k_proj.weight", 0))
+    if not ok:
+        return attn
+    r = axis_rank(mesh, "tp")
+    hl, hkvl = h // tp, hkv // tp
+    q_rng = (r * hl * hd, (r + 1) * hl * hd)
+    kv_rng = (r * hkvl * hd, (r + 1) * hkvl * hd)
+    out = shallow_copy(attn)
+    if attn.qkv_proj is not None:  # q || k || v: each part's slice, fused again
+        k0, v0 = h * hd, (h + hkv) * hd
+        out.qkv_proj = ColumnParallelLinear(_rows(attn.qkv_proj, [q_rng, (k0 + kv_rng[0], k0 + kv_rng[1]),
+                                                                  (v0 + kv_rng[0], v0 + kv_rng[1])]), mesh)
+    else:
+        out.q_proj = ColumnParallelLinear(_rows(attn.q_proj, [q_rng]), mesh)
+        out.k_proj = ColumnParallelLinear(_rows(attn.k_proj, [kv_rng]), mesh)
+        out.v_proj = ColumnParallelLinear(_rows(attn.v_proj, [kv_rng]), mesh)
+    out.o_proj = _row_parallel(attn.o_proj, mesh)
+    out.cfg = cfg.replace(num_attention_heads=hl, num_key_value_heads=hkvl, head_dim=hd)
+    return out
+
+
+def _shard_mlp(mlp, mesh, path: str):
+    """The rank's slice of a dense gated MLP (gate/up column parallel, down
+    row parallel); any other FFN (MoE, fused int4) stays whole."""
+    from ..models.transformer import MLP
+
+    if type(mlp) is not MLP:
+        return mlp
+    projs = ([mlp.gateup_proj] if mlp.gateup_proj is not None
+             else [p for p in (mlp.gate_proj, mlp.up_proj) if p is not None])
+    if not all(_shardable(p) for p in projs + [mlp.down_proj]):
+        return mlp
+    ff = mlp.down_proj.weight.shape[1] if type(mlp.down_proj) is Linear else mlp.down_proj.qweight_t.shape[0]
+    if not _divides(mesh, "tp", ff, f"{path}.gate_proj.weight", 0):
+        return mlp
+    tp, r = axis_size(mesh, "tp"), axis_rank(mesh, "tp")
+    rng = (r * ff // tp, (r + 1) * ff // tp)
+    out = shallow_copy(mlp)
+    if mlp.gateup_proj is not None:
+        out.gateup_proj = ColumnParallelLinear(_rows(mlp.gateup_proj, [rng, (ff + rng[0], ff + rng[1])]), mesh)
+    else:
+        out.gate_proj = ColumnParallelLinear(_rows(mlp.gate_proj, [rng]), mesh)
+        if mlp.up_proj is not None:
+            out.up_proj = ColumnParallelLinear(_rows(mlp.up_proj, [rng]), mesh)
+    out.down_proj = _row_parallel(mlp.down_proj, mesh)
+    return out
+
+
+def shard_model(model, mesh):
+    """This rank's shard of a CausalLM under `mesh` (module and tensor layout
+    above); the tensors it does not cut are shared with `model`. The result
+    keeps the mesh as `.mesh` (sgd_train_step's dp mean reads it)."""
+    tp = axis_size(mesh, "tp")
+    out = shallow_copy(model)
+    out.mesh = mesh
+    emb = model.embed_tokens
+    if type(emb) is Embedding and _divides(mesh, "tp", emb.weight.shape[0], "embed_tokens.weight", 0):
+        v = emb.weight.shape[0] // tp
+        r = axis_rank(mesh, "tp")
+        out.embed_tokens = VocabParallelEmbedding(emb.weight.detach()[r * v:(r + 1) * v].contiguous(), r * v, mesh)
+    head = model.lm_head
+    if head is not None and _shardable(head):
+        n = head.weight.shape[0] if type(head) is Linear else head.qweight_t.shape[1]
+        if _divides(mesh, "tp", n, "lm_head.weight", 0):
+            r = axis_rank(mesh, "tp")
+            out.lm_head = ColumnParallelLinear(_rows(head, [(r * n // tp, (r + 1) * n // tp)]), mesh, gather=True)
+    blocks = []
+    for i, blk in enumerate(model.blocks):
+        b2 = shallow_copy(blk)
+        b2.attn = _shard_attention(blk.attn, mesh, f"blocks.{i}.attn")
+        b2.mlp = _shard_mlp(blk.mlp, mesh, f"blocks.{i}.mlp")
+        blocks.append(b2)
+    out.blocks = nn.ModuleList(blocks)
+    a0 = blocks[0].attn.cfg if blocks else model.cfg
+    out.cfg = model.cfg.replace(num_attention_heads=a0.num_attention_heads,
+                                num_key_value_heads=a0.num_key_value_heads, head_dim=model.cfg.head_dim_)
+    return out
+
+
+def _cut(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
+    k = t.shape[dim] // n
+    return t.narrow(dim, r * k, k).contiguous()
+
+
+def _cache_cuts(cache, mesh, batch: bool):
+    """Storage tensors of a full-size cache cut to this rank: kv heads (axis
+    2) over tp, and with `batch` the rows (axis 1) over dp."""
+    from ..kv.cache import storage
+
+    tp, dp = axis_size(mesh, "tp"), axis_size(mesh, "dp")
+    out = []
+    for t in storage(cache):
+        if _divides(mesh, "tp", t.shape[2], "kv_cache", 2):
+            t = _cut(t, 2, tp, axis_rank(mesh, "tp"))
+        if batch and _divides(mesh, "dp", t.shape[1], "kv_cache", 1):
+            t = _cut(t, 1, dp, axis_rank(mesh, "dp"))
+        out.append(t)
+    return out
+
+
+def shard_cache(cache, mesh):
+    """This rank's part of a full-size dense or quantized KVCache (built from
+    the unsharded model): its batch rows over dp, its kv heads over tp; the
+    write head is shared."""
+    from ..kv.cache import KVCache, QuantKVCache
+
+    parts = _cache_cuts(cache, mesh, batch=True)
+    if isinstance(cache, QuantKVCache):
+        return type(cache)(*parts, cache.pos)
+    if type(cache) is KVCache:
+        return KVCache(*parts, cache.pos)
+    raise NotImplementedError(f"shard_cache: {type(cache).__name__}")
+
+
+def shard_slot_cache(cache, mesh):
+    """A SlotKVCache or SlotQuantKVCache (full size) cut to this rank's kv
+    heads over tp; every slot, the per-slot write heads whole. The paged pool
+    is not split (its blocks are shared by slots)."""
+    from ..kv.cache import SlotKVCache, SlotQuantKVCache
+
+    parts = _cache_cuts(cache, mesh, batch=False)
+    if isinstance(cache, SlotQuantKVCache):
+        return SlotQuantKVCache(*parts, cache.pos, bits=cache.bits)
+    if type(cache) is SlotKVCache:
+        return SlotKVCache(*parts, cache.pos)
+    raise NotImplementedError(f"shard_slot_cache: {type(cache).__name__} (the paged pool is not split over tp)")
+
+
+def shard_batch(x, mesh):
+    """This rank's rows of a global batch (split over dp; whole, with the
+    warning, when dp does not divide them), on the mesh's device."""
+    x = torch.as_tensor(x)
+    if _divides(mesh, "dp", x.shape[0], "batch", 0):
+        x = _cut(x, 0, axis_size(mesh, "dp"), axis_rank(mesh, "dp"))
+    return x.to(mesh_device(mesh))
+
+
+# ---------------------------------------------------------------------------
+# Step functions
+# ---------------------------------------------------------------------------
+
+
+def sgd_train_step(model, batch_ids, batch_targets, lr: float = 1e-3):
+    """One training step: cross-entropy loss, gradients of every float
+    parameter, SGD update p - lr * g (g cast to p's dtype). On a sharded
+    model the tp collectives run inside the forward and backward; the
+    gradients (and the loss) are averaged over dp here, as GSPMD's psum does
+    in the JAX package. Updates the model in place and returns (model,
+    loss), the loss the global batch's mean."""
+    params = [p for p in model.parameters() if p.is_floating_point()]
+    was = [p.requires_grad for p in params]
+    try:
+        for p in params:
+            p.requires_grad_(True)
+        loss = model.loss(batch_ids, batch_targets)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        for p, w in zip(params, was):
+            p.requires_grad_(w)
+    with torch.no_grad():
+        grads, loss = dp_mean(model, params, grads, loss.detach())
+        for p, g in zip(params, grads):
+            if g is not None:
+                p.sub_(g.to(p.dtype) * lr)
+    return model, loss
+
+
+def sharded_forward(model, input_ids, cache):
+    """Sharded inference forward (prefill or decode by the length of ids)."""
+    return model(input_ids, cache, last_only=True)
+
+
+def _greedy_eager(model, ids: torch.Tensor, cache, steps: int, eos_token_id: int) -> torch.Tensor:
+    """The JAX sharded_generate loop, eagerly: prefill, then one token a
+    step for every row until all rows hit eos; -1 after a row's eos."""
+    b = ids.shape[0]
+    logits, cache = model(ids, cache, last_only=True)
+    tok = logits[:, -1].argmax(-1)
+    tokens = torch.full((b, steps), -1, dtype=torch.long, device=ids.device)
+    tokens[:, 0] = tok
+    done = tok == eos_token_id
+    for i in range(1, steps):
+        if bool(done.all()):
+            break
+        logits, cache = model(tok[:, None], cache, last_only=True)
+        nxt = torch.where(done, -1, logits[:, -1].argmax(-1))
+        tokens[:, i] = nxt
+        done = done | (nxt == eos_token_id)
+        tok = nxt.clamp_min(0)
+    return tokens
+
+
+@torch.no_grad()
+def sharded_generate(model, input_ids, mesh, max_new_tokens: int, max_len: int, eos_token_id: int = -1,
+                     cache_dtype=torch.float32):
+    """Greedy generation of a CausalLM under a (dp, tp) mesh: heads padded
+    for tp (`pad_heads_for_tp`), the model and the batch sharded, prefill and
+    the decode loop over this rank's kv heads. Under NCCL each of the rank's
+    rows runs `generate_compiled` (the decode loop replayed as CUDA graphs,
+    the tp collectives captured in them); under gloo, which no graph can
+    capture, the loop runs eagerly on all of the rank's rows at once. The
+    rows are all-gathered over dp. Returns tokens [B, max_new_tokens] int64,
+    -1 after a row's eos, on every rank."""
+    from .heads import pad_heads_for_tp
+
+    model = shard_model(pad_heads_for_tp(model, axis_size(mesh, "tp")), mesh)
+    dev = mesh_device(mesh)
+    ids = shard_batch(np.asarray(input_ids, np.int64), mesh)
+    b = ids.shape[0]
+    if dev.type == "cuda":
+        from ..generation.generate import generate_compiled
+
+        rows = []
+        for i in range(b):
+            cache = model.init_cache(1, max_len, cache_dtype)
+            toks, _ = generate_compiled(model, ids[i:i + 1], cache, ids.shape[1], max_new_tokens,
+                                        eos_token_id=eos_token_id)
+            rows.append(toks.to(torch.long))
+        tokens = torch.stack(rows)
+    else:
+        tokens = _greedy_eager(model, ids, model.init_cache(b, max_len, cache_dtype), max_new_tokens,
+                               eos_token_id)
+    dp = axis_size(mesh, "dp")
+    if dp > 1 and tokens.shape[0] * dp == np.asarray(input_ids).shape[0]:
+        parts = [torch.empty_like(tokens) for _ in range(dp)]
+        dist.all_gather(parts, tokens, group=axis_group(mesh, "dp"))
+        tokens = torch.cat(parts)
+    return tokens

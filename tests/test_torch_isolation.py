@@ -210,3 +210,30 @@ def test_mla_openelm_elastic_mbp_persist_profiling_import_no_jax():
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-1] == "ok"
+
+
+_PARALLEL_PROBE = """
+import sys
+from mllm_tpu_torch.training import lora, train
+from mllm_tpu_torch.parallel import (comm, dryrun, expert, heads, multihost, pipeline, ring_attention, sharding,
+                                     ulysses)
+from mllm_tpu_torch.core.param_loader import save_safetensors_model, write_safetensors
+import torch_dist_cases
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax") or m == "mllm_tpu" or m.startswith("mllm_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_training_and_parallel_modules_import_no_jax():
+    """The training and parallel modules, the safetensors writer and the
+    multi-rank tests' rank side (tests/torch_dist_cases.py, which the
+    spawned ranks import), imported on their own, pull in neither JAX (nor
+    optax / orbax) nor mllm_tpu."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([REPO, os.path.join(REPO, "tests")])
+    proc = subprocess.run([sys.executable, "-c", _PARALLEL_PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"

@@ -1,0 +1,259 @@
+"""Tensor and data parallelism of the port (`mllm_tpu_torch/parallel/heads.py`,
+`sharding.py`, `multihost.py`, the engine's `mesh=`) in one gloo world of 4
+CPU ranks (tests/torch_dist_cases.py:tp_cases), against the port's
+single-process results and the JAX functions of `tests/test_parallel.py`
+(each called once, on 2 or 4 of the 8 forced CPU devices).
+
+Tolerances (f32): losses 1e-5 relative; logits, updated parameters 1e-5 x
+max|.|; greedy tokens equal.
+"""
+
+import logging
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+import torch_dist_cases as cases
+from mllm_tpu.core.config import TextConfig as JaxTextConfig
+from mllm_tpu.models.transformer import CausalLM as JaxCausalLM
+from mllm_tpu_torch.parallel import heads as port_heads
+from mllm_tpu_torch.parallel.sharding import param_spec
+
+TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=128, eos_token_id=-3)
+FLAGSHIP = dict(vocab_size=128, hidden_size=192, intermediate_size=256, num_hidden_layers=2,
+                num_attention_heads=12, num_key_value_heads=2, head_dim=16, max_position_embeddings=128,
+                eos_token_id=-3)
+ENGINE = dict(vocab_size=97, hidden_size=96, intermediate_size=128, num_hidden_layers=2, num_attention_heads=6,
+              num_key_value_heads=2, head_dim=16, max_position_embeddings=256, eos_token_id=-9)
+HYBRID = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+              num_key_value_heads=4, head_dim=16, max_position_embeddings=64, eos_token_id=-3)
+TOL = 1e-5
+
+
+def _jax(cfg_kw, seed):
+    return JaxCausalLM.init(jax.random.PRNGKey(seed), JaxTextConfig(**cfg_kw))
+
+
+def _params(jm):
+    return {k: np.asarray(v) for k, v in jm.parameters().items()}
+
+
+@pytest.fixture(scope="module")
+def jax_models():
+    return {"tiny": _jax(TINY, 0), "flagship": _jax(FLAGSHIP, 1), "engine": _jax(ENGINE, 5),
+            "hybrid": _jax(HYBRID, 2)}
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    rng = np.random.default_rng(0)
+    return {"fwd_ids": rng.integers(0, 128, (2, 8)), "train_ids": rng.integers(0, 128, (4, 16)),
+            "train_tgt": rng.integers(0, 128, (4, 16)), "gen_ids": rng.integers(0, 128, (2, 12)),
+            "quant_ids": rng.integers(0, 128, (2, 10)), "hybrid_ids": rng.integers(0, 128, (4, 8)),
+            "engine_prompts": [np.arange(5) % 97, (np.arange(9) * 3) % 97]}
+
+
+@pytest.fixture(scope="module")
+def world(jax_models, inputs):
+    models = {"tiny": (_params(jax_models["tiny"]), TINY), "flagship": (_params(jax_models["flagship"]), FLAGSHIP),
+              "engine": (_params(jax_models["engine"]), ENGINE), "hybrid": (_params(jax_models["hybrid"]), HYBRID)}
+    return cases.run_world(cases.tp_cases, 4, models, inputs)
+
+
+def test_tp_forward_matches_single_process(world):
+    assert world["tp4_forward_err"] < TOL
+    assert world["tp4_local_kv_heads"] == 1  # 2 kv heads expanded to 4, one a rank
+
+
+def test_dp_tp_sgd_step_matches_single_process(world):
+    loss, plain = world["sgd_loss"]
+    assert abs(loss - plain) <= TOL * abs(plain)
+    assert world["sgd_state_err"] < TOL
+    assert world["sgd_losses"][-1] < world["sgd_losses"][0]
+
+
+def test_sharded_lora_finetune_matches_single_process(world):
+    loss, plain = world["lora_loss"]
+    assert abs(loss - plain) <= TOL * abs(plain)
+    assert world["lora_state_err"] < TOL
+    assert world["add_lora_on_shard_raises"]
+
+
+def test_sharded_generate_matches_jax(world, jax_models, inputs, caplog):
+    """Flagship head ratio: the port at tp 2 and 4 (heads padded, one kv head
+    a rank at tp 4, no dropped sharding) against JAX `sharded_generate` at
+    tp 2 and the single-device greedy loop."""
+    from mllm_tpu.parallel.sharding import make_mesh, sharded_generate
+
+    mesh = make_mesh(dp=1, tp=2, devices=jax.devices("cpu")[:2])
+    with caplog.at_level(logging.WARNING, logger="mllm_tpu"):
+        want = np.asarray(sharded_generate(jax_models["flagship"], inputs["gen_ids"].astype(np.int32), mesh, 8, 64))
+    assert "sharding dropped" not in caplog.text
+    np.testing.assert_array_equal(world["gen_tp2"], want)
+    np.testing.assert_array_equal(world["gen_tp4"], want)
+    np.testing.assert_array_equal(world["gen_single"], want)
+    assert world["gen_dropped_warnings"] == 0
+    assert world["gen_tp4_cache_heads"] == 1
+
+
+def test_tp_sharded_int8_generate_matches_jax(world, jax_models, inputs):
+    from mllm_tpu.ops.quantize_model import quantize_model
+    from mllm_tpu.parallel.sharding import make_mesh, sharded_generate
+
+    qmodel = quantize_model(jax_models["tiny"], "int8", min_size=1, quant_embed_head=False)
+    mesh = make_mesh(dp=1, tp=2, devices=jax.devices("cpu")[:2])
+    want = np.asarray(sharded_generate(qmodel, inputs["quant_ids"].astype(np.int32), mesh, 6, 64))
+    local, full = world["quant_leaf_cols"]
+    assert local == full // 2
+    np.testing.assert_array_equal(world["quant_tp2"], want)
+    np.testing.assert_array_equal(world["quant_single"], want)
+
+
+def test_tp_sharded_int8_a8_generate_matches_jax(world, jax_models, inputs):
+    """W8A8 (`int8-a8`) at tp=2: the o / down products of every prefill go
+    through the row-parallel A8 path (the whole row's amax, int32 partial
+    sums), whose logits equal the unsharded model's, and the tokens equal
+    JAX's GSPMD `sharded_generate`."""
+    from mllm_tpu.ops.quantize_model import quantize_model
+    from mllm_tpu.parallel.sharding import make_mesh, sharded_generate
+
+    qmodel = quantize_model(jax_models["tiny"], "int8-a8", min_size=1, quant_embed_head=False)
+    mesh = make_mesh(dp=1, tp=2, devices=jax.devices("cpu")[:2])
+    want = np.asarray(sharded_generate(qmodel, inputs["quant_ids"].astype(np.int32), mesh, 6, 64))
+    assert world["a8_row_calls"] == 2 * TINY["num_hidden_layers"]  # o_proj and down_proj of each block
+    assert world["a8_prefill_err"] < TOL
+    np.testing.assert_array_equal(world["a8_tp2"], want)
+    np.testing.assert_array_equal(world["a8_single"], want)
+
+
+def test_engine_tp_matches_jax(world, jax_models, inputs):
+    from mllm_tpu.generation.engine import ContinuousEngine, collect
+    from mllm_tpu.parallel.heads import pad_heads_for_tp
+    from mllm_tpu.parallel.sharding import make_mesh, shard_model
+
+    mesh = make_mesh(dp=1, tp=2, devices=jax.devices("cpu")[:2])
+    eng = ContinuousEngine(shard_model(pad_heads_for_tp(jax_models["engine"], 2), mesh), slots=2, max_len=64,
+                           prompt_bucket=16, kv_dtype=jnp.float32, start_thread=False, decode_window=4, mesh=mesh)
+    qs = [eng.submit(np.asarray(p, np.int32), 5) for p in inputs["engine_prompts"]]
+    for _ in range(20):
+        eng.step()
+    want = [collect(q, timeout=5) for q in qs]
+    assert all(len(w) == 5 for w in want)
+    for key in ("engine_single", "engine_tp2", "engine_tp4"):
+        assert world[key] == want, key
+    assert world["engine_tp2_ranks_agree"] and world["engine_tp4_ranks_agree"]
+
+
+def test_hybrid_mesh_and_host_batch_match_jax(world, jax_models, inputs):
+    from mllm_tpu.parallel.multihost import host_local_batch, hybrid_mesh
+    from mllm_tpu.parallel.sharding import sgd_train_step, shard_model
+
+    mesh = hybrid_mesh(ici={"tp": 2}, dcn={"dp": 2}, devices=jax.devices("cpu")[:4])
+    ids = inputs["hybrid_ids"].astype(np.int32)
+    with jax.set_mesh(mesh):
+        _, loss = sgd_train_step(shard_model(jax_models["hybrid"], mesh), host_local_batch(ids, mesh, "dp"),
+                                 host_local_batch(np.roll(ids, -1, axis=1), mesh, "dp"))
+    assert world["hybrid_dims"] == (("dp", "tp"), (2, 2))
+    assert world["hybrid_rows"] == (0, 2)  # rank 0's rows of the global batch
+    assert abs(world["hybrid_loss"] - float(loss)) <= TOL * abs(float(loss))
+    assert world["hybrid_too_big_raises"]
+
+
+@pytest.mark.parametrize("h,hkv,tp", [(12, 2, 8), (12, 12, 8), (6, 2, 8), (4, 2, 4), (8, 8, 4), (9, 3, 8)])
+def test_tp_head_plan_matches_jax(h, hkv, tp):
+    from mllm_tpu.parallel.heads import tp_head_plan
+
+    with pytest.warns(UserWarning, match="replicated KV") if (h, hkv) == (9, 3) else _no_warning():
+        got = port_heads.tp_head_plan(h, hkv, tp)
+    want = tp_head_plan(h, hkv, tp)
+    if want is None:
+        assert got is None
+        return
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2:] == want[2:]
+
+
+class _no_warning:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("case", ["bias_12_2", "int8_12_2", "mha_12_12"])
+def test_pad_heads_for_tp_matches_jax(case):
+    """The cases of tests/test_parallel.py (12 q / 2 kv with biases, its
+    int8 model, MHA 12 / 12 at tp=8): the port's padded model against the
+    JAX padded model (through the bridge) and against the unpadded one."""
+    from mllm_tpu.ops.quantize_model import quantize_model as jax_quantize
+    from mllm_tpu.parallel.heads import pad_heads_for_tp
+
+    kw = dict(FLAGSHIP, attention_bias=case == "bias_12_2")
+    if case == "mha_12_12":
+        kw.update(num_key_value_heads=12)
+    jm = _jax(kw, 1 if case != "mha_12_12" else 5)
+    if case == "int8_12_2":
+        jm = jax_quantize(jm, "int8")
+    jp = pad_heads_for_tp(jm, 8)
+    port = cases.port_model(_params(jm), kw)
+    padded = port_heads.pad_heads_for_tp(port, 8)
+    want_kw = dict(kw, num_attention_heads=jp.cfg.num_attention_heads, num_key_value_heads=jp.cfg.num_key_value_heads)
+    jax_padded = cases.port_model(_params(jp), want_kw)
+    assert (padded.cfg.num_attention_heads, padded.cfg.num_key_value_heads) == (
+        jp.cfg.num_attention_heads, jp.cfg.num_key_value_heads)
+    ids = np.random.default_rng(3).integers(0, 128, (2, 12))
+    with torch.no_grad():
+        out = {name: m(torch.as_tensor(ids), m.init_cache(2, 32, torch.float32), last_only=False)[0]
+               for name, m in (("port", padded), ("jax", jax_padded), ("unpadded", port))}
+    for name in ("jax", "unpadded"):
+        assert cases.rel(out["port"], out[name]) < TOL, name
+    for a, b in zip(padded.state_dict().values(), jax_padded.state_dict().values()):
+        assert torch.equal(a, b)  # the same gather, bit for bit
+
+
+def test_param_spec_matches_jax():
+    from mllm_tpu.parallel.sharding import param_spec as jax_spec
+
+    for path, ndim in [("blocks.0.attn.q_proj.weight", 2), ("blocks.0.attn.o_proj.weight", 2),
+                       ("blocks.0.mlp.down_proj.weight", 2), ("embed_tokens.weight", 2),
+                       ("blocks.0.input_norm.weight", 1), ("blocks.0.attn.q_proj.bias", 1),
+                       ("blocks.0.mlp.gate_proj.qweight_t", 2), ("blocks.0.attn.o_proj.qweight_t", 2),
+                       ("blocks.0.mlp.up_proj.scales", 1), ("stacked_blocks.attn.k_proj.weight", 3),
+                       ("lm_head.weight", 2)]:
+        assert param_spec(path, ndim) == tuple(jax_spec(path, ndim)), path
+    assert tuple(P("tp", None)) == param_spec("blocks.0.attn.q_proj.weight", 2)
+
+
+def test_make_mesh_raises_without_a_world_or_a_card(monkeypatch):
+    """No silent device fallback: no card and no device asked for raises,
+    as does a mesh before the process group is up."""
+    from mllm_tpu_torch.parallel.sharding import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        make_mesh(1, 2)
+    with pytest.raises(RuntimeError, match="not initialised"):
+        make_mesh(1, 2, device="cpu")
+
+
+def test_dryrun_runs_on_the_device_named():
+    """The dry run names its device: without `--device` it is a usage error;
+    `2 --device cpu` runs every section in a world of 2 gloo ranks."""
+    import pathlib
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "mllm_tpu_torch.parallel.dryrun", "2"]
+    root = pathlib.Path(__file__).resolve().parents[1]
+    bare = subprocess.run(cmd, capture_output=True, text=True, timeout=120, cwd=root)
+    assert bare.returncode == 2 and "--device" in bare.stderr
+    proc = subprocess.run(cmd + ["--device", "cpu"], capture_output=True, text=True, timeout=300, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "dryrun OK: mesh dp=1 tp=2" in proc.stdout
