@@ -289,6 +289,22 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      moe_forward_ep (QWEN2_MOE_08B's widths, 2 layers) against their
      single-device counterparts, then `python -m
      mllm_tpu_torch.parallel.dryrun --device cuda`.
+  32. slice_cli: the text entry points (`mllm_tpu_torch.examples`,
+     `mllm_tpu_torch.tools`) through each CLI's `main`, in process: a
+     full-width Qwen2-VL-2B LM directory (28 layers, bf16 safetensors with
+     an untied head, synthetic tokenizer) through demo_llm greedy, -q int8,
+     -q int4, --kv int8, --chunked 256 --turns 2, --batch 3 and demo_sd (host
+     and --compiled), 32 tokens each: tokens in the vocabulary, no output one
+     repeated token, each kernel of the
+     path launched as often as the path needs, the greedy ids equal to
+     `generate` called directly, turn 2 a full prefix-cache hit; then the
+     convertor -> quantizer (Q4_0, Q8_0) -> demo_llm pipeline at full width
+     and 2 layers (int4_matmul / int8_matmul launched, ids equal to a direct
+     load), and as processes `python -m mllm_tpu_torch.examples.demo_qwen`
+     (exit 0), the same without a visible card (non-zero, default_device's
+     message) and `python -m mllm_tpu_torch.tools.ci` ("ok": true on cuda).
+     Prints each run's prefill and decode tok/s beside the card's name and
+     power limit.
   The kernel check also runs flash_attention and decode_attention at head_dim
   256 (Gemma-2B's 8 / 1 heads: FLASH_ROWS_256, DECODE_ROWS_256, poisoned rows
   included; the `@256` rows of the kernels line, whose launches are those at
@@ -311,7 +327,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   poisoned rows included; <= 2e-2 and <= 0.1 by `row_rel_err`, which a
   plain version short of 64 keys must exceed), beside their bounds and SDPA:
   the `@64` rows of the kernels line, whose launches are slice_openelm's.
-  Phases 9-31 print their seconds (`<phase>_seconds`).
+  Phases 9-32 print their seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -2478,34 +2494,51 @@ def synthetic_tokenizer(vocab_size: int, seed: int, byte_level: bool = True,
     return {"version": "1.0", "added_tokens": added, "pre_tokenizer": None, "model": model}
 
 
-def container_tensors(cfg, seed: int, kinds: dict = CONTAINER_KINDS, overrides: dict = None) -> dict:
-    """HF name -> (ggml kind, shape, array) of a random qwen2-type checkpoint
-    of `cfg`: the projections as ggml blocks (kinds by projection, overrides
-    by full name), each at the std of the random float model's Linear
-    (U(-1/sqrt(k), 1/sqrt(k))); f16 tied embedding (N(0, 0.02)); f32 norms
-    (ones) and qkv biases."""
-    rng = np.random.default_rng(seed)
-    d, ff, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
-    hd = cfg.head_dim_
+def qwen2_layout(cfg, untied: bool = False) -> dict:
+    """HF name -> (shape, init, projection) of a random qwen2-type checkpoint
+    of `cfg`, in the order the builders draw them. init: "embed" for the
+    embedding (normal, each builder's std), "ones" for the norms, else the fan-in k of a
+    Linear's U(-1/sqrt(k), 1/sqrt(k)) (projections, their q/k/v biases and,
+    with untied=True, the lm_head). projection: the key of a layer's weight
+    ("self_attn.q_proj", ...), else None."""
+    d, ff, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim_
     q, kv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
     shapes = {"self_attn.q_proj": (q, d), "self_attn.k_proj": (kv, d), "self_attn.v_proj": (kv, d),
               "self_attn.o_proj": (d, q), "mlp.gate_proj": (ff, d), "mlp.up_proj": (ff, d),
               "mlp.down_proj": (d, ff)}
-    out = {"model.embed_tokens.weight": ("F16", (cfg.vocab_size, d),
-                                         (rng.standard_normal((cfg.vocab_size, d), np.float32) * 0.02)
-                                         .astype(np.float16)),
-           "model.norm.weight": ("F32", (d,), np.ones(d, np.float32))}
-    for i in range(L):
+    out = {"model.embed_tokens.weight": ((cfg.vocab_size, d), "embed", None),
+           "model.norm.weight": ((d,), "ones", None)}
+    for i in range(cfg.num_hidden_layers):
         p = f"model.layers.{i}."
         for proj, (n, k) in shapes.items():
-            name = p + proj + ".weight"
-            kind = (overrides or {}).get(name, kinds[proj])
-            out[name] = (kind, (n, k), random_blocks(kind, n, k, 1.0 / np.sqrt(3.0 * k), rng))
+            out[p + proj + ".weight"] = ((n, k), k, proj)
             if proj in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
-                s = 1.0 / np.sqrt(k)
-                out[p + proj + ".bias"] = ("F32", (n,), rng.uniform(-s, s, n).astype(np.float32))
+                out[p + proj + ".bias"] = ((n,), k, None)
         for norm in ("input_layernorm", "post_attention_layernorm"):
-            out[p + norm + ".weight"] = ("F32", (d,), np.ones(d, np.float32))
+            out[p + norm + ".weight"] = ((d,), "ones", None)
+    if untied:
+        out["lm_head.weight"] = ((cfg.vocab_size, d), d, None)
+    return out
+
+
+def container_tensors(cfg, seed: int, kinds: dict = CONTAINER_KINDS, overrides: dict = None) -> dict:
+    """HF name -> (ggml kind, shape, array) of a random qwen2-type checkpoint
+    of `cfg` (`qwen2_layout`, tied): the projections as ggml blocks (kinds by
+    projection, overrides by full name), each at the std of its uniform
+    (1/sqrt(3k)); f16 embedding N(0, 0.02); f32 norms and qkv biases."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (shape, init, proj) in qwen2_layout(cfg).items():
+        if init == "embed":
+            out[name] = ("F16", shape, (rng.standard_normal(shape, np.float32) * 0.02).astype(np.float16))
+        elif init == "ones":
+            out[name] = ("F32", shape, np.ones(shape, np.float32))
+        elif proj is None:  # a bias
+            s = 1.0 / np.sqrt(init)
+            out[name] = ("F32", shape, rng.uniform(-s, s, shape).astype(np.float32))
+        else:
+            kind = (overrides or {}).get(name, kinds[proj])
+            out[name] = (kind, shape, random_blocks(kind, *shape, 1.0 / np.sqrt(3.0 * init), rng))
     return out
 
 
@@ -5358,6 +5391,290 @@ def phase_slice_parallel(dev) -> dict:
     return launches
 
 
+CLI_NEW = 32  # new tokens of each CLI run
+CLI_PIPELINE_LAYERS = 2  # depth of the convertor -> quantizer -> demo_llm model (full width)
+CLI_PROMPT = "Give me a short introduction to large language models."  # demo_llm's default prompt
+
+
+def cli_tensors(cfg, dev, seed: int) -> dict:
+    """HF name -> bf16 tensor on the card of a random qwen2-type checkpoint of
+    `cfg` (`qwen2_layout`), drawn from a seeded generator, whose greedy
+    output is not one repeated token: an untied head (a tied random head
+    echoes its input) and an N(0, 1) embedding (at N(0, 0.02) 28 random
+    layers wash the token out of the residual stream, and every position
+    decodes to the same token)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, (shape, init, _) in qwen2_layout(cfg, untied=True).items():
+        if init == "embed":
+            t = torch.randn(shape, generator=g, device=dev)
+        elif init == "ones":
+            t = torch.ones(shape, device=dev)
+        else:
+            t = (torch.rand(shape, generator=g, device=dev) * 2 - 1) / init ** 0.5
+        out[name] = t.to(torch.bfloat16)
+    return out
+
+
+def write_bf16_checkpoint(path: str, cfg, tensors: dict, tokenizer: dict) -> int:
+    """An HF model directory: config.json (tied unless `tensors` has an
+    lm_head), tokenizer.json and one safetensors file of the bf16 `tensors`
+    (`write_safetensors`). Returns the file's bytes."""
+    from mllm_tpu_torch.core.param_loader import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(hf_config(cfg), tie_word_embeddings="lm_head.weight" not in tensors), f)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tokenizer, f, ensure_ascii=False)
+    fpath = os.path.join(path, "model.safetensors")
+    write_safetensors(fpath, tensors)
+    return os.path.getsize(fpath)
+
+
+def cli_call(fn, argv: list):
+    """fn(argv) (a CLI's `main`), its standard output captured, with every
+    wrapper's counter and the graphs' replays set to 0 just before and the
+    launches on the card read just after. Returns (result, launches, seconds,
+    stdout lines)."""
+    import contextlib
+    import gc
+    import io
+
+    from mllm_tpu_torch.generation import graphs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    graphs.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = graphs.device_launches({k: f.launches for k, f in kernels.items()})
+    return out, launches, seconds, len(buf.getvalue().splitlines())
+
+
+def direct_greedy(path: str, dev) -> tuple:
+    """The port's API on a model directory, without the CLI: auto_model, the
+    chat template, generate (greedy, CLI_NEW tokens). Returns (ids, prompt ids)."""
+    import gc
+
+    from mllm_tpu_torch.generation.generate import generate
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.models.registry import auto_model
+    from mllm_tpu_torch.tokenizers.chat_templates import render
+
+    model, tok, cfg = auto_model(path, device=dev)
+    ids = np.asarray(tok.encode(render(cfg.model_type, CLI_PROMPT), bos=True), np.int64)[None]
+    res, _ = generate(model, ids, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=CLI_NEW),
+                      eos_token_id=tok.eos_token_id)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res.tokens, ids[0].tolist()
+
+
+def phase_slice_cli(dev) -> dict:
+    """The text entry points as a user runs them (`mllm_tpu_torch.examples`,
+    `mllm_tpu_torch.tools`), in process through each CLI's `main`:
+      1. a full-width Qwen2-VL-2B LM directory (QWEN2VL_2B_LM, 28 layers,
+         bf16 random weights from a seeded generator, an untied head, a
+         synthetic tokenizer of 151936 entries): demo_llm greedy, `-q int8`,
+         `-q int4`, `--kv int8`, `--chunked 256 --turns 2`, `--batch 3`, and
+         demo_sd host and `--compiled`, CLI_NEW tokens each. Gates: tokens
+         inside the vocabulary and no output one repeated token (an echo
+         would hide a cache or position fault from the equality gates);
+         each kernel of the run's path launched at
+         least as often as the path needs (none of the bf16 attention kernels
+         over the int8 cache); the greedy ids equal to `generate` called
+         directly on the same directory; turn 2 of `--chunked` a full
+         prefix-cache hit.
+      2. the file pipeline at full width and CLI_PIPELINE_LAYERS layers: the
+         bf16 safetensors directory -> tools.convertor (f32 `.mllm`) ->
+         tools.quantizer Q4_0 and Q8_0 (timed on the card's host) ->
+         demo_llm on each quantized directory: int4_matmul (Q4_0) /
+         int8_matmul (Q8_0) launched, greedy ids equal to a direct load of
+         the same file.
+      3. the typed entry points, as processes: `python -m
+         mllm_tpu_torch.examples.demo_qwen -m <dir> --max-new 16` on the
+         pipeline's bf16 directory exits 0;
+         the same with CUDA_VISIBLE_DEVICES="" exits non-zero with
+         default_device's message (no CPU fallback); `python -m
+         mllm_tpu_torch.tools.ci` prints a report with "ok": true on the
+         platform cuda.
+    Prints each CLI run's prefill and decode tok/s beside the card's name and
+    power limit. The files live in a temporary directory the phase deletes.
+    Returns the launches of the runs."""
+    import tempfile
+
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.examples import demo_llm, demo_sd
+    from mllm_tpu_torch.tools import convertor, quantizer
+
+    cfg = TextConfig(**QWEN2VL_2B_LM)
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(repo, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_cli_", dir=os.path.join(repo, "build"))
+    total = {name: 0 for name in SOURCES}
+    rates, bad = [], []
+    try:
+        mdir = os.path.join(root, "qwen2-bf16")
+        tok_spec = synthetic_tokenizer(V, seed=31)
+        nbytes, write_s = timed(lambda: write_bf16_checkpoint(mdir, cfg, cli_tensors(cfg, dev, 31), tok_spec))
+        emit(phase="slice_cli_checkpoint", file_bytes=nbytes, write_s=write_s)
+
+        def run(name, fn, argv, need, none=()):
+            """One CLI call, gated on its tokens and its launches: need(result)
+            -> {kernel: least launches}; `none`: kernels that must not launch."""
+            out, launches, seconds, lines = cli_call(fn, argv)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            rows = [t["ids"] for t in out["turns"]] if "turns" in out else out["ids"]
+            rows = rows if rows and isinstance(rows[0], list) else [rows]  # a turn or a batch row each
+            flat = [t for row in rows for t in row]
+            want = need(out)
+            short = {k: (launches.get(k, 0), n) for k, n in want.items() if launches.get(k, 0) < n}
+            wrong = {k: launches[k] for k in none if launches.get(k, 0)}
+            emit(phase="slice_cli_run", run=name, argv=argv, seconds=seconds, stdout_lines=lines,
+                 new_tokens=len(flat), first_ids=[row[:8] for row in rows],
+                 launches={k: v for k, v in launches.items() if v},
+                 launches_expected_at_least=want,
+                 result={k: v for k, v in out.items() if k not in ("ids", "turns")},
+                 turns=[{k: v for k, v in t.items() if k != "ids"} for t in out.get("turns", [])])
+            if not flat or not all(0 <= t < V for t in flat):
+                bad.append(f"{name}: tokens {flat[:8]} outside the vocabulary or none")
+            if any(len(set(row)) < 2 for row in rows):
+                bad.append(f"{name}: an output is one repeated token: {[row[:8] for row in rows]}")
+            if short or wrong:
+                bad.append(f"{name}: launches short {short}, unexpected {wrong}")
+            return out
+
+        def dense(o, **more):  # the bf16 attention of one prefill and its decode steps
+            return {"flash_attention": L, "decode_attention": L * (len(o["ids"]) - 1), **more}
+
+        llm = ["-m", mdir, "--max-new", str(CLI_NEW)]
+        quant_kv = ("flash_attention_quant", "decode_attention_quant")
+        greedy = run("greedy", demo_llm.main, llm, dense, quant_kv)
+        q8 = run("int8", demo_llm.main, llm + ["-q", "int8"],
+                 lambda o: dense(o, int8_matmul=7 * L * len(o["ids"])), quant_kv)
+        q4 = run("int4", demo_llm.main, llm + ["-q", "int4"],  # prefill (m > 32): dequant + torch.mm
+                 lambda o: dense(o, int4_matmul=7 * L * (len(o["ids"]) - 1)), quant_kv)
+        kv8 = run("kv_int8", demo_llm.main, llm + ["--kv", "int8"],
+                  lambda o: {"flash_attention_quant": L, "decode_attention_quant": L * (len(o["ids"]) - 1)},
+                  ("flash_attention", "decode_attention"))
+        # turn 2 is a full hit: its last prompt token again is one decode step
+        chunked = run("chunked_turns", demo_llm.main, llm + ["--chunked", "256", "--turns", "2"],
+                      lambda o: {"flash_attention": L,
+                                 "decode_attention": L * (sum(len(t["ids"]) for t in o["turns"]) - 1)}, quant_kv)
+        batch = run("batch3", demo_llm.main, llm + ["--batch", "3"],
+                    lambda o: {"flash_attention": L, "decode_attention": L * (max(map(len, o["ids"])) - 1)},
+                    quant_kv)
+        sd = ["-m", mdir, "--max-new", str(CLI_NEW)]
+
+        def verify(o):  # the prefill and every verify forward (prefill-shaped) on flash attention
+            return {"flash_attention": L * (1 + o["steps"])}
+
+        sd_host = run("sd_host", demo_sd.main, sd, verify, ("decode_attention",) + quant_kv)
+        sd_compiled = run("sd_compiled", demo_sd.main, sd + ["--compiled"], verify, ("decode_attention",) + quant_kv)
+        direct, prompt = direct_greedy(mdir, dev)
+        turn2 = chunked["turns"][1]
+        emit(phase="slice_cli_main", greedy_equals_direct=greedy["ids"] == direct,
+             first_divergence=first_divergence(greedy["ids"], direct), prompt_tokens=len(prompt),
+             chunked_turn2_matched=turn2["matched"], batch_prompt_lens=batch["prompt_lens"])
+        if greedy["ids"] != direct:
+            bad.append(f"greedy CLI ids differ from generate's at {first_divergence(greedy['ids'], direct)}")
+        if turn2["matched"] != chunked["prompt_len"]:
+            bad.append(f"chunked turn 2 matched {turn2['matched']} of {chunked['prompt_len']}")
+        for name, out in (("greedy", greedy), ("int8", q8), ("int4", q4), ("kv_int8", kv8)):
+            rates.append(dict(run=name, prefill_tok_s=out["prefill_tps"], decode_tok_s=out["decode_tps"]))
+        rates += [dict(run=f"chunked turn {i}", prefill_tok_s=t["prefill_tps"], decode_tok_s=t["decode_tps"])
+                  for i, t in enumerate(chunked["turns"])]
+        rates += [dict(run="batch3", aggregate_tok_s=batch["tok_s"]),
+                  dict(run="sd_host", tok_s=sd_host["tok_s"]), dict(run="sd_compiled", tok_s=sd_compiled["tok_s"])]
+
+        # 2. convertor -> quantizer -> demo_llm at CLI_PIPELINE_LAYERS layers
+        pcfg = cfg.replace(num_hidden_layers=CLI_PIPELINE_LAYERS)
+        pdir = os.path.join(root, "pipeline-bf16")
+        write_bf16_checkpoint(pdir, pcfg, cli_tensors(pcfg, dev, 32), tok_spec)
+        f32 = os.path.join(root, "model-f32.mllm")
+        n_tensors, convert_s = timed(lambda: convertor.main(["--input", pdir, "--output", f32]))
+        pipeline = dict(tensors=n_tensors, convert_s=convert_s, f32_bytes=os.path.getsize(f32))
+        for kind, kernel in (("Q4_0", "int4_matmul"), ("Q8_0", "int8_matmul")):
+            qdir = os.path.join(root, f"pipeline-{kind}")
+            os.makedirs(qdir)
+            for f in ("config.json", "tokenizer.json"):
+                shutil.copy(os.path.join(pdir, f), qdir)
+            (nq, nf), quant_s = timed(lambda: quantizer.main([f32, os.path.join(qdir, "model.mllm"), kind]))
+            # Q4_0 repacks to symmetric int4 (decode steps only), Q8_0 to int8 (every forward)
+            per = (lambda o: len(o["ids"]) - 1) if kernel == "int4_matmul" else (lambda o: len(o["ids"]))
+            out = run(f"pipeline_{kind}", demo_llm.main, ["-m", qdir, "--max-new", str(CLI_NEW)],
+                      lambda o: {kernel: 7 * CLI_PIPELINE_LAYERS * per(o)})
+            direct_q, _ = direct_greedy(qdir, dev)
+            pipeline[kind] = dict(quantized=nq, kept=nf, quantize_s=quant_s,
+                                  file_bytes=os.path.getsize(os.path.join(qdir, "model.mllm")),
+                                  equals_direct=out["ids"] == direct_q)
+            rates.append(dict(run=f"pipeline_{kind}", prefill_tok_s=out["prefill_tps"],
+                              decode_tok_s=out["decode_tps"]))
+            if out["ids"] != direct_q or nq != 7 * CLI_PIPELINE_LAYERS + 1:  # the projections and lm_head
+                bad.append(f"pipeline {kind}: ids equal {out['ids'] == direct_q}, {nq} tensors quantized")
+        emit(phase="slice_cli_pipeline", quantizer_host="the card's host (numpy)", **pipeline)
+
+        # 3. the typed entry points, as processes
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+
+        def start(argv, **over):
+            return subprocess.Popen([sys.executable, "-m", *argv], cwd=repo, env=dict(env, **over),
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # the three processes at once: two on the card, one that must find none
+        t0 = time.perf_counter()
+        procs = [start(["mllm_tpu_torch.examples.demo_qwen", "-m", pdir, "--max-new", "16"]),
+                 start(["mllm_tpu_torch.examples.demo_qwen", "-m", pdir, "--max-new", "16"],
+                       CUDA_VISIBLE_DEVICES=""),
+                 start(["mllm_tpu_torch.tools.ci"])]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        typed, nocard, ci = [subprocess.CompletedProcess(p.args, p.returncode, out, err)
+                             for p, (out, err) in zip(procs, outs)]
+        procs_s = time.perf_counter() - t0
+        try:
+            report = json.loads(ci.stdout.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            report = {}
+        refused = nocard.returncode != 0 and "runs on a CUDA card and found none" in nocard.stderr
+        emit(phase="slice_cli_entry_points", seconds=procs_s, demo_qwen_rc=typed.returncode,
+             demo_qwen_report=[l for l in typed.stdout.splitlines() if "speed" in l or "Time to" in l],
+             no_card_rc=nocard.returncode, no_card_refused=refused,
+             no_card_error=nocard.stderr.strip().splitlines()[-1:] if nocard.stderr.strip() else [],
+             ci_rc=ci.returncode, ci_ok=report.get("ok"), ci_platform=report.get("platform"),
+             ci_stages={k: v.get("ok") for k, v in report.get("stages", {}).items()})
+        if typed.returncode != 0:
+            bad.append(f"python -m demo_qwen exited {typed.returncode}: {typed.stderr[-1000:]}")
+        if not refused:
+            bad.append(f"no-card run: rc {nocard.returncode}, stderr {nocard.stderr[-500:]}")
+        if ci.returncode != 0 or report.get("ok") is not True or report.get("platform") != "cuda":
+            bad.append(f"tools.ci: rc {ci.returncode}, report {report or ci.stdout[-500:]}, {ci.stderr[-500:]}")
+        emit(phase="slice_cli_rates", nvidia_smi=smi, runs=rates)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"slice_cli: {bad}")
+    return {k: v for k, v in total.items() if k in SOURCES}
+
+
 def timed_phase(name: str, fn):
     """fn(), its wall seconds printed as `<name>_seconds`."""
     t0 = time.perf_counter()
@@ -5404,7 +5721,8 @@ def main():
                 timed_phase("slice_mbp", lambda: phase_slice_mbp(dev)),
                 timed_phase("slice_persist", lambda: phase_slice_persist(dev)),
                 timed_phase("slice_train", lambda: phase_slice_train(dev)),
-                timed_phase("slice_parallel", lambda: phase_slice_parallel(dev))]
+                timed_phase("slice_parallel", lambda: phase_slice_parallel(dev)),
+                timed_phase("slice_cli", lambda: phase_slice_cli(dev))]
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n

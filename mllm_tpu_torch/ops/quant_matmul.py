@@ -72,25 +72,67 @@ def pack_int4_planar_signed(v: np.ndarray) -> np.ndarray:
     return (lo | (hi << 4)).astype(np.uint8)
 
 
+def _host_f32(w) -> torch.Tensor:
+    """A float [N, K] array as an f32 CPU tensor (a read-only mapping is
+    only read)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.as_tensor(np.ascontiguousarray(w, dtype=np.float32))
+
+
+# The scale of a symmetric quantizer is amax / 127 (int8) or amax / 7 (int4).
+# numpy divides (the JAX package's host packers); XLA compiles the same
+# division by a constant to a multiplication by the f32 reciprocal (its jitted
+# quantizers, and `a8_quantize` below). `recip` picks the second, so either
+# side's bits are met. (On a CUDA tensor torch's division by a Python scalar
+# is itself a reciprocal multiplication: the dividing rule is for the host.)
+_RECIP_127 = 1.0 / 127.0
+
+
+def _scale(amax: torch.Tensor, qmax: float, recip: bool) -> torch.Tensor:
+    s = amax * (1.0 / qmax) if recip else amax / qmax
+    return torch.where(amax > 0, s, torch.ones_like(amax))
+
+
+@torch.no_grad()
+def quantize_int8(w: torch.Tensor, recip: bool = False):
+    """Per-out-channel symmetric int8 where w lies: float [..., N, K] ->
+    (int8 [..., K, N], scales f32 [..., N]); round half to even."""
+    wf = w.float()
+    sc = _scale(wf.abs().amax(dim=-1), 127.0, recip)
+    q = torch.clamp(torch.round(wf / sc[..., None]), -127, 127).to(torch.int8)
+    return q.transpose(-1, -2).contiguous(), sc
+
+
+@torch.no_grad()
+def quantize_int4(w: torch.Tensor, group: int = GROUP, recip: bool = False):
+    """Symmetric group int4 where w lies: float [..., N, K] -> (packed uint8
+    [..., K/2, N] two's-complement nibbles, planar, scales f32 [..., K/G, N])."""
+    n, k = w.shape[-2], w.shape[-1]
+    lead = w.shape[:-2]
+    wg = w.float().reshape(*lead, n, k // group, group)
+    sc = _scale(wg.abs().amax(dim=-1), 7.0, recip)
+    v = torch.clamp(torch.round(wg / sc[..., None]), -8, 7).to(torch.int8).reshape(*lead, n, k)
+    vt = v.transpose(-1, -2)  # [..., K, N]
+    lo = (vt[..., : k // 2, :] & 0x0F).to(torch.uint8)
+    hi = (vt[..., k // 2 :, :] & 0x0F).to(torch.uint8)
+    return (lo | (hi << 4)).contiguous(), sc.transpose(-1, -2).contiguous()
+
+
 def repack_float_to_int8(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """float [N, K] -> (values [K, N] int8, scales f32 [N]), per out-channel."""
-    w = np.ascontiguousarray(w, dtype=np.float32)
-    amax = np.max(np.abs(w), axis=-1)
-    scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
-    q = np.clip(np.round(w / scale[..., None]), -127, 127).astype(np.int8)
-    return np.ascontiguousarray(q.T), scale
+    """float [N, K] -> (values [K, N] int8, scales f32 [N]), per out-channel:
+    `quantize_int8` on the host's cores, the bytes of the JAX package's numpy
+    packer."""
+    return tuple(t.numpy() for t in quantize_int8(_host_f32(w)))
 
 
 def repack_float_to_int4(w: np.ndarray, group: int = GROUP) -> tuple[np.ndarray, np.ndarray]:
     """float [N, K] -> planar int4 (packed [K/2, N] signed nibbles, scales
-    f32 [K/G, N]), symmetric."""
-    w = np.asarray(w, np.float32)
-    n, k = w.shape
-    wg = w.reshape(n, k // group, group)
-    amax = np.max(np.abs(wg), axis=-1)
-    scale = np.where(amax > 0, amax / 7.0, 1.0).astype(np.float32)
-    v = np.clip(np.round(wg / scale[..., None]), -8, 7).astype(np.int8)
-    return pack_int4_planar_signed(v.reshape(n, k)), np.ascontiguousarray(scale.T)
+    f32 [K/G, N]), symmetric: `quantize_int4` on the host's cores, as
+    `repack_float_to_int8`."""
+    return tuple(t.numpy() for t in quantize_int4(_host_f32(w), group))
 
 
 def repack_q4_0(raw: np.ndarray, n: int, k: int):
@@ -340,8 +382,6 @@ def a8_quantize(x: torch.Tensor, k: int, amax: torch.Tensor | None = None):
     xs = torch.where(amax > 0, amax * _RECIP_127, torch.ones_like(amax))
     return torch.div(x2, xs).round_().clamp_(-127, 127).to(torch.int8), xs
 
-
-_RECIP_127 = 1.0 / 127.0
 
 
 def int8_matmul_a8(x: torch.Tensor, qweight_nk: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:

@@ -16,14 +16,14 @@ Unlike the JAX package, both work IN PLACE on the torch model (the float
 weights are released as each layer is replaced) and return it. There is one
 int4 layout (the canonical planar one of `prepare_int4`): no `MLLM_INT4_IMPL`
 n-axis twin, no `INT4_MIN_PARAMS` int8 fallback for small projections, no
-int4-mixed heuristic (mode "int4-mixed" raises; it is not ported, on purpose). `on_device=True` quantizes with torch ops where the
-weights are (`_q8_device`, `_q4_device`); otherwise the numpy packers run on
-the host. Both give the same bytes as the JAX package.
+int4-mixed heuristic (mode "int4-mixed" raises; it is not ported, on purpose). `on_device=True` quantizes where the
+weights are, with XLA's reciprocal scale rule (`_q8_device`, `_q4_device`);
+otherwise the same quantizers run on the host with numpy's dividing rule.
+Both give the same bytes as the JAX package.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -128,52 +128,26 @@ class FusedInt4MLP(nn.Module):
         return y.to(x.dtype)
 
 
-# XLA compiles the JAX quantizers' `amax / 127.0` and `amax / 7.0` (division by
-# a constant) to a multiplication by the f32 reciprocal; the on-device
-# quantizers below do the same, so their scales have the JAX package's bits.
-# (The numpy packers divide, as numpy does there.)
-_RECIP_127 = 1.0 / 127.0
-_RECIP_7 = 1.0 / 7.0
-
-
-@torch.no_grad()
 def _q8_device(w: torch.Tensor):
-    """Per-out-channel symmetric int8 where w lies: float [..., N, K] ->
-    (int8 [..., K, N], scales f32 [..., N])."""
-    wf = w.float()
-    amax = wf.abs().amax(dim=-1)
-    sc = torch.where(amax > 0, amax * _RECIP_127, torch.ones_like(amax))
-    q = torch.clamp(torch.round(wf / sc[..., None]), -127, 127).to(torch.int8)
-    return q.transpose(-1, -2).contiguous(), sc
+    """`quantize_int8` where w lies, with the scales of XLA's reciprocal rule."""
+    return qm.quantize_int8(w, recip=True)
 
 
-@torch.no_grad()
 def _q4_device(w: torch.Tensor, group: int = qm.GROUP):
-    """Symmetric group int4 planar pack where w lies: float [..., N, K] ->
-    (packed uint8 [..., K/2, N] signed nibbles, scales f32 [..., K/G, N])."""
-    n, k = w.shape[-2], w.shape[-1]
-    lead = w.shape[:-2]
-    wg = w.float().reshape(*lead, n, k // group, group)
-    amax = wg.abs().amax(dim=-1)
-    sc = torch.where(amax > 0, amax * _RECIP_7, torch.ones_like(amax))
-    v = torch.clamp(torch.round(wg / sc[..., None]), -8, 7).to(torch.int8).reshape(*lead, n, k)
-    vt = v.transpose(-1, -2)  # [..., K, N]
-    lo = (vt[..., : k // 2, :] & 0x0F).to(torch.uint8)
-    hi = (vt[..., k // 2 :, :] & 0x0F).to(torch.uint8)
-    return (lo | (hi << 4)).contiguous(), sc.transpose(-1, -2).contiguous()
+    """`quantize_int4` where w lies, with the scales of XLA's reciprocal rule."""
+    return qm.quantize_int4(w, group, recip=True)
 
 
-def _host_f32(w: torch.Tensor) -> np.ndarray:
-    return w.detach().float().cpu().numpy()
+def _on_host(quantize, w: torch.Tensor):
+    """quantize(w) on an f32 CPU copy of w (numpy's dividing rule), the
+    results moved back to w's device."""
+    return tuple(t.to(w.device) for t in quantize(w.detach().float().cpu()))
 
 
 def _planar_int4(w: torch.Tensor, on_device: bool):
     """float [N, K] -> symmetric planar (packed [K/2, N], scales [K/G, N])
-    on w's device, by `_q4_device` or by the numpy packer."""
-    if on_device:
-        return _q4_device(w)
-    p, s = qm.repack_float_to_int4(_host_f32(w), qm.GROUP)
-    return torch.from_numpy(p).to(w.device), torch.from_numpy(s).to(w.device)
+    on w's device, quantized there or on the host."""
+    return _q4_device(w) if on_device else _on_host(qm.quantize_int4, w)
 
 
 def _bias(lin: Linear):
@@ -182,11 +156,7 @@ def _bias(lin: Linear):
 
 def int8_linear(w: torch.Tensor, bias, on_device: bool, a8: bool = False) -> QuantLinear:
     """QuantLinear (QuantLinearA8 with a8=True) of the float weight w [N, K]."""
-    if on_device:
-        qv, sc = _q8_device(w)
-    else:
-        q_np, s_np = qm.repack_float_to_int8(_host_f32(w))
-        qv, sc = torch.from_numpy(q_np).to(w.device), torch.from_numpy(s_np).to(w.device)
+    qv, sc = _q8_device(w) if on_device else _on_host(qm.quantize_int8, w)
     return (QuantLinearA8 if a8 else QuantLinear)(qv, sc, bias)
 
 
