@@ -5484,9 +5484,11 @@ def phase_slice_cli(dev) -> dict:
     `mllm_tpu_torch.tools`), in process through each CLI's `main`:
       1. a full-width Qwen2-VL-2B LM directory (QWEN2VL_2B_LM, 28 layers,
          bf16 random weights from a seeded generator, an untied head, a
-         synthetic tokenizer of 151936 entries): demo_llm greedy, `-q int8`,
-         `-q int4`, `--kv int8`, `--chunked 256 --turns 2`, `--batch 3`, and
-         demo_sd host and `--compiled`, CLI_NEW tokens each. Gates: tokens
+         synthetic tokenizer of 151936 entries): demo_llm greedy; then on the
+         same widths at CLI_PIPELINE_LAYERS layers (the runs that repeat the
+         greedy one with a flag) `-q int8`, `-q int4`, `--kv int8`,
+         `--chunked 256 --turns 2`, `--batch 3`, and demo_sd host and
+         `--compiled`, CLI_NEW tokens each. Gates: tokens
          inside the vocabulary and no output one repeated token (an echo
          would hide a cache or position fault from the equality gates);
          each kernel of the run's path launched at
@@ -5557,30 +5559,35 @@ def phase_slice_cli(dev) -> dict:
                 bad.append(f"{name}: launches short {short}, unexpected {wrong}")
             return out
 
-        def dense(o, **more):  # the bf16 attention of one prefill and its decode steps
+        def dense(o, L=L, **more):  # the bf16 attention of one prefill and its decode steps
             return {"flash_attention": L, "decode_attention": L * (len(o["ids"]) - 1), **more}
 
-        llm = ["-m", mdir, "--max-new", str(CLI_NEW)]
         quant_kv = ("flash_attention_quant", "decode_attention_quant")
-        greedy = run("greedy", demo_llm.main, llm, dense, quant_kv)
+        greedy = run("greedy", demo_llm.main, ["-m", mdir, "--max-new", str(CLI_NEW)], dense, quant_kv)
+        # the flagged runs at the same widths, CLI_PIPELINE_LAYERS layers (also the pipeline's source)
+        P = CLI_PIPELINE_LAYERS
+        pcfg = cfg.replace(num_hidden_layers=P)
+        pdir = os.path.join(root, "pipeline-bf16")
+        write_bf16_checkpoint(pdir, pcfg, cli_tensors(pcfg, dev, 32), tok_spec)
+        llm = ["-m", pdir, "--max-new", str(CLI_NEW)]
         q8 = run("int8", demo_llm.main, llm + ["-q", "int8"],
-                 lambda o: dense(o, int8_matmul=7 * L * len(o["ids"])), quant_kv)
+                 lambda o: dense(o, P, int8_matmul=7 * P * len(o["ids"])), quant_kv)
         q4 = run("int4", demo_llm.main, llm + ["-q", "int4"],  # prefill (m > 32): dequant + torch.mm
-                 lambda o: dense(o, int4_matmul=7 * L * (len(o["ids"]) - 1)), quant_kv)
+                 lambda o: dense(o, P, int4_matmul=7 * P * (len(o["ids"]) - 1)), quant_kv)
         kv8 = run("kv_int8", demo_llm.main, llm + ["--kv", "int8"],
-                  lambda o: {"flash_attention_quant": L, "decode_attention_quant": L * (len(o["ids"]) - 1)},
+                  lambda o: {"flash_attention_quant": P, "decode_attention_quant": P * (len(o["ids"]) - 1)},
                   ("flash_attention", "decode_attention"))
         # turn 2 is a full hit: its last prompt token again is one decode step
         chunked = run("chunked_turns", demo_llm.main, llm + ["--chunked", "256", "--turns", "2"],
-                      lambda o: {"flash_attention": L,
-                                 "decode_attention": L * (sum(len(t["ids"]) for t in o["turns"]) - 1)}, quant_kv)
+                      lambda o: {"flash_attention": P,
+                                 "decode_attention": P * (sum(len(t["ids"]) for t in o["turns"]) - 1)}, quant_kv)
         batch = run("batch3", demo_llm.main, llm + ["--batch", "3"],
-                    lambda o: {"flash_attention": L, "decode_attention": L * (max(map(len, o["ids"])) - 1)},
+                    lambda o: {"flash_attention": P, "decode_attention": P * (max(map(len, o["ids"])) - 1)},
                     quant_kv)
-        sd = ["-m", mdir, "--max-new", str(CLI_NEW)]
+        sd = llm
 
         def verify(o):  # the prefill and every verify forward (prefill-shaped) on flash attention
-            return {"flash_attention": L * (1 + o["steps"])}
+            return {"flash_attention": P * (1 + o["steps"])}
 
         sd_host = run("sd_host", demo_sd.main, sd, verify, ("decode_attention",) + quant_kv)
         sd_compiled = run("sd_compiled", demo_sd.main, sd + ["--compiled"], verify, ("decode_attention",) + quant_kv)
@@ -5600,10 +5607,7 @@ def phase_slice_cli(dev) -> dict:
         rates += [dict(run="batch3", aggregate_tok_s=batch["tok_s"]),
                   dict(run="sd_host", tok_s=sd_host["tok_s"]), dict(run="sd_compiled", tok_s=sd_compiled["tok_s"])]
 
-        # 2. convertor -> quantizer -> demo_llm at CLI_PIPELINE_LAYERS layers
-        pcfg = cfg.replace(num_hidden_layers=CLI_PIPELINE_LAYERS)
-        pdir = os.path.join(root, "pipeline-bf16")
-        write_bf16_checkpoint(pdir, pcfg, cli_tensors(pcfg, dev, 32), tok_spec)
+        # 2. convertor -> quantizer -> demo_llm at CLI_PIPELINE_LAYERS layers (the bf16 directory above)
         f32 = os.path.join(root, "model-f32.mllm")
         n_tensors, convert_s = timed(lambda: convertor.main(["--input", pdir, "--output", f32]))
         pipeline = dict(tensors=n_tensors, convert_s=convert_s, f32_bytes=os.path.getsize(f32))
@@ -5675,6 +5679,636 @@ def phase_slice_cli(dev) -> dict:
     return {k: v for k, v in total.items() if k in SOURCES}
 
 
+# ---------------------------------------------------------------------------
+# The last entry points (slice_entry): reference parity against the C++
+# engine's goldens in f32, the vision-language and encoder demos, train_lora
+# ---------------------------------------------------------------------------
+
+ENTRY_NEW = 32  # new tokens of each generating demo run
+ENTRY_LAYERS = 2  # depth of the other demos' models (LM and tower; published widths)
+ENTRY_CACHE = 2048  # the demos' -l default
+ENTRY_SCORE_TOL = 1e-5  # x max |score|: a demo against the same model called directly (same kernels, same inputs)
+ENTRY_DISTINCT = 8  # least distinct ids among a generating run's ENTRY_NEW (an echo or a fixed point fails)
+VL_EMBED_STD = 8.0  # the VL directories' embedding std: see qwen_vl_entry_dir
+OPT_FC2_GAIN = 300.0  # OPT's fc2 drawn this much wider than U(+-1/sqrt(ffn)): see phase_slice_entry's OPT
+LORA_LAYERS = 2  # depth of train_lora's model (QWEN2VL_2B_LM's widths; 4 cut to 2 for the smoke's time)
+LORA_ALPHA = "0.25"  # train_lora --alpha: adapter scale 1/32. At the default 16 (scale 2), and still at 1, four
+# steps at lr 1e-2 teach the model the text's commonest token (its space), which the merged model then decodes 32 times
+LORA_TEXT = "The quick brown fox jumps over the lazy dog. It barks twice, then sleeps. " * 300
+GOLDENS = {"qwen05b": "tests/goldens/reference_qwen05b.json", "tinyllama": "tests/goldens/reference_tinyllama.json"}
+QWEN2VL_SPECIALS = TOKENIZER_SPECIALS + VL_SPECIALS  # the vision tokens are the last four ids
+PHI3_SPECIALS = ("<|endoftext|>", "<|user|>", "<|end|>", "<|assistant|>")
+CLIP_B32 = dict(  # openai/clip-vit-base-patch32 config.json
+    model_type="clip", projection_dim=512,
+    text_config=dict(vocab_size=49408, hidden_size=512, intermediate_size=2048, num_hidden_layers=12,
+                     num_attention_heads=8, max_position_embeddings=77, hidden_act="quick_gelu", eos_token_id=49407),
+    vision_config=dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+                       image_size=224, patch_size=32, hidden_act="quick_gelu"))
+VIT_B16 = dict(  # google/vit-base-patch16-224 config.json (its 1000 ImageNet labels as label_<i>)
+    model_type="vit", hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+    image_size=224, patch_size=16, num_channels=3, hidden_act="gelu", layer_norm_eps=1e-12,
+    id2label={str(i): f"label_{i}" for i in range(1000)})
+BERT_BASE = dict(  # bert-base-uncased config.json
+    model_type="bert", vocab_size=30522, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+    num_attention_heads=12, max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12,
+    hidden_act="gelu")
+
+
+class RecordingLoader:
+    """A checkpoint loader that hands out zeros and records the name and
+    shape of every tensor a model's loader reads; `absent(name)` names the
+    optional tensors it does not hold. Running a port loader over it on the
+    meta device gives the names of a checkpoint that loader reads back."""
+
+    def __init__(self, absent=lambda name: False):
+        self.shapes, self.absent = {}, absent
+
+    def __contains__(self, name) -> bool:
+        return not self.absent(name)
+
+    def load(self, name, shape=None, dtype_=np.float32):
+        self.shapes[name] = tuple(shape)
+        return np.broadcast_to(np.zeros((), np.float32), shape)
+
+
+def recorded_tensors(build, dev, seed: int, absent=lambda name: False, gains: dict = None) -> dict:
+    """name -> random bf16 tensor on the card of every tensor `build(loader,
+    device)` reads: a 1-D `.weight` ones (norms), other 1-D tensors and
+    biases N(0, 0.02^2), embeddings N(0, 1), scalars ln(100) (CLIP's logit
+    scale), other weights U(+-1/sqrt(fan_in)); `gains` (name suffix ->
+    factor) scales the tensors whose names end so."""
+    rec = RecordingLoader(absent)
+    build(rec, torch.device("meta"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape in sorted(rec.shapes.items()):
+        if len(shape) == 0:
+            t = torch.full(shape, float(np.log(100.0)), device=dev)
+        elif len(shape) == 1:
+            t = (torch.ones(shape, device=dev) if name.endswith("weight") and "embed" not in name
+                 else torch.randn(shape, generator=g, device=dev) * 0.02)
+        elif "embed" in name and "patch" not in name and "proj" not in name:
+            t = torch.randn(shape, generator=g, device=dev)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            t = (torch.rand(shape, generator=g, device=dev) * 2 - 1) / fan_in ** 0.5
+        for suffix, gain in (gains or {}).items():
+            if name.endswith(suffix):
+                t = t * gain
+        out[name] = t.to(torch.bfloat16)
+    return out
+
+
+def write_entry_dir(path: str, config: dict, tensors: dict, tokenizer: dict = None) -> int:
+    """A model directory: config.json, model.safetensors (`write_safetensors`)
+    and, when given, tokenizer.json. Returns the file's bytes."""
+    from mllm_tpu_torch.core.param_loader import write_safetensors
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    if tokenizer is not None:
+        with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+            json.dump(tokenizer, f, ensure_ascii=False)
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    return os.path.getsize(os.path.join(path, "model.safetensors"))
+
+
+def qwen_vl_entry_dir(path: str, dev, lm: dict, vision: dict, seed: int, tok: dict, v25: bool = False) -> int:
+    """An HF Qwen2-VL (or, v25, Qwen2.5-VL) directory: the LM as `cli_tensors`
+    (untied head) but with an N(0, VL_EMBED_STD^2) embedding, the tower from
+    its `init` under its HF names (`tower_names`), the vision tokens the
+    tokenizer's last four. A random tower's deep residual stream loses its
+    patches (most of its output's rms is one vector common to every image
+    token: `common_share`), so the prompt's mean over its image tokens is one vector in
+    every layer; against it an N(0, 1) token fades, and a 28-layer model
+    decodes one id over and over. At VL_EMBED_STD each step's token leads."""
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.models.qwen2_5_vl import Qwen25VLVisionConfig, Qwen25VLVisionTower
+    from mllm_tpu_torch.models.qwen2_vl import Qwen2VLVisionConfig, Qwen2VLVisionTower, tower_names
+
+    text = TextConfig(**dict(lm, max_position_embeddings=4096))
+    if v25:
+        vcfg = Qwen25VLVisionConfig(**dict(dict(out_hidden_size=text.hidden_size), **vision))
+        tower = Qwen25VLVisionTower.init(vcfg, device=dev, dtype=torch.bfloat16,
+                                         generator=torch.Generator(device=dev).manual_seed(seed))
+    else:
+        vcfg = Qwen2VLVisionConfig(**dict(dict(hidden_size=text.hidden_size), **vision))
+        tower = Qwen2VLVisionTower.init(vcfg, device=dev, dtype=torch.bfloat16,
+                                        generator=torch.Generator(device=dev).manual_seed(seed))
+    tensors = cli_tensors(text, dev, seed)
+    tensors["model.embed_tokens.weight"] = (tensors["model.embed_tokens.weight"].float() * VL_EMBED_STD).to(torch.bfloat16)
+    sd = tower.state_dict()
+    tensors.update({ck: sd[key].to(torch.bfloat16) for key, ck in tower_names(tower).items()})
+    del tower
+    ids = {name: text.vocab_size - len(QWEN2VL_SPECIALS) + i for i, name in enumerate(QWEN2VL_SPECIALS)}
+    vc = {k: (list(v) if isinstance(v, tuple) else v) for k, v in vcfg.__dict__.items()}
+    config = dict(hf_config(text), model_type="qwen2_5_vl" if v25 else "qwen2_vl", tie_word_embeddings=False,
+                  vision_config=vc, rope_scaling={"type": "mrope", "mrope_section": [16, 24, 24]},
+                  image_token_id=ids["<|image_pad|>"], video_token_id=ids["<|video_pad|>"],
+                  vision_start_token_id=ids["<|vision_start|>"], vision_end_token_id=ids["<|vision_end|>"])
+    return write_entry_dir(path, config, tensors, tok)
+
+
+def entry_png(path: str, seed: int) -> str:
+    """A PNG written by PIL: a seeded VL_RAW_PX-square frame resized to
+    VL_IMAGE_PX (bicubic, as slice_vl resizes the bench row's frame)."""
+    from PIL import Image
+
+    raw, px = VL_RAW_PX, VL_IMAGE_PX
+    frame = np.random.default_rng(seed).integers(0, 256, (raw, raw, 3), np.uint8)
+    Image.fromarray(frame).resize((px, px), Image.BICUBIC).save(path)
+    return path
+
+
+def entry_wav(path: str, seed: int, sr: int = 16000, seconds: int = 5) -> str:
+    """A mono 16-bit WAV of seeded noise, written with numpy and `wave`."""
+    import wave
+
+    data = (np.random.default_rng(seed).standard_normal(sr * seconds) * 6000).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(data.tobytes())
+    return path
+
+
+def entry_call(fn, argv: list):
+    """`cli_call` with flash_attention's launches at head_dim 80 (the vision
+    towers) apart, as "flash_attention@80"."""
+    flash = wrappers()["flash_attention"]
+    flash.launches_at.clear()
+    out, launches, seconds, lines = cli_call(fn, argv)
+    at80 = flash.launches_at.get(80, 0)
+    launches = dict(launches, **{"flash_attention": launches.get("flash_attention", 0) - at80,
+                                 "flash_attention@80": at80})
+    return out, launches, seconds, lines
+
+
+class keep_loaded:
+    """With this, module.<name> (a loader) also appends what it returns to
+    `.models`: the model a demo built, for the direct call."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.models = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def wrapped(*a, **k):
+            out = self.real(*a, **k)
+            self.models.append(out)
+            return out
+        setattr(self.module, self.name, staticmethod(wrapped) if isinstance(self.module, type) else wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, staticmethod(self.real) if isinstance(self.module, type) else self.real)
+
+
+@torch.no_grad()
+def greedy_forward(model, logits, cache, n: int) -> list:
+    """The greedy ids `vl_decode_loop` streams (no eos: the synthetic
+    tokenizers have none), each step one forward without the image."""
+    dev = logits.device
+    out = [int(torch.argmax(logits[0, -1]))]
+    for _ in range(n - 1):
+        logits, cache = model(torch.tensor([[out[-1]]], device=dev), cache)
+        out.append(int(torch.argmax(logits[0, -1])))
+    return out
+
+
+def rel_diff(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def common_share(x) -> float:
+    """rms of the rows' mean over the rms of the rows of x [n, d]: 1 when
+    every row is one vector, about 1/sqrt(n) for independent rows."""
+    x = x.float()
+    return float(x.mean(0).pow(2).mean().sqrt() / x.pow(2).mean().sqrt())
+
+
+def entry_parity(dev, root: str, bad: list) -> None:
+    """Item 1, one family after the other: the checkpoint at the full
+    reference geometry (`gen_checkpoint`, `gen_checkpoint_tinyllama`)
+    written under root, then `greedy_ids` in f32 on the card from the
+    golden's recorded input ids: all 32 output ids equal, no attention
+    kernel launched (f32 takes `sdpa`); then the checkpoint is deleted."""
+    from mllm_tpu_torch.tools import reference_parity as rp
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for family, gen in (("qwen05b", rp.gen_checkpoint), ("tinyllama", rp.gen_checkpoint_tinyllama)):
+        with open(os.path.join(repo, GOLDENS[family])) as f:
+            golden = json.load(f)
+        path = os.path.join(root, f"parity_{family}")
+        _, gen_s = timed(lambda: gen(path))
+        stats = {}
+        got, launches, seconds, _ = cli_call(
+            lambda a: rp.greedy_ids(path, golden["input_ids"], len(golden["output_ids"]), device=dev,
+                                    stats=stats), [])
+        gaps = stats["top2_gaps"]
+        emit(phase="slice_entry_parity", family=family, input_ids=len(golden["input_ids"]),
+             equal=got == golden["output_ids"], first_divergence=first_divergence(got, golden["output_ids"]),
+             ids=got, golden=golden["output_ids"], distinct=len(set(got)), top2_gaps=gaps, min_top2_gap=min(gaps),
+             checkpoint_bytes=os.path.getsize(os.path.join(path, "model.safetensors")), gen_s=gen_s,
+             generation_s=seconds, load_s=stats["load_s"], decode_s=stats["decode_s"],
+             tf32=torch.backends.cuda.matmul.allow_tf32, launches={k: v for k, v in launches.items() if v})
+        shutil.rmtree(path, ignore_errors=True)
+        if got != golden["output_ids"]:
+            bad.append(f"parity {family}: ids leave the golden at {first_divergence(got, golden['output_ids'])}")
+        if any(launches.values()):
+            bad.append(f"parity {family}: kernels launched in f32 {launches}")
+
+
+def phase_slice_entry(dev) -> dict:
+    """The last entry points as a user runs them, in process through each
+    `main` on the card:
+      1. reference parity (`tools.reference_parity`) at the full Qwen "0.5B"
+         and TinyLlama-1.1B geometries in f32: the C++ engine's 32 golden
+         ids each, no attention kernel (`entry_parity`, one family after
+         the other);
+      2. `demo_qwen2_vl` on a full Qwen2-VL-2B directory (the tower at
+         QWEN2VL_VISION's defaults, QWEN2VL_2B_LM, bf16, HF names, a
+         synthetic tokenizer with the vision specials) with a 532 px PNG
+         (grid (1, 38, 38)), greedy ENTRY_NEW tokens in bf16 and `-q int8`:
+         ids equal to `vl_generate` called directly on the model the demo
+         loaded from the directory and the same inputs, at least 32
+         head_dim-80 flash launches and 28 LM flash launches a prefill, 28
+         decode launches a step, int8_matmul in the int8 run;
+      3. the other demos at published widths and ENTRY_LAYERS layers:
+         demo_showui (Qwen2-VL-2B), demo_qwen2_5_vl -q int4 (Qwen2.5-VL-3B),
+         demo_phi3v, demo_fuyu, demo_opt, demo_clip, demo_vit, demo_bert,
+         demo_imagebind (ImageBind-huge, random, with a WAV) and
+         demo_imagebind_1mod: each demo's ids or scores equal to the model it
+         built called directly on the same inputs (ids exactly, scores within
+         ENTRY_SCORE_TOL x max), finite;
+      4. train_lora on QWEN2VL_2B_LM's widths at LORA_LAYERS layers (f32):
+         4 steps (seq 256, batch 2, lr 1e-2, --alpha LORA_ALPHA) with --ckpt
+         and --out, then
+         --resume for 2 more: finite losses, step 4's below step 1's, the
+         resume from step 4 to 6, no attention kernel in the steps;
+         demo_llm on the merged directory (bf16) equal to `generate` on it;
+      5. `python -m mllm_tpu_torch.examples.demo_qwen2_vl ... --max-new 8`
+         on the 2-layer Qwen2-VL directory exits 0, and with
+         CUDA_VISIBLE_DEVICES="" exits non-zero with default_device's
+         message (the two at once).
+    Every generating run's ENTRY_NEW ids hold at least ENTRY_DISTINCT
+    distinct ids (an echo or a fixed point would make the equalities above
+    compare one repeated id). Prints each run's seconds, prefill and decode
+    tok/s or score ms beside the card's name and power limit. Files live in
+    a temporary directory under <repo>/build (as slice_cli's) that the phase
+    deletes. Returns the launches of the runs."""
+    import tempfile
+
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.examples import (demo_bert, demo_clip, demo_fuyu, demo_imagebind, demo_imagebind_1mod,
+                                         demo_llm, demo_opt, demo_phi3v, demo_qwen2_5_vl, demo_qwen2_vl,
+                                         demo_showui, demo_vit, train_lora)
+    from mllm_tpu_torch.models import bert as mbert
+    from mllm_tpu_torch.models import clip as mclip
+    from mllm_tpu_torch.models import fuyu as mfuyu
+    from mllm_tpu_torch.models import imagebind as mib
+    from mllm_tpu_torch.models import opt as mopt
+    from mllm_tpu_torch.models import phi3v as mphi3v
+    from mllm_tpu_torch.models import qwen2_5_vl as mvl25
+    from mllm_tpu_torch.models import qwen2_vl as mvl
+    from mllm_tpu_torch.models import vit as mvit
+    from mllm_tpu_torch.processor.image import ClipImageProcessor, load_image, rescale_normalize, resize
+    from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessor
+    from mllm_tpu_torch.tokenizers.hf_json import auto_tokenizer
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(repo, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_entry_", dir=os.path.join(repo, "build"))
+    total = {name: 0 for name in SOURCES}
+    runs, bad, procs = [], [], []
+    L = QWEN2VL_2B_LM["num_hidden_layers"]
+
+    def run(name, fn, argv, need=None, none=()):
+        """One entry point's call: its launches added up and gated (need(out)
+        -> {kernel: least launches}; `none`: kernels that must not launch)."""
+        out, launches, seconds, lines = entry_call(fn, argv)
+        for k, n in launches.items():
+            key = "flash_attention" if k == "flash_attention@80" else k
+            total[key] = total.get(key, 0) + n
+        want = need(out) if need else {}
+        short = {k: (launches.get(k, 0), n) for k, n in want.items() if launches.get(k, 0) < n}
+        wrong = {k: launches[k] for k in none if launches.get(k, 0)}
+        row = dict(run=name, seconds=seconds, stdout_lines=lines, launches={k: v for k, v in launches.items() if v},
+                   launches_expected_at_least=want)
+        if out.get("ids") and isinstance(out["ids"][0], int):  # a generating run (the encoders' are token rows)
+            n = len(out["ids"])
+            if len(set(out["ids"])) < ENTRY_DISTINCT:
+                bad.append(f"{name}: {len(set(out['ids']))} distinct ids of {n} (an echo or a fixed point): "
+                           f"{out['ids']}")
+            row.update(new_tokens=n, first_ids=out["ids"][:8], distinct=len(set(out["ids"])),
+                       prefill_tok_s=out.get("prefill_tps") or out["prompt_len"] / out["ttft_s"],
+                       decode_tok_s=out.get("decode_tps") if "seconds" not in out
+                       else (n - 1) / (out["seconds"] - out["ttft_s"]))
+        if "score_s" in out:
+            row["score_ms"] = out["score_s"] * 1e3
+        if "losses" in out:
+            row.update(losses=out["losses"], steps=[out["start_step"], out["end_step"]],
+                       s_per_step=out["seconds"] / max(len(out["losses"]), 1))
+        emit(phase="slice_entry_run", nvidia_smi=smi, **row)
+        runs.append(row)
+        if short or wrong:
+            bad.append(f"{name}: launches short {short}, unexpected {wrong}")
+        return out
+
+    def same_ids(name, got, want):
+        if got != want:
+            bad.append(f"{name}: demo ids leave the direct call's at {first_divergence(got, want)}")
+
+    def same_scores(name, got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err = rel_diff(got, want)
+        if not (np.isfinite(got).all() and err <= ENTRY_SCORE_TOL):
+            bad.append(f"{name}: scores {got.ravel()[:6]} against the direct call's {want.ravel()[:6]} ({err})")
+        return err
+
+    def vl_direct(model, path, image, prompt):
+        cfg = model.cfg
+        proc = Qwen2VLProcessor(auto_tokenizer(path), image_token_id=cfg.image_token_id,
+                                video_token_id=cfg.video_token_id)
+        po = proc(proc.chat_text(prompt), images=image)
+        toks, _ = mvl.vl_generate(model, po, model.init_cache(1, ENTRY_CACHE), ENTRY_NEW)
+        return toks
+
+    marks = [("start", time.perf_counter())]
+    try:
+        # 1. reference parity in f32
+        entry_parity(dev, root, bad)
+        marks.append(("parity", time.perf_counter()))
+
+        # 2. demo_qwen2_vl at full Qwen2-VL-2B
+        tok_vl = synthetic_tokenizer(QWEN2VL_2B_LM["vocab_size"], 51, specials=QWEN2VL_SPECIALS)
+        vl_dir = os.path.join(root, "qwen2-vl-2b")
+        nbytes, write_s = timed(lambda: qwen_vl_entry_dir(vl_dir, dev, QWEN2VL_2B_LM, QWEN2VL_VISION, 51, tok_vl))
+        png = entry_png(os.path.join(root, "frame.png"), 52)
+        emit(phase="slice_entry_qwen2_vl_dir", file_bytes=nbytes, write_s=write_s)
+        vl_args = ["-m", vl_dir, "-i", png, "--max-new", str(ENTRY_NEW)]
+        depth = mvl.Qwen2VLVisionConfig(**QWEN2VL_VISION).depth
+
+        def vl_need(o, **more):  # the tower, the LM prefill, a decode launch a layer a step
+            return {"flash_attention@80": depth, "flash_attention": L,
+                    "decode_attention": L * (len(o["ids"]) - 1), **more}
+
+        for quant, kw in ((None, {}), ("int8", {"int8_matmul": 1})):
+            with keep_loaded(mvl, "load_qwen2_vl") as kept:  # the model the demo loaded, for the direct call
+                out = run(f"demo_qwen2_vl{'_' + quant if quant else ''}", demo_qwen2_vl.main,
+                          vl_args + (["-q", quant] if quant else []), lambda o, _kw=kw: vl_need(o, **_kw))
+            model = kept.models[0]
+            direct = vl_direct(model, vl_dir, png, "Describe this image.")
+            if quant is None:  # how far the random tower's image tokens are one vector (qwen_vl_entry_dir)
+                proc = Qwen2VLProcessor(auto_tokenizer(vl_dir), image_token_id=model.cfg.image_token_id,
+                                        video_token_id=model.cfg.video_token_id)
+                po = proc(proc.chat_text("Describe this image."), images=png)
+                with torch.no_grad():
+                    img = model.visual(torch.as_tensor(po.patches, device=dev, dtype=torch.bfloat16), po.grid_thw)
+                emit(phase="slice_entry_qwen2_vl_tower", image_tokens=int(img.shape[0]),
+                     common_share=common_share(img), embed_std=VL_EMBED_STD)
+            del kept, model
+            same_ids(f"demo_qwen2_vl {quant or 'bf16'}", out["ids"], direct)
+            if out["grid_thw"] != (1, VL_IMAGE_PX // 14, VL_IMAGE_PX // 14):
+                bad.append(f"demo_qwen2_vl {quant}: grid {out['grid_thw']}")
+        shutil.rmtree(vl_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        marks.append(("qwen2_vl_2b", time.perf_counter()))
+
+        # 3. the other demos at published widths, ENTRY_LAYERS layers
+        lm2 = dict(QWEN2VL_2B_LM, num_hidden_layers=ENTRY_LAYERS)
+        ui_dir = os.path.join(root, "showui")
+        qwen_vl_entry_dir(ui_dir, dev, lm2, dict(QWEN2VL_VISION, depth=ENTRY_LAYERS), 53, tok_vl)
+        with keep_loaded(mvl, "load_qwen2_vl") as kept:
+            out = run("demo_showui", demo_showui.main, ["-m", ui_dir, "-i", png, "--max-new", str(ENTRY_NEW)],
+                      lambda o: {"flash_attention@80": ENTRY_LAYERS, "flash_attention": ENTRY_LAYERS})
+        same_ids("demo_showui", out["ids"], vl_direct(kept.models[0], ui_dir, png, demo_showui.GROUNDING))
+        del kept
+
+        v25_dir = os.path.join(root, "qwen2.5-vl-3b")
+        v25_lm = dict(QWEN25VL_3B_LM, num_hidden_layers=ENTRY_LAYERS)
+        qwen_vl_entry_dir(v25_dir, dev, v25_lm, dict(QWEN25VL_VISION, depth=ENTRY_LAYERS, fullatt_block_indexes=[1]),
+                          54, synthetic_tokenizer(v25_lm["vocab_size"], 54, specials=QWEN2VL_SPECIALS), v25=True)
+        with keep_loaded(mvl25, "load_qwen2_5_vl") as kept:  # int4 at load: no FusedInt4MLP (as the JAX loader)
+            out = run("demo_qwen2_5_vl_int4", demo_qwen2_5_vl.main,
+                      ["-m", v25_dir, "-i", png, "--max-new", str(ENTRY_NEW), "-q", "int4"],
+                      lambda o: {"int4_matmul": 7 * ENTRY_LAYERS * (len(o["ids"]) - 1)}, ("fused_int4_mlp",))
+        same_ids("demo_qwen2_5_vl", out["ids"], vl_direct(kept.models[0], v25_dir, png, "Describe this image."))
+        del kept
+        shutil.rmtree(v25_dir, ignore_errors=True)
+
+        phi_cfg = dict(PHI3V_128K, num_hidden_layers=ENTRY_LAYERS,
+                       img_processor=dict(PHI3V_128K["img_processor"], num_hidden_layers=ENTRY_LAYERS))
+        phi_dir = os.path.join(root, "phi3v")
+        phi = mphi3v.phi3v_config_from_hf(phi_cfg)
+        write_entry_dir(phi_dir, phi_cfg, recorded_tensors(
+            lambda ld, d: mphi3v.load_phi3v(ld, phi, device=d, dtype=torch.bfloat16), dev, 55,
+            absent=lambda n: n.startswith("model.layers.") and n.endswith(".bias")),  # fused qkv, gate_up; no bias
+            synthetic_tokenizer(phi_cfg["vocab_size"], 55, specials=PHI3_SPECIALS))
+        with keep_loaded(mphi3v, "load_phi3v") as kept:
+            out = run("demo_phi3v", demo_phi3v.main, ["-m", phi_dir, "-i", png, "--max-new", str(ENTRY_NEW)])
+        model = kept.models[0]
+        tok = auto_tokenizer(phi_dir)
+        pixel = ClipImageProcessor(size=phi.vision.image_size, crop=phi.vision.image_size)(png)
+        ids = [-1] * model.num_image_tokens + tok.encode("<|user|>\nWhat's in this image?<|end|>\n<|assistant|>\n")
+        with torch.no_grad():
+            lg, c = model(torch.tensor([ids], device=dev), model.init_cache(1, ENTRY_CACHE),
+                          pixel_values=torch.as_tensor(pixel, device=dev))
+        same_ids("demo_phi3v", out["ids"], greedy_forward(model, lg, c, ENTRY_NEW))
+        del kept, model
+        shutil.rmtree(phi_dir, ignore_errors=True)
+
+        fuyu_cfg = dict(FUYU_8B, text_config=dict(FUYU_8B["text_config"], num_hidden_layers=ENTRY_LAYERS))
+        fuyu_dir = os.path.join(root, "fuyu")
+        fu = mfuyu.fuyu_config_from_hf(fuyu_cfg)
+        write_entry_dir(fuyu_dir, fuyu_cfg, recorded_tensors(
+            lambda ld, d: mfuyu.load_fuyu(ld, fu, device=d, dtype=torch.bfloat16), dev, 56,
+            absent=lambda n: n.endswith((".__none__.weight", ".mlp.gate_up_proj.weight"))),  # relu^2, no up
+            synthetic_tokenizer(fuyu_cfg["text_config"]["vocab_size"], 56))
+        fuyu_png = os.path.join(root, "fuyu.png")
+        from PIL import Image
+
+        Image.fromarray(np.random.default_rng(56).integers(0, 256, (*FUYU_IMAGE_HW, 3), np.uint8)).save(fuyu_png)
+        with keep_loaded(mfuyu, "load_fuyu") as kept:
+            out = run("demo_fuyu", demo_fuyu.main, ["-m", fuyu_dir, "-i", fuyu_png, "--max-new", str(ENTRY_NEW)],
+                      lambda o: {"flash_attention": ENTRY_LAYERS,
+                                 "decode_attention": ENTRY_LAYERS * (len(o["ids"]) - 1)})
+        model = kept.models[0]
+        chw = load_image(fuyu_png).transpose(2, 0, 1).astype(np.float32) / 255.0 * 2 - 1
+        patches = mfuyu.patchify_image(chw, fu.patch_size)
+        ids = [fu.image_token_id] * patches.shape[0] + auto_tokenizer(fuyu_dir).encode("Generate a coco-style caption.\n")
+        with torch.no_grad():
+            lg, c = model(torch.tensor([ids], device=dev), model.init_cache(1, ENTRY_CACHE),
+                          image_patches=torch.as_tensor(patches, device=dev))
+        same_ids("demo_fuyu", out["ids"], greedy_forward(model, lg, c, ENTRY_NEW))
+        del kept, model
+        shutil.rmtree(fuyu_dir, ignore_errors=True)
+
+        opt_cfg = dict(OPT_13B, model_type="opt", num_hidden_layers=ENTRY_LAYERS, word_embed_proj_dim=2048)
+        opt_dir = os.path.join(root, "opt")
+        oc = mopt.opt_config_from_hf(opt_cfg)
+        # OPT ties its head to the embedding: with the N(0, 1) embedding leading the residual the model
+        # echoes its input, and scaled down (to 0.02) the context's mean leads and one id repeats. An fc2
+        # OPT_FC2_GAIN x wider makes each token's MLP features lead the final norm.
+        write_entry_dir(opt_dir, opt_cfg, recorded_tensors(
+            lambda ld, d: mopt.load_opt(ld, oc, device=d, dtype=torch.bfloat16), dev, 57,
+            gains={"fc2.weight": OPT_FC2_GAIN}), synthetic_tokenizer(opt_cfg["vocab_size"], 57))
+        with keep_loaded(mopt, "load_opt") as kept:
+            out = run("demo_opt", demo_opt.main, ["-m", opt_dir, "--max-new", str(ENTRY_NEW)],
+                      lambda o: {"flash_attention": ENTRY_LAYERS,
+                                 "decode_attention": ENTRY_LAYERS * (len(o["ids"]) - 1)})
+        model = kept.models[0]
+        ids = [oc.bos_token_id] + auto_tokenizer(opt_dir).encode("Hello, who are you?")
+        with torch.no_grad():
+            lg, c = model(torch.tensor([ids], device=dev), model.init_cache(1, ENTRY_CACHE))
+        same_ids("demo_opt", out["ids"], greedy_forward(model, lg, c, ENTRY_NEW))
+        del kept, model
+        shutil.rmtree(opt_dir, ignore_errors=True)
+
+        clip_cfg = dict(CLIP_B32, text_config=dict(CLIP_B32["text_config"], num_hidden_layers=ENTRY_LAYERS),
+                        vision_config=dict(CLIP_B32["vision_config"], num_hidden_layers=ENTRY_LAYERS))
+        clip_dir = os.path.join(root, "clip")
+        cc = mclip.clip_config_from_hf(clip_cfg)
+        write_entry_dir(clip_dir, clip_cfg, recorded_tensors(
+            lambda ld, d: mclip.load_clip(ld, cc, device=d, dtype=torch.float32), dev, 58),
+            synthetic_tokenizer(cc.text.vocab_size, 58, specials=("<|startoftext|>", "<|endoftext|>")))
+        texts = ["a photo of a cat", "a photo of a dog", "a diagram", "two birds on a wire"]
+        with keep_loaded(mclip, "load_clip") as kept:
+            out = run("demo_clip", demo_clip.main, ["-m", clip_dir, "-i", png, "--texts", *texts])
+        pixel = ClipImageProcessor(size=cc.vision.image_size, crop=cc.vision.image_size)(png)
+        with torch.no_grad():
+            want = torch.softmax(kept.models[0](torch.tensor(out["ids"], device=dev),
+                                                torch.as_tensor(pixel, device=dev)), dim=-1)[0].cpu()
+        same_scores("demo_clip", out["probs"], want)
+        del kept
+        shutil.rmtree(clip_dir, ignore_errors=True)
+
+        vit_cfg = dict(VIT_B16, num_hidden_layers=ENTRY_LAYERS)
+        vit_dir = os.path.join(root, "vit")
+        vc, n_labels, id2label = mvit.vit_config_from_hf(vit_cfg)
+        write_entry_dir(vit_dir, vit_cfg, recorded_tensors(
+            lambda ld, d: mvit.load_vit_classifier(ld, vc, n_labels, device=d, dtype=torch.float32,
+                                                   id2label=id2label), dev, 59))
+        with keep_loaded(mvit, "load_vit_classifier") as kept:
+            out = run("demo_vit", demo_vit.main, ["-m", vit_dir, "-i", png, fuyu_png, "--top-k", "3"])
+        px = np.concatenate([rescale_normalize(resize(load_image(p), vc.image_size, vc.image_size, "bilinear"),
+                                               (0.5,) * 3, (0.5,) * 3).transpose(2, 0, 1)[None] for p in (png, fuyu_png)])
+        want = kept.models[0].classify(torch.as_tensor(px, device=dev), 3)
+        if [[lbl for lbl, _ in r] for r in out["preds"]] != [[lbl for lbl, _ in r] for r in want]:
+            bad.append(f"demo_vit: labels {out['preds']} against {want}")
+        same_scores("demo_vit", [[p for _, p in r] for r in out["preds"]], [[p for _, p in r] for r in want])
+        del kept
+        shutil.rmtree(vit_dir, ignore_errors=True)
+
+        bert_cfg = dict(BERT_BASE, num_hidden_layers=ENTRY_LAYERS)
+        bert_dir = os.path.join(root, "bert")
+        bc = mbert.bert_config_from_hf(bert_cfg)
+        write_entry_dir(bert_dir, bert_cfg, recorded_tensors(
+            lambda ld, d: mbert.load_bert(ld, bc, device=d, dtype=torch.float32), dev, 60,
+            absent=lambda n: n.startswith("bert.")),
+            synthetic_tokenizer(bc.vocab_size, 60, specials=("[PAD]", "[UNK]", "[CLS]", "[SEP]")))
+        with keep_loaded(mbert, "load_bert") as kept:
+            out = run("demo_bert", demo_bert.main, ["-m", bert_dir])
+        with torch.no_grad():
+            emb = kept.models[0].sentence_embedding(torch.tensor(out["ids"], device=dev),
+                                                    torch.tensor(out["mask"], device=dev)).float().cpu().numpy()
+        same_scores("demo_bert", out["cosine"], emb @ emb.T)
+        del kept
+        shutil.rmtree(bert_dir, ignore_errors=True)
+
+        wav = entry_wav(os.path.join(root, "clip.wav"), 61)
+        ib_args = ["-i", png, "--audio", wav]
+        with keep_loaded(mib.ImageBindModel, "init") as kept:
+            out = run("demo_imagebind", demo_imagebind.main, ib_args)
+            one = run("demo_imagebind_1mod", demo_imagebind_1mod.main, ib_args)
+        cfg = mib.ImageBindConfig()
+        pix = ClipImageProcessor(size=cfg.img_hw, crop=cfg.img_hw)(png)
+        patches = mib.patchify_video(np.repeat(pix[:, :, None], cfg.time_frames, axis=2), cfg.patch, cfg.patch_time)
+        from mllm_tpu_torch.processor.audio import ImageBindAudioProcessor
+
+        ids, eot = demo_imagebind.text_ids(["a dog.", "a car", "a bird"], cfg)
+        with torch.no_grad():
+            vt, va = kept.models[0](*(torch.as_tensor(a, device=dev) for a in
+                                      (ids, eot, patches, ImageBindAudioProcessor()(wav))))
+        for name, res in (("demo_imagebind", out), ("demo_imagebind_1mod", one)):
+            same_scores(name, res["vision_text"] + res["vision_audio"], torch.cat([vt[0], va[0]]).cpu())
+        del kept
+        torch.cuda.empty_cache()
+        marks.append(("other_demos", time.perf_counter()))
+
+        # 4. train_lora at the main LM's widths, LORA_LAYERS layers, f32
+        lcfg = TextConfig(**dict(QWEN2VL_2B_LM, num_hidden_layers=LORA_LAYERS))
+        base_dir, out_dir = os.path.join(root, "lora-base"), os.path.join(root, "lora-merged")
+        ckpt, data = os.path.join(root, "lora.ckpt"), os.path.join(root, "data.txt")
+        write_bf16_checkpoint(base_dir, lcfg, cli_tensors(lcfg, dev, 62), tok_vl)
+        with open(data, "w") as f:
+            f.write(LORA_TEXT)
+        lora = ["-m", base_dir, "-d", data, "--seq", "256", "--batch", "2", "--lr", "1e-2", "--alpha", LORA_ALPHA,
+                "--ckpt", ckpt]
+        quiet = tuple(ATTENTION_KERNELS)
+        first = run("train_lora", train_lora.main, lora + ["--steps", "4", "--out", out_dir], none=quiet)
+        again = run("train_lora_resume", train_lora.main, lora + ["--steps", "2", "--resume"], none=quiet)
+        losses = first["losses"] + again["losses"]
+        if not (np.isfinite(losses).all() and len(first["losses"]) == 4 and first["losses"][3] < first["losses"][0]):
+            bad.append(f"train_lora: losses {first['losses']} (finite, step 4 below step 1)")
+        if (again["start_step"], again["end_step"]) != (4, 6):
+            bad.append(f"train_lora --resume: steps {again['start_step']} -> {again['end_step']}, not 4 -> 6")
+        merged = run("demo_llm_merged", demo_llm.main, ["-m", out_dir, "--max-new", str(CLI_NEW)],
+                     lambda o: {"flash_attention": LORA_LAYERS, "decode_attention": LORA_LAYERS * (len(o["ids"]) - 1)})
+        direct, _ = direct_greedy(out_dir, dev)
+        same_ids("demo_llm on the merged model", merged["ids"], direct)
+        shutil.rmtree(base_dir, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        marks.append(("train_lora", time.perf_counter()))
+
+        # 5. the typed entry point, as processes (on the 2-layer Qwen2-VL directory), both at once
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+        argv5 = [sys.executable, "-m", "mllm_tpu_torch.examples.demo_qwen2_vl", "-m", ui_dir, "-i", png,
+                 "--max-new", "8"]
+        t_procs = time.perf_counter()
+        procs = [subprocess.Popen(argv5, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True),
+                 subprocess.Popen(argv5, cwd=repo, env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        (typed_out, typed_err), (_, nocard_err) = outs
+        refused = procs[1].returncode != 0 and "runs on a CUDA card and found none" in nocard_err
+        emit(phase="slice_entry_processes", seconds=time.perf_counter() - t_procs, rc=procs[0].returncode,
+             report=[l for l in typed_out.splitlines() if "speed" in l or "prompt tokens" in l],
+             no_card_rc=procs[1].returncode, no_card_refused=refused,
+             no_card_error=nocard_err.strip().splitlines()[-1:] if nocard_err.strip() else [])
+        if procs[0].returncode != 0:
+            bad.append(f"python -m demo_qwen2_vl exited {procs[0].returncode}: {typed_err[-1000:]}")
+        if not refused:
+            bad.append(f"no-card demo_qwen2_vl: rc {procs[1].returncode}, stderr {nocard_err[-500:]}")
+        marks.append(("processes", time.perf_counter()))
+        emit(phase="slice_entry_items", seconds={b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])})
+        emit(phase="slice_entry_rates", nvidia_smi=smi, runs=[
+            {k: r[k] for k in ("run", "seconds", "prefill_tok_s", "decode_tok_s", "score_ms", "s_per_step")
+             if k in r} for r in runs])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"slice_entry: {bad}")
+    return {k: v for k, v in total.items() if k in SOURCES}
+
+
 def timed_phase(name: str, fn):
     """fn(), its wall seconds printed as `<name>_seconds`."""
     t0 = time.perf_counter()
@@ -5722,7 +6356,8 @@ def main():
                 timed_phase("slice_persist", lambda: phase_slice_persist(dev)),
                 timed_phase("slice_train", lambda: phase_slice_train(dev)),
                 timed_phase("slice_parallel", lambda: phase_slice_parallel(dev)),
-                timed_phase("slice_cli", lambda: phase_slice_cli(dev))]
+                timed_phase("slice_cli", lambda: phase_slice_cli(dev)),
+                timed_phase("slice_entry", lambda: phase_slice_entry(dev))]
     for phase_launches in results:
         for name, n in phase_launches.items():
             launches[name] += n

@@ -254,8 +254,8 @@ class SafetensorsLoader(Mapping):
 class _SafetensorsFile:
     def __init__(self, path: str):
         self.path = path
-        with open(path, "rb") as f:
-            self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        with open(path, "rb") as f:  # copy-on-write: torch may wrap a view, and nothing writes the file
+            self._mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
         (hlen,) = struct.unpack_from("<Q", self._mm, 0)
         self.header = json.loads(self._mm[8 : 8 + hlen].decode("utf-8"))
         self.header.pop("__metadata__", None)
@@ -271,13 +271,9 @@ class _SafetensorsFile:
         if st_dt == "BF16":
             # widen bf16 -> f32 (exact; numpy has no bfloat16) with torch's
             # conversion, ~3x faster than numpy's shift on the host
-            import warnings
-
             import torch
 
-            with warnings.catch_warnings():  # the mapping is read-only; the conversion copies
-                warnings.simplefilter("ignore", UserWarning)
-                bf16 = torch.frombuffer(raw, dtype=torch.bfloat16) if raw.size else torch.empty(0, dtype=torch.bfloat16)
+            bf16 = torch.frombuffer(raw, dtype=torch.bfloat16) if raw.size else torch.empty(0, dtype=torch.bfloat16)
             return bf16.float().numpy().reshape(shape)
         np_dt = _ST_DTYPES[st_dt]
         return raw.view(np_dt).reshape(shape)
@@ -349,33 +345,39 @@ def write_safetensors(path: str | os.PathLike, tensors: dict, metadata: dict | N
     one safetensors file: an 8-byte little-endian header length, the JSON
     header (name -> dtype, shape, data_offsets, and `__metadata__`), padded
     with spaces to a multiple of 8 bytes, then each tensor's raw little-endian
-    bytes in name order."""
+    bytes in name order. Each tensor is converted and written in turn (a card
+    tensor copied to the host then), without a second copy of its bytes."""
     import torch
+
+    def kind(arr) -> str:
+        if isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16:
+            return "BF16"
+        dt = np.dtype(arr.dtype)
+        if dt not in _NP_TO_ST:
+            raise ValueError(f"write_safetensors: a tensor has dtype {dt}")
+        return _NP_TO_ST[dt]
+
+    def host(arr) -> np.ndarray:  # contiguous little-endian host bytes (bf16: its bits as int16)
+        if isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16:
+            return arr.detach().contiguous().view(torch.int16).cpu().numpy()
+        arr = np.ascontiguousarray(arr)
+        return arr.astype(arr.dtype.newbyteorder("<"), copy=False)
 
     names = sorted(tensors)
     header: dict = {"__metadata__": dict(metadata)} if metadata else {}
     offset = 0
-    blobs = []
     for name in names:
         arr = tensors[name]
-        if isinstance(arr, torch.Tensor) and arr.dtype == torch.bfloat16:  # its bits as int16, little-endian
-            st, data = "BF16", arr.detach().contiguous().view(torch.int16).cpu().numpy().tobytes()
-        else:
-            arr = np.ascontiguousarray(arr)
-            if arr.dtype not in _NP_TO_ST:
-                raise ValueError(f"write_safetensors: {name} has dtype {arr.dtype}")
-            st, data = _NP_TO_ST[arr.dtype], arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
-        header[name] = {"dtype": st, "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        offset += len(data)
-        blobs.append(data)
+        nbytes = int(np.prod(arr.shape, dtype=np.int64)) * (2 if kind(arr) == "BF16" else np.dtype(arr.dtype).itemsize)
+        header[name] = {"dtype": kind(arr), "shape": list(arr.shape), "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     head = json.dumps(header, separators=(",", ":")).encode("utf-8")
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for data in blobs:
-            f.write(data)
+        for name in names:
+            f.write(memoryview(host(tensors[name]).reshape(-1)).cast("B"))
 
 
 def save_safetensors_model(out_dir: str, model, src_dir: str | None = None, names=None) -> str:

@@ -3,9 +3,10 @@
 
 `std_parser` gives the `-m/-l/-q` flags of every demo plus `--device`,
 `device` resolves that flag (the card unless `--device cpu`; no card
-raises), `stream_fn` writes each token's text as it comes, and
-`vl_decode_loop` decodes greedily after a prefill for models whose call is
-(input_ids, cache) -> (logits, cache).
+raises), `stream_fn` writes each token's text as it comes (`timed_stream`
+also notes when the first one came), and `vl_decode_loop` decodes greedily
+after a prefill for models whose call is (input_ids, cache) -> (logits,
+cache).
 """
 
 from __future__ import annotations
@@ -54,13 +55,25 @@ def stream_fn(tok):
     return stream
 
 
+def timed_stream(tok, box: dict):
+    """`stream_fn(tok)` that also records the host time of the first token in
+    box["first"] (the end of the prefill)."""
+    stream = stream_fn(tok)
+
+    def cb(t):
+        box.setdefault("first", time.perf_counter())
+        return stream(t)
+    return cb
+
+
 @torch.no_grad()
-def vl_decode_loop(model, tok, logits, cache, max_new: int):
+def vl_decode_loop(model, tok, logits, cache, max_new: int, stream=None):
     """Greedy streaming decode for models whose call is (input_ids, cache)
     -> (logits, cache); the prefill is done and `logits` are its output.
-    Returns (tokens, cache); stops at the tokenizer's eos, which is not
-    emitted."""
-    stream = stream_fn(tok)
+    `stream` (default `stream_fn(tok)`) takes each token, the prefill's
+    first. Returns (tokens, cache); stops at the tokenizer's eos, which is
+    not emitted."""
+    stream = stream or stream_fn(tok)
     dev = logits.device
     tokv = int(torch.argmax(logits[0, -1]))
     stream(tokv)

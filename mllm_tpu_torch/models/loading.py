@@ -108,6 +108,14 @@ def quant_linear_from_float(w: np.ndarray, bias, quant: str, device):
                       qm.GROUP, None, bias)
 
 
+def float_tensor(a, device, dtype) -> torch.Tensor:
+    """A loader's float array as a tensor on `device` in `dtype`. The array
+    may be a view of the file's mapping: `torch.tensor` copies it, so the
+    tensor owns its memory, and a card's copy is read straight from the view
+    (no second host copy of the f32 array)."""
+    return torch.tensor(np.asarray(a, np.float32), dtype=dtype, device=device)
+
+
 def make_linear(loader, name: str, n: int, k: int, bias, quant: str | None, *, device, dtype):
     """The checkpoint weight `name` [n, k] -> the port's Linear module (JAX
     `make_linear`). Raw ggml blocks repack into the kernels' layouts whatever
@@ -136,10 +144,9 @@ def make_linear(loader, name: str, n: int, k: int, bias, quant: str | None, *, d
             return QuantLinear(dev(qv.T), dev(sc), bias)
     else:
         w = loader.load(name, (n, k), np.float32)
-    w = np.array(w, np.float32)  # a copy: loaders hand out read-only views of the file
     if quant is not None:
-        return quant_linear_from_float(w, bias, quant, device)
-    return Linear.from_tensors(torch.from_numpy(w).to(device=device, dtype=dtype), bias)
+        return quant_linear_from_float(np.array(w, np.float32), bias, quant, device)  # a private copy
+    return Linear.from_tensors(float_tensor(w, device, dtype), bias)
 
 
 def _split_rows(loader, name: str, splits: list[int], in_f: int) -> list[np.ndarray]:
@@ -242,8 +249,7 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
     sd = model.state_dict()
 
     def tensor(key):
-        a = loader.load(names.pop(key), tuple(sd[key].shape), np.float32)
-        return torch.from_numpy(np.array(a, np.float32)).to(device=device, dtype=dtype)
+        return float_tensor(loader.load(names.pop(key), tuple(sd[key].shape), np.float32), device, dtype)
 
     state = {}
     for i, mlp in built.items():

@@ -604,12 +604,13 @@ def load_params(module: nn.Module, loader, names: dict, *, device, dtype, f32=()
     """Fill `module`'s parameters from checkpoint tensors: names maps each
     state-dict key to its checkpoint name (strict); the keys in `f32` stay
     f32, the others take `dtype`."""
+    from .loading import float_tensor
+
     sd = module.state_dict()
     state = {}
     for key, ck in names.items():
-        a = loader.load(ck, tuple(sd[key].shape), np.float32)
-        state[key] = torch.from_numpy(np.array(a, np.float32)).to(
-            device=device, dtype=torch.float32 if key in f32 else dtype)
+        state[key] = float_tensor(loader.load(ck, tuple(sd[key].shape), np.float32), device,
+                                  torch.float32 if key in f32 else dtype)
     module.load_state_dict(state, strict=True)
 
 

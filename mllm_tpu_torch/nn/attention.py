@@ -17,8 +17,11 @@ must carry a gradient (grad mode on and q, k or v requiring grad), an additive
 over a quantized cache with per-slot lengths and a head_dim outside
 KERNEL_HEAD_DIMS (64, 128, 256) go through the port's own `sdpa` (on the card
 too), as the reference sends them to XLA `sdpa`: no Pallas kernel takes them
-there, so no Hopper kernel is owed. Every cache at a head_dim of
-KERNEL_HEAD_DIMS reaches its kernels, as the reference's Pallas ones.
+there, so no Hopper kernel is owed. A query that is not bf16 (an f32 model)
+(not in KERNEL_DTYPES) takes `sdpa` too: the CUDA kernels are bf16-only,
+where the Pallas kernels take the input's dtype (a written divergence). Every bf16 call on a cache at
+a head_dim of KERNEL_HEAD_DIMS reaches its kernels, as the reference's Pallas
+ones.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..ops.decode_attention import decode_attention, decode_attention_paged, dec
 from ..ops.flash_attention import flash_attention, flash_attention_quant
 
 NEG_INF = -1e30  # large-but-finite, as in mllm_tpu.nn.layers
+KERNEL_DTYPES = (torch.bfloat16,)  # the query dtypes the CUDA attention kernels take
 
 
 def repeat_kv_cache_layout(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -104,7 +108,7 @@ def needs_grad(*tensors) -> bool:
 
 def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=None,
                     kv_valid_len=None, kv_start=None, head_dim: Optional[int] = None,
-                    grad: bool = False) -> str:
+                    grad: bool = False, dtype: Optional[torch.dtype] = None) -> str:
     """Which function serves an attention call: "sdpa", "decode", "flash",
     "decode_paged", "decode_quant" or "flash_quant". `cache` is "dense",
     "paged" or "quant". The route does not depend on the device: the kernels'
@@ -116,10 +120,15 @@ def attention_route(sq: int, *, cache: str = "dense", bias=None, logit_softcap=N
     the Pallas ones there (Gemma-2B). A call that must carry a gradient
     (`grad`, from `needs_grad`) takes `sdpa` on every device, as the reference
     sends every call off the TPU to XLA `sdpa`, which JAX differentiates
-    (`mllm_tpu/nn/attention.py:190-196`): no kernel has a backward.
+    (`mllm_tpu/nn/attention.py:190-196`): no kernel has a backward. A query
+    `dtype` other than bf16 takes `sdpa` on every device and cache: the CUDA
+    kernels take bf16 only, where the Pallas kernels run in the input's dtype
+    (an f32 model runs them in f32 on the TPU); None means unknown.
     Counterpart of the choice between XLA `sdpa` and the Pallas kernels in
     `mllm_tpu/nn/attention.py:145-175,192-212`."""
     if grad or bias is not None or logit_softcap is not None:
+        return "sdpa"
+    if dtype is not None and dtype not in KERNEL_DTYPES:
         return "sdpa"
     if head_dim is not None and head_dim not in KERNEL_HEAD_DIMS:
         return "sdpa"
@@ -148,7 +157,7 @@ def attend(
     assumes the query sits at position kv_valid_len - 1 (as every decode
     step does)."""
     route = attention_route(q.shape[1], bias=bias, logit_softcap=logit_softcap, head_dim=q.shape[-1],
-                            grad=needs_grad(q, k, v))
+                            grad=needs_grad(q, k, v), dtype=q.dtype)
     if route == "sdpa":
         return sdpa(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, kv_start=kv_start,
                     causal=causal, window=window, bias=bias, scale=scale,
@@ -169,13 +178,15 @@ def attend_padded_head(q, k, v, *, causal: bool = False, scale: Optional[float] 
     body in shared memory): the reference's zero padding of q/k/v to 128
     lanes in memory is a Mosaic constraint the port does not copy. A kernel
     that fails raises; nothing falls back to `sdpa`. A call that must carry a
-    gradient takes `sdpa`, as `attention_route` sends it. A causal call takes
-    `sdpa`, as in the reference; so does a head_dim the kernel does not take
-    (where the reference pads any head_dim to 128 lanes)."""
+    gradient takes `sdpa`, as `attention_route` sends it, and so does a query
+    that is not bf16 (an f32 tower: the kernel is bf16-only). A causal call
+    takes `sdpa`, as in the reference; so does a head_dim the kernel does not
+    take (where the reference pads any head_dim to 128 lanes)."""
     d = q.shape[-1]
     if scale is None:
         scale = d**-0.5
-    if q.device.type != "cpu" and not causal and d in FLASH_HEAD_DIMS and not needs_grad(q, k, v):
+    if (q.device.type != "cpu" and not causal and d in FLASH_HEAD_DIMS and q.dtype in KERNEL_DTYPES
+            and not needs_grad(q, k, v)):
         return flash_attention(q, k, v, causal=False, scale=scale)
     return sdpa(q, k, v, causal=causal, scale=scale)
 
@@ -205,7 +216,7 @@ def attend_from_cache(q, cache, layer_idx: int, *, q_offset=0, kv_valid_len=None
             else "quant" if isinstance(cache, (QuantKVCache, SlotQuantKVCache)) else "dense")
     route = attention_route(q.shape[1], cache=kind, bias=bias, logit_softcap=logit_softcap,
                             kv_valid_len=kv_valid_len, kv_start=kv_start, head_dim=q.shape[-1],
-                            grad=needs_grad(q))
+                            grad=needs_grad(q), dtype=q.dtype)
     if route == "decode_paged":
         return decode_attention_paged(q, cache.k[layer_idx], cache.v[layer_idx], cache.table,
                                       kv_valid_len=kv_valid_len, scale=scale, window=window)

@@ -116,15 +116,19 @@ def test_sdpa_vs_jax(case):
 
 def test_wrappers_take_plain_version_on_cpu():
     """On CPU tensors the wrappers are the plain versions and launch nothing;
-    `attend` routes Sq == 1 to decode and longer queries to flash."""
+    `attend` routes a bf16 Sq == 1 to decode and longer queries to flash (an
+    f32 query to `sdpa`)."""
     q, k, v = _t(*_qkv(5, 2, 6, 4, 2, 64, 32))
     n_flash, n_dec = flash_attention.launches, decode_attention.launches
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))  # the kernels' dtype; f32 takes sdpa
     torch.testing.assert_close(
-        attend(q, k, v, q_offset=3, kv_valid_len=9),
-        flash_attention_ref(q, k, v, q_offset=3, kv_valid_len=9), rtol=0, atol=0)
+        attend(qb, kb, vb, q_offset=3, kv_valid_len=9),
+        flash_attention_ref(qb, kb, vb, q_offset=3, kv_valid_len=9), rtol=0, atol=0)
     torch.testing.assert_close(
-        attend(q[:, :1], k, v, q_offset=8, kv_valid_len=9),
-        decode_attention_ref(q[:, :1], k, v, kv_valid_len=9), rtol=0, atol=0)
+        attend(qb[:, :1], kb, vb, q_offset=8, kv_valid_len=9),
+        decode_attention_ref(qb[:, :1], kb, vb, kv_valid_len=9), rtol=0, atol=0)
+    torch.testing.assert_close(attend(q, k, v, q_offset=3, kv_valid_len=9),
+                               sdpa(q, k, v, q_offset=3, kv_valid_len=9), rtol=0, atol=0)
     # the query-at-end decode equals the causal flash row
     torch.testing.assert_close(
         decode_attention(q[:, :1], k, v, kv_valid_len=9, window=4),

@@ -333,7 +333,11 @@ def test_alias_set_and_defaults_equal_the_jax_wrappers():
     from mllm_tpu_torch.examples import demo_qwen_sd
 
     assert demo_qwen_sd.main is demo_sd.main
-    assert set(_port_modules()) == set(want) | {"demo_llm", "demo_sd", "demo_qwen_sd"}
+    # every demo of the JAX package has its counterpart, and the port no other
+    jax_demos = {fn[:-3] for fn in os.listdir(os.path.join(REPO, "examples"))
+                 if fn.startswith("demo_") and fn.endswith(".py")}
+    assert set(want) | {"demo_llm", "demo_sd", "demo_qwen_sd"} <= jax_demos
+    assert set(_port_modules()) == jax_demos
 
 
 def test_alias_runs_end_to_end_with_its_default(dirs):

@@ -52,9 +52,11 @@ CFG_KW = dict(vocab_size=97, hidden_size=64, intermediate_size=128, num_hidden_l
 def kernel_route_at_small_head_dim():
     """This file's models have head_dim 16, which the port's route sends
     to `sdpa` (the kernels take 64 and 128): here it reaches the kernels'
-    plain versions, so the loops drive the wrappers as they do on the card."""
+    plain versions, so the loops drive the wrappers as they do on the card.
+    So does the f32 of its models (the kernels take bf16 only)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_attention, "KERNEL_HEAD_DIMS", (16, 64, 128))
+        mp.setattr(port_attention, "KERNEL_DTYPES", (torch.bfloat16, torch.float32))
         yield
 
 

@@ -61,9 +61,12 @@ BLOCKS_TOL = 2e-3
 def kernel_route_at_small_head_dim():
     """This file's models have head_dim 16, which the port's route sends
     to `sdpa` (the kernels take 64 and 128): here it reaches the kernels'
-    plain versions, so the loops drive the wrappers as they do on the card."""
+    plain versions, so the loops drive the wrappers as they do on the card.
+    So does their f32 (the kernels take bf16 only): the f32 models hold the
+    kernels' arithmetic against the Pallas kernels' in f32."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tattn, "KERNEL_HEAD_DIMS", (16, 64, 128))
+        mp.setattr(tattn, "KERNEL_DTYPES", (torch.bfloat16, torch.float32))
         yield
 
 

@@ -27,9 +27,11 @@ CFG = dict(vocab_size=64, model_dim=32, num_layers=3, head_dim=8, num_query_head
 
 @pytest.fixture(scope="module", autouse=True)
 def kernel_route_at_small_head_dim():
-    """head_dim 8 reaches the kernels' plain versions here, as 64 does on the card."""
+    """head_dim 8 reaches the kernels' plain versions here, as 64 does on the
+    card, and so does f32 (the kernels take bf16 only)."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(port_attention, "KERNEL_HEAD_DIMS", (8, 64, 128, 256))
+        mp.setattr(port_attention, "KERNEL_DTYPES", (torch.bfloat16, torch.float32))
         yield
 
 

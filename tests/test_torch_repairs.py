@@ -110,7 +110,9 @@ def test_head_dim_outside_the_kernels_takes_sdpa(monkeypatch, head_dim):
     from mllm_tpu_torch.ops.flash_attention import flash_attention_quant_ref
 
     bf16_kernels = head_dim == 256
-    if not bf16_kernels:
+    if bf16_kernels:  # the kernel routes in this test's f32 (the kernels themselves take bf16 only)
+        monkeypatch.setattr(att, "KERNEL_DTYPES", (torch.bfloat16, torch.float32))
+    else:
         for name in ("flash_attention", "decode_attention", "flash_attention_quant", "decode_attention_quant",
                      "decode_attention_paged"):
             monkeypatch.setattr(att, name, lambda *a, _n=name, **k: pytest.fail(f"{_n} at head_dim {head_dim}"))
@@ -168,3 +170,89 @@ def test_bf16_minicpm_multipliers_match_jax():
     a = tl.double().numpy().ravel()
     b = np.asarray(jl, np.float64).ravel()
     assert abs(a @ b / (b @ b) - 1) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_float32_attention_takes_sdpa(monkeypatch, dtype):
+    """A query that is not bf16 takes `sdpa` on every cache kind and query
+    length, and in `attend_padded_head` on a (pretend) card: the CUDA
+    kernels are bf16-only (the Pallas kernels run in the input's dtype). The
+    same calls in bf16 keep their kernel routes. An f32 model's `generate`
+    over a dense and an int8 cache calls none of the five attention
+    wrappers (whose CUDA entries raise on f32); a bf16 one calls them."""
+    import mllm_tpu_torch.nn.attention as att
+    from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation.generate import generate
+    from mllm_tpu_torch.generation.sampling import SamplingConfig
+    from mllm_tpu_torch.models.transformer import CausalLM
+
+    kernel = {"dense": {1: "decode", 16: "flash"}, "paged": {1: "decode_paged", 16: "flash"},
+              "quant": {1: "decode_quant", 16: "flash_quant"}}
+    for cache, by_sq in kernel.items():
+        for sq, want in by_sq.items():
+            assert attention_route(sq, cache=cache, head_dim=128, dtype=dtype) == "sdpa"
+            assert attention_route(sq, cache=cache, head_dim=128, dtype=torch.bfloat16) == want
+
+    calls = []
+    for name in ("flash_attention", "decode_attention", "flash_attention_quant", "decode_attention_quant",
+                 "decode_attention_paged"):
+        real = getattr(att, name)
+        monkeypatch.setattr(att, name, lambda *a, _n=name, _f=real, **k: calls.append(_n) or _f(*a, **k))
+    q = torch.empty(1, 64, 4, 80, device="meta", dtype=dtype)
+    k = torch.empty(1, 4, 64, 80, device="meta", dtype=dtype)
+    monkeypatch.setattr(att, "sdpa", lambda *a, **kw: "sdpa")
+    assert att.attend_padded_head(q, k, k, causal=False) == "sdpa" and calls == []
+    monkeypatch.undo()
+
+    for name in ("flash_attention", "decode_attention", "flash_attention_quant", "decode_attention_quant",
+                 "decode_attention_paged"):
+        real = getattr(att, name)
+        monkeypatch.setattr(att, name, lambda *a, _n=name, _f=real, **k: calls.append(_n) or _f(*a, **k))
+    cfg = TextConfig(vocab_size=64, hidden_size=128, intermediate_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, num_key_value_heads=1, head_dim=64, eos_token_id=-1)
+    for model_dtype in (dtype, torch.bfloat16):
+        model = CausalLM.init(cfg, device="cpu", dtype=model_dtype)
+        for kv in ("bf16", "int8"):
+            calls.clear()
+            res, _ = generate(model, np.arange(5), model.init_cache(1, 64, model_dtype, kv_dtype=kv),
+                              SamplingConfig(max_new_tokens=3), bucket=8)
+            assert len(res.tokens) == 3
+            if model_dtype == torch.bfloat16:
+                assert calls, f"bf16 over {kv} reached no kernel wrapper"
+            else:
+                assert calls == [], f"{model_dtype} over {kv} reached {sorted(set(calls))}"
+
+
+def test_megakernel_refuses_an_f32_cache_before_launching(monkeypatch):
+    """The whole-trunk kernel reads a bf16 cache (the Pallas one reads the
+    cache's dtype): an f32 cache raises TypeError in the operand check, before
+    any launch (meta tensors stand in for the card's, and a library whose
+    entries fail the test stands in for the built kernels)."""
+    from types import SimpleNamespace
+
+    from mllm_tpu_torch.ops import decode_step as ds
+    from mllm_tpu_torch.ops.decode_step import fused_decode_step
+
+    entry = lambda *a: pytest.fail("launched")  # noqa: E731
+    monkeypatch.setattr(ds._build, "library", lambda: SimpleNamespace(mllm_fused_decode_step_bf16=entry))
+
+    meta, u8, bf, f32 = "meta", torch.uint8, torch.bfloat16, torch.float32
+    L, d, h, hkv, hd, ff, s = 1, 256, 2, 1, 128, 640, 64
+    nqkv = (h + 2 * hkv) * hd
+
+    def e(*shape, dtype=u8):
+        return torch.empty(shape, device=meta, dtype=dtype)
+
+    ops = dict(qkv_ops=(e(L, d // 2, nqkv), e(L, d // 64, nqkv, dtype=bf), e(L, nqkv, dtype=f32)),
+               o_ops=(e(L, h * hd // 2, d), e(L, h * hd // 64, d, dtype=bf)),
+               gate_ops=(e(L, d // 2, ff), e(L, d // 64, ff, dtype=bf)),
+               up_ops=(e(L, d // 2, ff), e(L, d // 64, ff, dtype=bf)),
+               down_ops=(e(L, ff // 2, d), e(L, ff // 32, d, dtype=bf)),
+               norm1_w=e(L, 1, d, dtype=f32), norm2_w=e(L, 1, d, dtype=f32))
+    before = fused_decode_step.launches
+    for cache_dtype in (f32, torch.float16):
+        kv = e(L, 1, hkv, s, hd, dtype=cache_dtype)
+        with pytest.raises(TypeError, match="bfloat16"):
+            fused_decode_step(e(1, d, dtype=bf), 5, e(hd, hd, dtype=f32), **ops, k_cache=kv, v_cache=kv,
+                              n_heads=h, n_kv_heads=hkv, head_dim=hd)
+    assert fused_decode_step.launches == before

@@ -318,6 +318,7 @@ def test_attend_takes_sdpa_under_a_gradient_and_the_kernels_without(monkeypatch)
     from mllm_tpu_torch.nn import attention as port_attention
 
     calls = []
+    monkeypatch.setattr(port_attention, "KERNEL_DTYPES", (torch.bfloat16, torch.float32))  # f32 off sdpa
     monkeypatch.setattr(port_attention, "flash_attention", lambda *a, **k: calls.append("flash") or a[0] * 0)
     monkeypatch.setattr(port_attention, "decode_attention", lambda *a, **k: calls.append("decode") or a[0] * 0)
     g = torch.Generator().manual_seed(0)
