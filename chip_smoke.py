@@ -308,7 +308,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   The kernel check also runs flash_attention and decode_attention at head_dim
   256 (Gemma-2B's 8 / 1 heads: FLASH_ROWS_256, DECODE_ROWS_256, poisoned rows
   included; the `@256` rows of the kernels line, whose launches are those at
-  head_dim 256 in head_dim_route and slice_families), flash_attention_quant
+  head_dim 256 in head_dim_route and slice_families; the flash kernel's key
+  split also with a device q_offset, a 512-row chunk over 1536 keys launched
+  directly and replayed from a CUDA graph at three offsets, each replay
+  bit-equal to the direct launch: WIDE_SCALAR_ROW), flash_attention_quant
   and decode_attention_quant at 256, int8 and int4 (QUANT_FLASH_ROWS_256,
   QUANT_DECODE_ROWS at 8 / 1 heads, stale rows included; `route_sdpa_ms`
   times the port's `sdpa` over the same keys dequantized, which served these
@@ -324,10 +327,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   It checks flash_attention and decode_attention at head_dim 64 at
   OpenELM-1_1B's widest layer (32 / 8 heads: FLASH_ROWS_64 with the 1536-
   and 1500-token prefills, DECODE_ROWS_64 with the b=4 step at 1531 keys,
-  poisoned rows included; <= 2e-2 and <= 0.1 by `row_rel_err`, which a
-  plain version short of 64 keys must exceed), beside their bounds and SDPA:
+  poisoned rows, a window, B=1 and B=8 included; <= 2e-2 and <= 0.1 by
+  `row_rel_err`, which a plain version short of 64 keys must exceed), beside
+  their bounds and SDPA:
   the `@64` rows of the kernels line, whose launches are slice_openelm's.
-  Phases 9-32 print their seconds (`<phase>_seconds`).
+  Every phase after the build prints its seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
   them as launches on the card (`graphs.device_launches`: the counters less
@@ -3132,6 +3136,8 @@ FLASH_ROWS_256 = [
     (8, 128, 0, [128, 17, 100, 64, 128, 90, 33, 120], None, None, False),  # B=8, per-sequence lengths
     (4, 256, 0, [256, 200, 131, 250], [0, 17, 64, 150], None, True),     # kv_start, stale NaN / inf rows
     (1, 300, 0, 300, None, 64, False),                                    # sliding window
+    (1, 512, 1024, 1536, None, None, False),                              # a 512-row chunk at 1024
+    (1, 128, 0, 128, None, None, False),                                  # a 128-row prompt
 ]
 DECODE_ROWS_256 = [
     (1, [1531], None, None, False),                                       # a 1500-token prompt's last step
@@ -3171,6 +3177,7 @@ def wide_kernel_rows(dev, g) -> dict:
                                                   flash_attention_ref, FLASH_ROWS_256, dev, g, WIDE_GEO),
             "decode_attention@256": attention_rows("decode_attention@256", "decode_attention", decode_attention,
                                                    decode_attention_ref, DECODE_ROWS_256, dev, g, WIDE_GEO)}
+    wide_device_scalar_row(dev, g)
     rows.update(quant_attention_rows(dev, g, QUANT_FLASH_ROWS_256, QUANT_DECODE_ROWS, WIDE_GEO, "@256",
                                      route_sdpa=True))
     worst = 0.0
@@ -3185,6 +3192,50 @@ def wide_kernel_rows(dev, g) -> dict:
     emit(phase="kernel_check_paged_256", rows=len(PAGED_ROWS), geometry=list(WIDE_GEO), max_abs_err=worst,
          tolerance=TOL)
     return rows
+
+
+# the split flash kernel at head_dim 256 with a device q_offset: a 512-row
+# chunk over 1536 keys of the 2048-row cache, and the q_offsets its launches
+# and replays are given (with a device q_offset the cluster size depends on
+# the shapes only, each rank's run on the device value)
+WIDE_SCALAR_ROW = (512, 1536, (1024, 0, 512))
+
+
+def wide_device_scalar_row(dev, g) -> None:
+    """flash_attention at head_dim 256 (WIDE_GEO) with q_offset a one-element
+    int32 tensor on the card, launched directly at each offset and from a
+    CUDA graph replayed with the offset changed between replays: each replay
+    bit-equal to the direct launch at the same value, and the direct
+    launches and those with the host int (whose cluster size may differ: the
+    host value enters `flash_splits`) within TOL of the plain version."""
+    from mllm_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_ref, flash_cluster_slots,
+                                                    flash_splits)
+
+    sq, kvl, offsets = WIDE_SCALAR_ROW
+    h, hkv, d = WIDE_GEO
+    q = torch.randn(1, sq, h, d, device=dev, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(1, hkv, S_CACHE, d, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+    off = torch.full((), offsets[0], dtype=torch.int32, device=dev)
+    host = [flash_attention(q, k, v, q_offset=o, kv_valid_len=kvl) for o in offsets]
+    direct = []
+    for o in offsets:
+        off.fill_(o)
+        direct.append(flash_attention(q, k, v, q_offset=off, kv_valid_len=kvl))
+    reps = replay_outputs(lambda: flash_attention(q, k, v, q_offset=off, kv_valid_len=kvl), [off],
+                          [(o,) for o in offsets])
+    same = [torch.equal(r[0], x) for r, x in zip(reps, direct)]
+    err = max((x.float() - flash_attention_ref(q, k, v, q_offset=o, kv_valid_len=kvl).float()).abs().max().item()
+              for xs in (host, direct) for x, o in zip(xs, offsets))
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in host + direct)
+    slots = flash_cluster_slots(dev.index or 0)
+    emit(phase="kernel_check_device_scalars", kernel="flash_attention@256",
+         shape=dict(B=1, Sq=sq, H=h, Hkv=hkv, D=d, S=S_CACHE, kv_valid=kvl, q_offsets=list(offsets)),
+         splits_device=flash_splits(1, sq, S_CACHE, h, True, None, slots),
+         splits_host=[flash_splits(1, sq, S_CACHE, h, True, None, slots, o, kvl) for o in offsets],
+         replays_bit_equal=same, max_abs_err_vs_plain=err, tolerance=TOL, finite=finite)
+    if not (all(same) and err <= TOL and finite):
+        raise AssertionError(f"flash_attention@256 device q_offset: replays bit-equal {same}, "
+                             f"vs plain {err} (tolerance {TOL}), finite={finite}")
 
 
 # head_dim 80: the Qwen2-VL vision tower's attention (non-causal, 16 / 16 heads
@@ -4484,6 +4535,9 @@ DECODE_ROWS_64 = [
     (4, [1531, 1531, 1531, 1531], None, None, False),                    # the b=4 lockstep decode at 1531 keys
     (4, [1531, 1200, 700, 77], None, None, False),                       # unequal lengths
     (4, [0, 77, 2083, 1531], [0, 13, 100, 700], None, True),            # stale rows; a slot past the cache
+    (4, [1, 511, 513, 2048], [0, 3, 7, 9], 256, False),                  # window
+    (1, [1531], None, None, False),                                      # B=1: the cluster rule's largest split
+    (8, [1, 511, 513, 2048, 100, 1000, 1531, 777], [0, 0, 5, 100, 0, 50, 0, 3], None, False),  # B=8
 ]
 
 
@@ -6321,15 +6375,18 @@ def main():
     kind = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    rows = phase_kernels(dev)
+    rows = timed_phase("kernel_check", lambda: phase_kernels(dev))
     launches = {name: 0 for name in SOURCES}
-    results = [phase_slice(dev)]
-    int8_launches, model8 = phase_slice_quant(dev, "int8", keep=True)
-    results += [int8_launches, phase_slice_kvq(dev, model8), phase_slice_sd(dev, model8),
-                phase_slice_prefill(dev, model8), phase_slice_engine(dev, model8)]
+    results = [timed_phase("slice", lambda: phase_slice(dev))]
+    int8_launches, model8 = timed_phase("slice_int8", lambda: phase_slice_quant(dev, "int8", keep=True))
+    results += [int8_launches, timed_phase("slice_kvq", lambda: phase_slice_kvq(dev, model8)),
+                timed_phase("slice_sd", lambda: phase_slice_sd(dev, model8)),
+                timed_phase("slice_prefill", lambda: phase_slice_prefill(dev, model8)),
+                timed_phase("slice_engine", lambda: phase_slice_engine(dev, model8))]
     del model8
     torch.cuda.empty_cache()
-    results += [phase_slice_quant(dev, "int4"), phase_slice_mega(dev),
+    results += [timed_phase("slice_int4", lambda: phase_slice_quant(dev, "int4")),
+                timed_phase("slice_mega", lambda: phase_slice_mega(dev)),
                 timed_phase("head_dim_route", lambda: phase_head_dim_route(dev)),
                 timed_phase("slice_int8a8", lambda: phase_slice_int8a8(dev))]
     container_launches, model, tok, root = timed_phase("slice_containers", lambda: phase_slice_containers(dev))

@@ -13,8 +13,10 @@ namespace mllm {
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(dec::kThreads) decode_kernel(const dec::DecodeParams p) {
-  dec::decode_body<D, false>(p);
+__global__ void __launch_bounds__(dec::kThreads)
+    decode_tma_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                      const dec::DecodeParams p) {
+  dec::decode_body_tma<D, false>(&tm_k, &tm_v, p);
 }
 
 }  // namespace
@@ -37,9 +39,9 @@ extern "C" int mllm_decode_attention_bf16(const void* q, const void* k, const vo
                        nullptr, B, H, Hkv, S, 0, 0, kv_valid, window, hgroups, scale_log2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_decode<64, false>(decode_kernel<64>, p, splits, s);
-    case 128: return launch_decode<128, false>(decode_kernel<128>, p, splits, s);
-    case 256: return launch_decode<256, false>(decode_kernel<256>, p, splits, s);
+    case 64: return launch_tma<64, false>(decode_tma_kernel<64>, k, v, p, splits, s);
+    case 128: return launch_tma<128, false>(decode_tma_kernel<128>, k, v, p, splits, s);
+    case 256: return launch_tma<256, false>(decode_tma_kernel<256>, k, v, p, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -17,20 +17,22 @@
 //
 // What the design does about it: it is the dense kernel (decode_attention.cuh:
 // a cluster of CTAs per (b, KV head) splitting the keys, the n_rep query heads
-// as mma.sync rows, 64-key tiles of bulk-copied rows, rank-order DSMEM merge),
-// addressed through the table, as the Pallas kernel is the dense one with an
-// indirection on the DMA source. A 64-key tile never crosses a 128-row pool
-// block, so every row is still one bulk copy; the slot's table row is read
-// into shared memory once, beside its length, and each copy's source is one
-// shared-memory load away.
+// as mma.sync rows, 64-key tiles loaded as TMA boxes, rank-order DSMEM
+// merge), addressed through the table, as the Pallas kernel is the dense one
+// with an indirection on the DMA source. The tensor maps see the pool as
+// (block, KV head) planes of 128 rows; a 64-key tile never crosses a pool
+// block, so each of its boxes lies in one plane, which the issuing thread
+// reads from the table (clipped) as it issues the tile.
 #include "decode_attention.cuh"
 
 namespace mllm {
 namespace {
 
 template <int D>
-__global__ void __launch_bounds__(dec::kThreads) paged_decode_kernel(const dec::DecodeParams p) {
-  dec::decode_body<D, true>(p);
+__global__ void __launch_bounds__(dec::kThreads)
+    paged_decode_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                        const dec::DecodeParams p) {
+  dec::decode_body_tma<D, true>(&tm_k, &tm_v, p);
 }
 
 }  // namespace
@@ -47,8 +49,7 @@ extern "C" int mllm_decode_attention_paged_bf16(const void* q, const void* k_poo
                                                 float scale_log2, int splits, void* stream) {
   using namespace mllm;
   using namespace mllm::dec;
-  if (splits < 1 || splits > kMaxSplits || H % Hkv != 0 || NB < 1 || MAXB < 1 ||
-      smem_bytes<128, true>(MAXB) > 232448 || (D == 256 && smem_bytes<256, true>(MAXB) > 232448))
+  if (splits < 1 || splits > kMaxSplits || H % Hkv != 0 || NB < 1 || MAXB < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int hgroups = (H / Hkv + kRows - 1) / kRows;
   const DecodeParams p{static_cast<const bf16*>(q), static_cast<const bf16*>(k_pool),
@@ -57,9 +58,9 @@ extern "C" int mllm_decode_attention_paged_bf16(const void* q, const void* k_poo
                        B, H, Hkv, MAXB * kPage, NB, MAXB, kv_valid, window, hgroups, scale_log2};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_decode<64, true>(paged_decode_kernel<64>, p, splits, s);
-    case 128: return launch_decode<128, true>(paged_decode_kernel<128>, p, splits, s);
-    case 256: return launch_decode<256, true>(paged_decode_kernel<256>, p, splits, s);
+    case 64: return launch_tma<64, true>(paged_decode_kernel<64>, k_pool, v_pool, p, splits, s);
+    case 128: return launch_tma<128, true>(paged_decode_kernel<128>, k_pool, v_pool, p, splits, s);
+    case 256: return launch_tma<256, true>(paged_decode_kernel<256>, k_pool, v_pool, p, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

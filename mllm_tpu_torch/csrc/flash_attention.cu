@@ -53,6 +53,25 @@
 //    registers) beside S and P (flash_attention.cuh): thread 0 issues Q and
 //    the first two tiles, then refills a stage after its softmax of the next
 //    tile, once both warpgroups are done with it (`InlineTiles`).
+//    What bounds it there: one CTA an SM runs a 64-key tile of its 128 rows
+//    in ~2.1 us (about half an SM's share of the tensor-core peak) after a
+//    fixed ~7 us, so with one CTA a q-tile a causal prefill is as slow as its
+//    last q-tile (Gemma-2B's 1536 tokens: 96 CTAs on 132 SMs, the last one 24
+//    tiles), and a short chunk over a long cache runs a few CTAs on a few
+//    SMs. So a cluster of `splits` CTAs (1-8, `flash_splits` in
+//    ops/flash_attention.py, from the shapes, the host q_offset and kv_valid
+//    where the caller passes ints, and the clusters the card keeps resident)
+//    shares each q-tile's key tiles: each rank takes a run of whole tiles,
+//    worked out on the card from the device q_offset, kv_valid and kv_start
+//    (`cta_tiles`), leaves its unnormalised O and (m, l) where Q and the ring
+//    lay, and the ranks merge through distributed shared memory in rank
+//    order (`merge_ranks`): one launch, no workspace, no atomics. A q-tile of
+//    fewer than 2 * kMinRun tiles stays on rank 0, unmerged; the other ranks
+//    leave at once. A launch of one CTA a q-tile runs an instantiation that
+//    carries none of the split (`kSplit` false). A producer warpgroup (384
+//    threads, setmaxnreg 24 / 240) was measured again: ptxas caps the block
+//    at 168 registers and puts 240 bytes on the stack, and the main row ran
+//    1.46x slower (PERF.md).
 //  - head_dim 80 (the Qwen2-VL / Qwen2.5-VL vision towers, non-causal): the
 //    D = 128 body over rows of 80 columns (`launch<128, 80>`): the tensor
 //    maps describe the rows as they lie and TMA zero-fills columns 80-127 of
@@ -76,8 +95,9 @@ using namespace flash;
 // in P V), each a share of the rows, then meet. With one kv_valid for the
 // batch (`tma_bounded`) the tensor map ends at it, so TMA itself writes
 // zeros past it and only rows before kv_start need the pass.
-template <int D, int BK = block_k<D>()>
+template <int D, int BK = block_k<D>(), bool kSplitKeys = false>
 struct TmaTiles {
+  static constexpr bool kSplit = kSplitKeys;  // a q-tile's keys split over a cluster (head_dim 256)
   bf16* sV;
   uint64_t* full;
   uint64_t* empty;
@@ -128,8 +148,8 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* tm_k, const CUtenso
 // tile it - 1 + kStages into the stage of tile it - 1 after its softmax of
 // tile `it`, once both warpgroups have released it (the other warpgroup's
 // P V on it was issued before this warpgroup's S of tile `it`, by the turns).
-template <int D, int BK = block_k<D>()>
-struct InlineTiles : TmaTiles<D, BK> {
+template <int D, int BK, bool kSplitKeys>
+struct InlineTiles : TmaTiles<D, BK, kSplitKeys> {
   const CUtensorMap *tm_k, *tm_v;
   bf16* sK;
   int row, ntiles;
@@ -149,8 +169,12 @@ constexpr int smem_bytes() {
   return (kBQ + 2 * kStages * block_k<D>()) * D * 2 + 1024 /* alignment */ + 8 * (1 + 2 * kStages);
 }
 static_assert(smem_bytes<256>() <= 232448, "head_dim 256: Q and two stages of 64-key tiles fit");
+static_assert(sizeof(SplitSmem<256>) <= (kBQ + 2 * kStages * block_k<256>()) * 256 * 2,
+              "a split q-tile's partials fit where Q and the ring lay");
 
-template <int D, int DR>
+// kSplit: the head_dim 256 kernel of a launch with more than one CTA a
+// q-tile (p.splits > 1); with one, the kernel that carries none of it.
+template <int D, int DR, bool kSplit>
 __global__ void __launch_bounds__(threads_of<D>(), 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const FlashParams p) {
@@ -166,7 +190,8 @@ __global__ void __launch_bounds__(threads_of<D>(), 1)
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + kStages;
 
-  const CtaTiles c = cta_tiles<BK>(p);
+  const CtaTiles c = cta_tiles<BK, kSplit>(p);
+  if (kSplit && c.rank >= c.used) return;  // a rank of a split q-tile with no run: no merge waits on it
   const int tid = threadIdx.x;
   constexpr bool kInline = threads_of<D>() == kConsumers * 128;  // no producer warpgroup
   if (tid == (kInline ? 0 : kConsumers * 128)) {  // the descriptors' first fetch overlaps the set-up
@@ -193,13 +218,13 @@ __global__ void __launch_bounds__(threads_of<D>(), 1)
 #pragma unroll
     for (int j = 0; j < kDH; ++j) tma_load_4d(sQ + j * kBQ * kSwz, &tm_q, qbar, j * kSwz, c.h, c.q0, c.b);
   }
-  const TmaTiles<D> ring{sV, full, empty, c.kb0, c.kv_start, c.kv_valid, p.kv_valid_vec == nullptr, tid};
+  const TmaTiles<D, BK, kSplit> ring{sV, full, empty, c.kb0, c.kv_start, c.kv_valid, p.kv_valid_vec == nullptr, tid};
   if constexpr (kInline) {
     const int row = c.b * p.Hkv + c.hk;
     if (tid == 0)
       for (int it = 0; it < min(kStages, c.ntiles); ++it) load_tile<D, BK>(&tm_k, &tm_v, sK, sV, full, c.kb0, row, it);
     __syncwarp();
-    const InlineTiles<D> tiles{ring, &tm_k, &tm_v, sK, row, c.ntiles};
+    const InlineTiles<D, BK, kSplit> tiles{ring, &tm_k, &tm_v, sK, row, c.ntiles};
     consume<D, DR>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
   } else if (wg == kConsumers) {
     // ---- producer warpgroup: one thread issues every TMA load ----
@@ -242,27 +267,58 @@ cudaError_t launch(const void* q, const void* k, const void* v, const FlashParam
       !encode_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kvdims, kvstrides, kvbox,
                          CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, DR>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
+  if constexpr (D > 128)
+    if (p.splits > 1)
+      return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, DR, true>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
+  return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, DR, false>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
 }
 
 }  // namespace
 }  // namespace mllm
 
+// The most clusters of `cluster` CTAs (1..8) of the head_dim 256 kernel the
+// card keeps resident at once (its SMs, shared memory and GPC layout), in
+// *out; `flash_splits` schedules its grid on them. Returns the CUDA error code.
+extern "C" int mllm_flash_max_clusters(int cluster, int* out) {
+  using namespace mllm;
+  using namespace mllm::flash;
+  constexpr int kSmem = smem_bytes<256>();
+  const auto kernel = flash_fwd_kernel<256, 256, true>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads_of<256>());
+  cfg.dynamicSmemBytes = kSmem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, kernel, &cfg));
+}
+
 // Returns the CUDA error code of the launch (0 on success). kv_valid_vec and
 // kv_start may be null; q_offset_dev, a device int32, is read in place of
-// q_offset when it is not null (a captured loop's write head). The kernel does
-// not synchronise.
+// q_offset when it is not null (a captured loop's write head). `splits` is
+// the cluster size that shares a q-tile's keys at head_dim 256 (1..8; the
+// wrapper's `flash_splits`), 1 at the other head dims. The kernel does not
+// synchronise.
 extern "C" int mllm_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                          const void* kv_valid_vec, const void* kv_start,
                                          const void* q_offset_dev, int B, int Sq, int H, int Hkv,
                                          int Skv, int D, int q_offset, int kv_valid, int causal,
-                                         int window, float scale_log2, void* stream) {
+                                         int window, float scale_log2, int splits, void* stream) {
   using namespace mllm;
   using namespace mllm::flash;
+  // the key split is the head_dim 256 body's (splits 1 elsewhere)
+  if (splits < 1 || splits > kMaxSplits || (D != 256 && splits != 1)) return static_cast<int>(cudaErrorInvalidValue);
   const FlashParams p{static_cast<bf16*>(out), static_cast<const int*>(kv_valid_vec),
                       static_cast<const int*>(kv_start), B, Sq, H, Hkv, Skv, q_offset, kv_valid,
                       causal, window, (Sq + kBQ - 1) / kBQ, scale_log2,
-                      static_cast<const int*>(q_offset_dev)};
+                      static_cast<const int*>(q_offset_dev), splits};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch<64>(q, k, v, p, s);

@@ -38,6 +38,8 @@
 //    blockIdx.x 0 is the last tile of head 0. GQA by index (h -> h / n_rep).
 #pragma once
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace mllm {
@@ -55,13 +57,15 @@ constexpr int kSwz = 64;        // bf16 columns of one 128-byte swizzled box row
 // 128 KB, so two stages of them (320 KB) do not fit the SM's 227 KB; 64-key
 // tiles do (64 + 2 x 64 = 192 KB). A consumer thread then holds O at 64 x 256
 // f32 (128 registers) beside S (32) and P (16): more than the 168 registers
-// ptxas gives a thread of a 384-thread block. It gave 168 and spilled ~300
-// bytes with a producer warpgroup and setmaxnreg 240, and with a producer
-// warp alone (288 threads): it sizes a wgmma kernel's block in whole
-// warpgroups (the card, tools/attention_tune.py, PERF.md). So the kernel has
-// no producer: the two consumer warpgroups (256 threads, up to 255 registers
-// a thread) and their thread 0 issues the loads (InlineTiles,
-// flash_attention.cu).
+// ptxas gives a thread of a 384-thread block. With a producer warpgroup and
+// setmaxnreg 240 it gave 168 registers and spilled (240 bytes of stack),
+// with a producer warp alone (288 threads) the same: it sizes a wgmma
+// kernel's block in whole warpgroups, and the spilling kernel ran 1.46x
+// slower (the card, tools/attention_tune.py, PERF.md). So the kernel has
+// no producer: the two consumer warpgroups (256 threads, 202 registers a
+// thread) and their thread 0 issues the loads (InlineTiles,
+// flash_attention.cu). What bounds it, and the key split over a cluster
+// that answers it, are in flash_attention.cu.
 constexpr int kBKWide = 64;
 constexpr int kThreadsWide = 256;  // the consumer warpgroups only
 
@@ -83,7 +87,17 @@ struct FlashParams {
   int n_qtiles;
   float scale_log2;  // the factor of the f32 scores: scale * log2(e), or 1 for a pre-scaled q
   const int* q_offset_dev;  // a device int32 read in place of q_offset, or null
+  int splits;               // CTAs a q-tile (a cluster) that share its key tiles; 0 or 1: one
 };
+
+// The key split of a q-tile (head_dim 256): a cluster of `splits` CTAs owns
+// one (b, head, q-tile); of its ntiles key tiles, `used` =
+// min(splits, max(1, ntiles / kMinRun)) ranks take runs of whole tiles, rank
+// r the tiles [r ntiles / used, (r + 1) ntiles / used), and the others leave
+// at once. `flash_split_runs` in ops/flash_attention.py states the rule;
+// `flash_splits` there picks `splits` from the shapes alone.
+constexpr int kMinRun = 2;     // tiles a rank takes at least before a q-tile is split
+constexpr int kMaxSplits = 8;  // the portable cluster size
 
 __device__ __forceinline__ void named_barrier_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
@@ -109,16 +123,23 @@ struct CtaTiles {
   int b, h, hk, q0;
   int q_offset, kv_start, kv_valid;
   int lo, hi, kb0, ntiles;
+  int rank, used;  // this CTA's rank in its cluster and the ranks that hold tiles (`used` 1: no merge)
 };
 
-template <int BK = kBK>
+// kSplit: the kernel carries the key split (p.splits CTAs a q-tile); the
+// others take one CTA a q-tile and compile none of it.
+template <int BK = kBK, bool kSplit = false>
 __device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
   CtaTiles c;
-  // The heaviest q-tiles first: every head's last tile, then the one before.
+  // One cluster a (b, head, q-tile), the heaviest q-tiles first: every
+  // head's last tile, then the one before.
+  const int splits = kSplit ? max(p.splits, 1) : 1;
+  const unsigned cl = kSplit ? blockIdx.x / splits : blockIdx.x;  // unsigned: the divisions below stay cheap
+  c.rank = kSplit ? blockIdx.x % splits : 0;
   const int per_tile = p.H * p.B;
-  const int qt = p.n_qtiles - 1 - blockIdx.x / per_tile;
-  c.h = blockIdx.x % p.H;
-  c.b = (blockIdx.x / p.H) % p.B;
+  const int qt = p.n_qtiles - 1 - cl / per_tile;
+  c.h = cl % p.H;
+  c.b = (cl / p.H) % p.B;
   c.q0 = qt * kBQ;
   c.hk = c.h / (p.H / p.Hkv);
   // a device q_offset (a captured decode loop's write head) is read here, so
@@ -134,6 +155,14 @@ __device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
   }
   c.kb0 = (c.lo / BK) * BK;
   c.ntiles = c.hi > c.lo ? (c.hi - c.kb0 + BK - 1) / BK : 0;
+  c.used = 1;
+  if (kSplit && splits > 1) {  // this rank's run of the q-tile's tiles (see kMinRun)
+    const int n = c.ntiles;
+    c.used = min(splits, max(1, n / kMinRun));
+    const int first = c.rank * n / c.used, last = (c.rank + 1) * n / c.used;
+    c.kb0 += first * BK;
+    c.ntiles = c.rank < c.used ? last - first : 0;
+  }
   return c;
 }
 
@@ -244,6 +273,110 @@ __device__ __forceinline__ void pack_p(const float (&s)[BK / 2], uint32_t (&pf)[
   }
 }
 
+// Whether a `Tiles` carries the key split (`Tiles::kSplit`): the bf16
+// kernel's at head_dim 256 does; the others launch one CTA a q-tile.
+template <class T, class = void>
+struct split_of : std::false_type {};
+template <class T>
+struct split_of<T, std::void_t<decltype(T::kSplit)>> : std::integral_constant<bool, T::kSplit> {};
+
+// Where a split q-tile's partials lie, over Q and the ring once both
+// warpgroups are done with them: the unnormalised O of the CTA's 128 rows
+// (f32, rows padded so that a warp's float2 stores meet two-way at most),
+// each row's m (base 2) and l, and this rank's merge factors.
+template <int D>
+struct SplitSmem {
+  static constexpr int kPS = D + 8;
+  float o[kBQ][kPS];
+  float m[kBQ], l[kBQ];
+  float coef[kMaxSplits][kBQ];  // exp2(m_r - m) / l of each rank r, for this rank's rows
+};
+
+// The merge of a split q-tile (c.used > 1 ranks hold tiles): every rank
+// leaves its partial in its own shared memory; after a cluster barrier rank
+// r takes rows [r per, (r + 1) per) of the q-tile (per = ceil(rows / used)),
+// reads every rank's partial of them through distributed shared memory and
+// sums them in rank order (a fixed order, no atomics, no workspace); a
+// second barrier keeps each CTA until the others have read it. A row that no
+// rank saw a key of has l = 0 everywhere and is written as zeros.
+template <int D, int DR>
+__device__ __forceinline__ void merge_ranks(const FlashParams& p, const CtaTiles& c, const float (&o)[D / 2],
+                                            float m0, float m1, float l0, float l1, void* area, int wg,
+                                            int tid) {
+  using Part = SplitSmem<D>;
+  constexpr int kN = kConsumers * 128, kC4 = DR / 4;
+  auto& sp = *reinterpret_cast<Part*>(area);
+  const int warp = (tid % 128) / 32, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;
+  named_barrier_sync(kBarTile, kN);  // both warpgroups are done with Q and the ring
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    const int col = nb * 8 + t * 2;
+    *reinterpret_cast<float2*>(&sp.o[r0][col]) = make_float2(o[4 * nb], o[4 * nb + 1]);
+    *reinterpret_cast<float2*>(&sp.o[r0 + 8][col]) = make_float2(o[4 * nb + 2], o[4 * nb + 3]);
+  }
+  if (t == 0) {
+    sp.m[r0] = m0;
+    sp.l[r0] = l0;
+    sp.m[r0 + 8] = m1;
+    sp.l[r0 + 8] = l1;
+  }
+  cluster_sync();
+  const int rows = min(kBQ, p.Sq - c.q0), per = (rows + c.used - 1) / c.used;
+  const int ra = min(rows, c.rank * per), rb = min(rows, ra + per);
+  for (int i = tid; i < rb - ra; i += kN) {
+    float pm[kMaxSplits], pl[kMaxSplits];
+    float mx = kNegBig;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < c.used) {
+        pm[r] = ld_cluster_f32(map_rank(&sp.m[ra + i], r));
+        pl[r] = ld_cluster_f32(map_rank(&sp.l[ra + i], r));
+      }
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < c.used) mx = fmaxf(mx, pm[r]);
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < c.used) l += pl[r] * exp2f(pm[r] - mx);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < c.used) sp.coef[r][i] = exp2f(pm[r] - mx) * inv;
+  }
+  named_barrier_sync(kBarTile, kN);
+  uint32_t part[kMaxSplits];
+#pragma unroll
+  for (int r = 0; r < kMaxSplits; ++r)
+    if (r < c.used) part[r] = map_rank(&sp.o[0][0], r);
+  const long q_stride = (long)p.H * DR;
+  bf16* obase = p.o + ((long)c.b * p.Sq * p.H + c.h) * DR;
+  for (int i = tid; i < (rb - ra) * kC4; i += kN) {
+    const int row = ra + i / kC4, col = (i % kC4) * 4;
+    float4 a[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)  // every remote load first (one round trip)
+      if (r < c.used) a[r] = ld_cluster_f32x4(part[r] + (uint32_t)(row * Part::kPS + col) * 4);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < c.used) {
+        const float w = sp.coef[r][row - ra];
+        acc.x += w * a[r].x;
+        acc.y += w * a[r].y;
+        acc.z += w * a[r].z;
+        acc.w += w * a[r].w;
+      }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x, acc.y), hi = __floats2bfloat162_rn(acc.z, acc.w);
+    uint2 packed;
+    packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(obase + (c.q0 + row) * q_stride + col) = packed;
+  }
+  cluster_sync();  // no CTA leaves while another still reads its shared memory
+}
+
 // One consumer warpgroup (wg 0 or 1, 128 threads; tid the CTA's thread index)
 // from Q's arrival to its rows of the output. `tiles` supplies `wait_k`,
 // `release_k`, `wait_v`, `release_v` (above), `prepare_q(sQ, wg, wtid)`
@@ -338,6 +471,12 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
   }
 
   const float l0 = quad_sum(st.l0), l1 = quad_sum(st.l1);
+  if constexpr (split_of<Tiles>::value) {
+    if (c.used > 1) {  // a split q-tile: the ranks merge (Q and the ring hold the partials)
+      merge_ranks<D, DR>(p, c, o, st.m0, st.m1, l0, l1, sQ, wg, tid);
+      return;
+    }
+  }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   const long q_stride = (long)p.H * DR;
@@ -366,8 +505,8 @@ inline bool encode_q_map(CUtensorMap* map, const void* q, int B, int Sq, int H, 
                            CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// Launches `kernel(args...)` over one CTA a (b, head, q-tile) of `p`, as
-// clusters of one CTA:
+// Launches `kernel(args...)` over one cluster of p.splits CTAs (one, if 0)
+// a (b, head, q-tile) of `p`. With one CTA a cluster:
 // at the main row (B=1, Sq=1536) the plain launch's time was bimodal (27.3 or
 // 28.4 us between launches of one process), the cluster launch's steady at
 // the lower mode (PERF.md).
@@ -376,13 +515,14 @@ cudaError_t launch_flash(Kernel kernel, const FlashParams& p, int smem, cudaStre
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.n_qtiles * p.H * p.B);
+  const int splits = max(p.splits, 1);
+  cfg.gridDim = dim3(p.n_qtiles * p.H * p.B * splits);
   cfg.blockDim = dim3(Threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.x = splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;

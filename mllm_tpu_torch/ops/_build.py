@@ -41,9 +41,11 @@ _MEGA_COMMON = [*[_P] * 20, *[_I] * 10, _F, _F, _F, _P]
 # name -> argtypes of the C entry points in csrc/
 SIGNATURES = {
     # q, k, v, out, kv_valid_vec, kv_start, q_offset_dev, B, Sq, H, Hkv, Skv, D,
-    # q_offset, kv_valid, causal, window, scale_log2, stream
+    # q_offset, kv_valid, causal, window, scale_log2, splits, stream
     "mllm_flash_attention_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _F, _P],
+                                  _I, _I, _I, _I, _F, _I, _P],
+    # cluster, out (int32*)
+    "mllm_flash_max_clusters": [_I, _P],
     # q, k, v, out, kv_valid_vec, kv_start, B, H, Hkv, S, D,
     # kv_valid, window, scale_log2, splits, stream
     "mllm_decode_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

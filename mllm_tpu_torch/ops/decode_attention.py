@@ -62,13 +62,22 @@ def decode_split_ranges(lo: int, hi: int, splits: int, tile: int = DECODE_TILE) 
     return out
 
 
-def decode_splits(b: int, hkv: int, n_rep: int, s_max: int, sms: int) -> int:
+# CTAs an SM the bf16 dense kernel's grid aims at, by head_dim: at 64 its
+# tiles are TMA boxes, a CTA's ring 64 KB, and a CTA streams its tiles at a
+# pace of its own, so two CTAs an SM stream twice the bytes (PERF.md)
+DECODE_CTAS_PER_SM = {64: 2}
+
+
+def decode_splits(b: int, hkv: int, n_rep: int, s_max: int, sms: int, head_dim: Optional[int] = None) -> int:
     """The decode kernels' cluster size: enough CTAs per (b, KV head) that the
-    grid fills the card's `sms` SMs, at most DECODE_MAX_SPLITS and at most the
-    cache's tiles (`s_max` keys a sequence: the dense cache's S, or MAXB * 128
-    for the paged pool). Depends on the shapes only, never on a device length."""
+    grid fills the card's `sms` SMs (DECODE_CTAS_PER_SM[head_dim] CTAs an SM
+    for the bf16 dense kernel at that head_dim, else one), at most
+    DECODE_MAX_SPLITS and at most the cache's tiles (`s_max` keys a sequence:
+    the dense cache's S, or MAXB * 128 for the paged pool). Depends on the
+    shapes only, never on a device length."""
     groups = b * hkv * -(-n_rep // DECODE_HEADS)
-    return max(1, min(DECODE_MAX_SPLITS, -(-sms // groups), -(-s_max // DECODE_TILE)))
+    want = sms * DECODE_CTAS_PER_SM.get(head_dim, 1)
+    return max(1, min(DECODE_MAX_SPLITS, -(-want // groups), -(-s_max // DECODE_TILE)))
 
 
 def unpack4_planar(p: torch.Tensor) -> torch.Tensor:
@@ -140,7 +149,7 @@ def decode_attention(
     start_vec = kv_start_arg("decode_attention", kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
-    splits = decode_splits(b, hkv, h // hkv, s_max, sm_count(q.device.index or 0))
+    splits = decode_splits(b, hkv, h // hkv, s_max, sm_count(q.device.index or 0), d)
     out = torch.empty_like(q)
     err = _build.library().mllm_decode_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

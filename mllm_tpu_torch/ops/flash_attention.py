@@ -23,7 +23,9 @@ raises. Each wrapper counts its kernel launches in `.launches`.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import heapq
 from typing import Optional
 
 import torch
@@ -34,6 +36,109 @@ from ._common import (FLASH_HEAD_DIMS, check_kernel_args, check_quant_kv_args, f
                       refuse_grad)
 
 LOG2E = 1.4426950408889634
+FLASH_BQ = 128  # query rows a CTA of `csrc/flash_attention.cuh` (kBQ)
+FLASH_TILE_WIDE = 64  # keys a tile at head_dim 256 (kBKWide)
+FLASH_MIN_RUN = 2  # tiles a rank takes at least before a q-tile is split (kMinRun)
+FLASH_MAX_SPLITS = 8  # the largest cluster: the portable limit (kMaxSplits)
+FLASH_SPLIT_HEAD_DIMS = (256,)  # the bodies that split a q-tile's keys
+# flash_splits' cost model, in key tiles of one CTA (a tile's products took
+# ~2.07 us a CTA at head_dim 256): the fixed cost of a CTA (launch, Q's
+# load, the ring's first fill, the store; ~7.0 us) and that of a merge (the
+# partials through shared memory, two cluster barriers, the remote reads;
+# ~1.5-2.7 us), fitted to the chunk row at 1-8 CTAs a cluster (PERF.md)
+FLASH_CTA_COST = 3.4
+FLASH_MERGE_COST = 1.1
+
+
+def flash_qtile_tiles(q0: int, sq: int, q_offset: int, kv_valid: int, kv_start: int, causal: bool,
+                      window: Optional[int], skv: int) -> tuple[int, int]:
+    """(kb0, ntiles): the key tiles that q-tile rows [q0, q0 + 128) of one
+    sequence load, as `cta_tiles` (`csrc/flash_attention.cuh`) computes them
+    on the card from the device values: the keys [lo, hi) some row sees,
+    kv_start <= j < kv_valid and, when causal, j <= q_offset + s and
+    j > q_offset + s - window; tiles of FLASH_TILE_WIDE keys from kb0 = lo
+    rounded down."""
+    lo, hi = max(kv_start, 0), min(kv_valid, skv)
+    if causal:
+        hi = min(hi, q_offset + min(q0 + FLASH_BQ, sq))
+        if window:
+            lo = max(lo, q_offset + q0 - window + 1)
+    kb0 = lo // FLASH_TILE_WIDE * FLASH_TILE_WIDE
+    return kb0, (-(-(hi - kb0) // FLASH_TILE_WIDE) if hi > lo else 0)
+
+
+def flash_split_runs(ntiles: int, splits: int) -> list[tuple[int, int]]:
+    """The head_dim 256 kernel's division of a q-tile's `ntiles` key tiles
+    among the `splits` CTAs of its cluster: (first, count) of each rank.
+    `used` = min(splits, max(1, ntiles // FLASH_MIN_RUN)) ranks take runs of whole
+    tiles, rank r the tiles [r ntiles // used, (r + 1) ntiles // used); the
+    other ranks leave at once (count 0). A q-tile with used = 1 is written by
+    rank 0 as without a split; else the ranks' partials (m, l, O) are merged
+    in rank order. Each CTA computes its run on the card from the device
+    values, so this depends on ntiles, never on the host."""
+    if splits <= 1:
+        return [(0, ntiles)]
+    used = min(splits, max(1, ntiles // FLASH_MIN_RUN))
+    return [(r * ntiles // used, (r + 1) * ntiles // used - r * ntiles // used) if r < used else (ntiles, 0)
+            for r in range(splits)]
+
+
+@functools.lru_cache(maxsize=4096)
+def flash_splits(b: int, sq: int, skv: int, h: int, causal: bool, window: Optional[int],
+                 slots: tuple[int, ...], q_offset: Optional[int] = None, kv_valid: Optional[int] = None) -> int:
+    """The head_dim 256 kernel's cluster size: the CTAs that share one
+    q-tile's key tiles (`flash_split_runs`). slots[c - 1] is how many
+    clusters of c CTAs the card keeps resident at once
+    (`flash_cluster_slots`); 1 where the grid already runs four waves.
+
+    Else the size, of 1..len(slots), whose grid a greedy schedule finishes
+    first: the clusters in the grid's order (heaviest q-tiles first), each
+    onto the cluster slot that frees first, each costing its longest run plus
+    FLASH_CTA_COST (and FLASH_MERGE_COST when its q-tile is split); ties go
+    to the smaller cluster. A q-tile's tiles are estimated from q_offset and
+    kv_valid where the caller has them as host ints; a device value (None
+    here) is estimated from the shapes alone, as if the rows ended at the
+    cache's end (q_offset = skv - sq when causal, kv_valid = skv), the most a
+    causal chunk can see, so that a captured launch fits every position. The
+    kernel's ranks still compute their runs from the values on the card."""
+    nq = -(-sq // FLASH_BQ)
+    if b * h * nq >= 4 * slots[0]:
+        return 1
+    if q_offset is None:
+        q_offset = max(0, skv - sq) if causal else 0
+    kv_valid = skv if kv_valid is None else kv_valid
+    est = [flash_qtile_tiles(qt * FLASH_BQ, sq, q_offset, kv_valid, 0, causal, window, skv)[1] for qt in range(nq)]
+    best, best_span = 1, float("inf")
+    for c in range(1, len(slots) + 1):
+        if slots[c - 1] < 1:
+            continue
+        free = [0.0] * slots[c - 1]
+        for qt in reversed(range(nq)):
+            runs = [n for _, n in flash_split_runs(est[qt], c) if n > 0] or [0]
+            cost = max(runs) + FLASH_CTA_COST + (FLASH_MERGE_COST if len(runs) > 1 else 0.0)
+            for _ in range(b * h):
+                heapq.heappush(free, heapq.heappop(free) + cost)
+        span = max(free)
+        if span < best_span - 1e-9:
+            best, best_span = c, span
+    return best
+
+
+@functools.cache
+def flash_cluster_slots(device_index: int) -> tuple[int, ...]:
+    """How many clusters of 1..FLASH_MAX_SPLITS CTAs of the head_dim 256
+    kernel the card keeps resident at once (cudaOccupancyMaxActiveClusters:
+    clusters pack into GPCs, so 2-CTA clusters of a one-CTA-an-SM kernel may
+    fit fewer than sms / 2)."""
+    out = []
+    for c in range(1, FLASH_MAX_SPLITS + 1):
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = _build.library().mllm_flash_max_clusters(c, ctypes.addressof(n))
+        if err != 0:
+            raise RuntimeError(f"flash_attention: cluster occupancy query failed with CUDA error {err}")
+        out.append(n.value)
+    return tuple(out)
 
 
 def flash_attention_ref(
@@ -85,7 +190,9 @@ def flash_attention(
 
     head_dim is 64, 128, 256 or 80 (`FLASH_HEAD_DIMS`); 80 runs the 128 body
     over rows of 80 columns, TMA filling the rest with zeros in shared memory
-    (`csrc/flash_attention.cu`)."""
+    (`csrc/flash_attention.cu`). At 256 a cluster of `flash_splits` CTAs
+    shares each q-tile's keys (`flash_split_runs`) and merges its partials
+    in distributed shared memory: one launch."""
     if on_cpu(q):
         return flash_attention_ref(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                    kv_start=kv_start, causal=causal, window=window, scale=scale)
@@ -98,6 +205,12 @@ def flash_attention(
     start_vec = kv_start_arg("flash_attention", kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
+    splits = 1
+    if d in FLASH_SPLIT_HEAD_DIMS:
+        splits = flash_splits(b, sq, skv, h, bool(causal), window or None,
+                              flash_cluster_slots(q.device.index or 0),
+                              None if offset_dev is not None else offset_int,
+                              None if valid_vec is not None else valid_int)
     out = torch.empty_like(q)
     err = _build.library().mllm_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -105,7 +218,7 @@ def flash_attention(
         start_vec.data_ptr() if start_vec is not None else None,
         offset_dev.data_ptr() if offset_dev is not None else None,
         b, sq, h, hkv, skv, d, offset_int, valid_int, int(causal), int(window or 0),
-        scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+        scale * LOG2E, splits, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1

@@ -10,6 +10,11 @@
     python3 tools/attention_tune.py --kernel flash_quant \\
         --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc \\
         --variant raw128=mllm_tpu_torch/csrc:kRawRows=128 --variant bf16=x
+    python3 tools/attention_tune.py --kernel flash --wide \
+        --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc \
+        --variant c3=mllm_tpu_torch/csrc@3 --variant run3=mllm_tpu_torch/csrc:kMinRun=3 --variant sdpa=x
+    python3 tools/attention_tune.py --kernel decode --geo64 --rows probe \
+        --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc --variant sdpa=x
 
 A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...][@SPLITS]: `csrc/flash_attention.cu`,
 `csrc/decode_attention.cu`, `decode_attention_quant.cu`,
@@ -19,9 +24,12 @@ headers it includes (directly or through another header) set to VALUE (e.g.
 kTile, kStages, kBK, kRawRows) in a copy under build/kernels/tune (the source
 and those headers), compiled alone with nvcc for sm_90a (every variant's nvcc started at
 once) and called through its C entry point.
-`@SPLITS` fixes the decode kernels' cluster size instead of the wrapper's rule
-(`decode_splits`). A directory whose decode entry point takes no cluster size
-(an older tree's kernel) is called without one. The variant named `sdpa`
+`@SPLITS` fixes the cluster size (the decode kernels', and the flash kernel's at
+head_dim 256) instead of the rule of the variant's own tree (`decode_splits`,
+`flash_splits`, imported from the package that holds its csrc, so a parent
+tree's kernel gets the cluster size its wrapper gave it). A directory whose
+entry point takes no cluster size (an older tree's kernel) is called without
+one. The variant named `sdpa`
 is PyTorch's scaled_dot_product_attention over the same keys (main rows);
 with `--kernel decode_quant` (`csrc/decode_attention_quant.cu`, rows
 chip_smoke.QUANT_DECODE_ROWS at int8 and then int4) the variant named `bf16`
@@ -40,8 +48,10 @@ wrapper ran it: the elementwise pre-scale of q, then the kernel.
 For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (with `--wide`,
 FLASH_ROWS_256 or DECODE_ROWS_256 at head_dim 256, chip_smoke.WIDE_GEO; the
 quantized kernels' and the paged one's rows at WIDE_GEO, flash_quant's
-QUANT_FLASH_ROWS_256; or
-only the main row, `--rows main`), the variants run in turns, in order then in reverse, `--reps`
+QUANT_FLASH_ROWS_256; with `--geo64`, FLASH_ROWS_64 or DECODE_ROWS_64 at
+chip_smoke.GEO64; with `--kernel flash --geo80`, FLASH80_ROWS, non-causal; or
+only the main row, `--rows main`; or the main row and one tile of keys at its
+batch, `--rows probe`), the variants run in turns, in order then in reverse, `--reps`
 times, each timed as chip_smoke.time_ms times a kernel (20 launches behind a
 GPU spin); one JSON line per row and variant gives every time, the median and
 max |kernel - plain version|. Prints the card's name and power limit first.
@@ -52,6 +62,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import importlib
+import importlib.util
 import json
 import os
 import re
@@ -149,9 +161,10 @@ def build_variants(kind: str, variants: list, out_dir: str) -> list:
     for var, text, lib, proc in jobs:
         if proc is not None:
             out = proc.communicate()[0]
-            log = [ln.strip() for ln in out.splitlines()
-                   if "registers" in ln or "spill" in ln or "warning" in ln or "error" in ln]
-            print(json.dumps(dict(build=var["name"], rc=proc.returncode, ptxas=log)), flush=True)
+            warnings = [ln.strip() for ln in out.splitlines() if "warning" in ln or "error" in ln]
+            # [kernel, registers, spill stores, spill loads] of every kernel of the variant's source
+            print(json.dumps(dict(build=var["name"], rc=proc.returncode, ptxas=chip_smoke.ptxas_summary(out),
+                                  warnings=warnings)), flush=True)
             if proc.returncode != 0:
                 raise RuntimeError(out)
         handle = ctypes.CDLL(lib)
@@ -178,6 +191,47 @@ def build_variants(kind: str, variants: list, out_dir: str) -> list:
     return handles
 
 
+def tree_ops(csrc: str, mod: str):
+    """ops/<mod>.py of the package that holds csrc: this one's, or another
+    tree's imported under a name of its own (its imports are relative), so a
+    variant's kernel gets the cluster size its own wrapper would give it."""
+    pkg = os.path.dirname(os.path.abspath(csrc))
+    if pkg == os.path.dirname(os.path.dirname(os.path.abspath(_build.__file__))):
+        return importlib.import_module(f"mllm_tpu_torch.ops.{mod}")
+    name = "tree_" + hashlib.sha256(pkg.encode()).hexdigest()[:12]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                      submodule_search_locations=[pkg])
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return importlib.import_module(f"{name}.ops.{mod}")
+
+
+def tree_decode_splits(var: dict, b: int, hkv: int, n_rep: int, skv: int, d: int) -> int:
+    """The variant's cluster size: its `@SPLITS`, else its own tree's
+    `decode_splits` as the bf16 dense wrapper calls it (with head_dim where
+    that tree's rule takes it)."""
+    if var["splits"]:
+        return var["splits"]
+    rule = tree_ops(var["csrc"], "decode_attention").decode_splits
+    try:
+        return rule(b, hkv, n_rep, skv, sm_count(0), head_dim=d)
+    except TypeError:
+        return rule(b, hkv, n_rep, skv, sm_count(0))
+
+
+def tree_flash_splits(var: dict, b: int, sq: int, skv: int, h: int, window, d: int, q_offset: int,
+                      kv_valid) -> int:
+    """The variant's flash cluster size: its `@SPLITS`, else its own tree's
+    `flash_splits` over the card's resident cluster slots as its wrapper
+    calls it (the host q_offset, and kv_valid where it is one host int; 1 at
+    a head_dim that tree does not split)."""
+    ops = tree_ops(var["csrc"], "flash_attention")
+    if d not in ops.FLASH_SPLIT_HEAD_DIMS:
+        return 1
+    return ops.flash_splits(b, sq, skv, h, True, window or None, ops.flash_cluster_slots(0), q_offset, kv_valid)
+
+
 def caller(kind: str, var: dict, q, k, v, kw):
     """A no-argument call of the variant's kernel on these inputs (the
     variant "sdpa": PyTorch's scaled_dot_product_attention over the same keys,
@@ -186,7 +240,8 @@ def caller(kind: str, var: dict, q, k, v, kw):
         kvl = kw["kv_valid_len"]
         n = int(kvl[0]) if isinstance(kvl, torch.Tensor) else int(kvl)
         return lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k[:, :, :n], v[:, :, :n], is_causal=kind == "flash", enable_gqa=True)
+            q.transpose(1, 2), k[:, :, :n], v[:, :, :n], is_causal=kind == "flash" and kw.get("causal", True),
+            enable_gqa=True)
     out = torch.empty_like(q)
     b, sq, h, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -198,11 +253,14 @@ def caller(kind: str, var: dict, q, k, v, kw):
     scale = d**-0.5 * LOG2E
     window = int(kw.get("window") or 0)
     if kind == "flash":
+        splits = var["splits"] or (tree_flash_splits(var, b, sq, skv, h, window, d, kw["q_offset"],
+                                                     None if vec is not None else int(kvl))
+                                   if var["with_splits"] else 1)
         args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(vec), ptr(start), *[None] * var["dev_scalars"], b, sq, h, hkv, skv, d,
-                kw["q_offset"], 0 if vec is not None else int(kvl), 1, window, scale,
-                *([var["splits"] or 1] if var["with_splits"] else []), stream)
+                kw["q_offset"], 0 if vec is not None else int(kvl), int(kw.get("causal", True)), window, scale,
+                *([splits] if var["with_splits"] else []), stream)
     else:
-        splits = var["splits"] or decode_splits(b, hkv, h // hkv, skv, sm_count(0))
+        splits = tree_decode_splits(var, b, hkv, h // hkv, skv, d)
         args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(vec), ptr(start), b, h, hkv, skv, d, 0, window,
                 scale, *([splits] if var["with_splits"] else []), stream)
 
@@ -382,13 +440,35 @@ def main_quant(args, variants, dev):
             time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape, kb)["bound_ms"])
 
 
+def main_geo80(args, variants, dev):
+    """--kernel flash --geo80: chip_smoke.FLASH80_ROWS (the Qwen2-VL tower's
+    attention: non-causal, 16 / 16 heads of 80), against flash_attention_ref."""
+    h, hkv, d = chip_smoke.FLASH80_GEO
+    rows = chip_smoke.FLASH80_ROWS[:1] if args.rows == "main" else chip_smoke.FLASH80_ROWS
+    g = torch.Generator(device=dev).manual_seed(1234)
+    for b, s, kvl, poisoned in rows:
+        q = torch.randn(b, s, h, d, device=dev, generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(b, hkv, s, d, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        kp, vp = k, v
+        if poisoned:
+            (k, kp), (v, vp) = (chip_smoke.poison_outside(x, [0] * b, [kvl] * b) for x in (k, v))
+        kw = dict(q_offset=0, kv_valid_len=kvl, window=None, causal=False)
+        ref = flash_attention_ref(q, kp, vp, kv_valid_len=kvl, causal=False).float()
+        shape = dict(B=b, Sq=s, Skv=s, H=h, Hkv=hkv, D=d, kv_valid=kvl, causal=False, poisoned=poisoned)
+        runs = [caller("flash", var, q, k, v, kw) for var in variants]
+        nbound = chip_smoke.bound(2 * b * s * h * d * 2 + kvl * hkv * d * 2 * 2, 4 * b * s * kvl * h * d)
+        time_variants(args, variants, runs, ref, shape, nbound["bound_ms"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--kernel", choices=("flash", "decode", "decode_quant", "paged", "flash_quant"), required=True)
     ap.add_argument("--variant", action="append", required=True)
-    ap.add_argument("--rows", choices=("main", "all"), default="all")
+    ap.add_argument("--rows", choices=("main", "probe", "all"), default="all")
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--wide", action="store_true", help="the kernel's rows at head_dim 256")
+    ap.add_argument("--geo64", action="store_true", help="the kernel's rows at head_dim 64 (chip_smoke.GEO64)")
+    ap.add_argument("--geo80", action="store_true", help="flash only: chip_smoke.FLASH80_ROWS (non-causal, 80)")
     args = ap.parse_args()
     chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
@@ -402,15 +482,25 @@ def main():
         return main_paged(args, variants, dev)
     if args.kernel == "flash_quant":
         return main_flash_quant(args, variants, dev)
+    if args.geo80:
+        return main_geo80(args, variants, dev)
     kind = "flash_attention" if args.kernel == "flash" else "decode_attention"
+    flash = args.kernel == "flash"
     if args.wide:
-        row_list = chip_smoke.FLASH_ROWS_256 if args.kernel == "flash" else chip_smoke.DECODE_ROWS_256
+        row_list = chip_smoke.FLASH_ROWS_256 if flash else chip_smoke.DECODE_ROWS_256
         geo, main_row = chip_smoke.WIDE_GEO, chip_smoke.MAIN_ROW[kind + "@256"]
+    elif args.geo64:
+        row_list = chip_smoke.FLASH_ROWS_64 if flash else chip_smoke.DECODE_ROWS_64
+        geo, main_row = chip_smoke.GEO64, chip_smoke.MAIN_ROW[kind + "@64"]
     else:
-        row_list = chip_smoke.FLASH_ROWS if args.kernel == "flash" else chip_smoke.DECODE_ROWS
+        row_list = chip_smoke.FLASH_ROWS if flash else chip_smoke.DECODE_ROWS
         geo, main_row = (chip_smoke.H, chip_smoke.HKV, chip_smoke.D), chip_smoke.MAIN_ROW[kind]
     if args.rows == "main":
         row_list = [row_list[main_row]]
+    elif args.rows == "probe":  # the main row, then one tile of keys at the main row's batch
+        one_tile = (row_list[main_row][0], 128, 0, 128, None, None, False) if flash else \
+            (row_list[main_row][0], [64] * row_list[main_row][0], None, None, False)
+        row_list = [row_list[main_row], one_tile]
     plain = flash_attention_ref if args.kernel == "flash" else decode_attention_ref
     g = torch.Generator(device=dev).manual_seed(1234)
     for row in row_list:
