@@ -318,7 +318,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   calls before; their launches are slice_kvq256's), and checks
   decode_attention_paged at 256 over PAGED_ROWS' pools; and flash_attention
   at head_dim 80 (FLASH80_ROWS: non-causal, 16 / 16 heads, S = 1444, 1024,
-  4096, and 1444 with kv_valid 1300 and NaN / inf past it), the kernel
+  4096, and 1444 with kv_valid 1300 and NaN / inf past it), the kernel (its
+  own body: a 64-column and a 16-column box a row, a persistent grid)
   against its plain version (<= 2e-2) timed beside the padded design
   (`padded_ms`: q/k/v zero-padded to 128 in memory, the D = 128 kernel, the
   output cropped) and SDPA at D = 80 (`library_ms`): the `@80` row of the
@@ -330,7 +331,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   poisoned rows, a window, B=1 and B=8 included; <= 2e-2 and <= 0.1 by
   `row_rel_err`, which a plain version short of 64 keys must exceed), beside
   their bounds and SDPA:
-  the `@64` rows of the kernels line, whose launches are slice_openelm's.
+  the `@64` rows of the kernels line, whose launches are slice_openelm's;
+  then flash_attention@64's persistent grid with a device q_offset
+  (NARROW_SCALAR_ROWS: a 512-row chunk at q_offset 1024 and the 256-row
+  chunk of `demo_llm --chunked 256` at 1280, over 1536 keys, launched
+  directly and replayed from a CUDA graph at three offsets, each replay
+  bit-equal to the direct launch, all within 2e-2 of the plain version) and at the bench's
+  other head_dim 64 GQA ratios (FLASH64_GQA_GEOS: TinyLlama-1.1B's 32 / 4
+  and Qwen MoE 0.8B's 16 / 8 heads, the 1536-token prompt) beside SDPA.
+  The build line lists [kernel, registers, spill stores, spill loads] for
+  every kernel; a bf16 flash kernel that spills fails the build phase.
   Every phase after the build prints its seconds (`<phase>_seconds`).
   Launch counts with graphs: a wrapper counts where it launches, so inside a
   capture once per recorded launch; the phases that replay graphs restate
@@ -490,7 +500,12 @@ def phase_build():
 
     path, log, seconds = _build.build()
     _build.library()
-    emit(phase="build", seconds=round(seconds, 3), library=path, ptxas=ptxas_summary(log))
+    ptxas = ptxas_summary(log)
+    emit(phase="build", seconds=round(seconds, 3), library=path, ptxas=ptxas)
+    # the bf16 flash kernels (csrc/flash_attention.cu) must not spill
+    spilled = [k for k in ptxas if k[0].startswith(("flash_fwd_kernel", "flash_narrow_kernel")) and (k[2] or k[3])]
+    if spilled:
+        raise AssertionError(f"flash kernels spill registers (kernel, registers, stores, loads): {spilled}")
 
 
 def ptxas_summary(log: str) -> list:
@@ -3177,7 +3192,7 @@ def wide_kernel_rows(dev, g) -> dict:
                                                   flash_attention_ref, FLASH_ROWS_256, dev, g, WIDE_GEO),
             "decode_attention@256": attention_rows("decode_attention@256", "decode_attention", decode_attention,
                                                    decode_attention_ref, DECODE_ROWS_256, dev, g, WIDE_GEO)}
-    wide_device_scalar_row(dev, g)
+    device_scalar_row(dev, g, WIDE_GEO, WIDE_SCALAR_ROW)
     rows.update(quant_attention_rows(dev, g, QUANT_FLASH_ROWS_256, QUANT_DECODE_ROWS, WIDE_GEO, "@256",
                                      route_sdpa=True))
     worst = 0.0
@@ -3201,18 +3216,21 @@ def wide_kernel_rows(dev, g) -> dict:
 WIDE_SCALAR_ROW = (512, 1536, (1024, 0, 512))
 
 
-def wide_device_scalar_row(dev, g) -> None:
-    """flash_attention at head_dim 256 (WIDE_GEO) with q_offset a one-element
-    int32 tensor on the card, launched directly at each offset and from a
+def device_scalar_row(dev, g, geo, scalar_row) -> None:
+    """flash_attention at `geo` with q_offset a one-element int32 tensor on
+    the card, launched directly at each offset of `scalar_row` and from a
     CUDA graph replayed with the offset changed between replays: each replay
     bit-equal to the direct launch at the same value, and the direct
-    launches and those with the host int (whose cluster size may differ: the
-    host value enters `flash_splits`) within TOL of the plain version."""
-    from mllm_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_ref, flash_cluster_slots,
-                                                    flash_splits)
+    launches and those with the host int within TOL of the plain version.
+    At WIDE_GEO (head_dim 256) it reaches the cluster key split, each rank's
+    run worked out from the device value (the host int enters
+    `flash_splits`, so its cluster size may differ); at GEO64 the persistent
+    grid, each CTA reading the device value for every unit (cluster size 1
+    either way)."""
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref, flash_launch_splits
 
-    sq, kvl, offsets = WIDE_SCALAR_ROW
-    h, hkv, d = WIDE_GEO
+    sq, kvl, offsets = scalar_row
+    h, hkv, d = geo
     q = torch.randn(1, sq, h, d, device=dev, generator=g).to(torch.bfloat16)
     k, v = (torch.randn(1, hkv, S_CACHE, d, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
     off = torch.full((), offsets[0], dtype=torch.int32, device=dev)
@@ -3227,14 +3245,14 @@ def wide_device_scalar_row(dev, g) -> None:
     err = max((x.float() - flash_attention_ref(q, k, v, q_offset=o, kv_valid_len=kvl).float()).abs().max().item()
               for xs in (host, direct) for x, o in zip(xs, offsets))
     finite = all(bool(torch.isfinite(x.float()).all()) for x in host + direct)
-    slots = flash_cluster_slots(dev.index or 0)
-    emit(phase="kernel_check_device_scalars", kernel="flash_attention@256",
+    idx = dev.index or 0
+    emit(phase="kernel_check_device_scalars", kernel=f"flash_attention@{d}",
          shape=dict(B=1, Sq=sq, H=h, Hkv=hkv, D=d, S=S_CACHE, kv_valid=kvl, q_offsets=list(offsets)),
-         splits_device=flash_splits(1, sq, S_CACHE, h, True, None, slots),
-         splits_host=[flash_splits(1, sq, S_CACHE, h, True, None, slots, o, kvl) for o in offsets],
+         splits_device=flash_launch_splits(1, sq, S_CACHE, h, d, True, None, idx, None, None),
+         splits_host=[flash_launch_splits(1, sq, S_CACHE, h, d, True, None, idx, o, kvl) for o in offsets],
          replays_bit_equal=same, max_abs_err_vs_plain=err, tolerance=TOL, finite=finite)
     if not (all(same) and err <= TOL and finite):
-        raise AssertionError(f"flash_attention@256 device q_offset: replays bit-equal {same}, "
+        raise AssertionError(f"flash_attention@{d} device q_offset: replays bit-equal {same}, "
                              f"vs plain {err} (tolerance {TOL}), finite={finite}")
 
 
@@ -3264,7 +3282,7 @@ def flash80_padded(q, k, v, **kw):
 
 def flash80_rows(dev, g) -> list:
     """flash_attention at head_dim 80, non-causal (FLASH80_ROWS): the kernel
-    (rows of 80 columns, TMA's zero fill to the 128 body) and the padded
+    (rows of 80 columns: a 64-column and a 16-column box) and the padded
     design against the plain version (max abs error <= TOL and <=
     FLASH80_REL_TOL x mean |plain|, finite, the poisoned row's plain version on
     the rows zeroed), timed beside the padded design (`padded_ms`), SDPA at D = 80 over
@@ -4562,7 +4580,42 @@ def head_dim64_rows(dev, g) -> dict:
                                                   decode_attention_ref, DECODE_ROWS_64, dev, g, GEO64,
                                                   HEAD64_REL_TOL)}
     head64_gate_power(dev, g)
+    for row in NARROW_SCALAR_ROWS:
+        device_scalar_row(dev, g, GEO64, row)
+    head_dim64_gqa_rows(dev, g)
     return rows
+
+
+# the head_dim 64 body's persistent grid with a device q_offset (GEO64): a
+# 512-row chunk at q_offset 1024 over 1536 keys of the 2048-row cache (128
+# units), and the 256-row chunk that `demo_llm --chunked 256` sends at
+# q_offset 1280 (64 units, so 64 CTAs), each with the q_offsets its launches
+# and replays are given
+NARROW_SCALAR_ROWS = [(512, 1536, (1024, 0, 512)), (256, 1536, (1280, 0, 768))]
+# flash_attention@64 at the bench's other head_dim 64 models (bench.py):
+# TinyLlama-1.1B (32 / 4 heads) and Qwen MoE 0.8B (16 / 8), the 1536-token
+# prompt's bucket (FLASH_ROWS_64[0]), each beside SDPA
+FLASH64_GQA_GEOS = {"tinyllama-1.1b": (32, 4, 64), "qwen2moe-0.8b": (16, 8, 64)}
+
+
+def head_dim64_gqa_rows(dev, g) -> list:
+    """flash_attention@64 at FLASH64_GQA_GEOS' GQA ratios: the kernel against
+    its plain version (<= TOL, <= HEAD64_REL_TOL by row_rel_err), timed beside
+    SDPA and the bound."""
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    out = []
+    row = FLASH_ROWS_64[MAIN_ROW["flash_attention@64"]]
+    for model, geo in FLASH64_GQA_GEOS.items():
+        q, k, v, kp, vp, kw, shape = attention_inputs("flash_attention", row, dev, g, geo)
+        shape["model"] = model
+        kvl = shape["kv_valid"]
+        library = (lambda q=q, k=k, v=v, kvl=kvl: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl], is_causal=True, enable_gqa=True))
+        out.append(check_attention_row("flash_attention@64", lambda: flash_attention(q, k, v, **kw),
+                                       lambda: flash_attention_ref(q, kp, vp, **kw), shape, library,
+                                       HEAD64_REL_TOL))
+    return out
 
 
 def head64_gate_power(dev, g) -> None:

@@ -72,13 +72,31 @@
 //    threads, setmaxnreg 24 / 240) was measured again: ptxas caps the block
 //    at 168 registers and puts 240 bytes on the stack, and the main row ran
 //    1.46x slower (PERF.md).
-//  - head_dim 80 (the Qwen2-VL / Qwen2.5-VL vision towers, non-causal): the
-//    D = 128 body over rows of 80 columns (`launch<128, 80>`): the tensor
-//    maps describe the rows as they lie and TMA zero-fills columns 80-127 of
-//    the second box in shared memory, Q K^T issues 5 k-steps instead of 8,
-//    and the epilogue stores 80 columns. No padded copy reaches memory. (The
-//    reference pads q/k/v to 128 lanes in memory, `attend_padded_head`; that
-//    design, timed beside this one, is in PERF.md.)
+//  - head_dim 64 (OpenELM, TinyLlama, the Qwen MoE 0.8B prefills, causal) and
+//    80 (the Qwen2-VL / Qwen2.5-VL vision towers, non-causal): a body of
+//    their own (`flash_narrow_kernel`). What bounds them at their main rows
+//    (1536 causal rows of 32 heads; 1444 rows of 16 heads): a 128 x 128 tile
+//    took ~1.36 µs at 64 and ~1.57 at 80 on the 128 body, 2.4x and 1.7x its
+//    products at one SM's share of the peak (PERF.md), and every CTA paid
+//    ~3-4 µs fixed (launch, Q, the ring's first fill, the store) with
+//    nothing beside it. The consumer warps are bound by the instructions they
+//    issue, not by the MUFU (FMA-pipe exponentials and split reduction chains
+//    were slower, PERF.md). So: (1) O at D / 2 = 32 or 40 registers leaves
+//    room for S, P and O at once under the 168 a thread of 384 gets, and the
+//    overlapped loop (`consume_overlapped`) issues tile it + 1's S beside
+//    tile it's P V in one turn and runs its softmax while that P V does;
+//    three ring stages keep its loads ahead. (2) 80 is one 64-column box
+//    (128-byte swizzle) and a 16-column rest box (32-byte swizzle) read
+//    through maps of their own; P V is m64n64k16 plus m64n16k16, so no work
+//    lands on zero columns and no padded copy reaches memory. (The
+//    reference pads q/k/v to 128 lanes in memory, `attend_padded_head`.)
+//    (3) A launch of one CTA a q-tile is a persistent grid: one CTA an SM
+//    walks its units of the heaviest-first list in alternating rounds
+//    (`narrow_unit`), its producer loading the next unit's Q (two buffers)
+//    and tiles while the current unit runs, so a CTA's fixed cost is paid
+//    once. Neither narrow body splits a q-tile's keys over a cluster: a
+//    short chunk over a long cache (`demo_llm --chunked`) runs one CTA a
+//    unit on as many SMs as it has units (PERF.md).
 // The consumer warpgroups' code (products, softmax, turns, tile ranges and
 // the epilogue) is flash_attention.cuh, which flash_attention_quant.cu shares;
 // this file holds the TMA producer and the stale-V-row pass.
@@ -95,7 +113,7 @@ using namespace flash;
 // in P V), each a share of the rows, then meet. With one kv_valid for the
 // batch (`tma_bounded`) the tensor map ends at it, so TMA itself writes
 // zeros past it and only rows before kv_start need the pass.
-template <int D, int BK = block_k<D>(), bool kSplitKeys = false>
+template <int D, int BK = block_k<D>(), bool kSplitKeys = false, int NS = kStages>
 struct TmaTiles {
   static constexpr bool kSplit = kSplitKeys;  // a q-tile's keys split over a cluster (head_dim 256)
   bf16* sV;
@@ -104,18 +122,24 @@ struct TmaTiles {
   int kb0, kv_start, kv_valid;
   bool tma_bounded;
   int tid;
+  int base = 0;  // the ring slot of tile 0 (a persistent CTA's earlier units took the slots before)
 
   __device__ __forceinline__ void wait_k(int it) const {
-    constexpr int kDH = D / kSwz;
-    const int stage = it % kStages, kb = kb0 + it * BK;
-    mbar_wait(&full[stage], (it / kStages) & 1);
+    const int stage = (base + it) % NS, kb = kb0 + it * BK;
+    mbar_wait(&full[stage], ((base + it) / NS) & 1);
     if (kb < kv_start || (!tma_bounded && kb + BK > kv_valid)) {
-      bf16* vt = sV + stage * kDH * BK * kSwz;
-      for (int i = tid; i < BK * kDH * 8; i += kConsumers * 128) {
-        const int r = i / (kDH * 8), c = i % (kDH * 8);  // key row, 16-byte chunk
+      bf16* vt = sV + stage * BK * D;
+      constexpr int kChunks = D / 8;  // 16-byte chunks a key row
+      constexpr int kWide8 = wide_cols<D>() / 8;  // of them in the 64-column boxes
+      for (int i = tid; i < BK * kChunks; i += kConsumers * 128) {
+        const int r = i / kChunks, c = i % kChunks;  // key row, 16-byte chunk
         const int key = kb + r;
-        if (key < kv_start || key >= kv_valid)
-          *reinterpret_cast<uint4*>(vt + ((c / 8) * BK + r) * kSwz + (c % 8) * 8) = make_uint4(0, 0, 0, 0);
+        if (key < kv_start || key >= kv_valid) {
+          bf16* at = vt + ((c / 8) * BK + r) * kSwz + (c % 8) * 8;
+          if constexpr (D % kSwz != 0)  // a chunk of a 16-column box
+            if (c >= kWide8) at = vt + kWide8 * 8 * BK + (((c - kWide8) / 2) * BK + r) * 16 + (c - kWide8) % 2 * 8;
+          *reinterpret_cast<uint4*>(at) = make_uint4(0, 0, 0, 0);
+        }
       }
       fence_proxy_async();  // the zeros reach wgmma's (async-proxy) reads
       named_barrier_sync(kBarTile, kConsumers * 128);
@@ -123,7 +147,7 @@ struct TmaTiles {
   }
   __device__ __forceinline__ void release_k(int) const {}
   __device__ __forceinline__ void wait_v(int) const {}
-  __device__ __forceinline__ void release_v(int it) const { mbar_arrive(&empty[it % kStages]); }
+  __device__ __forceinline__ void release_v(int it) const { mbar_arrive(&empty[(base + it) % NS]); }
   __device__ __forceinline__ void prepare_q(bf16*, int, int) const {}
   __device__ __forceinline__ void refill(int) const {}
 };
@@ -174,7 +198,7 @@ static_assert(sizeof(SplitSmem<256>) <= (kBQ + 2 * kStages * block_k<256>()) * 2
 
 // kSplit: the head_dim 256 kernel of a launch with more than one CTA a
 // q-tile (p.splits > 1); with one, the kernel that carries none of it.
-template <int D, int DR, bool kSplit>
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(threads_of<D>(), 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const FlashParams p) {
@@ -225,7 +249,7 @@ __global__ void __launch_bounds__(threads_of<D>(), 1)
       for (int it = 0; it < min(kStages, c.ntiles); ++it) load_tile<D, BK>(&tm_k, &tm_v, sK, sV, full, c.kb0, row, it);
     __syncwarp();
     const InlineTiles<D, BK, kSplit> tiles{ring, &tm_k, &tm_v, sK, row, c.ntiles};
-    consume<D, DR>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
+    consume<D>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
   } else if (wg == kConsumers) {
     // ---- producer warpgroup: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
@@ -237,31 +261,215 @@ __global__ void __launch_bounds__(threads_of<D>(), 1)
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<D, DR>(p, c, sQ, sK, sV, qbar, ring, wg, tid);
+    consume<D>(p, c, sQ, sK, sV, qbar, ring, wg, tid);
   }
 }
 
-// D is the body's head width, DR the width of a q/k/v/out row in memory:
-// D, or 80 on the D = 128 body. A row of 80 columns is described to TMA as
-// it lies (a 160-byte stride, a multiple of 16 as TMA needs); its second
-// 64-column box then covers columns 64-127, of which 80-127 lie outside the
-// tensor and land in shared memory as zeros (TMA still counts the whole box
-// toward the barrier's bytes). So no padded copy is made in memory, Q K^T
-// skips the k-steps of zeros, and P V runs the D = 128 product whose
-// columns 80-127 are dropped at the store.
-template <int D, int DR = D>
+// The narrow bodies: head_dim 64, and 80 as one 64-column box and a rest box
+// of 16 columns (flash_attention.cuh) read through maps of their own in the
+// 32-byte swizzle. The producer warpgroup and the consumers' turns as the
+// 128 body, with the overlapped loop (`kOverlap`). The grid is persistent:
+// one CTA an SM walks its units of the heaviest-first list (`narrow_unit`),
+// its producer loading the next unit's Q (two Q buffers) and first tiles
+// while the consumers finish the current one; the ring's slots run on
+// across units.
+constexpr int kNarrowStages = 3;  // bf16 K/V tiles in the narrow bodies' ring
+
+template <int D>
+struct NarrowTiles : TmaTiles<D, kBK, false, kNarrowStages> {
+  static constexpr bool kOverlap = true;
+};
+
+template <int D>
+constexpr int narrow_smem_bytes() {
+  return (2 * kBQ + 2 * kNarrowStages * kBK) * D * 2 + 1024 /* alignment */ + 8 * (2 * 2 + 2 * kNarrowStages);
+}
+static_assert(narrow_smem_bytes<80>() <= 232448, "head_dim 80: two Q buffers and the narrow ring fit");
+
+// The k-th unit of CTA `cta` of a persistent grid of `ctas`: rounds of
+// `ctas` units of the heaviest-first list (`unit_tiles`), forward in even
+// rounds and backward in odd ones, so that a CTA's heavy units pair with
+// light ones. A unit past the list's end: the CTA is done.
+// `flash_persistent_units` in ops/flash_attention.py states the same.
+__device__ __forceinline__ int narrow_unit(int k, int cta, int ctas) {
+  return k * ctas + ((k & 1) ? ctas - 1 - cta : cta);
+}
+
+// Tile `it` of a narrow unit (keys kb0 + it * kBK on) into ring slot `slot`:
+// its K and V boxes of 64 columns, then of 16 (wide_cols).
+template <int D>
+__device__ __forceinline__ void load_narrow_tile(const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                                 const CUtensorMap* tm_kr, const CUtensorMap* tm_vr, bf16* sK,
+                                                 bf16* sV, uint64_t* full, int kb0, int row, int it, int slot) {
+  constexpr int kWide = wide_cols<D>();
+  const int stage = slot % kNarrowStages, kb = kb0 + it * kBK;
+  mbar_arrive_expect_tx(&full[stage], 2 * kBK * D * 2);
+  bf16* kt = sK + stage * kBK * D;
+  bf16* vt = sV + stage * kBK * D;
+#pragma unroll
+  for (int j = 0; j < kWide / kSwz; ++j) {
+    tma_load_3d(kt + j * kBK * kSwz, tm_k, &full[stage], j * kSwz, kb, row);
+    tma_load_3d(vt + j * kBK * kSwz, tm_v, &full[stage], j * kSwz, kb, row);
+  }
+#pragma unroll
+  for (int i = 0; i < (D - kWide) / 16; ++i) {
+    tma_load_3d(kt + kWide * kBK + i * kBK * 16, tm_kr, &full[stage], kWide + i * 16, kb, row);
+    tma_load_3d(vt + kWide * kBK + i * kBK * 16, tm_vr, &full[stage], kWide + i * 16, kb, row);
+  }
+}
+
+// A unit's Q (its boxes of 64 columns, then of 16) into sQ on `bar`.
+template <int D>
+__device__ __forceinline__ void load_narrow_q(const CUtensorMap* tm_q, const CUtensorMap* tm_qr, bf16* sQ,
+                                              uint64_t* bar, const CtaTiles& c) {
+  constexpr int kWide = wide_cols<D>();
+  mbar_arrive_expect_tx(bar, kBQ * D * 2);
+#pragma unroll
+  for (int j = 0; j < kWide / kSwz; ++j) tma_load_4d(sQ + j * kBQ * kSwz, tm_q, bar, j * kSwz, c.h, c.q0, c.b);
+#pragma unroll
+  for (int i = 0; i < (D - kWide) / 16; ++i)
+    tma_load_4d(sQ + kWide * kBQ + i * kBQ * 16, tm_qr, bar, kWide + i * 16, c.h, c.q0, c.b);
+}
+
+// tm_qr / tm_kr / tm_vr: the maps of the 16-column boxes (head_dim 80; at 64 unused).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_narrow_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_qr,
+                        const __grid_constant__ CUtensorMap tm_kr, const __grid_constant__ CUtensorMap tm_vr,
+                        const FlashParams p) {
+  constexpr int kQBufs = 2;
+  constexpr int NS = kNarrowStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(base);  // [kQBufs][kBQ * D] (wide_cols)
+  bf16* sK = sQ + kQBufs * kBQ * D;          // [NS][kBK * D]
+  bf16* sV = sK + NS * kBK * D;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(sV + NS * kBK * D);  // [2]: a Q buffer landed
+  uint64_t* qempty = qfull + 2;                                      // [2]: the consumers are done with it
+  uint64_t* full = qempty + 2;
+  uint64_t* empty = full + NS;
+
+  const int n_units = p.n_qtiles * p.H * p.B;
+  const int tid = threadIdx.x;
+  const int loader = kConsumers * 128;  // the producer warpgroup's first thread
+  if (tid == loader) {
+    tma_prefetch(&tm_q);
+    tma_prefetch(&tm_k);
+    tma_prefetch(&tm_v);
+    if constexpr (D % kSwz != 0) {
+      tma_prefetch(&tm_qr);
+      tma_prefetch(&tm_kr);
+      tma_prefetch(&tm_vr);
+    }
+  }
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qfull[i], 1);
+      mbar_init(&qempty[i], kConsumers * 128);
+    }
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers * 128);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const bool bounded = p.kv_valid_vec == nullptr;
+  if (wg == kConsumers) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid != loader) return;
+    int slot = 0;
+    for (int k = 0;; ++k) {
+      const int u = narrow_unit(k, blockIdx.x, gridDim.x);
+      if (u >= n_units) break;
+      const CtaTiles c = unit_tiles<kBK>(p, u);
+      if (k >= 2) mbar_wait(&qempty[k & 1], ((k >> 1) - 1) & 1);
+      load_narrow_q<D>(&tm_q, &tm_qr, sQ + (k & 1) * kBQ * D, &qfull[k & 1], c);  // every unit's, seen or not
+      for (int it = 0; it < c.ntiles; ++it, ++slot) {
+        if (slot >= NS) mbar_wait(&empty[slot % NS], (slot / NS - 1) & 1);
+        load_narrow_tile<D>(&tm_k, &tm_v, &tm_kr, &tm_vr, sK, sV, full, c.kb0, c.b * p.Hkv + c.hk, it, slot);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    int slot = 0;
+    for (int k = 0;; ++k) {
+      const int u = narrow_unit(k, blockIdx.x, gridDim.x);
+      if (u >= n_units) break;
+      const CtaTiles c = unit_tiles<kBK>(p, u);
+      mbar_wait(&qfull[k & 1], (k >> 1) & 1);  // also a unit with no tile: its Q landed before the buffer is freed
+      const NarrowTiles<D> ring{{sV, full, empty, c.kb0, c.kv_start, c.kv_valid, bounded, tid, slot}};
+      consume<D, NarrowTiles<D>, kBK, NS>(p, c, sQ + (k & 1) * kBQ * D, sK, sV, &qfull[k & 1], ring, wg, tid,
+                                          (k >> 1) & 1);
+      mbar_arrive(&qempty[k & 1]);
+      slot += c.ntiles;
+    }
+  }
+}
+
+// A narrow body's launch: maps over rows of D columns as they lie, read in
+// 64-column boxes in the 128-byte swizzle, and at head_dim 80 the rest maps
+// (16-column boxes from column 64, 32-byte swizzle).
+template <int D>
+cudaError_t launch_narrow(const void* q, const void* k, const void* v, const FlashParams& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tqr, tkr, tvr;
+  const int rows = p.kv_valid_vec ? p.Skv : max(1, min(p.kv_valid, p.Skv));
+  const cuuint64_t kvdims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)p.B * p.Hkv};
+  const cuuint64_t kvstrides[2] = {(cuuint64_t)D * 2, (cuuint64_t)p.Skv * D * 2};
+  const cuuint32_t kvbox[3] = {kSwz, kBK, 1};
+  if (!encode_q_map(&tq, q, p.B, p.Sq, p.H, D) ||
+      !encode_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kvdims, kvstrides, kvbox,
+                         CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kvdims, kvstrides, kvbox,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  tqr = tq;
+  tkr = tk;
+  tvr = tv;
+  if constexpr (D % kSwz != 0) {  // boxes of 16 columns, 32-byte swizzle
+    const cuuint64_t qdims[4] = {(cuuint64_t)D, (cuuint64_t)p.H, (cuuint64_t)p.Sq, (cuuint64_t)p.B};
+    const cuuint64_t qstrides[3] = {(cuuint64_t)D * 2, (cuuint64_t)p.H * D * 2, (cuuint64_t)p.Sq * p.H * D * 2};
+    const cuuint32_t qbox[4] = {16, 1, kBQ, 1};
+    const cuuint32_t rbox[3] = {16, kBK, 1};
+    if (!encode_tensor_map(&tqr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, q, qdims, qstrides, qbox,
+                           CU_TENSOR_MAP_SWIZZLE_32B) ||
+        !encode_tensor_map(&tkr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kvdims, kvstrides, rbox,
+                           CU_TENSOR_MAP_SWIZZLE_32B) ||
+        !encode_tensor_map(&tvr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kvdims, kvstrides, rbox,
+                           CU_TENSOR_MAP_SWIZZLE_32B))
+      return cudaErrorInvalidValue;
+  }
+  // the persistent grid: one CTA an SM, or one a unit where there are fewer
+  // (one-CTA clusters, as launch_flash: the steadier times)
+  int device = 0, sms = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  return launch_clusters(flash_narrow_kernel<D>, min(p.n_qtiles * p.H * p.B, sms), 1, narrow_smem_bytes<D>(), stream,
+                         tq, tk, tv, tqr, tkr, tvr, p);
+}
+
+// The 128 and 256 bodies' launch: maps over rows of D columns, read in
+// 64-column boxes with the 128-byte swizzle.
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const FlashParams& p,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   // one kv_valid for the batch: the key rows end there, and TMA fills the
   // rows past it with zeros (a per-sequence kv_valid is zeroed in the kernel)
   const int rows = p.kv_valid_vec ? p.Skv : max(1, min(p.kv_valid, p.Skv));
-  const cuuint64_t kvdims[3] = {(cuuint64_t)DR, (cuuint64_t)rows, (cuuint64_t)p.B * p.Hkv};
-  const cuuint64_t kvstrides[2] = {(cuuint64_t)DR * 2, (cuuint64_t)p.Skv * DR * 2};
+  const cuuint64_t kvdims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)p.B * p.Hkv};
+  const cuuint64_t kvstrides[2] = {(cuuint64_t)D * 2, (cuuint64_t)p.Skv * D * 2};
   const cuuint32_t kvbox[3] = {kSwz, block_k<D>(), 1};
   // bf16 maps whose innermost dimension is D, read in boxes of 64 columns
   // with the 128-byte swizzle; elements outside the tensor load as zeros
-  if (!encode_q_map(&tq, q, p.B, p.Sq, p.H, DR) ||
+  if (!encode_q_map(&tq, q, p.B, p.Sq, p.H, D) ||
       !encode_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kvdims, kvstrides, kvbox,
                          CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kvdims, kvstrides, kvbox,
@@ -269,8 +477,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const FlashParam
     return cudaErrorInvalidValue;
   if constexpr (D > 128)
     if (p.splits > 1)
-      return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, DR, true>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
-  return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, DR, false>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
+      return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, true>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
+  return launch_flash<threads_of<D>()>(flash_fwd_kernel<D, false>, p, smem_bytes<D>(), stream, tq, tk, tv, p);
 }
 
 }  // namespace
@@ -283,7 +491,7 @@ extern "C" int mllm_flash_max_clusters(int cluster, int* out) {
   using namespace mllm;
   using namespace mllm::flash;
   constexpr int kSmem = smem_bytes<256>();
-  const auto kernel = flash_fwd_kernel<256, 256, true>;
+  const auto kernel = flash_fwd_kernel<256, true>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -321,8 +529,8 @@ extern "C" int mllm_flash_attention_bf16(const void* q, const void* k, const voi
                       static_cast<const int*>(q_offset_dev), splits};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(q, k, v, p, s);
-    case 80: return launch<128, 80>(q, k, v, p, s);  // the vision towers' heads (Qwen2-VL)
+    case 64: return launch_narrow<64>(q, k, v, p, s);  // OpenELM, TinyLlama, Qwen MoE 0.8B
+    case 80: return launch_narrow<80>(q, k, v, p, s);  // the vision towers' heads (Qwen2-VL)
     case 128: return launch<128>(q, k, v, p, s);
     case 256: return launch<256>(q, k, v, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -126,16 +126,12 @@ struct CtaTiles {
   int rank, used;  // this CTA's rank in its cluster and the ranks that hold tiles (`used` 1: no merge)
 };
 
-// kSplit: the kernel carries the key split (p.splits CTAs a q-tile); the
-// others take one CTA a q-tile and compile none of it.
-template <int BK = kBK, bool kSplit = false>
-__device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
+// The (b, head, q-tile) of unit `cl` of the heaviest-first list (every
+// head's last q-tile, then the one before) and its key tiles, unsplit.
+template <int BK = kBK>
+__device__ __forceinline__ CtaTiles unit_tiles(const FlashParams& p, unsigned cl) {  // unsigned: cheap divisions
   CtaTiles c;
-  // One cluster a (b, head, q-tile), the heaviest q-tiles first: every
-  // head's last tile, then the one before.
-  const int splits = kSplit ? max(p.splits, 1) : 1;
-  const unsigned cl = kSplit ? blockIdx.x / splits : blockIdx.x;  // unsigned: the divisions below stay cheap
-  c.rank = kSplit ? blockIdx.x % splits : 0;
+  c.rank = 0;
   const int per_tile = p.H * p.B;
   const int qt = p.n_qtiles - 1 - cl / per_tile;
   c.h = cl % p.H;
@@ -156,6 +152,17 @@ __device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
   c.kb0 = (c.lo / BK) * BK;
   c.ntiles = c.hi > c.lo ? (c.hi - c.kb0 + BK - 1) / BK : 0;
   c.used = 1;
+  return c;
+}
+
+// kSplit: the kernel carries the key split (p.splits CTAs a q-tile); the
+// others take one CTA a q-tile and compile none of it.
+template <int BK = kBK, bool kSplit = false>
+__device__ __forceinline__ CtaTiles cta_tiles(const FlashParams& p) {
+  // One cluster a (b, head, q-tile), the heaviest q-tiles first.
+  const int splits = kSplit ? max(p.splits, 1) : 1;
+  CtaTiles c = unit_tiles<BK>(p, kSplit ? blockIdx.x / splits : blockIdx.x);
+  c.rank = kSplit ? blockIdx.x % splits : 0;
   if (kSplit && splits > 1) {  // this rank's run of the q-tile's tiles (see kMinRun)
     const int n = c.ntiles;
     c.used = min(splits, max(1, n / kMinRun));
@@ -185,35 +192,63 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// S = Q K^T for tile `it`: this warpgroup's 64 rows x kBK keys, over the
-// DR columns that hold data (rounded up to 16) in k-steps of 16 (both operands
-// K-major, 128-byte swizzled). Columns past DR are TMA's zero fill, so the
-// steps that would cover only them are not issued.
-template <int D, int BK = block_k<D>(), int DR = D, int NS = kStages>
+// S = Q K^T for tile `it`: this warpgroup's 64 rows x kBK keys, in k-steps
+// of 16 columns (both operands K-major, 128-byte swizzled).
+// A body whose D is not a multiple of 64 (80) keeps its last D % 64 columns
+// in 16-column boxes in the 32-byte swizzle (rows of 32 bytes, 256 bytes an
+// 8-row block) after its 64-column boxes: Q is [wide / 64][kBQ][64] then
+// [(D - wide) / 16][kBQ][16], a ring stage likewise over BK rows (BK * D
+// elements a stage), wide = wide_cols<D>. (Every column of 80 in 16-column
+// boxes, P V then one m64n80k16 a k-step, was slower: PERF.md.)
+template <int D>
+__host__ __device__ constexpr int wide_cols() {
+  return D / kSwz * kSwz;
+}
+
+// S = Q K^T for tile `it`: this warpgroup's 64 rows x kBK keys, in k-steps
+// of 16 columns (both operands K-major).
+template <int D, int BK = block_k<D>(), int NS = kStages>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], const bf16* sQ, const bf16* sK, int it,
                                          int wg) {
-  constexpr int kDH = D / kSwz;
-  const bf16* kt = sK + (it % NS) * kDH * BK * kSwz;
+  constexpr int kWide = wide_cols<D>();
+  const bf16* kt = sK + (it % NS) * BK * D;
 #pragma unroll
-  for (int kk = 0; kk < (DR + 15) / 16; ++kk) {
+  for (int kk = 0; kk < kWide / 16; ++kk) {  // the 64-column boxes, 128-byte swizzled
     const int j = kk / 4, w = kk % 4;  // 64-column box, 16-column step inside it
     const uint64_t da = wgmma_desc(sQ + (j * kBQ + wg * 64) * kSwz + w * 16, 16, 1024);
     const uint64_t db = wgmma_desc(kt + j * BK * kSwz + w * 16, 16, 1024);
     wgmma_ss(s, da, db, kk > 0);
+  }
+#pragma unroll
+  for (int i = 0; i < (D - kWide) / 16; ++i) {  // the 16-column boxes, 32-byte swizzled
+    const uint64_t da = wgmma_desc_sw32(sQ + kWide * kBQ + (i * kBQ + wg * 64) * 16, 16, 256);
+    const uint64_t db = wgmma_desc_sw32(kt + kWide * BK + i * BK * 16, 16, 256);
+    wgmma_ss(s, da, db, kWide > 0 || i > 0);
   }
   wgmma_commit();
 }
 
 // O += P V for tile `it`: V is [keys][64-column boxes], MN-major for wgmma
 // (transpose bit); LBO steps between the boxes, SBO between 8-key groups.
+// At D = 80 the product is m64n64k16 over the 64-column box into o[0, 32)
+// and m64n16k16 over the 16-column box into o[32, 40): the accumulator
+// layout of one m64n80 product.
 template <int D, int BK = block_k<D>(), int NS = kStages>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pf)[BK / 16][4],
                                          const bf16* sV, int it) {
-  constexpr int kDH = D / kSwz;
-  const bf16* vt = sV + (it % NS) * kDH * BK * kSwz;
+  constexpr int kWide = wide_cols<D>();
+  const bf16* vt = sV + (it % NS) * BK * D;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    wgmma_rs(o, pf[kk], wgmma_desc(vt + kk * 16 * kSwz, BK * kSwz * 2, 1024));
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if constexpr (kWide == D) {
+      wgmma_rs(o, pf[kk], wgmma_desc(vt + kk * 16 * kSwz, BK * kSwz * 2, 1024));
+    } else {
+      static_assert(kWide == 64 && D == 80, "one 64-column box and a rest box of 16");
+      wgmma_rs(reinterpret_cast<float(&)[32]>(o[0]), pf[kk], wgmma_desc(vt + kk * 16 * kSwz, BK * kSwz * 2, 1024));
+      wgmma_rs_n16(reinterpret_cast<float(&)[8]>(o[32]), pf[kk],
+                   wgmma_desc_sw32(vt + BK * kSwz + kk * 16 * 16, 32, 256));
+    }
+  }
   wgmma_commit();
 }
 
@@ -280,6 +315,14 @@ struct split_of : std::false_type {};
 template <class T>
 struct split_of<T, std::void_t<decltype(T::kSplit)>> : std::integral_constant<bool, T::kSplit> {};
 
+// Whether a `Tiles` runs the overlapped loop (`Tiles::kOverlap`, the narrow
+// bf16 bodies at head_dim 64 and 80): tile it + 1's S is issued beside tile
+// it's P V in one turn, and its softmax runs while that P V does.
+template <class T, class = void>
+struct overlap_of : std::false_type {};
+template <class T>
+struct overlap_of<T, std::void_t<decltype(T::kOverlap)>> : std::integral_constant<bool, T::kOverlap> {};
+
 // Where a split q-tile's partials lie, over Q and the ring once both
 // warpgroups are done with them: the unnormalised O of the CTA's 128 rows
 // (f32, rows padded so that a warp's float2 stores meet two-way at most),
@@ -299,12 +342,12 @@ struct SplitSmem {
 // sums them in rank order (a fixed order, no atomics, no workspace); a
 // second barrier keeps each CTA until the others have read it. A row that no
 // rank saw a key of has l = 0 everywhere and is written as zeros.
-template <int D, int DR>
+template <int D>
 __device__ __forceinline__ void merge_ranks(const FlashParams& p, const CtaTiles& c, const float (&o)[D / 2],
                                             float m0, float m1, float l0, float l1, void* area, int wg,
                                             int tid) {
   using Part = SplitSmem<D>;
-  constexpr int kN = kConsumers * 128, kC4 = DR / 4;
+  constexpr int kN = kConsumers * 128, kC4 = D / 4;
   auto& sp = *reinterpret_cast<Part*>(area);
   const int warp = (tid % 128) / 32, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = wg * 64 + warp * 16 + g;
@@ -350,8 +393,8 @@ __device__ __forceinline__ void merge_ranks(const FlashParams& p, const CtaTiles
 #pragma unroll
   for (int r = 0; r < kMaxSplits; ++r)
     if (r < c.used) part[r] = map_rank(&sp.o[0][0], r);
-  const long q_stride = (long)p.H * DR;
-  bf16* obase = p.o + ((long)c.b * p.Sq * p.H + c.h) * DR;
+  const long q_stride = (long)p.H * D;
+  bf16* obase = p.o + ((long)c.b * p.Sq * p.H + c.h) * D;
   for (int i = tid; i < (rb - ra) * kC4; i += kN) {
     const int row = ra + i / kC4, col = (i % kC4) * 4;
     float4 a[kMaxSplits];
@@ -377,20 +420,106 @@ __device__ __forceinline__ void merge_ranks(const FlashParams& p, const CtaTiles
   cluster_sync();  // no CTA leaves while another still reads its shared memory
 }
 
+// The overlapped loop of one warpgroup (`overlap_of<Tiles>`), tiles
+// [0, ntiles) of which it computes [it_a, it_b) (tile it in ring slot
+// tiles.base + it: a persistent CTA's earlier units took the slots before):
+// one turn a tile plus one, the same count in both warpgroups whatever their
+// ranges, and before turn t < ntiles `wait_k(t)`, as the plain loop orders
+// them (both warpgroups meet in wait_k's stale-V pass). Turn it_a issues
+// S of tile it_a; turn it (it_a < it < it_b) issues S of tile it and then P V
+// of tile it - 1, and the softmax of tile it runs while that P V does
+// (wgmma_wait<1>); turn it_b issues P V of tile it_b - 1. A turn of a tile
+// outside the range issues nothing. Registers: O (D / 2), S (BK / 2) and
+// the P in flight (BK / 4) live at once, 128 at D = 64 and 136 at 80.
+template <int D, class Tiles, int BK, int NS>
+__device__ __forceinline__ void consume_overlapped(const FlashParams& p, const Tiles& tiles, const bf16* sQ,
+                                                   const bf16* sK, const bf16* sV, const RowKeys& rows,
+                                                   float (&o)[D / 2], RowStats& st, int kb0, int ntiles,
+                                                   int it_a, int it_b, int wg, int t) {
+  auto skip_tile = [&](int it) {
+    tiles.wait_k(it);
+    wait_turn(wg);
+    pass_turn(wg);
+    tiles.release_k(it);
+    tiles.refill(it);
+    tiles.wait_v(it);
+    tiles.release_v(it);
+  };
+  for (int it = 0; it < it_a; ++it) skip_tile(it);
+  if (it_a < it_b) {
+    float s[BK / 2];
+    uint32_t pf[BK / 16][4];
+    float a0, a1;
+    tiles.wait_k(it_a);
+    wait_turn(wg);
+    wgmma_fence();
+    issue_qk<D, BK, NS>(s, sQ, sK, tiles.base + it_a, wg);
+    pass_turn(wg);
+    wgmma_wait<0>();
+    wgmma_fence_operands(s);
+    tiles.release_k(it_a);
+    online_softmax<BK>(s, kb0 + it_a * BK + 2 * t, rows, p.scale_log2, st, a0, a1);
+    tiles.refill(it_a);
+    pack_p<BK>(s, pf);  // O is still zero: nothing to rescale
+    for (int it = it_a + 1; it < it_b; ++it) {
+      tiles.wait_k(it);
+      tiles.wait_v(it - 1);
+      wait_turn(wg);
+      wgmma_fence();
+      issue_qk<D, BK, NS>(s, sQ, sK, tiles.base + it, wg);
+      issue_pv<D, BK, NS>(o, pf, sV, tiles.base + it - 1);
+      pass_turn(wg);
+      wgmma_wait<1>();  // S of tile it; P V of tile it - 1 may still run
+      wgmma_fence_operands(s);
+      tiles.release_k(it);
+      online_softmax<BK>(s, kb0 + it * BK + 2 * t, rows, p.scale_log2, st, a0, a1);
+      tiles.refill(it);
+      wgmma_wait<0>();
+      wgmma_fence_operands(o);
+      wgmma_fence_operands(pf);  // P's registers stay reserved until its product is done
+      tiles.release_v(it - 1);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+      pack_p<BK>(s, pf);
+    }
+    if (it_b < ntiles) tiles.wait_k(it_b);
+    tiles.wait_v(it_b - 1);
+    wait_turn(wg);
+    wgmma_fence();
+    issue_pv<D, BK, NS>(o, pf, sV, tiles.base + it_b - 1);
+    pass_turn(wg);
+    wgmma_wait<0>();
+    wgmma_fence_operands(o);
+    wgmma_fence_operands(pf);
+    tiles.release_v(it_b - 1);
+    if (it_b < ntiles) {  // the rest of tile it_b's skip
+      tiles.release_k(it_b);
+      tiles.refill(it_b);
+      tiles.wait_v(it_b);
+      tiles.release_v(it_b);
+    }
+    for (int it = it_b + 1; it < ntiles; ++it) skip_tile(it);
+    if (it_b == ntiles) return;  // its extra turn was tile it_b - 1's P V
+  } else {
+    for (int it = it_a; it < ntiles; ++it) skip_tile(it);
+  }
+  wait_turn(wg);  // the extra turn: nothing to issue
+  pass_turn(wg);
+}
+
 // One consumer warpgroup (wg 0 or 1, 128 threads; tid the CTA's thread index)
 // from Q's arrival to its rows of the output. `tiles` supplies `wait_k`,
 // `release_k`, `wait_v`, `release_v` (above), `prepare_q(sQ, wg, wtid)`
 // (called by every thread of the warpgroup once Q has landed, before its
 // first product) and `refill(it)` (called after the softmax of tile `it`, or
 // where it would be: a kernel without a producer loads the ring there).
-// DR is the width of a row of q and the output in memory: D, or fewer columns
-// than the body's D (head_dim 80 on the D = 128 body, whose columns 80-127
-// TMA fills with zeros in shared memory); only DR columns are stored. NS is
-// the number of ring stages (tile `it` in stage it % NS).
-template <int D, int DR = D, class Tiles, int BK = block_k<D>(), int NS = kStages>
+// NS is the number of ring stages (tile `it` in stage (tiles.base + it) %
+// NS: a persistent CTA's earlier units took the slots before); q_parity the
+// phase of qbar that holds this Q.
+template <int D, class Tiles, int BK = block_k<D>(), int NS = kStages>
 __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c, bf16* sQ, const bf16* sK,
                                         const bf16* sV, uint64_t* qbar, const Tiles& tiles, int wg,
-                                        int tid) {
+                                        int tid, uint32_t q_parity = 0) {
   const int wtid = tid % 128;
   const int warp = wtid / 32, lane = tid & 31, g = lane >> 2, t = lane & 3;
   // This thread's rows of the CTA: r0 and r0 + 8, and the keys each sees:
@@ -421,11 +550,14 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
 
   // Per tile: S, softmax, P V. The two warpgroups issue their products in
   // turns, so one's softmax runs while the other's products hold the tensor
-  // cores. (Issuing S of the next tile beside P V of this one needs S, P and
-  // O live at once, ~180 registers: under the 168 that 384 threads leave,
-  // ptxas spilled it and the main row ran 30 % slower; PERF.md.)
+  // cores. At D = 128 a tile's S is not issued beside the last tile's P V:
+  // S, P and O live at once need ~180 registers, over the 168 that 384
+  // threads leave (ptxas spilled it and the main row ran 30 % slower;
+  // PERF.md). At D <= 80 O is 32 or 40 registers and they fit (128 / 136):
+  // the narrow bodies' Tiles take the overlapped loop (`consume_overlapped`),
+  // which at 64 took a tile from ~1.36 to ~1.1 µs.
   if (ntiles > 0) {
-    mbar_wait(qbar, 0);
+    mbar_wait(qbar, q_parity);
     tiles.prepare_q(sQ, wg, wtid);
     if (wg == 1) pass_turn(wg);  // warpgroup 0 issues first
     auto skip_tile = [&](int it) {
@@ -439,52 +571,55 @@ __device__ __forceinline__ void consume(const FlashParams& p, const CtaTiles& c,
       pass_turn(wg);
       tiles.release_v(it);
     };
-    for (int it = 0; it < it_a; ++it) skip_tile(it);
-    for (int it = it_a; it < it_b; ++it) {
-      float s[BK / 2];
-      uint32_t pf[BK / 16][4];
-      float a0, a1;
-      tiles.wait_k(it);
-      wait_turn(wg);
-      wgmma_fence();
-      issue_qk<D, BK, DR, NS>(s, sQ, sK, it, wg);
-      pass_turn(wg);
-      wgmma_wait<0>();
-      wgmma_fence_operands(s);
-      tiles.release_k(it);
-      online_softmax<BK>(s, kb0 + it * BK + 2 * t, rows, p.scale_log2, st, a0, a1);
-      tiles.refill(it);
+    if constexpr (overlap_of<Tiles>::value) {
+      consume_overlapped<D, Tiles, BK, NS>(p, tiles, sQ, sK, sV, rows, o, st, kb0, ntiles, it_a, it_b, wg, t);
+    } else {
+      for (int it = 0; it < it_a; ++it) skip_tile(it);
+      for (int it = it_a; it < it_b; ++it) {
+        float s[BK / 2];
+        uint32_t pf[BK / 16][4];
+        float a0, a1;
+        tiles.wait_k(it);
+        wait_turn(wg);
+        wgmma_fence();
+        issue_qk<D, BK, NS>(s, sQ, sK, it, wg);
+        pass_turn(wg);
+        wgmma_wait<0>();
+        wgmma_fence_operands(s);
+        tiles.release_k(it);
+        online_softmax<BK>(s, kb0 + it * BK + 2 * t, rows, p.scale_log2, st, a0, a1);
+        tiles.refill(it);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
-      pack_p<BK>(s, pf);
-      tiles.wait_v(it);
-      wait_turn(wg);
-      wgmma_fence();
-      issue_pv<D, BK, NS>(o, pf, sV, it);
-      pass_turn(wg);
-      wgmma_wait<0>();
-      wgmma_fence_operands(o);
-      tiles.release_v(it);
+        for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? a1 : a0;
+        pack_p<BK>(s, pf);
+        tiles.wait_v(it);
+        wait_turn(wg);
+        wgmma_fence();
+        issue_pv<D, BK, NS>(o, pf, sV, it);
+        pass_turn(wg);
+        wgmma_wait<0>();
+        wgmma_fence_operands(o);
+        tiles.release_v(it);
+      }
+      for (int it = it_b; it < ntiles; ++it) skip_tile(it);
     }
-    for (int it = it_b; it < ntiles; ++it) skip_tile(it);
     if (wg == 0) wait_turn(wg);  // the turn warpgroup 1 passed last has no taker
   }
 
   const float l0 = quad_sum(st.l0), l1 = quad_sum(st.l1);
   if constexpr (split_of<Tiles>::value) {
     if (c.used > 1) {  // a split q-tile: the ranks merge (Q and the ring hold the partials)
-      merge_ranks<D, DR>(p, c, o, st.m0, st.m1, l0, l1, sQ, wg, tid);
+      merge_ranks<D>(p, c, o, st.m0, st.m1, l0, l1, sQ, wg, tid);
       return;
     }
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const long q_stride = (long)p.H * DR;
-  bf16* obase = p.o + ((long)c.b * p.Sq * p.H + c.h) * DR;
+  const long q_stride = (long)p.H * D;
+  bf16* obase = p.o + ((long)c.b * p.Sq * p.H + c.h) * D;
   const int row0 = c.q0 + r0, row1 = row0 + 8;
-  static_assert(DR % 8 == 0 && DR <= D, "whole 8-column groups of the body's accumulator");
 #pragma unroll
-  for (int nb = 0; nb < DR / 8; ++nb) {
+  for (int nb = 0; nb < D / 8; ++nb) {
     const int col = nb * 8 + t * 2;
     if (row0 < p.Sq)
       *reinterpret_cast<__nv_bfloat162*>(obase + row0 * q_stride + col) =
@@ -505,24 +640,21 @@ inline bool encode_q_map(CUtensorMap* map, const void* q, int B, int Sq, int H, 
                            CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// Launches `kernel(args...)` over one cluster of p.splits CTAs (one, if 0)
-// a (b, head, q-tile) of `p`. With one CTA a cluster:
-// at the main row (B=1, Sq=1536) the plain launch's time was bimodal (27.3 or
-// 28.4 us between launches of one process), the cluster launch's steady at
-// the lower mode (PERF.md).
+// Launches `kernel(args...)` on `grid` CTAs in clusters of `cluster`, with
+// `smem` bytes of dynamic shared memory; returns the launch's error.
 template <int Threads = kThreads, class Kernel, class... Args>
-cudaError_t launch_flash(Kernel kernel, const FlashParams& p, int smem, cudaStream_t stream, const Args&... args) {
+cudaError_t launch_clusters(Kernel kernel, int grid, int cluster, int smem, cudaStream_t stream,
+                            const Args&... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  const int splits = max(p.splits, 1);
-  cfg.gridDim = dim3(p.n_qtiles * p.H * p.B * splits);
+  cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(Threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -530,6 +662,17 @@ cudaError_t launch_flash(Kernel kernel, const FlashParams& p, int smem, cudaStre
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Launches `kernel(args...)` over one cluster of p.splits CTAs (one, if 0)
+// a (b, head, q-tile) of `p`. With one CTA a cluster:
+// at the main row (B=1, Sq=1536) the plain launch's time was bimodal (27.3 or
+// 28.4 us between launches of one process), the cluster launch's steady at
+// the lower mode (PERF.md).
+template <int Threads = kThreads, class Kernel, class... Args>
+cudaError_t launch_flash(Kernel kernel, const FlashParams& p, int smem, cudaStream_t stream, const Args&... args) {
+  const int splits = max(p.splits, 1);
+  return launch_clusters<Threads>(kernel, p.n_qtiles * p.H * p.B * splits, splits, smem, stream, args...);
 }
 
 }  // namespace flash

@@ -510,7 +510,7 @@ __global__ void __launch_bounds__(kThreadsWide, 1)
     for (int q = 0; q < min(W::kRaw, tiles.parts); ++q) tiles.issue(q);
   }
   __syncwarp();
-  consume<D, D, WideTiles<D, kInt4>, kBKWide, 1>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
+  consume<D, WideTiles<D, kInt4>, kBKWide, 1>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
 }
 
 // The stored rows (kRows a box) and scales maps of one call, and the launch

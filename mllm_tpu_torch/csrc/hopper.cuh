@@ -196,6 +196,15 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint
          (1ull << 62);
 }
 
+// The same for an operand in the 32-byte swizzle (rows of 16 bf16 columns,
+// CU_TENSOR_MAP_SWIZZLE_32B; every 8-row block 256-byte aligned): the rest
+// box of a head_dim that is not a multiple of 64 (80 = 64 + 16).
+__device__ __forceinline__ uint64_t wgmma_desc_sw32(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (3ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -213,6 +222,15 @@ template <int N>
 __device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for a register A operand: keeps its registers reserved (not
+// reused for other values) until this point, after the wgmma that reads them
+// has completed.
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operands(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+r"(a[i][0]), "+r"(a[i][1]), "+r"(a[i][2]), "+r"(a[i][3])::"memory");
 }
 
 #define MLLM_ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
@@ -263,6 +281,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
       "}\n"
       : MLLM_ACC8(0), MLLM_ACC8(8), MLLM_ACC8(16), MLLM_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 16] += A[64 x 16] (registers) B[16 x 16], B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : MLLM_ACC8(0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

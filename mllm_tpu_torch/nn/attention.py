@@ -174,9 +174,9 @@ def attend_padded_head(q, k, v, *, causal: bool = False, scale: Optional[float] 
     k/v [B, H_kv, Skv, D], every key visible (non-causal). On the CPU it is
     the port's `sdpa`, as the reference's off the TPU. On the card a
     non-causal call at a head_dim in FLASH_HEAD_DIMS goes to the flash kernel,
-    which takes head_dim 80 itself (rows of 80 columns, zero-filled to its 128
-    body in shared memory): the reference's zero padding of q/k/v to 128
-    lanes in memory is a Mosaic constraint the port does not copy. A kernel
+    which takes head_dim 80 itself (rows of 80 columns, a body of its own):
+    the reference's zero padding of q/k/v to 128 lanes in memory is a Mosaic
+    constraint the port does not copy. A kernel
     that fails raises; nothing falls back to `sdpa`. A call that must carry a
     gradient takes `sdpa`, as `attention_route` sends it, and so does a query
     that is not bf16 (an f32 tower: the kernel is bf16-only). A causal call

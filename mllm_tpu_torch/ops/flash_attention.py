@@ -37,6 +37,7 @@ from ._common import (FLASH_HEAD_DIMS, check_kernel_args, check_quant_kv_args, f
 
 LOG2E = 1.4426950408889634
 FLASH_BQ = 128  # query rows a CTA of `csrc/flash_attention.cuh` (kBQ)
+FLASH_TILE = 128  # keys a tile at head_dim 64, 80 and 128 (kBK)
 FLASH_TILE_WIDE = 64  # keys a tile at head_dim 256 (kBKWide)
 FLASH_MIN_RUN = 2  # tiles a rank takes at least before a q-tile is split (kMinRun)
 FLASH_MAX_SPLITS = 8  # the largest cluster: the portable limit (kMaxSplits)
@@ -50,21 +51,27 @@ FLASH_CTA_COST = 3.4
 FLASH_MERGE_COST = 1.1
 
 
+def flash_tile_keys(head_dim: int) -> int:
+    """Keys a tile of the body that runs `head_dim` (`block_k` of
+    `csrc/flash_attention.cuh`): 64 at 256, else 128."""
+    return FLASH_TILE_WIDE if head_dim > 128 else FLASH_TILE
+
+
 def flash_qtile_tiles(q0: int, sq: int, q_offset: int, kv_valid: int, kv_start: int, causal: bool,
-                      window: Optional[int], skv: int) -> tuple[int, int]:
+                      window: Optional[int], skv: int, tile: int = FLASH_TILE_WIDE) -> tuple[int, int]:
     """(kb0, ntiles): the key tiles that q-tile rows [q0, q0 + 128) of one
     sequence load, as `cta_tiles` (`csrc/flash_attention.cuh`) computes them
     on the card from the device values: the keys [lo, hi) some row sees,
     kv_start <= j < kv_valid and, when causal, j <= q_offset + s and
-    j > q_offset + s - window; tiles of FLASH_TILE_WIDE keys from kb0 = lo
-    rounded down."""
+    j > q_offset + s - window; tiles of `tile` keys (the body's,
+    `flash_tile_keys`) from kb0 = lo rounded down."""
     lo, hi = max(kv_start, 0), min(kv_valid, skv)
     if causal:
         hi = min(hi, q_offset + min(q0 + FLASH_BQ, sq))
         if window:
             lo = max(lo, q_offset + q0 - window + 1)
-    kb0 = lo // FLASH_TILE_WIDE * FLASH_TILE_WIDE
-    return kb0, (-(-(hi - kb0) // FLASH_TILE_WIDE) if hi > lo else 0)
+    kb0 = lo // tile * tile
+    return kb0, (-(-(hi - kb0) // tile) if hi > lo else 0)
 
 
 def flash_split_runs(ntiles: int, splits: int) -> list[tuple[int, int]]:
@@ -81,6 +88,30 @@ def flash_split_runs(ntiles: int, splits: int) -> list[tuple[int, int]]:
     used = min(splits, max(1, ntiles // FLASH_MIN_RUN))
     return [(r * ntiles // used, (r + 1) * ntiles // used - r * ntiles // used) if r < used else (ntiles, 0)
             for r in range(splits)]
+
+
+def flash_unit(u: int, b: int, h: int, nq: int) -> tuple[int, int, int]:
+    """(sequence, head, q-tile) of unit u of the heaviest-first list that
+    every flash grid walks (`unit_tiles` in `csrc/flash_attention.cuh`):
+    every head's and sequence's last q-tile, then the one before."""
+    return (u // h) % b, u % h, nq - 1 - u // (h * b)
+
+
+def flash_persistent_units(n_units: int, ctas: int) -> list[list[int]]:
+    """The persistent grid's division at head_dim 64 and 80: `ctas` CTAs
+    (min(n_units, the card's SMs)); CTA i's k-th unit is k ctas + i in even
+    rounds k and k ctas + ctas - 1 - i in odd ones (`narrow_unit` in
+    `csrc/flash_attention.cu`), while below n_units, so a CTA's heavy units
+    pair with light ones. Each CTA reads the device q_offset, kv_valid and
+    kv_start for every unit."""
+    out = []
+    for i in range(ctas):
+        units, k = [], 0
+        while (u := k * ctas + (ctas - 1 - i if k & 1 else i)) < n_units:
+            units.append(u)
+            k += 1
+        out.append(units)
+    return out
 
 
 @functools.lru_cache(maxsize=4096)
@@ -141,6 +172,17 @@ def flash_cluster_slots(device_index: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+def flash_launch_splits(b: int, sq: int, skv: int, h: int, d: int, causal: bool, window: Optional[int],
+                        device_index: int, q_offset: Optional[int], kv_valid: Optional[int]) -> int:
+    """The cluster size `flash_attention` launches with: `flash_splits` over
+    the card's slots at head_dim 256, else 1 (no split there; at 64 and 80 a
+    persistent grid); q_offset / kv_valid are the host ints, or None for
+    device values."""
+    if d not in FLASH_SPLIT_HEAD_DIMS:
+        return 1
+    return flash_splits(b, sq, skv, h, causal, window or None, flash_cluster_slots(device_index), q_offset, kv_valid)
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, H_kv, Skv, D]
@@ -188,11 +230,12 @@ def flash_attention(
     one or B entries. Device values are read by the kernel, never by the host,
     so the launch is the same at every position and replays in a CUDA graph.
 
-    head_dim is 64, 128, 256 or 80 (`FLASH_HEAD_DIMS`); 80 runs the 128 body
-    over rows of 80 columns, TMA filling the rest with zeros in shared memory
-    (`csrc/flash_attention.cu`). At 256 a cluster of `flash_splits` CTAs
-    shares each q-tile's keys (`flash_split_runs`) and merges its partials
-    in distributed shared memory: one launch."""
+    head_dim is 64, 128, 256 or 80 (`FLASH_HEAD_DIMS`); 80 runs a body of its
+    own over rows of 80 columns (a 64-column box and a 16-column rest box,
+    `csrc/flash_attention.cu`). At 256 a cluster of `flash_splits` CTAs
+    shares each q-tile's keys (`flash_split_runs`) and merges its partials in
+    distributed shared memory; at 64 and 80 the grid is persistent
+    (`flash_persistent_units`). One launch."""
     if on_cpu(q):
         return flash_attention_ref(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len,
                                    kv_start=kv_start, causal=causal, window=window, scale=scale)
@@ -205,12 +248,9 @@ def flash_attention(
     start_vec = kv_start_arg("flash_attention", kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
-    splits = 1
-    if d in FLASH_SPLIT_HEAD_DIMS:
-        splits = flash_splits(b, sq, skv, h, bool(causal), window or None,
-                              flash_cluster_slots(q.device.index or 0),
-                              None if offset_dev is not None else offset_int,
-                              None if valid_vec is not None else valid_int)
+    splits = flash_launch_splits(b, sq, skv, h, d, bool(causal), window, q.device.index or 0,
+                                 None if offset_dev is not None else offset_int,
+                                 None if valid_vec is not None else valid_int)
     out = torch.empty_like(q)
     err = _build.library().mllm_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -44,6 +44,7 @@ from mllm_tpu.models import moe as jmoe
 from mllm_tpu.models.registry import auto_model as jax_auto_model
 from mllm_tpu.ops import quantize_model as jqmod
 from mllm_tpu.tokenizers.chat_templates import render as jax_render
+from mllm_tpu.utils import mbp as jax_mbp
 from mllm_tpu.utils import native as jnative
 from mllm_tpu_torch import examples
 from mllm_tpu_torch.core.config import TextConfig
@@ -52,6 +53,7 @@ from mllm_tpu_torch.examples import _demo_common, demo_llm, demo_sd
 from mllm_tpu_torch.generation.generate import generate
 from mllm_tpu_torch.generation.sampling import SamplingConfig
 from mllm_tpu_torch.models.registry import auto_model
+from mllm_tpu_torch.utils import mbp as port_mbp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -219,7 +221,23 @@ def test_batch_equals_jax_ragged(dirs):
     assert got["ids"] == [np.asarray(toks)[i, : n_valid[i]].tolist() for i in range(3)]
 
 
-def test_mbp_equals_jax(dirs):
+@pytest.fixture
+def joined_prefetch(monkeypatch):
+    """Both packages' `HostExpertStore.prefetch` joined at once (`wait()`).
+    Each store stages layer L + 1's experts on a thread and never joins it
+    before layer L's fetches; with two device entries the thread's inserts
+    can evict an entry before its fetch, so the hit count follows thread
+    timing on a loaded host. Joined, the prefetch's inserts always come
+    first and both sides count the same way every run."""
+    for cls in (port_mbp.HostExpertStore, jax_mbp.HostExpertStore):
+        def prefetch(self, keys, _unjoined=cls.prefetch):
+            _unjoined(self, keys)
+            self.wait()
+
+        monkeypatch.setattr(cls, "prefetch", prefetch)
+
+
+def test_mbp_equals_jax(dirs, joined_prefetch):
     got = _cli(dirs["moe"], "--mbp", "2")
     m, tok, _, ids = _jax_model(dirs["moe"])
     mm, store = jmoe.to_mbp(m, max_device_entries=2)

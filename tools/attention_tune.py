@@ -15,6 +15,9 @@
         --variant c3=mllm_tpu_torch/csrc@3 --variant run3=mllm_tpu_torch/csrc:kMinRun=3 --variant sdpa=x
     python3 tools/attention_tune.py --kernel decode --geo64 --rows probe \
         --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc --variant sdpa=x
+    python3 tools/attention_tune.py --kernel flash --geo64 | --geo80 [--rows probe] \
+        --variant new=mllm_tpu_torch/csrc --variant parent=<dir>/mllm_tpu_torch/csrc \
+        --variant s2=mllm_tpu_torch/csrc:kNarrowStages=2 --variant sdpa=x
 
 A variant is NAME=CSRC_DIR[:CONSTANT=VALUE,...][@SPLITS]: `csrc/flash_attention.cu`,
 `csrc/decode_attention.cu`, `decode_attention_quant.cu`,
@@ -25,9 +28,10 @@ kTile, kStages, kBK, kRawRows) in a copy under build/kernels/tune (the source
 and those headers), compiled alone with nvcc for sm_90a (every variant's nvcc started at
 once) and called through its C entry point.
 `@SPLITS` fixes the cluster size (the decode kernels', and the flash kernel's at
-head_dim 256) instead of the rule of the variant's own tree (`decode_splits`,
-`flash_splits`, imported from the package that holds its csrc, so a parent
-tree's kernel gets the cluster size its wrapper gave it). A directory whose
+head_dim 256; the narrow bodies at 64 and 80 take only 1) instead of
+the rule of the variant's own tree (`decode_splits`, `flash_launch_splits` or
+an older tree's `flash_splits`, imported from the package that holds its
+csrc, so a parent tree's kernel gets the cluster size its wrapper gave it). A directory whose
 entry point takes no cluster size (an older tree's kernel) is called without
 one. The variant named `sdpa`
 is PyTorch's scaled_dot_product_attention over the same keys (main rows);
@@ -49,12 +53,17 @@ For every row of chip_smoke.FLASH_ROWS or DECODE_ROWS (with `--wide`,
 FLASH_ROWS_256 or DECODE_ROWS_256 at head_dim 256, chip_smoke.WIDE_GEO; the
 quantized kernels' and the paged one's rows at WIDE_GEO, flash_quant's
 QUANT_FLASH_ROWS_256; with `--geo64`, FLASH_ROWS_64 or DECODE_ROWS_64 at
-chip_smoke.GEO64; with `--kernel flash --geo80`, FLASH80_ROWS, non-causal; or
-only the main row, `--rows main`; or the main row and one tile of keys at its
-batch, `--rows probe`), the variants run in turns, in order then in reverse, `--reps`
+chip_smoke.GEO64, and for flash FLASH64_CHUNK_ROWS and the main row at
+chip_smoke.FLASH64_GQA_GEOS; with `--kernel flash --geo80`, FLASH80_ROWS,
+non-causal; or only the main row, `--rows main`; or the main row and one tile
+of keys at its batch, `--rows probe`, which for flash at 64 and 80 is the
+main row and `flash_probe_rows`: one q-tile over 1, 4 and 12 key tiles, then
+1-4 rounds of 128 CTAs of 4 key tiles), the variants run in turns, in order then in reverse, `--reps`
 times, each timed as chip_smoke.time_ms times a kernel (20 launches behind a
 GPU spin); one JSON line per row and variant gives every time, the median and
-max |kernel - plain version|. Prints the card's name and power limit first.
+max |kernel - plain version|. Prints the card's name and power limit first;
+with `--sass`, a digest of each built kernel's SASS (`sass_digest`: equal
+digests, equal instructions).
 """
 
 from __future__ import annotations
@@ -138,9 +147,10 @@ def included_sources(csrc: str, source: str) -> dict:
     return texts
 
 
-def build_variants(kind: str, variants: list, out_dir: str) -> list:
+def build_variants(kind: str, variants: list, out_dir: str, sass: bool = False) -> list:
     """Compile every variant's copy at once (one nvcc each, all started
-    together), then bind each entry point: var["fn"]. Returns the handles."""
+    together), then bind each entry point: var["fn"]. Returns the handles.
+    With `sass`, prints each variant's `sass_digest` first."""
     jobs = []
     for var in variants:
         texts = with_constants_in(included_sources(var["csrc"], SOURCE[kind]), var["constants"])
@@ -167,6 +177,8 @@ def build_variants(kind: str, variants: list, out_dir: str) -> list:
                                   warnings=warnings)), flush=True)
             if proc.returncode != 0:
                 raise RuntimeError(out)
+        if sass:
+            print(json.dumps(dict(sass=var["name"], kernels=sass_digest(lib))), flush=True)
         handle = ctypes.CDLL(lib)
         fn = getattr(handle, ENTRY[kind])
         var["with_splits"] = "int splits" in text
@@ -189,6 +201,26 @@ def build_variants(kind: str, variants: list, out_dir: str) -> list:
         var["fn"] = fn
         handles.append(handle)
     return handles
+
+
+def sass_digest(lib: str) -> dict:
+    """{kernel: sha256 of its SASS} of a built library (`cuobjdump -sass`,
+    each instruction's address and encoding stripped), so two builds of
+    the same kernel compare equal when their instructions are."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    digests, name, body = {}, None, []
+    for ln in out.splitlines() + ["Function : <end>"]:
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            if name is not None:
+                digests[name] = hashlib.sha256("\n".join(body).encode()).hexdigest()[:16]
+            name, body = m.group(1), []
+        elif name is not None:
+            ins = re.sub(r"/\*[0-9a-fx]+\*/", "", ln).strip()
+            if ins:
+                body.append(ins)
+    return digests
 
 
 def tree_ops(csrc: str, mod: str):
@@ -221,15 +253,17 @@ def tree_decode_splits(var: dict, b: int, hkv: int, n_rep: int, skv: int, d: int
 
 
 def tree_flash_splits(var: dict, b: int, sq: int, skv: int, h: int, window, d: int, q_offset: int,
-                      kv_valid) -> int:
-    """The variant's flash cluster size: its `@SPLITS`, else its own tree's
-    `flash_splits` over the card's resident cluster slots as its wrapper
-    calls it (the host q_offset, and kv_valid where it is one host int; 1 at
-    a head_dim that tree does not split)."""
+                      kv_valid, causal: bool = True) -> int:
+    """The variant's flash cluster size: its own tree's rule as its wrapper
+    calls it (`flash_launch_splits`, or in an older tree `flash_splits` over
+    the card's resident cluster slots; the host q_offset, and kv_valid where
+    it is one host int; 1 at a head_dim that tree does not split)."""
     ops = tree_ops(var["csrc"], "flash_attention")
+    if hasattr(ops, "flash_launch_splits"):
+        return ops.flash_launch_splits(b, sq, skv, h, d, causal, window or None, 0, q_offset, kv_valid)
     if d not in ops.FLASH_SPLIT_HEAD_DIMS:
         return 1
-    return ops.flash_splits(b, sq, skv, h, True, window or None, ops.flash_cluster_slots(0), q_offset, kv_valid)
+    return ops.flash_splits(b, sq, skv, h, causal, window or None, ops.flash_cluster_slots(0), q_offset, kv_valid)
 
 
 def caller(kind: str, var: dict, q, k, v, kw):
@@ -254,7 +288,8 @@ def caller(kind: str, var: dict, q, k, v, kw):
     window = int(kw.get("window") or 0)
     if kind == "flash":
         splits = var["splits"] or (tree_flash_splits(var, b, sq, skv, h, window, d, kw["q_offset"],
-                                                     None if vec is not None else int(kvl))
+                                                     None if vec is not None else int(kvl),
+                                                     bool(kw.get("causal", True)))
                                    if var["with_splits"] else 1)
         args = (ptr(q), ptr(k), ptr(v), ptr(out), ptr(vec), ptr(start), *[None] * var["dev_scalars"], b, sq, h, hkv, skv, d,
                 kw["q_offset"], 0 if vec is not None else int(kvl), int(kw.get("causal", True)), window, scale,
@@ -440,11 +475,47 @@ def main_quant(args, variants, dev):
             time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape, kb)["bound_ms"])
 
 
+# --kernel flash --geo64 (rows all) adds these chunks of a chunked prefill at
+# GEO64 (FLASH_ROWS' fields): 512 rows at q_offset 1024 and 256 at 1280 (the
+# smoke's NARROW_SCALAR_ROWS; the second is what `demo_llm --chunked 256`
+# sends), and the last 128 rows of 1536: chunks with fewer units than SMs
+FLASH64_CHUNK_ROWS = [(1, 512, 1024, 1536, None, None, False), (1, 256, 1280, 1536, None, None, False),
+                      (1, 128, 1408, 1536, None, None, False)]
+
+
+def flash_probe_rows(h: int) -> list:
+    """--kernel flash --geo64 | --geo80 --rows probe, after the main row:
+    (B, Sq, Skv, causal) rows that separate a CTA's fixed cost from its
+    slope, non-causal: one q-tile over 1, 4 and 12 key tiles (h CTAs, one
+    an SM), then 1-4 rounds of CTAs: 128 r CTAs (the card holds 132 at once)
+    each walking 4 key tiles."""
+    return [(1, 128, 128 * n, False) for n in (1, 4, 12)] + [(1, 128 * 128 * r // h, 512, False) for r in (1, 2, 3, 4)]
+
+
+def run_flash_rows(args, variants, dev, geo, rows, g) -> None:
+    """Each (B, Sq, Skv, causal) row at geo = (H, H_kv, D): q [B, Sq, H, D],
+    K/V [B, H_kv, Skv, D], every key valid, q_offset Skv - Sq when causal;
+    timed against flash_attention_ref beside the bound of its visible pairs."""
+    h, hkv, d = geo
+    for b, sq, skv, causal in rows:
+        q = torch.randn(b, sq, h, d, device=dev, generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(b, hkv, skv, d, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        qoff = skv - sq if causal else 0
+        kw = dict(q_offset=qoff, kv_valid_len=skv, window=None, causal=causal)
+        ref = flash_attention_ref(q, k, v, **kw).float()
+        shape = dict(B=b, Sq=sq, Skv=skv, H=h, Hkv=hkv, D=d, q_offset=qoff, kv_valid=skv, causal=causal)
+        runs = [caller("flash", var, q, k, v, kw) for var in variants]
+        pairs = sum(min(skv, qoff + t + 1) for t in range(sq)) if causal else sq * skv
+        nbound = chip_smoke.bound(2 * b * sq * h * d * 2 + skv * b * hkv * d * 2 * 2, 4 * b * pairs * h * d)
+        time_variants(args, variants, runs, ref, shape, nbound["bound_ms"])
+
+
 def main_geo80(args, variants, dev):
     """--kernel flash --geo80: chip_smoke.FLASH80_ROWS (the Qwen2-VL tower's
-    attention: non-causal, 16 / 16 heads of 80), against flash_attention_ref."""
+    attention: non-causal, 16 / 16 heads of 80), against flash_attention_ref;
+    `--rows probe`: the main row, then flash_probe_rows at that geometry."""
     h, hkv, d = chip_smoke.FLASH80_GEO
-    rows = chip_smoke.FLASH80_ROWS[:1] if args.rows == "main" else chip_smoke.FLASH80_ROWS
+    rows = chip_smoke.FLASH80_ROWS[:1] if args.rows in ("main", "probe") else chip_smoke.FLASH80_ROWS
     g = torch.Generator(device=dev).manual_seed(1234)
     for b, s, kvl, poisoned in rows:
         q = torch.randn(b, s, h, d, device=dev, generator=g).to(torch.bfloat16)
@@ -458,6 +529,8 @@ def main_geo80(args, variants, dev):
         runs = [caller("flash", var, q, k, v, kw) for var in variants]
         nbound = chip_smoke.bound(2 * b * s * h * d * 2 + kvl * hkv * d * 2 * 2, 4 * b * s * kvl * h * d)
         time_variants(args, variants, runs, ref, shape, nbound["bound_ms"])
+    if args.rows == "probe":
+        run_flash_rows(args, variants, dev, chip_smoke.FLASH80_GEO, flash_probe_rows(h), g)
 
 
 def main():
@@ -469,13 +542,15 @@ def main():
     ap.add_argument("--wide", action="store_true", help="the kernel's rows at head_dim 256")
     ap.add_argument("--geo64", action="store_true", help="the kernel's rows at head_dim 64 (chip_smoke.GEO64)")
     ap.add_argument("--geo80", action="store_true", help="flash only: chip_smoke.FLASH80_ROWS (non-causal, 80)")
+    ap.add_argument("--sass", action="store_true", help="print a digest of each built kernel's SASS")
     args = ap.parse_args()
     chip_smoke.phase_device()
     dev = torch.device("cuda", 0)
     out_dir = os.path.join(os.path.dirname(_build.library_path()), "tune")
     os.makedirs(out_dir, exist_ok=True)
     variants = [parse_variant(s) for s in args.variant]
-    handles = build_variants(args.kernel, [v for v in variants if v["name"] not in YARDSTICKS], out_dir)  # noqa: F841
+    handles = build_variants(args.kernel, [v for v in variants if v["name"] not in YARDSTICKS], out_dir,  # noqa: F841
+                             args.sass)
     if args.kernel == "decode_quant":
         return main_quant(args, variants, dev)
     if args.kernel == "paged":
@@ -497,17 +572,25 @@ def main():
         geo, main_row = (chip_smoke.H, chip_smoke.HKV, chip_smoke.D), chip_smoke.MAIN_ROW[kind]
     if args.rows == "main":
         row_list = [row_list[main_row]]
-    elif args.rows == "probe":  # the main row, then one tile of keys at the main row's batch
+    elif args.rows == "probe" and not (flash and args.geo64):  # the main row, then one tile of keys at its batch
         one_tile = (row_list[main_row][0], 128, 0, 128, None, None, False) if flash else \
             (row_list[main_row][0], [64] * row_list[main_row][0], None, None, False)
         row_list = [row_list[main_row], one_tile]
+    elif args.rows == "probe":  # flash at 64: the main row, then flash_probe_rows
+        row_list = [row_list[main_row]]
     plain = flash_attention_ref if args.kernel == "flash" else decode_attention_ref
     g = torch.Generator(device=dev).manual_seed(1234)
-    for row in row_list:
+    rows = [(row, geo) for row in row_list]
+    if flash and args.geo64 and args.rows == "all":  # chunks over a longer cache; the bench's other GQA ratios
+        rows += [(row, geo) for row in FLASH64_CHUNK_ROWS]
+        rows += [(row_list[main_row], g64) for g64 in chip_smoke.FLASH64_GQA_GEOS.values()]
+    for row, geo in rows:
         q, k, v, kp, vp, kw, shape = chip_smoke.attention_inputs(kind, row, dev, g, geo)
         ref = plain(q, kp, vp, **kw).float()
         runs = [caller(args.kernel, var, q, k, v, kw) for var in variants]
         time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape)["bound_ms"])
+    if flash and args.geo64 and args.rows == "probe":
+        run_flash_rows(args, variants, dev, geo, flash_probe_rows(geo[0]), g)
 
 
 if __name__ == "__main__":
