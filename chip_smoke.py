@@ -502,10 +502,12 @@ def phase_build():
     _build.library()
     ptxas = ptxas_summary(log)
     emit(phase="build", seconds=round(seconds, 3), library=path, ptxas=ptxas)
-    # the bf16 flash kernels (csrc/flash_attention.cu) must not spill
-    spilled = [k for k in ptxas if k[0].startswith(("flash_fwd_kernel", "flash_narrow_kernel")) and (k[2] or k[3])]
+    # the bf16 flash kernels (csrc/flash_attention.cu), the quantized decode
+    # kernel and the quantized flash kernel at head_dim 256 must not spill
+    spilled = [k for k in ptxas if k[0].startswith(("flash_fwd_kernel", "flash_narrow_kernel", "decode_quant_kernel",
+                                                    "flash_quant_wide_kernel")) and (k[2] or k[3])]
     if spilled:
-        raise AssertionError(f"flash kernels spill registers (kernel, registers, stores, loads): {spilled}")
+        raise AssertionError(f"attention kernels spill registers (kernel, registers, stores, loads): {spilled}")
 
 
 def ptxas_summary(log: str) -> list:
@@ -3193,6 +3195,7 @@ def wide_kernel_rows(dev, g) -> dict:
             "decode_attention@256": attention_rows("decode_attention@256", "decode_attention", decode_attention,
                                                    decode_attention_ref, DECODE_ROWS_256, dev, g, WIDE_GEO)}
     device_scalar_row(dev, g, WIDE_GEO, WIDE_SCALAR_ROW)
+    quant_device_scalar_row(dev, g, WIDE_GEO, WIDE_SCALAR_ROW)
     rows.update(quant_attention_rows(dev, g, QUANT_FLASH_ROWS_256, QUANT_DECODE_ROWS, WIDE_GEO, "@256",
                                      route_sdpa=True))
     worst = 0.0
@@ -3254,6 +3257,48 @@ def device_scalar_row(dev, g, geo, scalar_row) -> None:
     if not (all(same) and err <= TOL and finite):
         raise AssertionError(f"flash_attention@{d} device q_offset: replays bit-equal {same}, "
                              f"vs plain {err} (tolerance {TOL}), finite={finite}")
+
+
+def quant_device_scalar_row(dev, g, geo, scalar_row, bits: int = 8) -> None:
+    """flash_attention_quant at `geo` (head_dim 256) over `bits`-bit K/V with
+    q_offset a one-element int32 tensor on the card, as `device_scalar_row`:
+    launched directly at each offset of `scalar_row` and from a CUDA graph
+    replayed with the offset changed between replays; each replay bit-equal
+    to the direct launch at the same value, every launch (and those with the
+    host int) within TOL of flash_attention_quant_ref, and the device
+    launches at a split cluster size (`flash_quant_launch_splits` from the
+    shapes alone: each rank's run worked out on the card from the value)."""
+    from mllm_tpu_torch.ops.flash_attention import (flash_attention_quant, flash_attention_quant_ref,
+                                                    flash_quant_launch_splits)
+
+    sq, kvl, offsets = scalar_row
+    h, hkv, d = geo
+    q = torch.randn(1, sq, h, d, device=dev, generator=g).to(torch.bfloat16)
+    (kq, ks, _), (vq, vs, _) = quant_kv(1, S_CACHE, bits, dev, g, hkv, d)
+    ops = (kq, vq, ks, vs)
+    off = torch.full((), offsets[0], dtype=torch.int32, device=dev)
+    host = [flash_attention_quant(q, *ops, q_offset=o, kv_valid_len=kvl) for o in offsets]
+    direct = []
+    for o in offsets:
+        off.fill_(o)
+        direct.append(flash_attention_quant(q, *ops, q_offset=off, kv_valid_len=kvl))
+    reps = replay_outputs(lambda: flash_attention_quant(q, *ops, q_offset=off, kv_valid_len=kvl), [off],
+                          [(o,) for o in offsets])
+    same = [torch.equal(r[0], x) for r, x in zip(reps, direct)]
+    err = max((x.float() - flash_attention_quant_ref(q, *ops, q_offset=o, kv_valid_len=kvl).float())
+              .abs().max().item() for xs in (host, direct) for x, o in zip(xs, offsets))
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in host + direct)
+    idx = dev.index or 0
+    split = flash_quant_launch_splits(1, sq, S_CACHE, h, d, bits, True, None, idx, None, kvl)
+    emit(phase="kernel_check_device_scalars", kernel=f"flash_attention_quant@{d}",
+         shape=dict(B=1, Sq=sq, H=h, Hkv=hkv, D=d, S=S_CACHE, kv_valid=kvl, bits=bits, q_offsets=list(offsets)),
+         splits_device=split,
+         splits_host=[flash_quant_launch_splits(1, sq, S_CACHE, h, d, bits, True, None, idx, o, kvl)
+                      for o in offsets],
+         replays_bit_equal=same, max_abs_err_vs_plain=err, tolerance=TOL, finite=finite)
+    if not (split > 1 and all(same) and err <= TOL and finite):
+        raise AssertionError(f"flash_attention_quant@{d} device q_offset: cluster size {split} (must split), "
+                             f"replays bit-equal {same}, vs plain {err} (tolerance {TOL}), finite={finite}")
 
 
 # head_dim 80: the Qwen2-VL vision tower's attention (non-causal, 16 / 16 heads
@@ -5566,24 +5611,54 @@ def cli_call(fn, argv: list):
     return out, launches, seconds, len(buf.getvalue().splitlines())
 
 
-def direct_greedy(path: str, dev) -> tuple:
-    """The port's API on a model directory, without the CLI: auto_model, the
-    chat template, generate (greedy, CLI_NEW tokens). Returns (ids, prompt ids)."""
+def direct_greedy(loaded: tuple) -> tuple:
+    """The port's API on a loaded model directory, without the CLI: the
+    (model, tokenizer, cfg) that `auto_model` returned to the CLI's run
+    (`keep_loaded`), the chat template, generate (greedy, CLI_NEW tokens).
+    Returns (ids, prompt ids)."""
     import gc
 
     from mllm_tpu_torch.generation.generate import generate
     from mllm_tpu_torch.generation.sampling import SamplingConfig
-    from mllm_tpu_torch.models.registry import auto_model
     from mllm_tpu_torch.tokenizers.chat_templates import render
 
-    model, tok, cfg = auto_model(path, device=dev)
+    model, tok, cfg = loaded
     ids = np.asarray(tok.encode(render(cfg.model_type, CLI_PROMPT), bos=True), np.int64)[None]
     res, _ = generate(model, ids, model.init_cache(1, S_CACHE), SamplingConfig(max_new_tokens=CLI_NEW),
                       eos_token_id=tok.eos_token_id)
-    del model
+    del model, loaded
     gc.collect()
     torch.cuda.empty_cache()
     return res.tokens, ids[0].tolist()
+
+
+def start_processes(repo: str, runs: list) -> list:
+    """`python -m <argv>` for each (argv, extra environment) of `runs`, all at
+    once from the repo's root, their output piped: the typed entry points,
+    started as soon as their files exist so that their start-up (an
+    interpreter, torch, the card) runs beside the phase's work; collect them
+    with `finish_processes`."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    return [subprocess.Popen([sys.executable, "-m", *argv], cwd=repo, env=dict(env, **over),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for argv, over in runs]
+
+
+def stop_processes(procs: list) -> None:
+    """Kill each process that still runs, and reap it."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_processes(procs: list) -> list:
+    """Each process's CompletedProcess (600 s at most; a process still
+    running then, or on an error here, is killed)."""
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        stop_processes(procs)
+    return [subprocess.CompletedProcess(p.args, p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
 
 
 def phase_slice_cli(dev) -> dict:
@@ -5615,14 +5690,18 @@ def phase_slice_cli(dev) -> dict:
          the same with CUDA_VISIBLE_DEVICES="" exits non-zero with
          default_device's message (no CPU fallback); `python -m
          mllm_tpu_torch.tools.ci` prints a report with "ok": true on the
-         platform cuda.
-    Prints each CLI run's prefill and decode tok/s beside the card's name and
-    power limit. The files live in a temporary directory the phase deletes.
-    Returns the launches of the runs."""
+         platform cuda. The three start together as soon as that directory
+         is written, beside the in-process runs, and are collected last.
+    The direct calls run on the model the CLI's run loaded (`keep_loaded` on
+    `auto_model`), so each directory is loaded once. Prints each CLI run's
+    prefill and decode tok/s beside the card's name and power limit. The
+    files live in a temporary directory the phase deletes. Returns the
+    launches of the runs."""
     import tempfile
 
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.examples import demo_llm, demo_sd
+    from mllm_tpu_torch.models import registry
     from mllm_tpu_torch.tools import convertor, quantizer
 
     cfg = TextConfig(**QWEN2VL_2B_LM)
@@ -5633,7 +5712,7 @@ def phase_slice_cli(dev) -> dict:
     os.makedirs(os.path.join(repo, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke_cli_", dir=os.path.join(repo, "build"))
     total = {name: 0 for name in SOURCES}
-    rates, bad = [], []
+    rates, bad, procs = [], [], []
     try:
         mdir = os.path.join(root, "qwen2-bf16")
         tok_spec = synthetic_tokenizer(V, seed=31)
@@ -5670,12 +5749,21 @@ def phase_slice_cli(dev) -> dict:
             return {"flash_attention": L, "decode_attention": L * (len(o["ids"]) - 1), **more}
 
         quant_kv = ("flash_attention_quant", "decode_attention_quant")
-        greedy = run("greedy", demo_llm.main, ["-m", mdir, "--max-new", str(CLI_NEW)], dense, quant_kv)
+        with keep_loaded(registry, "auto_model") as kept:  # the model the CLI loaded, for the direct call
+            greedy = run("greedy", demo_llm.main, ["-m", mdir, "--max-new", str(CLI_NEW)], dense, quant_kv)
+        direct, prompt = direct_greedy(kept.models.pop())
+        del kept
         # the flagged runs at the same widths, CLI_PIPELINE_LAYERS layers (also the pipeline's source)
         P = CLI_PIPELINE_LAYERS
         pcfg = cfg.replace(num_hidden_layers=P)
         pdir = os.path.join(root, "pipeline-bf16")
         write_bf16_checkpoint(pdir, pcfg, cli_tensors(pcfg, dev, 32), tok_spec)
+        # 3. the typed entry points, as processes: two on the card, one that must find none
+        t_procs = time.perf_counter()
+        procs = start_processes(repo, [(["mllm_tpu_torch.examples.demo_qwen", "-m", pdir, "--max-new", "16"], {}),
+                                       (["mllm_tpu_torch.examples.demo_qwen", "-m", pdir, "--max-new", "16"],
+                                        {"CUDA_VISIBLE_DEVICES": ""}),
+                                       (["mllm_tpu_torch.tools.ci"], {})])
         llm = ["-m", pdir, "--max-new", str(CLI_NEW)]
         q8 = run("int8", demo_llm.main, llm + ["-q", "int8"],
                  lambda o: dense(o, P, int8_matmul=7 * P * len(o["ids"])), quant_kv)
@@ -5698,7 +5786,6 @@ def phase_slice_cli(dev) -> dict:
 
         sd_host = run("sd_host", demo_sd.main, sd, verify, ("decode_attention",) + quant_kv)
         sd_compiled = run("sd_compiled", demo_sd.main, sd + ["--compiled"], verify, ("decode_attention",) + quant_kv)
-        direct, prompt = direct_greedy(mdir, dev)
         turn2 = chunked["turns"][1]
         emit(phase="slice_cli_main", greedy_equals_direct=greedy["ids"] == direct,
              first_divergence=first_divergence(greedy["ids"], direct), prompt_tokens=len(prompt),
@@ -5726,9 +5813,11 @@ def phase_slice_cli(dev) -> dict:
             (nq, nf), quant_s = timed(lambda: quantizer.main([f32, os.path.join(qdir, "model.mllm"), kind]))
             # Q4_0 repacks to symmetric int4 (decode steps only), Q8_0 to int8 (every forward)
             per = (lambda o: len(o["ids"]) - 1) if kernel == "int4_matmul" else (lambda o: len(o["ids"]))
-            out = run(f"pipeline_{kind}", demo_llm.main, ["-m", qdir, "--max-new", str(CLI_NEW)],
-                      lambda o: {kernel: 7 * CLI_PIPELINE_LAYERS * per(o)})
-            direct_q, _ = direct_greedy(qdir, dev)
+            with keep_loaded(registry, "auto_model") as kept:
+                out = run(f"pipeline_{kind}", demo_llm.main, ["-m", qdir, "--max-new", str(CLI_NEW)],
+                          lambda o: {kernel: 7 * CLI_PIPELINE_LAYERS * per(o)})
+            direct_q, _ = direct_greedy(kept.models.pop())
+            del kept
             pipeline[kind] = dict(quantized=nq, kept=nf, quantize_s=quant_s,
                                   file_bytes=os.path.getsize(os.path.join(qdir, "model.mllm")),
                                   equals_direct=out["ids"] == direct_q)
@@ -5738,35 +5827,15 @@ def phase_slice_cli(dev) -> dict:
                 bad.append(f"pipeline {kind}: ids equal {out['ids'] == direct_q}, {nq} tensors quantized")
         emit(phase="slice_cli_pipeline", quantizer_host="the card's host (numpy)", **pipeline)
 
-        # 3. the typed entry points, as processes
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
-
-        def start(argv, **over):
-            return subprocess.Popen([sys.executable, "-m", *argv], cwd=repo, env=dict(env, **over),
-                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-        # the three processes at once: two on the card, one that must find none
-        t0 = time.perf_counter()
-        procs = [start(["mllm_tpu_torch.examples.demo_qwen", "-m", pdir, "--max-new", "16"]),
-                 start(["mllm_tpu_torch.examples.demo_qwen", "-m", pdir, "--max-new", "16"],
-                       CUDA_VISIBLE_DEVICES=""),
-                 start(["mllm_tpu_torch.tools.ci"])]
-        try:
-            outs = [p.communicate(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        typed, nocard, ci = [subprocess.CompletedProcess(p.args, p.returncode, out, err)
-                             for p, (out, err) in zip(procs, outs)]
-        procs_s = time.perf_counter() - t0
+        # 3. the typed entry points' processes, started beside parts 1 and 2
+        typed, nocard, ci = finish_processes(procs)
+        procs_s = time.perf_counter() - t_procs
         try:
             report = json.loads(ci.stdout.strip().splitlines()[-1])
         except (IndexError, json.JSONDecodeError):
             report = {}
         refused = nocard.returncode != 0 and "runs on a CUDA card and found none" in nocard.stderr
-        emit(phase="slice_cli_entry_points", seconds=procs_s, demo_qwen_rc=typed.returncode,
+        emit(phase="slice_cli_entry_points", seconds_from_start=procs_s, demo_qwen_rc=typed.returncode,
              demo_qwen_report=[l for l in typed.stdout.splitlines() if "speed" in l or "Time to" in l],
              no_card_rc=nocard.returncode, no_card_refused=refused,
              no_card_error=nocard.stderr.strip().splitlines()[-1:] if nocard.stderr.strip() else [],
@@ -5780,6 +5849,7 @@ def phase_slice_cli(dev) -> dict:
             bad.append(f"tools.ci: rc {ci.returncode}, report {report or ci.stdout[-500:]}, {ci.stderr[-500:]}")
         emit(phase="slice_cli_rates", nvidia_smi=smi, runs=rates)
     finally:
+        stop_processes(procs)
         shutil.rmtree(root, ignore_errors=True)
     if bad:
         raise AssertionError(f"slice_cli: {bad}")
@@ -5998,20 +6068,30 @@ def common_share(x) -> float:
     return float(x.mean(0).pow(2).mean().sqrt() / x.pow(2).mean().sqrt())
 
 
-def entry_parity(dev, root: str, bad: list) -> None:
-    """Item 1, one family after the other: the checkpoint at the full
-    reference geometry (`gen_checkpoint`, `gen_checkpoint_tinyllama`)
-    written under root, then `greedy_ids` in f32 on the card from the
-    golden's recorded input ids: all 32 output ids equal, no attention
-    kernel launched (f32 takes `sdpa`); then the checkpoint is deleted."""
+def entry_parity(dev, root: str, bad: list, background) -> None:
+    """Item 1: the checkpoints at the full reference geometries
+    (`gen_checkpoint`, `gen_checkpoint_tinyllama`) written under root by the
+    `background` executor's threads (numpy draws and file writes leave the
+    interpreter free, so the second is written while the first family runs),
+    then for each family `greedy_ids` in f32 on the card from the golden's
+    recorded input ids: all 32 output ids equal, no attention kernel
+    launched (f32 takes `sdpa`); then the checkpoint is deleted."""
     from mllm_tpu_torch.tools import reference_parity as rp
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    for family, gen in (("qwen05b", rp.gen_checkpoint), ("tinyllama", rp.gen_checkpoint_tinyllama)):
+    families = (("qwen05b", rp.gen_checkpoint), ("tinyllama", rp.gen_checkpoint_tinyllama))
+    t0 = time.perf_counter()
+
+    def gen_timed(gen, path):
+        gen(path)
+        return time.perf_counter() - t0
+
+    written = [background.submit(gen_timed, gen, os.path.join(root, f"parity_{family}")) for family, gen in families]
+    for (family, _), done in zip(families, written):
         with open(os.path.join(repo, GOLDENS[family])) as f:
             golden = json.load(f)
         path = os.path.join(root, f"parity_{family}")
-        _, gen_s = timed(lambda: gen(path))
+        gen_s = done.result()  # seconds from the phase's first draw until this checkpoint was on disk
         stats = {}
         got, launches, seconds, _ = cli_call(
             lambda a: rp.greedy_ids(path, golden["input_ids"], len(golden["output_ids"]), device=dev,
@@ -6020,7 +6100,7 @@ def entry_parity(dev, root: str, bad: list) -> None:
         emit(phase="slice_entry_parity", family=family, input_ids=len(golden["input_ids"]),
              equal=got == golden["output_ids"], first_divergence=first_divergence(got, golden["output_ids"]),
              ids=got, golden=golden["output_ids"], distinct=len(set(got)), top2_gaps=gaps, min_top2_gap=min(gaps),
-             checkpoint_bytes=os.path.getsize(os.path.join(path, "model.safetensors")), gen_s=gen_s,
+             checkpoint_bytes=os.path.getsize(os.path.join(path, "model.safetensors")), written_after_s=gen_s,
              generation_s=seconds, load_s=stats["load_s"], decode_s=stats["decode_s"],
              tf32=torch.backends.cuda.matmul.allow_tf32, launches={k: v for k, v in launches.items() if v})
         shutil.rmtree(path, ignore_errors=True)
@@ -6061,7 +6141,8 @@ def phase_slice_entry(dev) -> dict:
       5. `python -m mllm_tpu_torch.examples.demo_qwen2_vl ... --max-new 8`
          on the 2-layer Qwen2-VL directory exits 0, and with
          CUDA_VISIBLE_DEVICES="" exits non-zero with default_device's
-         message (the two at once).
+         message (the two at once, started when the phase has written that
+         directory, before item 1, and collected last).
     Every generating run's ENTRY_NEW ids hold at least ENTRY_DISTINCT
     distinct ids (an echo or a fixed point would make the equalities above
     compare one repeated id). Prints each run's seconds, prefill and decode
@@ -6069,6 +6150,7 @@ def phase_slice_entry(dev) -> dict:
     a temporary directory under <repo>/build (as slice_cli's) that the phase
     deletes. Returns the launches of the runs."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from mllm_tpu_torch.core.config import TextConfig
     from mllm_tpu_torch.examples import (demo_bert, demo_clip, demo_fuyu, demo_imagebind, demo_imagebind_1mod,
@@ -6082,6 +6164,7 @@ def phase_slice_entry(dev) -> dict:
     from mllm_tpu_torch.models import phi3v as mphi3v
     from mllm_tpu_torch.models import qwen2_5_vl as mvl25
     from mllm_tpu_torch.models import qwen2_vl as mvl
+    from mllm_tpu_torch.models import registry
     from mllm_tpu_torch.models import vit as mvit
     from mllm_tpu_torch.processor.image import ClipImageProcessor, load_image, rescale_normalize, resize
     from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessor
@@ -6147,17 +6230,27 @@ def phase_slice_entry(dev) -> dict:
         toks, _ = mvl.vl_generate(model, po, model.init_cache(1, ENTRY_CACHE), ENTRY_NEW)
         return toks
 
+    background = ThreadPoolExecutor(2)  # the parity checkpoints' writes
     marks = [("start", time.perf_counter())]
     try:
+        # 5. the typed entry point's processes (on the 2-layer Qwen2-VL directory), started first
+        tok_vl = synthetic_tokenizer(QWEN2VL_2B_LM["vocab_size"], 51, specials=QWEN2VL_SPECIALS)
+        png = entry_png(os.path.join(root, "frame.png"), 52)
+        lm2 = dict(QWEN2VL_2B_LM, num_hidden_layers=ENTRY_LAYERS)
+        ui_dir = os.path.join(root, "showui")
+        qwen_vl_entry_dir(ui_dir, dev, lm2, dict(QWEN2VL_VISION, depth=ENTRY_LAYERS), 53, tok_vl)
+        t_procs = time.perf_counter()
+        argv5 = ["mllm_tpu_torch.examples.demo_qwen2_vl", "-m", ui_dir, "-i", png, "--max-new", "8"]
+        procs = start_processes(repo, [(argv5, {}), (argv5, {"CUDA_VISIBLE_DEVICES": ""})])
+        marks.append(("processes_started", time.perf_counter()))
+
         # 1. reference parity in f32
-        entry_parity(dev, root, bad)
+        entry_parity(dev, root, bad, background)
         marks.append(("parity", time.perf_counter()))
 
         # 2. demo_qwen2_vl at full Qwen2-VL-2B
-        tok_vl = synthetic_tokenizer(QWEN2VL_2B_LM["vocab_size"], 51, specials=QWEN2VL_SPECIALS)
         vl_dir = os.path.join(root, "qwen2-vl-2b")
         nbytes, write_s = timed(lambda: qwen_vl_entry_dir(vl_dir, dev, QWEN2VL_2B_LM, QWEN2VL_VISION, 51, tok_vl))
-        png = entry_png(os.path.join(root, "frame.png"), 52)
         emit(phase="slice_entry_qwen2_vl_dir", file_bytes=nbytes, write_s=write_s)
         vl_args = ["-m", vl_dir, "-i", png, "--max-new", str(ENTRY_NEW)]
         depth = mvl.Qwen2VLVisionConfig(**QWEN2VL_VISION).depth
@@ -6188,10 +6281,7 @@ def phase_slice_entry(dev) -> dict:
         torch.cuda.empty_cache()
         marks.append(("qwen2_vl_2b", time.perf_counter()))
 
-        # 3. the other demos at published widths, ENTRY_LAYERS layers
-        lm2 = dict(QWEN2VL_2B_LM, num_hidden_layers=ENTRY_LAYERS)
-        ui_dir = os.path.join(root, "showui")
-        qwen_vl_entry_dir(ui_dir, dev, lm2, dict(QWEN2VL_VISION, depth=ENTRY_LAYERS), 53, tok_vl)
+        # 3. the other demos at published widths, ENTRY_LAYERS layers (showui on the directory of item 5)
         with keep_loaded(mvl, "load_qwen2_vl") as kept:
             out = run("demo_showui", demo_showui.main, ["-m", ui_dir, "-i", png, "--max-new", str(ENTRY_NEW)],
                       lambda o: {"flash_attention@80": ENTRY_LAYERS, "flash_attention": ENTRY_LAYERS})
@@ -6366,50 +6456,36 @@ def phase_slice_entry(dev) -> dict:
             bad.append(f"train_lora: losses {first['losses']} (finite, step 4 below step 1)")
         if (again["start_step"], again["end_step"]) != (4, 6):
             bad.append(f"train_lora --resume: steps {again['start_step']} -> {again['end_step']}, not 4 -> 6")
-        merged = run("demo_llm_merged", demo_llm.main, ["-m", out_dir, "--max-new", str(CLI_NEW)],
-                     lambda o: {"flash_attention": LORA_LAYERS, "decode_attention": LORA_LAYERS * (len(o["ids"]) - 1)})
-        direct, _ = direct_greedy(out_dir, dev)
+        with keep_loaded(registry, "auto_model") as kept:  # the model demo_llm loaded, for the direct call
+            merged = run("demo_llm_merged", demo_llm.main, ["-m", out_dir, "--max-new", str(CLI_NEW)],
+                         lambda o: {"flash_attention": LORA_LAYERS,
+                                    "decode_attention": LORA_LAYERS * (len(o["ids"]) - 1)})
+        direct, _ = direct_greedy(kept.models.pop())
+        del kept
         same_ids("demo_llm on the merged model", merged["ids"], direct)
         shutil.rmtree(base_dir, ignore_errors=True)
         shutil.rmtree(out_dir, ignore_errors=True)
         marks.append(("train_lora", time.perf_counter()))
 
-        # 5. the typed entry point, as processes (on the 2-layer Qwen2-VL directory), both at once
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in (repo, os.environ.get("PYTHONPATH")) if p))
-        argv5 = [sys.executable, "-m", "mllm_tpu_torch.examples.demo_qwen2_vl", "-m", ui_dir, "-i", png,
-                 "--max-new", "8"]
-        t_procs = time.perf_counter()
-        procs = [subprocess.Popen(argv5, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True),
-                 subprocess.Popen(argv5, cwd=repo, env=dict(env, CUDA_VISIBLE_DEVICES=""),
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
-        try:
-            outs = [p.communicate(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        (typed_out, typed_err), (_, nocard_err) = outs
-        refused = procs[1].returncode != 0 and "runs on a CUDA card and found none" in nocard_err
-        emit(phase="slice_entry_processes", seconds=time.perf_counter() - t_procs, rc=procs[0].returncode,
-             report=[l for l in typed_out.splitlines() if "speed" in l or "prompt tokens" in l],
-             no_card_rc=procs[1].returncode, no_card_refused=refused,
-             no_card_error=nocard_err.strip().splitlines()[-1:] if nocard_err.strip() else [])
-        if procs[0].returncode != 0:
-            bad.append(f"python -m demo_qwen2_vl exited {procs[0].returncode}: {typed_err[-1000:]}")
+        # 5. the typed entry point's processes, started first
+        typed, nocard = finish_processes(procs)
+        refused = nocard.returncode != 0 and "runs on a CUDA card and found none" in nocard.stderr
+        emit(phase="slice_entry_processes", seconds_from_start=time.perf_counter() - t_procs, rc=typed.returncode,
+             report=[l for l in typed.stdout.splitlines() if "speed" in l or "prompt tokens" in l],
+             no_card_rc=nocard.returncode, no_card_refused=refused,
+             no_card_error=nocard.stderr.strip().splitlines()[-1:] if nocard.stderr.strip() else [])
+        if typed.returncode != 0:
+            bad.append(f"python -m demo_qwen2_vl exited {typed.returncode}: {typed.stderr[-1000:]}")
         if not refused:
-            bad.append(f"no-card demo_qwen2_vl: rc {procs[1].returncode}, stderr {nocard_err[-500:]}")
+            bad.append(f"no-card demo_qwen2_vl: rc {nocard.returncode}, stderr {nocard.stderr[-500:]}")
         marks.append(("processes", time.perf_counter()))
         emit(phase="slice_entry_items", seconds={b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])})
         emit(phase="slice_entry_rates", nvidia_smi=smi, runs=[
             {k: r[k] for k in ("run", "seconds", "prefill_tok_s", "decode_tok_s", "score_ms", "s_per_step")
              if k in r} for r in runs])
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_processes(procs)
+        background.shutdown(wait=True)
         shutil.rmtree(root, ignore_errors=True)
     if bad:
         raise AssertionError(f"slice_entry: {bad}")

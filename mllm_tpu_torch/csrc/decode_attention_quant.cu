@@ -31,21 +31,36 @@
 //    device, the host picks only the cluster size (`decode_splits`). When one
 //    rank holds every tile (a sequence of one tile) it writes the output
 //    itself and the other CTAs leave at once: no cluster barrier.
-//  - Loads: every K/V row of a tile is one `cp.async.bulk` (128 bytes at int8
-//    D=128, 64 at int4) and its key's scale one 4-byte cp.async, completed on
-//    an mbarrier (the bulk bytes as its transaction count, the cp.async
-//    copies by `cp.async.mbarrier.arrive`). Rows and scales outside [lo, hi)
-//    are written as zeros by zero-filling cp.async, never copied, so a NaN or
-//    inf left in a slot by an earlier request never reaches a product; no
-//    thread waits on a global load to issue a tile.
+//  - Loads: one thread of a half issues each of its 64-key tiles as TMA
+//    boxes (`Geo`): the stored rows of K and of V as boxes of 64 rows by the
+//    swizzle span (128 bytes, or the whole row when it is shorter: 64 or 32
+//    bytes in the 64- or 32-byte swizzle; int8 at D = 256 is two boxes a
+//    row) from tensor maps over the [B * Hkv, S, row bytes] integers, and the
+//    tile's 64 K and 64 V scales as one 1-D box each, all completed on the
+//    stage's mbarrier. The first design issued one cp.async.bulk a row and
+//    one 4-byte cp.async a scale from every thread of the half (256 copies
+//    a tile at int8 D = 256); the boxes took the engine's 8-slot row from
+//    0.01157 to 0.01021 ms and Gemma-2B's from 0.01523 to 0.01397 (PERF.md).
+//    A box copies the rows and scales as they lie: a key outside [lo, hi)
+//    may hold a stale slot's integers and a NaN or inf scale, so its score
+//    is masked to -inf (p = 0) and its V scale is replaced by 0 before it
+//    multiplies p; a K scale of such a key is never used. Rows past the
+//    cache load as zeros (the map's end).
+//  - Lane to bytes: a lane reads its K and V bytes from each box at their
+//    swizzled places, and the warp's 16 keys are the box rows `key_row` maps
+//    them to (the identity at 128-byte boxes; at 64 and 32 bytes a
+//    permutation that spreads each load instruction's rows over both halves
+//    of the bank window): every load instruction of a warp is free of bank
+//    conflicts (tests/test_torch_quant_redesign.py checks each geometry).
 //  - The integers become bf16 in the mma fragments, each once a tile, without
 //    I2F: an int8 byte b is bf16(0x4300 | (b & 0x7f)) - bf16(0x4300 | (b & 0x80))
 //    (128 + low bits, minus 128 or 256: exact), a nibble n is
 //    bf16(0x4300 | n) - 136; both pairs by one bf16x2 subtraction. An mma's k
-//    slots may stand for any head dims as long as q agrees, so a lane takes the
-//    K bytes of a row that are contiguous in shared memory (one or two 16-byte
-//    loads) and q's fragments are gathered in that order once; the V columns
-//    are permuted the same way and put back in order at the merge.
+//    slots may stand for any head dims as long as q agrees, so a lane takes a
+//    contiguous share of each box of a row (one or two 16-byte loads, or 8
+//    bytes) and q's fragments are gathered in that order once (`q_dim`); the
+//    V columns are permuted the same way (`v_dim`) and put back in order at
+//    the merge.
 //  - Scores: mma.sync of bf16 qs against the dequantized K, then x ks on the
 //    f32 score (times log2 e: base 2). Probabilities enter P V as bf16(p * vs)
 //    in the A fragment; row sums l stay f32 and unscaled.
@@ -58,9 +73,8 @@
 //    memory. One launch a call, no workspace, no atomics, an order of
 //    summation that does not depend on scheduling.
 //  - head_dim 256 (Gemma-2B; the reference runs its Pallas kernel there too):
-//    the same design with 256-byte int8 rows staged at a 272-byte stride, O
-//    in 32 fragments (128 registers a thread) and a 128 KB merge area: one
-//    CTA an SM (150 KB of shared memory at int8), up to 255 registers a thread.
+//    the same design, O in 32 fragments (128 registers a thread) and a 128 KB
+//    merge area: one CTA an SM, up to 255 registers a thread.
 #include "hopper.cuh"
 #include "int4_stream.cuh"
 
@@ -78,15 +92,11 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 2;   // tiles in flight in each half
 constexpr int kRows = 16;    // query heads a CTA (the m16 of mma.sync)
 constexpr int kMaxSplits = 8;  // the portable cluster size
+constexpr int kSwizzleSpan = 128;  // bytes: the widest box row TMA swizzles
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kHalfThreads == 2 * kTile, "each thread of a half copies one K or one V row of a tile");
 
 struct QuantDecodeParams {
   const bf16* q;            // [B, 1, H, D]
-  const uint8_t* k;         // [B, Hkv, S, RB]: int8 (RB = D) or packed nibbles (RB = D / 2)
-  const uint8_t* v;         // [B, Hkv, S, RB]
-  const float* ks;          // [B, Hkv, S] per-key K scales
-  const float* vs;          // [B, Hkv, S] per-key V scales
   bf16* o;                  // [B, 1, H, D]
   const int* kv_valid_vec;  // [B], or null: every sequence has kv_valid
   const int* kv_start;      // [B], or null: no left pad
@@ -96,80 +106,132 @@ struct QuantDecodeParams {
   float scale;              // the softmax scale, multiplied into q before it is rounded to bf16
 };
 
-// Shapes of a stored row and of its staged copies. Lane (g, t) reads the K
-// bytes [t KB, (t + 1) KB) of key rows g and g + 8 of its warp's 16, and the
-// V bytes [g VB, (g + 1) VB) of key rows 2t, 2t + 1, 2t + 8, 2t + 9; the row
-// strides below make each load instruction's lanes fall in distinct banks.
+// Shapes of a stored row, of its boxes and of a ring stage. A row of kRB
+// bytes is kNB boxes of kBW bytes. Lane (g, t) takes the K bytes [t KW,
+// (t + 1) KW) of each box of key rows g and g + 8 of its warp's 16 (through
+// key_row), and the V bytes [g VW, (g + 1) VW) of each box of key rows 2t,
+// 2t + 1, 2t + 8, 2t + 9.
 template <int D, bool kInt4>
 struct Geo {
-  static constexpr int kRB = kInt4 ? D / 2 : D;          // bytes of a stored row
-  static constexpr int kKB = kRB / 4, kVB = kRB / 8;    // bytes a lane takes of a K / V row
-  // staged row strides (kRB 256: int8 at head_dim 256)
-  static constexpr int kLdK = kRB == 128 ? 144 : kRB == 256 ? 272 : kRB;
-  static constexpr int kLdV = kRB == 128 ? 144 : kRB == 256 ? 272 : 80;
-  static constexpr int kSteps = D / 16;                 // k-steps of Q K^T
-  static constexpr int kND = D / 8;                     // 8-column blocks of O
-  // one stage: K rows, V rows, K scales, V scales
-  static constexpr int kStageBytes = kTile * (kLdK + kLdV) + 2 * kTile * 4;
+  static constexpr int kRB = kInt4 ? D / 2 : D;                       // bytes of a stored row
+  static constexpr int kBW = kRB < kSwizzleSpan ? kRB : kSwizzleSpan;  // bytes of a box row
+  static constexpr int kNB = kRB / kBW;                               // boxes of a row
+  static constexpr int kKW = kBW / 4, kVW = kBW / 8;  // bytes a lane takes of each box of a K / V row
+  static constexpr int kKWords = kNB * kKW / 4;       // u32 words a lane holds of a K row
+  static constexpr int kVWords = kNB * kVW / 4 > 0 ? kNB * kVW / 4 : 1;  // of a V row
+  static constexpr int kSteps = D / 16;               // k-steps of Q K^T
+  static constexpr int kND = D / 8;                   // 8-column blocks of O
+  static constexpr int kBox = kTile * kBW;            // bytes of one box
+  static constexpr int kRowsBytes = kTile * kRB;      // a tile's K (or V) rows
+  // one stage: K boxes, V boxes, K scales, V scales; stages 1024-byte aligned (the swizzle's span)
+  static constexpr int kStageBytes = (2 * kRowsBytes + 2 * kTile * 4 + 1023) / 1024 * 1024;
+  static constexpr int kTx = 2 * kRowsBytes + 2 * kTile * 4;  // bytes TMA writes a stage
   static constexpr int kRing = kHalves * kStages * kStageBytes;
   static constexpr int kMerge = kWarps * kRows * D * 4;  // each warp's acc, once the ring is idle
   static constexpr int kArea = kRing > kMerge ? kRing : kMerge;
+  static_assert(kRB % kBW == 0 && kBW >= 32 && kVW >= 4, "whole boxes of 32, 64 or 128 bytes");
 };
 
 template <int D, bool kInt4>
 struct Smem {
   using G = Geo<D, kInt4>;
-  alignas(16) uint8_t area[G::kArea];         // the ring [half][stage], then the merge
+  alignas(1024) uint8_t area[G::kArea];       // the ring [half][stage], then the merge
   uint4 qf[G::kSteps][32];                     // qs as each lane's A fragment of each k-step
   uint64_t full[kHalves][kStages];
   float wm[kWarps][kRows], wl[kWarps][kRows];  // each warp's (m, l)
   float m[kRows], l[kRows];                      // the CTA's partial, read by the cluster
 };
 
+// The byte offset of 16-byte chunk c of row r in a box of kBW-byte rows as
+// TMA writes it in the swizzle of that width (CU_TENSOR_MAP_SWIZZLE_128B /
+// 64B / 32B: the chunk's bits XOR the address bits 7-9, 7-8 or 7).
+template <int kBW>
+__device__ __forceinline__ int swizzled(int r, int c) {
+  if constexpr (kBW == 128) return r * 128 + ((c ^ (r & 7)) << 4);
+  else if constexpr (kBW == 64) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+  else return r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
+}
+
+// The box row (of the warp's 16) that the warp's key slot j (0..15: the n
+// index of S = Q K^T, the k index of P V) stands for. At 128-byte rows the
+// identity; at 64- and 32-byte rows a permutation of each 8, so that the
+// rows each load instruction reaches fall in distinct banks.
+template <int kBW>
+__device__ __forceinline__ int key_row(int j) {
+  constexpr uint32_t kPerm = kBW == 128 ? 0x76543210u : kBW == 64 ? 0x65742130u : 0x57463120u;
+  return (j & 8) | ((kPerm >> (4 * (j & 7))) & 7);
+}
+
 // The head dim of k-step kk's slot pair p (0: slots 2t, 2t + 1; 1: slots
 // 2t + 8, 2t + 9), first element (the second is 2 further): a lane's K word
-// w holds bytes 0..3; (w) gives bytes 0 and 2 to pair 0, (w >> 8) bytes 1
-// and 3 to pair 1. int4: the low nibbles are the first D/2 head dims, the
-// high ones the rest.
+// w holds bytes 0..3 of its share of a box; (w) gives bytes 0 and 2 to pair
+// 0, (w >> 8) bytes 1 and 3 to pair 1. int4: the low nibbles are the first
+// D/2 head dims, the high ones the rest.
 template <int D, bool kInt4>
 __device__ __forceinline__ int q_dim(int kk, int p, int t) {
   using G = Geo<D, kInt4>;
-  if constexpr (kInt4) {
-    constexpr int kHalf = G::kSteps / 2;
-    return (kk / kHalf) * (D / 2) + t * G::kKB + (kk % kHalf) * 4 + p;
-  } else {
-    return t * G::kKB + kk * 4 + p;
-  }
+  constexpr int kPer = G::kKW / 4;  // words of one box
+  const int half = kInt4 ? kk / G::kKWords : 0, wi = kInt4 ? kk % G::kKWords : kk;
+  return half * (D / 2) + (wi / kPer) * G::kBW + t * G::kKW + (wi % kPer) * 4 + p;
 }
 
-// The head dim of column n of the 8-column block nd of P V (lane g reads the
-// V bytes [g VB, (g + 1) VB) of a row; byte i is block i, and at int4 its
-// high nibble block VB + i).
+// The head dim of column n of the 8-column block nd of P V: byte i of a
+// lane's V share of box b is block b VW + i (at int4 its high nibble block
+// RB / 8 + b VW + i).
 template <int D, bool kInt4>
 __device__ __forceinline__ int v_dim(int nd, int n) {
   using G = Geo<D, kInt4>;
-  if constexpr (kInt4) return (nd / G::kVB) * (D / 2) + n * G::kVB + nd % G::kVB;
-  else return n * G::kVB + nd;
+  constexpr int kLow = G::kRB / 8;  // blocks of the low nibbles (int8: every block)
+  const int half = nd / kLow, r = nd % kLow;
+  return half * (D / 2) + (r / G::kVW) * G::kBW + n * G::kVW + r % G::kVW;
 }
 
-// kWords u32 of shared memory at p (16-byte aligned for 4 and 8 words, 8 for 2).
-template <int kWords>
-__device__ __forceinline__ void lds_words(uint32_t (&w)[kWords], const uint8_t* p) {
-  if constexpr (kWords % 4 == 0) {
+// A lane's K words of box row r of the stage's K boxes (lane t's bytes of
+// each box), in box order.
+template <int D, bool kInt4>
+__device__ __forceinline__ void load_k(uint32_t (&w)[Geo<D, kInt4>::kKWords], const uint8_t* kbox, int r, int t) {
+  using G = Geo<D, kInt4>;
 #pragma unroll
-    for (int i = 0; i < kWords / 4; ++i) {
-      const uint4 u = *reinterpret_cast<const uint4*>(p + 16 * i);
-      w[4 * i] = u.x;
-      w[4 * i + 1] = u.y;
-      w[4 * i + 2] = u.z;
-      w[4 * i + 3] = u.w;
+  for (int b = 0; b < G::kNB; ++b) {
+    const uint8_t* box = kbox + b * G::kBox;
+    if constexpr (G::kKW >= 16) {
+#pragma unroll
+      for (int j = 0; j < G::kKW / 16; ++j) {
+        const uint4 u = *reinterpret_cast<const uint4*>(box + swizzled<G::kBW>(r, t * (G::kKW / 16) + j));
+        uint32_t* o = w + b * (G::kKW / 4) + 4 * j;
+        o[0] = u.x;
+        o[1] = u.y;
+        o[2] = u.z;
+        o[3] = u.w;
+      }
+    } else {  // 8 bytes: half of a chunk
+      const uint2 u = *reinterpret_cast<const uint2*>(box + swizzled<G::kBW>(r, t >> 1) + (t & 1) * 8);
+      w[b * 2] = u.x;
+      w[b * 2 + 1] = u.y;
     }
-  } else if constexpr (kWords == 2) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    w[0] = u.x;
-    w[1] = u.y;
-  } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// A lane's V words of box row r (lane g's bytes of each box), in box order.
+template <int D, bool kInt4>
+__device__ __forceinline__ void load_v(uint32_t (&w)[Geo<D, kInt4>::kVWords], const uint8_t* vbox, int r, int g) {
+  using G = Geo<D, kInt4>;
+#pragma unroll
+  for (int b = 0; b < G::kNB; ++b) {
+    const uint8_t* box = vbox + b * G::kBox;
+    if constexpr (G::kVW == 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(box + swizzled<G::kBW>(r, g));
+      w[b * 4] = u.x;
+      w[b * 4 + 1] = u.y;
+      w[b * 4 + 2] = u.z;
+      w[b * 4 + 3] = u.w;
+    } else if constexpr (G::kVW == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(box + swizzled<G::kBW>(r, g >> 1) + (g & 1) * 8);
+      w[b * 2] = u.x;
+      w[b * 2 + 1] = u.y;
+    } else {
+      w[b] = *reinterpret_cast<const uint32_t*>(box + swizzled<G::kBW>(r, g >> 2) + (g & 3) * 4);
+    }
   }
 }
 
@@ -187,11 +249,15 @@ __device__ __forceinline__ void half_sync(int half) {
 // one CTA an SM, up to 255 registers a thread.
 template <int D, bool kInt4>
 __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3))
-    decode_quant_kernel(const QuantDecodeParams p) {
+    decode_quant_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_ks, const __grid_constant__ CUtensorMap tm_vs,
+                        const QuantDecodeParams p) {
   using G = Geo<D, kInt4>;
   constexpr int kSteps = G::kSteps, kND = G::kND;
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto& s = *reinterpret_cast<Smem<D, kInt4>*>(smem);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // 1024-byte alignment: the swizzle of a box repeats every 1024 bytes at most
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  auto& s = *reinterpret_cast<Smem<D, kInt4>*>(base);
   float* acc_smem = reinterpret_cast<float*>(s.area);  // the merge area, once the ring is idle
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -202,21 +268,11 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
   const int n_rep = p.H / p.Hkv;
   const int h0 = hk * n_rep + (blockIdx.y % p.hgroups) * kRows;  // first query head
   const int rows = min(kRows, hk * n_rep + n_rep - h0);
-
-  // q of this CTA's heads for the k-steps this warp builds (heads g and
-  // g + 8; padded heads are zeros), loaded first, beside the length reads.
-  constexpr int kQPer = (kSteps + kWarps - 1) / kWarps;  // k-steps of qs a warp builds
-  uint2 qraw[kQPer][2];
-#pragma unroll
-  for (int j = 0; j < kQPer; ++j) {
-    const int kk = warp + j * kWarps;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = g + 8 * hh;
-      qraw[j][hh] = kk < kSteps && r < rows
-                        ? *reinterpret_cast<const uint2*>(p.q + ((long)b * p.H + h0 + r) * D + q_dim<D, kInt4>(kk, 0, t))
-                        : make_uint2(0u, 0u);
-    }
+  if (tid == 0) {
+    tma_prefetch(&tm_k);
+    tma_prefetch(&tm_v);
+    tma_prefetch(&tm_ks);
+    tma_prefetch(&tm_vs);
   }
 
   // The visible keys [lo, hi), and this rank's tiles of them
@@ -231,7 +287,8 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
   const int per = (ntiles + splits - 1) / splits;
   const int first = min(rank * per, ntiles);
   const int mine = min(first + per, ntiles) - first;
-  const int my_tiles = mine > half ? (mine - half + kHalves - 1) / kHalves : 0;  // this half's
+  auto tiles_of = [&](int h) { return mine > h ? (mine - h + kHalves - 1) / kHalves : 0; };
+  const int my_tiles = tiles_of(half);  // this half's
   const int busy_warps = min(mine, kHalves) * kHalfWarps;  // the warps whose half has a tile
   // Ranks [0, used) hold tiles. Every CTA of the cluster computes the same
   // count; when rank 0 alone holds them it writes the output from its own
@@ -239,50 +296,39 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
   const int used = per > 0 ? (ntiles + per - 1) / per : 0;
   if (used <= 1 && rank > 0) return;
 
-  const long row0 = ((long)b * p.Hkv + hk) * p.S;  // first key row of this (b, KV head)
-  if (tid == 0) {
-    for (int h = 0; h < kHalves; ++h)
-      for (int i = 0; i < kStages; ++i) mbar_init(&s.full[h][i], kHalfThreads);
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  // This half's tile li (the rank's tile 2 li + half) into its stage li %
-  // kStages: thread htid copies row htid % kTile of K (htid < kTile) or V
-  // and that key's scale; a row or scale outside [lo, hi) is written as
-  // zeros by a zero-filling cp.async (no global read). Every thread arrives
-  // once a tile, when its cp.async copies have landed; the phase completes
-  // when the bulk copies have too.
-  auto stage_ptr = [&](int li) {
-    return s.area + (half * kStages + li % kStages) * G::kStageBytes;
-  };
-  auto issue = [&](int li) {
-    uint8_t* st = stage_ptr(li);
-    uint64_t* bar = &s.full[half][li % kStages];
-    const int r = htid % kTile;
-    const bool is_k = htid < kTile;
-    const int j = t0 + (first + kHalves * li + half) * kTile + r;
-    const bool ok = j >= lo && j < hi;
-    uint8_t* dst = is_k ? st + r * G::kLdK : st + kTile * G::kLdK + r * G::kLdV;
-    float* sdst = reinterpret_cast<float*>(st + kTile * (G::kLdK + G::kLdV)) + (is_k ? 0 : kTile) + r;
-    const uint8_t* src = is_k ? p.k : p.v;
-    if (ok) {
-      fence_proxy_async();  // the slot's earlier reads by this CTA precede the bulk write
-      mbar_expect_tx(bar, G::kRB);
-      bulk_g2s(dst, src + (row0 + j) * G::kRB, G::kRB, bar);
-    } else {
+  // Half h's tile li (the rank's tile 2 li + h) into its stage li % kStages,
+  // by one thread: the K and V boxes of the (b, KV head) plane and the two
+  // scale boxes, on the stage's barrier.
+  const int plane = b * p.Hkv + hk;
+  auto stage_ptr = [&](int h, int li) { return s.area + (h * kStages + li % kStages) * G::kStageBytes; };
+  auto issue = [&](int h, int li) {
+    uint8_t* st = stage_ptr(h, li);
+    uint64_t* bar = &s.full[h][li % kStages];
+    const int row = t0 + (first + kHalves * li + h) * kTile;
+    fence_proxy_async();  // the stage's earlier reads by this CTA precede the tensor copies' writes
+    mbar_arrive_expect_tx(bar, G::kTx);
 #pragma unroll
-      for (int c = 0; c < G::kRB / 16; ++c) cp_async_16(dst + c * 16, src, false);
+    for (int bx = 0; bx < G::kNB; ++bx) {
+      tma_load_3d(st + bx * G::kBox, &tm_k, bar, bx * G::kBW, row, plane);
+      tma_load_3d(st + G::kRowsBytes + bx * G::kBox, &tm_v, bar, bx * G::kBW, row, plane);
     }
-    cp_async_4(sdst, (is_k ? p.ks : p.vs) + (ok ? row0 + j : 0), ok);
-    cp_async_mbar_arrive(bar);
+    tma_load_1d(st + 2 * G::kRowsBytes, &tm_ks, bar, plane * p.S + row);
+    tma_load_1d(st + 2 * G::kRowsBytes + kTile * 4, &tm_vs, bar, plane * p.S + row);
   };
-  for (int li = 0; li < min(my_tiles, kStages); ++li) issue(li);
+  if (tid == 0) {  // the lengths are known: the first tiles of both halves go out at once
+    for (int h = 0; h < kHalves; ++h)
+      for (int i = 0; i < kStages; ++i) mbar_init(&s.full[h][i], 1);
+    fence_mbar_init();
+    for (int h = 0; h < kHalves; ++h)
+      for (int li = 0; li < min(tiles_of(h), kStages); ++li) issue(h, li);
+  }
 
-  // qs = bf16(q * scale) as A fragments for all of D, in the k order of the
-  // K words (q_dim): warp w builds k-steps w, w + kWarps, ... into shared
-  // memory, where every warp reads them (which keeps a thread's registers
-  // for two CTAs an SM).
+  // q of this CTA's heads for the k-steps this warp builds (heads g and
+  // g + 8; padded heads are zeros), in the k order of the K words (q_dim):
+  // warp w builds k-steps w, w + kWarps, ... of qs = bf16(q * scale) as A
+  // fragments into shared memory, where every warp reads them (which keeps
+  // a thread's registers for two CTAs an SM).
+  constexpr int kQPer = (kSteps + kWarps - 1) / kWarps;  // k-steps of qs a warp builds
 #pragma unroll
   for (int j = 0; j < kQPer; ++j) {
     const int kk = warp + j * kWarps;
@@ -290,15 +336,19 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
       uint32_t f[4];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {  // head dims q_dim(kk, 0) + 0, 1, 2, 3
-        const __nv_bfloat162 lo2 = *reinterpret_cast<const __nv_bfloat162*>(&qraw[j][hh].x);
-        const __nv_bfloat162 hi2 = *reinterpret_cast<const __nv_bfloat162*>(&qraw[j][hh].y);
+        const int r = g + 8 * hh;
+        const uint2 raw = r < rows
+                              ? *reinterpret_cast<const uint2*>(p.q + ((long)b * p.H + h0 + r) * D + q_dim<D, kInt4>(kk, 0, t))
+                              : make_uint2(0u, 0u);
+        const __nv_bfloat162 lo2 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+        const __nv_bfloat162 hi2 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
         f[hh] = pack_bf16x2(__low2float(lo2) * p.scale, __low2float(hi2) * p.scale);       // slots 2t, 2t + 1
         f[2 + hh] = pack_bf16x2(__high2float(lo2) * p.scale, __high2float(hi2) * p.scale);  // slots 2t + 8, 2t + 9
       }
       s.qf[kk][lane] = make_uint4(f[0], f[1], f[2], f[3]);
     }
   }
-  __syncthreads();  // qs
+  __syncthreads();  // qs, and the barriers initialised before anyone waits on them
 
   float o[kND][4];
 #pragma unroll
@@ -308,26 +358,26 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
 
   for (int li = 0; li < my_tiles; ++li) {
     mbar_wait(&s.full[half][li % kStages], (li / kStages) & 1);
-    const uint8_t* st = stage_ptr(li);
-    const uint8_t* kt = st + hwarp * 16 * G::kLdK;  // this warp's 16 keys
-    const uint8_t* vt = st + kTile * G::kLdK + hwarp * 16 * G::kLdV;
-    const float* kst = reinterpret_cast<const float*>(st + kTile * (G::kLdK + G::kLdV)) + hwarp * 16;
+    const uint8_t* st = stage_ptr(half, li);
+    const uint8_t* kbox = st;
+    const uint8_t* vbox = st + G::kRowsBytes;
+    const float* kst = reinterpret_cast<const float*>(st + 2 * G::kRowsBytes) + hwarp * 16;  // this warp's 16 keys
     const float* vst = kst + kTile;
-    const int key0 = t0 + (first + kHalves * li + half) * kTile + hwarp * 16;
+    const int r0 = hwarp * 16;  // the warp's first box row
+    const int key0 = t0 + (first + kHalves * li + half) * kTile + r0;
 
-    // S = Q K^T: 16 heads x this warp's 16 keys (n-block nb: keys 8 nb + g).
+    // S = Q K^T: 16 heads x this warp's 16 key slots (n-block nb: slots 8 nb + g).
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
-      uint32_t kw[G::kKB / 4];
-      lds_words<G::kKB / 4>(kw, kt + (nb * 8 + g) * G::kLdK + t * G::kKB);
+      uint32_t kw[G::kKWords];
+      load_k<D, kInt4>(kw, kbox, r0 + key_row<G::kBW>(nb * 8 + g), t);
 #pragma unroll
-      for (int wi = 0; wi < G::kKB / 4; ++wi) {
+      for (int wi = 0; wi < G::kKWords; ++wi) {
         if constexpr (kInt4) {
-          constexpr int kHalf = kSteps / 2;
           mma_q(sc[nb], s.qf[wi][lane], i4s::nibbles_to_bf16x2<false>(kw[wi]),
                 i4s::nibbles_to_bf16x2<false>(kw[wi] >> 8));
-          mma_q(sc[nb], s.qf[kHalf + wi][lane], i4s::nibbles_to_bf16x2<false>(kw[wi] >> 4),
+          mma_q(sc[nb], s.qf[G::kKWords + wi][lane], i4s::nibbles_to_bf16x2<false>(kw[wi] >> 4),
                 i4s::nibbles_to_bf16x2<false>(kw[wi] >> 12));
         } else {
           mma_q(sc[nb], s.qf[wi][lane], i4s::int8_to_bf16x2(kw[wi]), i4s::int8_to_bf16x2(kw[wi] >> 8));
@@ -335,14 +385,16 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
       }
     }
 
+    // The scores: x ks x log2 e on the keys in [lo, hi), -inf elsewhere (a
+    // stale key's scale is never multiplied).
     float mx0 = kNegBig, mx1 = kNegBig;
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int kl = nb * 8 + t * 2 + (c & 1);  // the key within the warp's 16
-        const int kpos = key0 + kl;
-        const float x = kpos >= lo && kpos < hi ? sc[nb][c] * kst[kl] * kLog2e : -INFINITY;
+        const int kr = key_row<G::kBW>(nb * 8 + t * 2 + (c & 1));  // the slot's box row in the warp's 16
+        const int kpos = key0 + kr;
+        const float x = kpos >= lo && kpos < hi ? sc[nb][c] * kst[kr] * kLog2e : -INFINITY;
         sc[nb][c] = x;
         if (c < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
       }
@@ -375,30 +427,40 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
       o[nd][3] *= a1;
     }
 
-    // O += bf16(P * vs) V over this warp's 16 keys: slot 2t + e is key 2t + e
-    // (masked keys have p = 0 and a zeroed scale).
-    const float v0 = vst[2 * t], v1 = vst[2 * t + 1], v8 = vst[2 * t + 8], v9 = vst[2 * t + 9];
-    const uint32_t pa[4] = {pack_bf16x2(sc[0][0] * v0, sc[0][1] * v1), pack_bf16x2(sc[0][2] * v0, sc[0][3] * v1),
-                            pack_bf16x2(sc[1][0] * v8, sc[1][1] * v9), pack_bf16x2(sc[1][2] * v8, sc[1][3] * v9)};
-    uint32_t vw[4][G::kVB / 4 > 0 ? G::kVB / 4 : 1];  // rows 2t, 2t + 1, 2t + 8, 2t + 9
+    // O += bf16(P * vs) V over this warp's 16 key slots: slot 2t + e is box
+    // row vr[e]; a key outside [lo, hi) has p = 0 and its scale replaced by 0
+    // (0 * NaN would be NaN), its integers are finite.
+    int vr[4];
+    float vsc[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      lds_words<G::kVB / 4>(vw[i], vt + (2 * t + (i & 1) + 8 * (i >> 1)) * G::kLdV + g * G::kVB);
+    for (int i = 0; i < 4; ++i) {
+      vr[i] = key_row<G::kBW>(2 * t + (i & 1) + 8 * (i >> 1));  // slots 2t, 2t + 1, 2t + 8, 2t + 9
+      const int kpos = key0 + vr[i];
+      vsc[i] = kpos >= lo && kpos < hi ? vst[vr[i]] : 0.f;
+    }
+    const uint32_t pa[4] = {pack_bf16x2(sc[0][0] * vsc[0], sc[0][1] * vsc[1]),
+                            pack_bf16x2(sc[0][2] * vsc[0], sc[0][3] * vsc[1]),
+                            pack_bf16x2(sc[1][0] * vsc[2], sc[1][1] * vsc[3]),
+                            pack_bf16x2(sc[1][2] * vsc[2], sc[1][3] * vsc[3])};
+    uint32_t vw[4][G::kVWords];
 #pragma unroll
-    for (int i = 0; i < G::kVB; ++i) {  // byte i of the lane's V chunk
+    for (int i = 0; i < 4; ++i) load_v<D, kInt4>(vw[i], vbox, r0 + vr[i], g);
+    constexpr int kVBytes = G::kNB * G::kVW;  // bytes of the lane's V share of a row
+#pragma unroll
+    for (int i = 0; i < kVBytes; ++i) {  // byte i of the lane's V share
       const uint32_t sel = (i % 4) | ((4 + i % 4) << 8);  // byte i of the first row, of the second row
-      const uint32_t x01 = i4s::prmt(vw[0][i / 4], vw[1][i / 4], sel);  // keys 2t, 2t + 1
-      const uint32_t x89 = i4s::prmt(vw[2][i / 4], vw[3][i / 4], sel);  // keys 2t + 8, 2t + 9
+      const uint32_t x01 = i4s::prmt(vw[0][i / 4], vw[1][i / 4], sel);  // slots 2t, 2t + 1
+      const uint32_t x89 = i4s::prmt(vw[2][i / 4], vw[3][i / 4], sel);  // slots 2t + 8, 2t + 9
       if constexpr (kInt4) {
         mma_bf16_16816(o[i], pa, i4s::nibbles_to_bf16x2<false>(x01), i4s::nibbles_to_bf16x2<false>(x89));
-        mma_bf16_16816(o[G::kVB + i], pa, i4s::nibbles_to_bf16x2<false>(x01 >> 4),
+        mma_bf16_16816(o[kVBytes + i], pa, i4s::nibbles_to_bf16x2<false>(x01 >> 4),
                        i4s::nibbles_to_bf16x2<false>(x89 >> 4));
       } else {
         mma_bf16_16816(o[i], pa, i4s::int8_to_bf16x2(x01), i4s::int8_to_bf16x2(x89));
       }
     }
     half_sync(half);  // every warp of the half is done with this stage
-    if (li + kStages < my_tiles) issue(li + kStages);
+    if (htid == 0 && li + kStages < my_tiles) issue(half, li + kStages);
   }
 
   // Merge the eight warps: (m, l) and acc per warp into shared memory (once
@@ -489,8 +551,29 @@ __global__ void __launch_bounds__(kThreads, D > 128 ? 1 : (kHalves == 2 ? 2 : 3)
 }
 
 template <int D, bool kInt4>
-cudaError_t launch(const QuantDecodeParams& p, int splits, cudaStream_t stream) {
-  constexpr int smem = sizeof(Smem<D, kInt4>);
+cudaError_t launch(const void* k, const void* v, const void* ks, const void* vs, const QuantDecodeParams& p,
+                   int splits, cudaStream_t stream) {
+  using G = Geo<D, kInt4>;
+  CUtensorMap tk, tv, tks, tvs;
+  // the stored rows of each (b, KV head) plane, boxes of kBW bytes by a tile of rows
+  const cuuint64_t dims[3] = {(cuuint64_t)G::kRB, (cuuint64_t)p.S, (cuuint64_t)p.B * p.Hkv};
+  const cuuint64_t strides[2] = {(cuuint64_t)G::kRB, (cuuint64_t)p.S * G::kRB};
+  const cuuint32_t box[3] = {(cuuint32_t)G::kBW, (cuuint32_t)kTile, 1};
+  const CUtensorMapSwizzle swizzle = G::kBW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : G::kBW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  // the scales as one run of B * Hkv * S floats, a tile a box
+  const cuuint64_t sdims[1] = {(cuuint64_t)p.B * p.Hkv * p.S};
+  const cuuint64_t sstrides[1] = {0};
+  const cuuint32_t sbox[1] = {(cuuint32_t)kTile};
+  if (!encode_tensor_map(&tk, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, k, dims, strides, box, swizzle) ||
+      !encode_tensor_map(&tv, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, v, dims, strides, box, swizzle) ||
+      !encode_tensor_map(&tks, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, ks, sdims, sstrides, sbox,
+                         CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !encode_tensor_map(&tvs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, vs, sdims, sstrides, sbox,
+                         CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  constexpr int smem = sizeof(Smem<D, kInt4>) + 1024;  // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(decode_quant_kernel<D, kInt4>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -506,7 +589,7 @@ cudaError_t launch(const QuantDecodeParams& p, int splits, cudaStream_t stream) 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_quant_kernel<D, kInt4>, p);
+  err = cudaLaunchKernelEx(&cfg, decode_quant_kernel<D, kInt4>, tk, tv, tks, tvs, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -524,20 +607,17 @@ extern "C" int mllm_decode_attention_quant(const void* q, const void* k, const v
                                            int H, int Hkv, int S, int D, int bits, int kv_valid,
                                            int window, float scale, int splits, void* stream) {
   using namespace mllm;
-  if (splits < 1 || splits > kMaxSplits || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > kMaxSplits || Hkv < 1 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int hgroups = (H / Hkv + kRows - 1) / kRows;
-  const QuantDecodeParams p{static_cast<const bf16*>(q), static_cast<const uint8_t*>(k),
-                            static_cast<const uint8_t*>(v), static_cast<const float*>(ks),
-                            static_cast<const float*>(vs), static_cast<bf16*>(out),
-                            static_cast<const int*>(kv_valid_vec),
-                            static_cast<const int*>(kv_start), B, H, Hkv, S, kv_valid, window,
-                            hgroups, scale};
+  const QuantDecodeParams p{static_cast<const bf16*>(q), static_cast<bf16*>(out),
+                            static_cast<const int*>(kv_valid_vec), static_cast<const int*>(kv_start), B, H,
+                            Hkv, S, kv_valid, window, hgroups, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128 && bits == 8) return launch<128, false>(p, splits, s);
-  if (D == 128 && bits == 4) return launch<128, true>(p, splits, s);
-  if (D == 64 && bits == 8) return launch<64, false>(p, splits, s);
-  if (D == 64 && bits == 4) return launch<64, true>(p, splits, s);
-  if (D == 256 && bits == 8) return launch<256, false>(p, splits, s);
-  if (D == 256 && bits == 4) return launch<256, true>(p, splits, s);
+  if (D == 128 && bits == 8) return launch<128, false>(k, v, ks, vs, p, splits, s);
+  if (D == 128 && bits == 4) return launch<128, true>(k, v, ks, vs, p, splits, s);
+  if (D == 64 && bits == 8) return launch<64, false>(k, v, ks, vs, p, splits, s);
+  if (D == 64 && bits == 4) return launch<64, true>(k, v, ks, vs, p, splits, s);
+  if (D == 256 && bits == 8) return launch<256, false>(k, v, ks, vs, p, splits, s);
+  if (D == 256 && bits == 4) return launch<256, true>(k, v, ks, vs, p, splits, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

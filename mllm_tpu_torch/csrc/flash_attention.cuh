@@ -664,6 +664,28 @@ cudaError_t launch_clusters(Kernel kernel, int grid, int cluster, int smem, cuda
   return cudaGetLastError();
 }
 
+// The most clusters of `cluster` CTAs of `kernel` (`threads` a CTA, `smem`
+// bytes of dynamic shared memory) the card keeps resident at once, in *out
+// (cudaOccupancyMaxActiveClusters: clusters pack into GPCs, so 2-CTA
+// clusters of a one-CTA-an-SM kernel may fit fewer than sms / 2).
+template <class Kernel>
+cudaError_t max_active_clusters(Kernel kernel, int threads, int smem, int cluster, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
 // Launches `kernel(args...)` over one cluster of p.splits CTAs (one, if 0)
 // a (b, head, q-tile) of `p`. With one CTA a cluster:
 // at the main row (B=1, Sq=1536) the plain launch's time was bimodal (27.3 or

@@ -71,7 +71,9 @@
 // producer warpgroup: Q is 64 KB and O alone 128 registers a thread), which
 // convert each tile's K and V themselves when they reach it and share one
 // bf16 stage of each; the raw stages, loaded by TMA three or four tiles
-// ahead, take the room of the second stage (`WideTiles`, below).
+// ahead, take the room of the second stage (`WideTiles`, below). As the bf16
+// kernel at 256, a cluster of CTAs shares each q-tile's key tiles
+// (`flash_quant_launch_splits`), each rank converting only its own run.
 #include "flash_attention.cuh"
 
 namespace mllm {
@@ -400,13 +402,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 // one of V suffice, and the shared memory they free holds the raw stages
 // (`WideGeo::kRaw`: six of int8 K or V, eight of int4), each one tile's K or
 // V with its scales by TMA, loaded three (int8) or four (int4) tiles ahead.
-// What bounds it is the conversion's issue on the consumers' own schedulers
-// (~1.4x the bf16 kernel on the same keys): two raw stages or four ran
-// within 1.5 % of six, and converting each share right after issuing a
-// product (so it runs beside the tensor cores), also with per-warp mbarrier
-// arrivals and two bf16 stages so that neither warpgroup waits for the
-// other's softmax, within 3 % (tools/attention_tune.py --kernel flash_quant
-// --wide; PERF.md).
+// What bounds it: a 64-key tile costs a CTA ~3.2 us (its conversion and its
+// products, never overlapped, on the consumers' own schedulers), and with
+// one CTA a q-tile a causal prefill is as slow as its last q-tile (Gemma-2B's
+// 1536 tokens: 96 CTAs on 132 SMs, the last walking 24 tiles alone). So, as
+// the bf16 kernel at 256 (flash_attention.cu), a cluster of `splits` CTAs
+// (1-8, `flash_quant_launch_splits` in ops/flash_attention.py, from the
+// shapes and this kernel's own resident clusters) shares each q-tile's key
+// tiles: each rank loads, converts and consumes only its run
+// (`cta_tiles<kBKWide, true>`: its raw ring issued from its first tile),
+// leaves its partial where Q and the ring lay, and the ranks merge through
+// distributed shared memory in rank order (`merge_ranks`). A launch of one
+// CTA a q-tile runs the instantiation without the split. Two raw stages or
+// four ran within 1.5 % of six, and converting each share right after
+// issuing a product, also with per-warp mbarrier arrivals and two bf16
+// stages so that neither warpgroup waits for the other's softmax, within
+// 3 % (tools/attention_tune.py --kernel flash_quant --wide; PERF.md).
 constexpr int kWideRawStages = 8;  // raw stages at most (WideGeo::kRaw: what fits)
 
 template <int D, bool kInt4>
@@ -420,13 +431,18 @@ struct WideGeo {
   static constexpr int kSmem = bytes(kRaw);
   static_assert(kSmem <= kSmemLimit && kRaw >= 2, "Q, one bf16 stage of K and V and two raw stages fit");
   static_assert(kRowsBytes % 1024 == 0 && kRawStage % 128 == 0, "TMA destinations stay 128-byte aligned");
+  static_assert(sizeof(SplitSmem<D>) <= (kBQ + 2 * kBKWide) * D * 2 + kRaw * kRawStage,
+                "a split q-tile's partials fit where Q, the bf16 stages and the raw ring lay");
 };
 
 // The ring of the 256-wide kernel: part q of the stream is K (q even) or V
-// (q odd) of tile q / 2, loaded into raw slot q % kRaw and converted into the
-// one bf16 stage of its matrix by every thread of the CTA.
-template <int D, bool kInt4>
+// (q odd) of tile q / 2 of the CTA's run, loaded into raw slot q % kRaw and
+// converted into the one bf16 stage of its matrix by every thread of the
+// CTA. kSplitKeys: a q-tile's keys split over a cluster (`consume` merges
+// the ranks).
+template <int D, bool kInt4, bool kSplitKeys = false>
 struct WideTiles {
+  static constexpr bool kSplit = kSplitKeys;
   using W = WideGeo<D, kInt4>;
   const CUtensorMap *tm_k, *tm_v, *tm_ks, *tm_vs;
   bf16 *sK, *sV;
@@ -470,7 +486,9 @@ struct WideTiles {
   }
 };
 
-template <int D, bool kInt4>
+// kSplit: a launch with more than one CTA a q-tile (p.splits > 1); with one,
+// the kernel that carries none of it.
+template <int D, bool kInt4, bool kSplit>
 __global__ void __launch_bounds__(kThreadsWide, 1)
     flash_quant_wide_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_ks,
@@ -486,7 +504,8 @@ __global__ void __launch_bounds__(kThreadsWide, 1)
   uint64_t* qbar = reinterpret_cast<uint64_t*>(raw + W::kRaw * W::kRawStage);
   uint64_t* raw_full = qbar + 1;
 
-  const CtaTiles c = cta_tiles<kBKWide>(p);
+  const CtaTiles c = cta_tiles<kBKWide, kSplit>(p);
+  if (kSplit && c.rank >= c.used) return;  // a rank of a split q-tile with no run: no merge waits on it
   const int tid = threadIdx.x;
   if (tid == 0) {
     tma_prefetch(&tm_q);
@@ -501,8 +520,8 @@ __global__ void __launch_bounds__(kThreadsWide, 1)
   __syncthreads();
 
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
-  const WideTiles<D, kInt4> tiles{&tm_k, &tm_v, &tm_ks, &tm_vs, sK, sV, raw, raw_full, q_scale,
-                                  c.b * p.Hkv + c.hk, p.Skv, c.kb0, c.lo, c.hi, 2 * c.ntiles, tid};
+  const WideTiles<D, kInt4, kSplit> tiles{&tm_k, &tm_v, &tm_ks, &tm_vs, sK, sV, raw, raw_full, q_scale,
+                                          c.b * p.Hkv + c.hk, p.Skv, c.kb0, c.lo, c.hi, 2 * c.ntiles, tid};
   if (tid == 0 && c.ntiles > 0) {
     mbar_arrive_expect_tx(qbar, kBQ * D * 2);
 #pragma unroll
@@ -510,7 +529,7 @@ __global__ void __launch_bounds__(kThreadsWide, 1)
     for (int q = 0; q < min(W::kRaw, tiles.parts); ++q) tiles.issue(q);
   }
   __syncwarp();
-  consume<D, WideTiles<D, kInt4>, kBKWide, 1>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
+  consume<D, WideTiles<D, kInt4, kSplit>, kBKWide, 1>(p, c, sQ, sK, sV, qbar, tiles, wg, tid);
 }
 
 // The stored rows (kRows a box) and scales maps of one call, and the launch
@@ -543,8 +562,11 @@ cudaError_t launch_maps(Kernel kernel, int smem, const void* q, const void* k, c
 template <int D, bool kInt4>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* ks, const void* vs, float q_scale,
                         const FlashParams& p, cudaStream_t stream) {
-  return launch_maps<D, kInt4, kBKWide, kThreadsWide>(flash_quant_wide_kernel<D, kInt4>, WideGeo<D, kInt4>::kSmem,
-                                                      q, k, v, ks, vs, q_scale, p, stream);
+  if (p.splits > 1)
+    return launch_maps<D, kInt4, kBKWide, kThreadsWide>(flash_quant_wide_kernel<D, kInt4, true>,
+                                                        WideGeo<D, kInt4>::kSmem, q, k, v, ks, vs, q_scale, p, stream);
+  return launch_maps<D, kInt4, kBKWide, kThreadsWide>(flash_quant_wide_kernel<D, kInt4, false>,
+                                                      WideGeo<D, kInt4>::kSmem, q, k, v, ks, vs, q_scale, p, stream);
 }
 
 template <int D, bool kInt4>
@@ -557,26 +579,46 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, 
 }  // namespace
 }  // namespace mllm
 
+// The most clusters of `cluster` CTAs (1..8) of the head_dim 256 kernel over
+// `bits`-bit K/V (8 or 4: their shared-memory plans differ) the card keeps
+// resident at once, in *out; `flash_quant_launch_splits` schedules its grid
+// on them. Returns the CUDA error code.
+extern "C" int mllm_flash_quant_max_clusters(int bits, int cluster, int* out) {
+  using namespace mllm;
+  using namespace mllm::flash;
+  if (bits == 8)
+    return static_cast<int>(max_active_clusters(flash_quant_wide_kernel<256, false, true>, kThreadsWide,
+                                                 WideGeo<256, false>::kSmem, cluster, out));
+  if (bits == 4)
+    return static_cast<int>(max_active_clusters(flash_quant_wide_kernel<256, true, true>, kThreadsWide,
+                                                 WideGeo<256, true>::kSmem, cluster, out));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Returns the CUDA error code of the launch (0 on success). q is the raw
 // query; q_scale = f32(bf16(scale * log2 e)), by which the kernel pre-scales
 // it in bf16; bits is 8 (int8 K/V [B, Hkv, Skv, D]) or 4 (packed uint8
 // [B, Hkv, Skv, D/2]); kv_start may be null. kv_valid_vec (device int32 [B])
 // and q_offset_dev (a device int32) are read in place of kv_valid and
 // q_offset when they are not null (a captured loop's write head): the grid,
-// the tensor maps and every other argument stay what they are. The kernel
-// does not synchronise.
+// the tensor maps and every other argument stay what they are. `splits` is
+// the cluster size that shares a q-tile's keys at head_dim 256 (1..8; the
+// wrapper's `flash_quant_launch_splits`), 1 at the other head dims. The
+// kernel does not synchronise.
 extern "C" int mllm_flash_attention_quant(const void* q, const void* k, const void* v,
                                           const void* ks, const void* vs, void* out,
                                           const void* kv_start, const void* kv_valid_vec,
                                           const void* q_offset_dev, int B, int Sq, int H, int Hkv,
                                           int Skv, int D, int bits, int q_offset, int kv_valid,
-                                          int causal, int window, float q_scale, void* stream) {
+                                          int causal, int window, float q_scale, int splits, void* stream) {
   using namespace mllm;
   using namespace mllm::flash;
   if (Hkv < 1 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the key split is the head_dim 256 body's (splits 1 elsewhere)
+  if (splits < 1 || splits > kMaxSplits || (D != 256 && splits != 1)) return static_cast<int>(cudaErrorInvalidValue);
   const FlashParams p{static_cast<bf16*>(out), static_cast<const int*>(kv_valid_vec),
                       static_cast<const int*>(kv_start), B, Sq, H, Hkv, Skv, q_offset, kv_valid, causal,
-                      window, (Sq + kBQ - 1) / kBQ, 1.f, static_cast<const int*>(q_offset_dev)};
+                      window, (Sq + kBQ - 1) / kBQ, 1.f, static_cast<const int*>(q_offset_dev), splits};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128 && bits == 8) return launch<128, false>(q, k, v, ks, vs, q_scale, p, s);
   if (D == 128 && bits == 4) return launch<128, true>(q, k, v, ks, vs, q_scale, p, s);

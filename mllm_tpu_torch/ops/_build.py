@@ -56,10 +56,12 @@ SIGNATURES = {
                                     _I, _I, _I, _F, _I, _P],
     # q (raw, bf16), k, v, k_scale, v_scale, out, kv_start, kv_valid_vec,
     # q_offset_dev, B, Sq, H, Hkv, Skv, D, bits, q_offset, kv_valid, causal,
-    # window, q_scale, stream; q_scale is f32(bf16(scale * log2 e)): the kernel
-    # takes bf16(f32(q) * q_scale)
+    # window, q_scale, splits, stream; q_scale is f32(bf16(scale * log2 e)):
+    # the kernel takes bf16(f32(q) * q_scale)
     "mllm_flash_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _F, _P],
+                                   _I, _I, _I, _I, _I, _F, _I, _P],
+    # bits, cluster, out (int32*)
+    "mllm_flash_quant_max_clusters": [_I, _I, _P],
     # q, k_pool, v_pool, table, out, kv_valid_vec, B, H, Hkv, NB, MAXB, D,
     # kv_valid, window, scale_log2, splits, stream
     "mllm_decode_attention_paged_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

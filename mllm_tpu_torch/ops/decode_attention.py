@@ -25,6 +25,7 @@ raises. Each wrapper counts its kernel launches in `.launches`.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -166,6 +167,13 @@ def decode_attention(
 decode_attention.launches = 0
 
 
+@functools.cache
+def quant_decode_scale(scale: float, dtype: torch.dtype) -> float:
+    """The softmax scale `decode_attention_quant`'s kernel multiplies q by:
+    rounded to q's dtype, as JAX multiplies a weakly typed scalar."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
 def decode_attention_quant_ref(
     q: torch.Tensor,  # [B, 1, H, D]
     k: torch.Tensor,  # int8 [B, H_kv, S, D] or packed uint8 [B, H_kv, S, D/2]
@@ -233,8 +241,7 @@ def decode_attention_quant(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
         out.data_ptr(), valid_vec.data_ptr() if valid_vec is not None else None,
         start_vec.data_ptr() if start_vec is not None else None,
-        # the scale rounded to q's dtype, as JAX multiplies a weakly typed scalar
-        b, h, hkv, s_max, d, bits, valid_int, int(window or 0), float(torch.tensor(scale, dtype=q.dtype)),
+        b, h, hkv, s_max, d, bits, valid_int, int(window or 0), quant_decode_scale(scale, q.dtype),
         splits, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

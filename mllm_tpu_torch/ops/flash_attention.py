@@ -172,6 +172,34 @@ def flash_cluster_slots(device_index: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+@functools.cache
+def flash_quant_cluster_slots(device_index: int, bits: int) -> tuple[int, ...]:
+    """`flash_cluster_slots` of the head_dim 256 kernel over `bits`-bit K/V
+    (`flash_quant_wide_kernel`: its own shared-memory plan, Q, one bf16
+    stage of K and V and the raw stages, differs from the bf16 kernel's)."""
+    out = []
+    for c in range(1, FLASH_MAX_SPLITS + 1):
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = _build.library().mllm_flash_quant_max_clusters(bits, c, ctypes.addressof(n))
+        if err != 0:
+            raise RuntimeError(f"flash_attention_quant: cluster occupancy query failed with CUDA error {err}")
+        out.append(n.value)
+    return tuple(out)
+
+
+def flash_quant_launch_splits(b: int, sq: int, skv: int, h: int, d: int, bits: int, causal: bool,
+                              window: Optional[int], device_index: int, q_offset: Optional[int],
+                              kv_valid: Optional[int]) -> int:
+    """The cluster size `flash_attention_quant` launches with: `flash_splits`
+    over the quantized kernel's own resident clusters at head_dim 256, else
+    1 (the 64 / 128 kernel has no split)."""
+    if d not in FLASH_SPLIT_HEAD_DIMS:
+        return 1
+    return flash_splits(b, sq, skv, h, causal, window or None, flash_quant_cluster_slots(device_index, bits),
+                        q_offset, kv_valid)
+
+
 def flash_launch_splits(b: int, sq: int, skv: int, h: int, d: int, causal: bool, window: Optional[int],
                         device_index: int, q_offset: Optional[int], kv_valid: Optional[int]) -> int:
     """The cluster size `flash_attention` launches with: `flash_splits` over
@@ -340,8 +368,11 @@ def flash_attention_quant(
     tile's K and V into the bf16 kernel's swizzled ring a tile or more ahead
     of the consumers, which run the bf16 kernel's products and softmax
     (`csrc/flash_attention.cuh`). What still bounds it is the conversion's
-    issue beside the consumers' softmax on the same schedulers (PERF.md). q
-    goes in raw: the kernel rounds bf16(f32(q) * q_scale) in shared memory,
+    issue beside the consumers' softmax on the same schedulers (PERF.md). At
+    head_dim 256 the consumers convert each tile themselves, and a cluster of
+    `flash_quant_launch_splits` CTAs shares each q-tile's keys
+    (`flash_split_runs`), merging its partials in distributed shared memory.
+    q goes in raw: the kernel rounds bf16(f32(q) * q_scale) in shared memory,
     q_scale = f32(bf16(scale * log2 e)) (`quant_q_scale`), the product the
     plain version takes in q's dtype."""
     if on_cpu(q):
@@ -361,6 +392,9 @@ def flash_attention_quant(
     start_vec = kv_start_arg(name, kv_start, b, q.device)
     if scale is None:
         scale = d**-0.5
+    splits = flash_quant_launch_splits(b, sq, skv, h, d, bits, bool(causal), window, q.device.index or 0,
+                                       None if offset_dev is not None else offset_int,
+                                       None if valid_vec is not None else valid_int)
     out = torch.empty_like(q)
     err = _build.library().mllm_flash_attention_quant(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
@@ -368,7 +402,7 @@ def flash_attention_quant(
         valid_vec.data_ptr() if valid_vec is not None else None,
         offset_dev.data_ptr() if offset_dev is not None else None,
         b, sq, h, hkv, skv, d, bits, offset_int, valid_int, int(causal), int(window or 0),
-        quant_q_scale(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        quant_q_scale(scale), splits, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     flash_attention_quant.launches += 1

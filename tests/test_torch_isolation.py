@@ -176,7 +176,8 @@ def test_sources_are_the_kernels():
                      "decode_step.cu", "flash_attention.cu", "flash_attention_quant.cu",
                      "fused_int4_mlp.cu", "int4_matmul.cu", "int8_matmul.cu"]
     assert set(_build.SIGNATURES) == {"mllm_flash_attention_bf16", "mllm_flash_max_clusters", "mllm_decode_attention_bf16",
-                                      "mllm_flash_attention_quant", "mllm_decode_attention_quant",
+                                      "mllm_flash_attention_quant", "mllm_flash_quant_max_clusters",
+                                      "mllm_decode_attention_quant",
                                       "mllm_decode_attention_paged_bf16",
                                       "mllm_int8_matmul_bf16", "mllm_int8_gemm_bf16", "mllm_int8_max_clusters",
                                       "mllm_int4_matmul_bf16",

@@ -11,7 +11,14 @@ card. Here:
     with its own online softmax in base 2 and bf16(p * vs) taken against its
     own running max; the eight warps merged in warp order, the ranks in rank
     order) is emulated in f32 torch and held to `decode_attention_quant_ref`
-    and to the JAX Pallas kernel in interpret mode, on seeded numpy inputs;
+    and to the JAX Pallas kernel in interpret mode, on seeded numpy inputs,
+    also with a stale slot's integers (127) and NaN / inf scales outside the
+    visible keys, which the TMA boxes copy as they lie;
+  - the decode kernel's lane-to-bytes map on the swizzled TMA boxes, read
+    from the constants of its source: every lane's K words hold the head
+    dims q's fragments are gathered in, its V bytes the columns its O
+    fragments stand for, and every shared-memory load instruction of a warp
+    is free of bank conflicts, at head_dim 64, 128 and 256, int8 and int4;
   - the int8 products' order (the stream: each cluster rank's k-rows in
     16-row k-steps, the ranks added in rank order, the column scale last; the
     wgmma kernel: 64-deep k-tiles, the K splits added in rank order) against
@@ -22,6 +29,8 @@ card. Here:
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,12 +43,15 @@ from mllm_tpu.kv import cache as jcache
 from mllm_tpu.ops import decode_attention as jda
 from mllm_tpu.ops import quant_matmul as jqm
 from mllm_tpu_torch.ops import quant_matmul as qm
-from mllm_tpu_torch.ops.decode_attention import (DECODE_TILE, decode_attention_quant_ref, decode_split_ranges,
-                                                 decode_splits, stored_values)
+from mllm_tpu_torch.ops.decode_attention import (DECODE_HEADS, DECODE_MAX_SPLITS, DECODE_TILE,
+                                                 decode_attention_quant_ref, decode_split_ranges, decode_splits,
+                                                 stored_values)
+from mllm_tpu_torch.utils.runtime import csrc_dir
 
 LOG2E = 1.4426950408889634
 NEG_BIG = -1e30
 SMS = 132  # the H100's SMs, which the plans are made for
+SMEM_LIMIT = 232448  # dynamic shared memory a block may have (H100)
 
 
 def bf16_bits_to_f32(bits):
@@ -206,9 +218,10 @@ def kernel_order_decode(q, k, v, ks, vs, kv_valid, kv_start, window, splits):
                             a = torch.exp2(m - mn)
                             p = torch.exp2(sc - mn[:, None])
                             l = l * a + p.sum(dim=1)
+                            # a key outside [lo, hi) keeps its integers (finite), its V scale is 0
                             vsc = torch.where(ok, vs[i, hk, jj], torch.zeros(()))
                             pv = (p * vsc).to(torch.bfloat16).float()
-                            vrows = torch.where(ok[:, None], vv_int[i, hk, jj], torch.zeros(()))
+                            vrows = torch.where((j < S)[:, None], vv_int[i, hk, jj], torch.zeros(()))
                             acc = acc * a[:, None] + pv @ vrows
                             m = mn
                         warps.append((m, l, acc))
@@ -230,6 +243,23 @@ def _merge(parts):
     return mx, l, acc
 
 
+def poisoned(k, ks, v, vs, kv_valid, kv_start, window):
+    """Copies of the stored K/V and scales whose keys outside each sequence's
+    [lo, hi) hold 127 and NaN / inf scales (alternating), as a stale slot
+    may: what the kernel's boxes copy, and the plain operands with them zeroed."""
+    k, ks, v, vs = (np.array(x) for x in (k, ks, v, vs))
+    kz, ksz, vz, vsz = (x.copy() for x in (k, ks, v, vs))
+    j = np.arange(S)
+    for i in range(B):
+        lo, hi = decode_key_range(kv_valid[i], 0 if kv_start is None else kv_start[i], window)
+        bad = (j < lo) | (j >= hi)
+        k[i][:, bad], v[i][:, bad] = 127, 127
+        ks[i][:, bad] = np.where(j[bad] % 2 == 0, np.nan, np.inf)
+        vs[i][:, bad] = np.where(j[bad] % 2 == 0, np.inf, np.nan)
+        kz[i][:, bad], vz[i][:, bad], ksz[i][:, bad], vsz[i][:, bad] = 0, 0, 0.0, 0.0
+    return (k, ks, v, vs), (kz, ksz, vz, vsz)
+
+
 @functools.cache
 def _quant_inputs(bits, d, seed=11):
     rng = np.random.default_rng(seed)
@@ -242,10 +272,13 @@ def _quant_inputs(bits, d, seed=11):
     return q, kv  # k, ks, v, vs
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("name", list(QUANT_SEQUENCES))
 def test_decode_quant_kernel_order(name, bits, d):
+    """The kernel's order against the plain version, and against the Pallas
+    kernel in interpret mode (at head_dim 256 once: the interpret calls
+    cost)."""
     kv_valid, kv_start, window = QUANT_SEQUENCES[name]
     q, (k, ks, v, vs) = _quant_inputs(bits, d)
     tq, tk, tks, tv, tvs = (torch.from_numpy(np.array(x)) for x in (q, k, ks, v, vs))
@@ -255,6 +288,8 @@ def test_decode_quant_kernel_order(name, bits, d):
     ref = decode_attention_quant_ref(tq, tk, tv, tks, tvs, kv_valid_len=torch.tensor(kv_valid, dtype=torch.int32),
                                      kv_start=start_t, window=window)
     torch.testing.assert_close(out, ref, rtol=DECODE_TOL, atol=DECODE_TOL)
+    if d == 256 and (name, bits) != ("kv_start", 8):
+        return
     # the Pallas kernel sees the lengths clamped to the cache; it defines the
     # rows with a visible key
     kvl = np.minimum(np.asarray(kv_valid, np.int32), S)
@@ -267,6 +302,225 @@ def test_decode_quant_kernel_order(name, bits, d):
                      for i in range(B)])
     if window is None or max(kv_valid) <= S:
         np.testing.assert_allclose(out.numpy()[seen], jout[seen], rtol=DECODE_PALLAS_TOL, atol=DECODE_PALLAS_TOL)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("name", ["kv_start", "window"])
+def test_decode_quant_stale_rows(name, bits, d):
+    """The TMA boxes copy a stale slot's rows as they lie: with 127 in the
+    integers and NaN / inf in both scales of every key outside [lo, hi), the
+    kernel's order (scores masked to -inf, the V scale replaced by 0, the
+    integers left in) is finite and equals the plain version on those keys
+    zeroed."""
+    kv_valid, kv_start, window = QUANT_SEQUENCES[name]
+    q, clean = _quant_inputs(bits, d)
+    (k, ks, v, vs), (kz, ksz, vz, vsz) = poisoned(*clean, kv_valid, kv_start, window)
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    splits = decode_splits(B, HKV, H // HKV, S, SMS)
+    out = kernel_order_decode(t(q), t(k), t(v), t(ks), t(vs), kv_valid, kv_start, window, splits)
+    start_t = None if kv_start is None else torch.tensor(kv_start, dtype=torch.int32)
+    ref = decode_attention_quant_ref(t(q), t(kz), t(vz), t(ksz), t(vsz), kv_valid_len=torch.tensor(kv_valid),
+                                     kv_start=start_t, window=window)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The decode kernel's lane-to-bytes map on the swizzled TMA boxes
+# ---------------------------------------------------------------------------
+
+
+def source_text(file: str) -> str:
+    with open(os.path.join(csrc_dir(), file)) as f:
+        return f.read()
+
+
+def source_int(name: str, file: str) -> int:
+    """The value of `constexpr int NAME = <int>;` in csrc/FILE."""
+    m = re.search(rf"constexpr int {name} = (\d+);", source_text(file))
+    assert m, f"{name} in {file}"
+    return int(m.group(1))
+
+
+QUANT_SRC = "decode_attention_quant.cu"
+SPAN = source_int("kSwizzleSpan", QUANT_SRC)  # the widest box row
+BOX_ROWS = source_int("kTile", QUANT_SRC)     # a box is a tile of rows
+# key_row's permutations of each 8 key slots, by box width (128, 64, 32 bytes)
+PERMS = dict(zip((128, 64, 32), (int(x, 16) for x in re.search(
+    r"kBW == 128 \? 0x([0-9a-f]+)u : kBW == 64 \? 0x([0-9a-f]+)u : 0x([0-9a-f]+)u", source_text(QUANT_SRC)).groups())))
+GEOMETRIES = [(d, bits) for d in (64, 128, 256) for bits in (8, 4)]
+
+
+def dq_geo(d, bits):
+    """`Geo`: bytes of a stored row, of a box row, boxes a row, bytes a lane
+    takes of each box of a K and of a V row."""
+    rb = d if bits == 8 else d // 2
+    bw = min(rb, SPAN)
+    return rb, bw, rb // bw, bw // 4, bw // 8
+
+
+def swizzled_box(bw, r, c):
+    """`swizzled`: the byte offset of 16-byte chunk c of row r in a box of
+    bw-byte rows as TMA writes it in the swizzle of that width."""
+    if bw == 128:
+        return r * 128 + ((c ^ (r & 7)) << 4)
+    if bw == 64:
+        return r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
+    return r * 32 + ((c ^ ((r >> 2) & 1)) << 4)
+
+
+def key_row(bw, j):
+    return (j & 8) | ((PERMS[bw] >> (4 * (j & 7))) & 7)
+
+
+def q_dim(d, bits, kk, p, t):
+    rb, bw, _, kw, _ = dq_geo(d, bits)
+    words, per = rb // 16, kw // 4
+    half, wi = (kk // words, kk % words) if bits == 4 else (0, kk)
+    return half * (d // 2) + (wi // per) * bw + t * kw + (wi % per) * 4 + p
+
+
+def v_dim(d, bits, nd, n):
+    rb, bw, _, _, vw = dq_geo(d, bits)
+    half, r = nd // (rb // 8), nd % (rb // 8)
+    return half * (d // 2) + (r // vw) * bw + n * vw + r % vw
+
+
+def k_loads(d, bits, r, t):
+    """`load_k`: lane t's loads of box row r, [(byte address, width)] in the
+    order their words fill the lane's K words."""
+    _, bw, nb, kw, _ = dq_geo(d, bits)
+    box = BOX_ROWS * bw
+    if kw >= 16:
+        return [(b * box + swizzled_box(bw, r, t * (kw // 16) + j), 16) for b in range(nb) for j in range(kw // 16)]
+    return [(b * box + swizzled_box(bw, r, t >> 1) + (t & 1) * 8, 8) for b in range(nb)]
+
+
+def v_loads(d, bits, r, g):
+    """`load_v`: lane g's loads of box row r, [(byte address, width)]."""
+    _, bw, nb, _, vw = dq_geo(d, bits)
+    box = BOX_ROWS * bw
+    if vw == 16:
+        return [(b * box + swizzled_box(bw, r, g), 16) for b in range(nb)]
+    if vw == 8:
+        return [(b * box + swizzled_box(bw, r, g >> 1) + (g & 1) * 8, 8) for b in range(nb)]
+    return [(b * box + swizzled_box(bw, r, g >> 2) + (g & 3) * 4, 4) for b in range(nb)]
+
+
+def box_image(rows, bw):
+    """A tile's stored rows [64, RB] as TMA writes them into its boxes."""
+    nb = rows.shape[1] // bw
+    img = np.full(nb * BOX_ROWS * bw, -1, np.int64)
+    for b in range(nb):
+        for r in range(BOX_ROWS):
+            for c in range(bw // 16):
+                at = b * BOX_ROWS * bw + swizzled_box(bw, r, c)
+                img[at:at + 16] = rows[r, b * bw + 16 * c:b * bw + 16 * c + 16]
+    assert (img >= 0).all(), "every byte of the boxes written once"
+    return img
+
+
+def gather(img, loads):
+    return np.concatenate([img[a:a + w] for a, w in loads])
+
+
+@pytest.mark.parametrize("d,bits", GEOMETRIES)
+def test_decode_quant_lane_bytes_follow_the_swizzle(d, bits):
+    """Every lane's K bytes are those of the head dims its q fragments are
+    gathered in (q_dim: bytes 0 and 2 of a word at k slots 2t, 2t + 1, bytes
+    1 and 3 at 2t + 8, 2t + 9; at int4 the high nibbles the second half of
+    D), of the key row `key_row` gives its slot; every lane's V byte i is
+    the column v_dim(i, g) (and D / 2 + it at int4) of the rows of slots 2t,
+    2t + 1, 2t + 8, 2t + 9. q_dim, v_dim and key_row are permutations."""
+    rb, bw, nb, kw, vw = dq_geo(d, bits)
+    steps = d // 16
+    assert sorted(q_dim(d, bits, kk, 0, t) + p for kk in range(steps) for t in range(4) for p in range(4)) == \
+        list(range(d))
+    assert sorted(v_dim(d, bits, nd, n) for nd in range(d // 8) for n in range(8)) == list(range(d))
+    assert sorted(key_row(bw, j) for j in range(16)) == list(range(16))
+    rows = np.arange(BOX_ROWS * rb, dtype=np.int64).reshape(BOX_ROWS, rb)  # every byte names its (row, column)
+    img = box_image(rows, bw)
+    words = rb // 16  # K words a lane holds
+    for warp in range(BOX_ROWS // 16):
+        r0 = 16 * warp
+        for t in range(4):
+            for g in range(8):
+                for nb_ in range(2):
+                    r = r0 + key_row(bw, nb_ * 8 + g)
+                    got = gather(img, k_loads(d, bits, r, t))
+                    assert got.size == 4 * words
+                    for wi in range(words):
+                        for p in range(4):
+                            col = q_dim(d, bits, wi, p, t)
+                            assert got[4 * wi + p] == rows[r, col]
+                            if bits == 4:
+                                assert q_dim(d, bits, words + wi, p, t) == d // 2 + col
+                for e in (0, 1, 8, 9):
+                    r = r0 + key_row(bw, 2 * t + e)
+                    got = gather(img, v_loads(d, bits, r, g))
+                    assert got.size == nb * vw == rb // 8
+                    for i in range(rb // 8):
+                        assert got[i] == rows[r, v_dim(d, bits, i, g) % (d // 2 if bits == 4 else d)]
+                        if bits == 4:
+                            assert v_dim(d, bits, rb // 8 + i, g) == d // 2 + v_dim(d, bits, i, g)
+
+
+def conflict_free(addrs, width):
+    """One warp's load instruction (a byte address a lane) is one wavefront a
+    128-byte phase: the lanes of each phase (8 for 16-byte loads, 16 for 8,
+    32 for 4) fall in distinct `width`-byte bank groups."""
+    lanes = 128 // width
+    return all(len({(a // width) % lanes for a in addrs[p0:p0 + lanes]}) == lanes for p0 in range(0, 32, lanes))
+
+
+@pytest.mark.parametrize("d,bits", GEOMETRIES)
+def test_decode_quant_loads_are_free_of_bank_conflicts(d, bits):
+    """Each K and V load instruction of each warp (its 16 rows at any
+    multiple of 16 in the box), lane (g, t) = (lane / 4, lane % 4)."""
+    _, bw, _, _, _ = dq_geo(d, bits)
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for warp in range(BOX_ROWS // 16):
+        r0 = 16 * warp
+        for nb_ in range(2):
+            per_lane = [k_loads(d, bits, r0 + key_row(bw, nb_ * 8 + g), t) for g, t in lanes]
+            for i in range(len(per_lane[0])):
+                addrs, width = [x[i][0] for x in per_lane], per_lane[0][i][1]
+                assert conflict_free(addrs, width), ("K", d, bits, warp, nb_, i)
+        for e in (0, 1, 8, 9):
+            per_lane = [v_loads(d, bits, r0 + key_row(bw, 2 * t + e), g) for g, t in lanes]
+            for i in range(len(per_lane[0])):
+                addrs, width = [x[i][0] for x in per_lane], per_lane[0][i][1]
+                assert conflict_free(addrs, width), ("V", d, bits, warp, e, i)
+
+
+@pytest.mark.parametrize("d,bits", GEOMETRIES)
+def test_decode_quant_shared_memory_plan(d, bits):
+    """`Geo` / `Smem`: every box and stage 1024-byte aligned (the swizzle's
+    span), the merge fits the idle ring's area or sets it, and the plan fits
+    the card: two CTAs an SM up to head_dim 128 (__launch_bounds__), one at
+    256."""
+    rb, bw, nb, _, _ = dq_geo(d, bits)
+    halves, stages = 2, source_int("kStages", QUANT_SRC)
+    warps, rows = source_int("kHalves", QUANT_SRC) * BOX_ROWS // 16, DECODE_HEADS
+    box, rows_bytes = BOX_ROWS * bw, BOX_ROWS * rb
+    stage = -(-(2 * rows_bytes + 2 * BOX_ROWS * 4) // 1024) * 1024
+    assert box % 1024 == 0 and rows_bytes % 1024 == 0 and (2 * rows_bytes) % 128 == 0
+    area = max(halves * stages * stage, warps * rows * d * 4)
+    smem = area + (d // 16) * 32 * 16 + 8 * halves * stages + 2 * 4 * warps * rows + 2 * 4 * rows + 1024
+    per_sm = 233472  # shared memory an SM holds (H100), 1 KB of it reserved a block
+    assert smem <= SMEM_LIMIT
+    if d <= 128:
+        assert 2 * (smem + 1024) <= per_sm
+
+
+def test_decode_quant_constants_are_the_kernels():
+    """The host rule's and this file's constants are the kernel's."""
+    assert DECODE_TILE == source_int("kTile", QUANT_SRC) == BOX_ROWS
+    assert DECODE_MAX_SPLITS == source_int("kMaxSplits", QUANT_SRC)
+    assert DECODE_HEADS == source_int("kRows", QUANT_SRC)
+    assert source_int("kHalves", QUANT_SRC) == HALVES
+    assert SPAN == 128
 
 
 def test_decode_quant_cases_reach_each_path():

@@ -27,17 +27,19 @@ headers it includes (directly or through another header) set to VALUE (e.g.
 kTile, kStages, kBK, kRawRows) in a copy under build/kernels/tune (the source
 and those headers), compiled alone with nvcc for sm_90a (every variant's nvcc started at
 once) and called through its C entry point.
-`@SPLITS` fixes the cluster size (the decode kernels', and the flash kernel's at
-head_dim 256; the narrow bodies at 64 and 80 take only 1) instead of
-the rule of the variant's own tree (`decode_splits`, `flash_launch_splits` or
-an older tree's `flash_splits`, imported from the package that holds its
+`@SPLITS` fixes the cluster size (the decode kernels', and the flash kernels' at
+head_dim 256, bf16 and quantized; the narrow bodies at 64 and 80 take only 1)
+instead of the rule of the variant's own tree (`decode_splits`,
+`flash_launch_splits`, `flash_quant_launch_splits` or an older tree's
+`flash_splits`, imported from the package that holds its
 csrc, so a parent tree's kernel gets the cluster size its wrapper gave it). A directory whose
 entry point takes no cluster size (an older tree's kernel) is called without
 one. The variant named `sdpa`
 is PyTorch's scaled_dot_product_attention over the same keys (main rows);
 with `--kernel decode_quant` (`csrc/decode_attention_quant.cu`, rows
 chip_smoke.QUANT_DECODE_ROWS at int8 and then int4) the variant named `bf16`
-is this tree's bf16 decode_attention over the same keys dequantized to bf16;
+is this tree's bf16 decode_attention over the same keys dequantized to bf16
+(and `sdpa`, with `--kernel flash_quant` too, SDPA over them);
 with `--kernel paged` (rows chip_smoke.PAGED_ROWS) the variant named `dense`
 is this tree's decode_attention over the dense view of the slots' blocks
 (`gather_pages`, made outside the timed window). A paged directory whose
@@ -188,7 +190,8 @@ def build_variants(kind: str, variants: list, out_dir: str, sass: bool = False) 
         var["dev_scalars"] = ("q_offset_dev" in text) * (2 if kind == "flash_quant" else 1)
         splits = [_I] if var["with_splits"] else []
         if kind == "flash_quant":
-            fn.argtypes = [_P] * (7 + var["dev_scalars"]) + [_I] * 11 + ([_F] if var["with_q_scale"] else []) + [_P]
+            fn.argtypes = [_P] * (7 + var["dev_scalars"]) + [_I] * 11 + ([_F] if var["with_q_scale"] else []) + \
+                splits + [_P]
         elif kind == "flash":
             fn.argtypes = [_P] * (6 + var["dev_scalars"]) + [_I] * 10 + [_F] + splits + [_P]
         elif kind == "decode":
@@ -266,6 +269,19 @@ def tree_flash_splits(var: dict, b: int, sq: int, skv: int, h: int, window, d: i
     return ops.flash_splits(b, sq, skv, h, causal, window or None, ops.flash_cluster_slots(0), q_offset, kv_valid)
 
 
+def tree_flash_quant_splits(var: dict, b: int, sq: int, skv: int, h: int, d: int, bits: int, window,
+                            q_offset: int, kv_valid: int) -> int:
+    """The variant's quantized flash cluster size: its `@SPLITS`, else its own
+    tree's `flash_quant_launch_splits` as its wrapper calls it (host q_offset
+    and kv_valid), 1 in a tree without it."""
+    if var["splits"]:
+        return var["splits"]
+    ops = tree_ops(var["csrc"], "flash_attention")
+    if not hasattr(ops, "flash_quant_launch_splits"):
+        return 1
+    return ops.flash_quant_launch_splits(b, sq, skv, h, d, bits, True, window or None, 0, q_offset, kv_valid)
+
+
 def caller(kind: str, var: dict, q, k, v, kw):
     """A no-argument call of the variant's kernel on these inputs (the
     variant "sdpa": PyTorch's scaled_dot_product_attention over the same keys,
@@ -308,14 +324,21 @@ def caller(kind: str, var: dict, q, k, v, kw):
     return run
 
 
-def quant_caller(var: dict, q, ops, kw, dense):
+def quant_caller(var: dict, q, ops, kw, dense, row=None):
     """A no-argument call of the variant's quantized decode kernel on (q, k,
     v, k_scale, v_scale) (the variant "bf16": the bf16 decode_attention kernel
-    of this tree over the same keys dequantized, `dense`)."""
+    of this tree over the same keys dequantized, `dense`; "sdpa": PyTorch's
+    scaled_dot_product_attention over them with the row's mask, as the
+    smoke's `dense_sdpa_ms`)."""
     if var["name"] == "bf16":
         from mllm_tpu_torch.ops.decode_attention import decode_attention
 
         return lambda: decode_attention(q, *dense, **kw)
+    if var["name"] == "sdpa":
+        m = chip_smoke.decode_mask(q.device, [min(n, dense[0].shape[2]) for n in row[1]], dense[0].shape[2], row[2],
+                                   row[3])
+        return lambda: torch.nn.functional.scaled_dot_product_attention(q.transpose(1, 2), *dense, attn_mask=m,
+                                                                        enable_gqa=True)
     k, v, ks, vs = ops
     out = torch.empty_like(q)
     b, _, h, d = q.shape
@@ -345,13 +368,19 @@ def flash_quant_caller(var: dict, q, ops, kw, dense):
 
     if var["name"] == "bf16":
         return lambda: flash_attention(q, *dense, **kw)
+    if var["name"] == "sdpa":  # over the dequantized keys, as the smoke's `dense_sdpa_ms`
+        n = int(kw["kv_valid_len"])
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), dense[0][:, :, :n], dense[1][:, :, :n], is_causal=kw["q_offset"] == 0, enable_gqa=True)
     k, v, ks, vs = ops
     out = torch.empty_like(q)
     b, sq, h, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     start = kw["kv_start"]
-    tail = (b, sq, h, hkv, skv, d, 8 if k.dtype == torch.int8 else 4, kw["q_offset"], int(kw["kv_valid_len"]), 1,
-            int(kw["window"] or 0))
+    bits = 8 if k.dtype == torch.int8 else 4
+    tail = (b, sq, h, hkv, skv, d, bits, kw["q_offset"], int(kw["kv_valid_len"]), 1, int(kw["window"] or 0))
+    splits = [tree_flash_quant_splits(var, b, sq, skv, h, d, bits, kw["window"], kw["q_offset"],
+                                      int(kw["kv_valid_len"]))] if var["with_splits"] else []
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(), out.data_ptr(),
             start.data_ptr() if start is not None else None, *[None] * var["dev_scalars"])
@@ -359,7 +388,7 @@ def flash_quant_caller(var: dict, q, ops, kw, dense):
 
     def run():
         if var["with_q_scale"]:
-            err = var["fn"](q.data_ptr(), *ptrs, *tail, quant_q_scale(d**-0.5), stream)
+            err = var["fn"](q.data_ptr(), *ptrs, *tail, quant_q_scale(d**-0.5), *splits, stream)
         else:
             qt = (q * c).contiguous()
             err = var["fn"](qt.data_ptr(), *ptrs, *tail, stream)
@@ -458,19 +487,21 @@ def time_variants(args, variants, runs, ref, shape, bound_ms):
 
 def main_quant(args, variants, dev):
     """--kernel decode_quant: every row of chip_smoke.QUANT_DECODE_ROWS at int8
-    and int4 (or the main row at both), against decode_attention_quant_ref."""
+    and int4 (or the main row at both), against decode_attention_quant_ref;
+    at WIDE_GEO with --wide, at GEO64 with --geo64."""
     from mllm_tpu_torch.ops.decode_attention import decode_attention_quant_ref
 
     rows = chip_smoke.QUANT_DECODE_ROWS
     if args.rows == "main":
         rows = [rows[chip_smoke.MAIN_ROW["decode_attention_quant" + ("@256" if args.wide else "")]]]
-    geo = chip_smoke.WIDE_GEO if args.wide else (chip_smoke.H, chip_smoke.HKV, chip_smoke.D)
+    geo = chip_smoke.WIDE_GEO if args.wide else chip_smoke.GEO64 if args.geo64 else (chip_smoke.H, chip_smoke.HKV,
+                                                                                     chip_smoke.D)
     g = torch.Generator(device=dev).manual_seed(1234)
     for bits in (8, 4):
         for row in rows:
             q, kops, pops, kw, shape, dense = chip_smoke.quant_decode_inputs(row, bits, dev, g, geo)
             ref = decode_attention_quant_ref(q, *pops, **kw).float()
-            runs = [quant_caller(var, q, kops, kw, dense) for var in variants]
+            runs = [quant_caller(var, q, kops, kw, dense, row) for var in variants]
             kb = 2 * (geo[2] if bits == 8 else geo[2] // 2) + 8
             time_variants(args, variants, runs, ref, shape, chip_smoke.attention_bound(shape, kb)["bound_ms"])
 
@@ -540,7 +571,8 @@ def main():
     ap.add_argument("--rows", choices=("main", "probe", "all"), default="all")
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--wide", action="store_true", help="the kernel's rows at head_dim 256")
-    ap.add_argument("--geo64", action="store_true", help="the kernel's rows at head_dim 64 (chip_smoke.GEO64)")
+    ap.add_argument("--geo64", action="store_true",
+                    help="the kernel's rows at head_dim 64 (chip_smoke.GEO64; decode_quant too)")
     ap.add_argument("--geo80", action="store_true", help="flash only: chip_smoke.FLASH80_ROWS (non-causal, 80)")
     ap.add_argument("--sass", action="store_true", help="print a digest of each built kernel's SASS")
     args = ap.parse_args()

@@ -85,8 +85,8 @@ PROBES = {
                   "  const float* scales_v = reinterpret_cast<const float*>(p.scales_v);"),
                  (HEADER, "  float scale_log2;  // the factor of the f32 scores",
                   "  const void* scales_k;\n  const void* scales_v;\n  float scale_log2;  // the factor of the f32 scores"),
-                 (QUANT, "window, (Sq + kBQ - 1) / kBQ, 1.f, static_cast<const int*>(q_offset_dev)};",
-                  "window, (Sq + kBQ - 1) / kBQ, ks, vs, 1.f, static_cast<const int*>(q_offset_dev)};")],
+                 (QUANT, "window, (Sq + kBQ - 1) / kBQ, 1.f, static_cast<const int*>(q_offset_dev), splits};",
+                  "window, (Sq + kBQ - 1) / kBQ, ks, vs, 1.f, static_cast<const int*>(q_offset_dev), splits};")],
 }
 
 
