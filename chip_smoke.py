@@ -641,6 +641,8 @@ def phase_kernels(dev) -> dict:
     rows.update(wide_kernel_rows(dev, g))
     rows["flash_attention@80"] = flash80_rows(dev, g)
     rows.update(head_dim64_rows(dev, g))
+    for name, split_rows in timed_phase("tp_split_rows", lambda: tp_split_rows(dev, g)).items():
+        rows[name] += split_rows
     return rows
 
 
@@ -2016,10 +2018,11 @@ ENGINE_KW = dict(slots=8, max_len=S_CACHE, prompt_bucket=128, decode_window=32, 
                  eos_token_id=-2)
 
 
-def paged_blocks_short_of(lens, short: int) -> int:
-    """A pool `short` blocks smaller than the first eight requests reserve
-    together, counted as ContinuousEngine._paged_reserve counts them."""
-    need = [max(-(-(n + ENGINE_NEW) // 128), -(-n // 128)) for n in lens[:8]]
+def paged_blocks_short_of(lens, short: int, new: int = ENGINE_NEW) -> int:
+    """A pool `short` blocks smaller than the first eight requests (of `new`
+    tokens each) reserve together, counted as ContinuousEngine._paged_reserve
+    counts them."""
+    need = [max(-(-(n + new) // 128), -(-n // 128)) for n in lens[:8]]
     return sum(need) - short
 
 
@@ -3915,6 +3918,21 @@ def vl_prefill_timings(model, dev, src, ids, pos, grid, name: str) -> dict:
     return row
 
 
+def engine_image(cfg, dev, rng):
+    """One image request of the engine runs: a random VL_ENGINE_PX px frame
+    patchified on the card, between 10 + 10 random text ids
+    (Qwen2VLProcessorOutput)."""
+    from mllm_tpu_torch.models.qwen2_vl import device_patchify
+    from mllm_tpu_torch.processor.image import CLIP_MEAN, CLIP_STD
+    from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessorOutput
+
+    g = VL_ENGINE_PX // 14
+    ids, pos, delta = vl_prompt(cfg, (1, g, g), rng, (10, 10))
+    frame = torch.as_tensor(rng.integers(0, 256, (1, VL_ENGINE_PX, VL_ENGINE_PX, 3), np.uint8), device=dev)
+    return Qwen2VLProcessorOutput(ids, device_patchify(torch.cat([frame, frame]), CLIP_MEAN, CLIP_STD), (1, g, g),
+                                  pos, delta)
+
+
 def vl_engine_run(model, dev, rng) -> dict:
     """ContinuousEngine(slots=8, max_len=2048, decode_window=32, pipeline=True)
     serving VL_ENGINE_IMAGES image requests at VL_ENGINE_PX px (patchified on
@@ -3924,19 +3942,10 @@ def vl_engine_run(model, dev, rng) -> dict:
     launches on the card."""
     from mllm_tpu_torch.generation import graphs
     from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
-    from mllm_tpu_torch.models.qwen2_vl import device_patchify
-    from mllm_tpu_torch.processor.image import CLIP_MEAN, CLIP_STD
-    from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessorOutput
 
     cfg = model.cfg
-    g = VL_ENGINE_PX // 14
-    grid = (1, g, g)
-    images = []
-    for _ in range(VL_ENGINE_IMAGES):
-        ids, pos, delta = vl_prompt(cfg, grid, rng, (10, 10))
-        frame = torch.as_tensor(rng.integers(0, 256, (1, VL_ENGINE_PX, VL_ENGINE_PX, 3), np.uint8), device=dev)
-        patches = device_patchify(torch.cat([frame, frame]), CLIP_MEAN, CLIP_STD)
-        images.append((ids, patches, Qwen2VLProcessorOutput(ids, patches, grid, pos, delta)))
+    images = [engine_image(cfg, dev, rng) for _ in range(VL_ENGINE_IMAGES)]
+    grid = images[0].grid_thw
     texts = [rng.integers(0, 151000, n) for n in VL_ENGINE_TEXT_LENS]
     torch.cuda.synchronize()
     eng = ContinuousEngine(model, start_thread=False, **ENGINE_KW)
@@ -3945,7 +3954,7 @@ def vl_engine_run(model, dev, rng) -> dict:
     qs = {}
     for i, txt in enumerate(texts):  # an image request before every other text request
         if i % 2 == 0 and i // 2 < len(images):
-            qs[("image", i // 2)] = eng.submit_vl(images[i // 2][2], ENGINE_NEW)
+            qs[("image", i // 2)] = eng.submit_vl(images[i // 2], ENGINE_NEW)
         qs[("text", i)] = eng.submit(txt, ENGINE_NEW)
     while any(r is not None for r in eng.req) or not eng.pending.empty() or eng._inflight is not None:
         eng.step()
@@ -3958,11 +3967,11 @@ def vl_engine_run(model, dev, rng) -> dict:
     V = cfg.text.vocab_size
     if not all(len(o) == ENGINE_NEW and all(0 <= t < V for t in o) for o in outs):
         raise AssertionError(f"slice_vl engine: lengths {[len(o) for o in outs]} or a token out of the vocabulary")
-    gaps = [vl_gap(model, dev, ids, patches, grid, got[("image", i)]) for i, (ids, patches, _) in enumerate(images)]
+    gaps = [vl_gap(model, dev, im.input_ids, im.patches, grid, got[("image", i)]) for i, im in enumerate(images)]
     gaps += [teacher_forced_gap(model, dev, t, got[("text", i)]) for i, t in enumerate(texts)]
     replays = sum(gr.replays for gr in eng._windows.values())
     emit(phase="slice_vl_engine", requests=len(outs), image_requests=len(images), image_px=VL_ENGINE_PX,
-         image_prompt_tokens=int(images[0][0].shape[1]), text_prompt_tokens=list(VL_ENGINE_TEXT_LENS),
+         image_prompt_tokens=int(images[0].input_ids.shape[1]), text_prompt_tokens=list(VL_ENGINE_TEXT_LENS),
          new_tokens=ENGINE_NEW, wall_s=wall, tok_s=len(outs) * ENGINE_NEW / wall, capture_s=capture_s,
          tok_s_less_capture=len(outs) * ENGINE_NEW / (wall - capture_s), windows=eng.steps, graph_replays=replays,
          admissions=eng.admissions, teacher_forced_gap_over_max_logit=max(gaps), tolerance=RAGGED_TOL,
@@ -5237,6 +5246,53 @@ SGD_TOL = 1e-2  # x max |update| of each parameter (floored at SGD_FLOOR x the l
 SGD_FLOOR = 1e-4  # parameters updated less (k_proj.bias: no gradient in exact arithmetic) are held to that floor
 ENGINE_TP_LENS = (17, 40, 64, 100, 128, 150, 200, 256)
 ENGINE_TP_NEW = 32
+PAR_PAGED_SHORT = 4  # the TP paged run's pool: this many blocks short of what the 8 requests reserve together
+PAR_VL_IMAGES = 2  # image requests of the TP VL run (VL_ENGINE_PX px, 278 prompt tokens each) ...
+PAR_VL_TEXT_LENS = (17, 100, 200, 64)  # ... before the 1st and 3rd of these text requests
+# the head splits of tensor-parallel serving at head_dim 128: Qwen2-VL-2B's 12 / 2 heads at tp 2 (6 / 1 a
+# rank) and, padded to 12 / 4 by pad_heads_for_tp, at tp 4 (3 / 1 a rank); the kernel check's rows of
+# the 1536-token prefill and the engine's batched admission (flash), the 1531-key step and 8 slots at
+# unequal lengths (decode), the engine's 8 slots (paged)
+TP_SPLIT_GEOS = {"qwen2vl-2b tp2": (6, 1, 128), "qwen2vl-2b padded tp4": (3, 1, 128)}
+TP_SPLIT_ROWS = {"flash_attention": (5, 6), "decode_attention": (1, 4), "decode_attention_paged": (0,)}
+
+
+def tp_split_rows(dev, g) -> dict:
+    """flash_attention, decode_attention and decode_attention_paged at the
+    TP_SPLIT_GEOS head counts against their plain versions (<= TOL), timed
+    beside their bounds and SDPA (on each kernel's main row) or the dense
+    kernel over the same keys (paged). The rows go after each kernel's own,
+    so its main row stays."""
+    from mllm_tpu_torch.ops.decode_attention import (decode_attention, decode_attention_paged,
+                                                     decode_attention_paged_ref, decode_attention_ref)
+    from mllm_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {name: [] for name in TP_SPLIT_ROWS}
+    for split, geo in TP_SPLIT_GEOS.items():
+        for name, kernel, plain, table in (("flash_attention", flash_attention, flash_attention_ref, FLASH_ROWS),
+                                           ("decode_attention", decode_attention, decode_attention_ref,
+                                            DECODE_ROWS)):
+            for i in TP_SPLIT_ROWS[name]:
+                q, k, v, kp, vp, kw, shape = attention_inputs(name, table[i], dev, g, geo)
+                shape["tp_split"] = split
+                library = None
+                if i == MAIN_ROW[name]:
+                    kvl = shape["kv_valid"] if name == "flash_attention" else shape["kv_valid"][0]
+                    library = (lambda q=q, k=k, v=v, kvl=kvl, causal=name == "flash_attention": sdpa(
+                        q.transpose(1, 2), k[:, :, :kvl], v[:, :, :kvl], is_causal=causal, enable_gqa=True))
+                rows[name].append(check_attention_row(name, lambda: kernel(q, k, v, **kw),
+                                                      lambda: plain(q, kp, vp, **kw), shape, library))
+        for i in TP_SPLIT_ROWS["decode_attention_paged"]:
+            q, kp, vp, table, kw, shape, (kpp, vpp), (kd, vd) = paged_inputs(PAGED_ROWS[i], dev, g, geo)
+            shape["tp_split"] = split
+            m = decode_mask(dev, kw["kv_valid_len"].tolist(), kd.shape[2], window=PAGED_ROWS[i][2])
+            rows["decode_attention_paged"].append(check_kv_row(
+                "decode_attention_paged", lambda: decode_attention_paged(q, kp, vp, table, **kw),
+                lambda: decode_attention_paged_ref(q, kpp, vpp, table, **kw), shape, None,
+                lambda: sdpa(q.transpose(1, 2), kd, vd, attn_mask=m, enable_gqa=True),
+                {"dense_decode_ms": lambda: decode_attention(q, kd, vd, **kw)}))
+    return rows
 
 
 def attention_launches(kernels: dict) -> int:
@@ -5375,22 +5431,64 @@ def rel_gap(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
 
 
-def engine_tokens(model, dev, prompts, kv: str, mesh=None):
-    """Greedy tokens of `prompts` through a ContinuousEngine (8 slots, window
-    32), and its tokens a second over the run."""
+def engine_tokens(model, dev, requests, kv: str, mesh=None) -> dict:
+    """Greedy tokens of `requests` (token ids, or a Qwen2VLProcessorOutput:
+    an image request) through a ContinuousEngine (8 slots, window 32; `kv`
+    "bf16", "int8" or "paged": bf16 blocks, PAR_PAGED_SHORT blocks short of
+    the first eight requests, so some wait), ENGINE_TP_NEW each. Returns the
+    tokens, tok/s over wall time (first submit to last token, the windows'
+    capture inside) and without the capture seconds, each image request's
+    time to first token (its submit to its first token at the host),
+    requeues, windows and graph replays, and the launches on the card
+    (`graphs.device_launches`, from vl_reset). Under a mesh the first image
+    request is broadcast alone before the rest are submitted: `broadcast_ms`
+    is that `_sync_requests` (ids, positions, the patches), `empty_sync_ms`
+    one with nothing queued."""
+    from mllm_tpu_torch.generation import graphs
     from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
 
-    eng = ContinuousEngine(model, slots=8, max_len=S_CACHE, prompt_bucket=128, decode_window=32, kv_dtype=kv,
-                           eos_token_id=-2, start_thread=False, mesh=mesh)
+    kw = dict(kv_dtype=kv)
+    if kv == "paged":
+        kw = dict(kv_dtype="bf16", paged=paged_blocks_short_of(ENGINE_TP_LENS, PAR_PAGED_SHORT, ENGINE_TP_NEW))
+    eng = ContinuousEngine(model, slots=8, max_len=S_CACHE, prompt_bucket=128, decode_window=32, eos_token_id=-2,
+                           start_thread=False, mesh=mesh, **kw)
+    is_image = [not isinstance(r, np.ndarray) for r in requests]
+    submit = lambda r: eng.submit_vl(r, ENGINE_TP_NEW) if not isinstance(r, np.ndarray) else eng.submit(  # noqa: E731
+        r, ENGINE_TP_NEW)
     torch.cuda.synchronize()
+    vl_reset()
+    out = {}
     t0 = time.perf_counter()
-    qs = [eng.submit(p, ENGINE_TP_NEW) for p in prompts]
+    qs = []
+    if mesh is not None and is_image[0]:
+        qs.append(submit(requests[0]))
+        for key in ("broadcast_ms", "empty_sync_ms"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng._sync_requests()
+            torch.cuda.synchronize()
+            out[key] = (time.perf_counter() - t1) * 1e3
+    qs += [submit(r) for r in requests[len(qs):]]
+    ttft = {}
     while (any(r is not None for r in eng.req) or not eng.pending.empty() or not eng._mirror.empty()
            or eng._inflight is not None):
         eng.step()
+        for i, q in enumerate(qs):
+            if is_image[i] and i not in ttft and q.qsize():
+                ttft[i] = (time.perf_counter() - t0) * 1e3
     outs = [collect(q, timeout=60) for q in qs]
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return outs, sum(len(o) for o in outs) / wall
+    capture_s = sum(gr.capture_s for gr in eng._windows.values())
+    n = sum(len(o) for o in outs)
+    out.update(toks=outs, tok_s=n / wall, capture_s=capture_s, tok_s_less_capture=n / (wall - capture_s),
+               ttft_ms=[ttft.get(i) for i in range(len(qs)) if is_image[i]], requeued=eng.requeued,
+               windows=eng.steps, graph_replays=sum(gr.replays for gr in eng._windows.values()),
+               launches=graphs.device_launches(vl_counts()))
+    vl_reset()
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 def sgd_update_err(cfg, dev, mesh, ids, tgt):
@@ -5417,22 +5515,57 @@ def sgd_update_err(cfg, dev, mesh, ids, tgt):
     return err, top, (float(tp_loss), float(plain_loss))
 
 
+def tp_vl_requests(cfg, dev, rng) -> list:
+    """PAR_VL_IMAGES image requests of slice_vl_engine's kind (`engine_image`)
+    before every other text request of PAR_VL_TEXT_LENS random ids."""
+    reqs = []
+    for i, n in enumerate(PAR_VL_TEXT_LENS):
+        if i % 2 == 0 and i // 2 < PAR_VL_IMAGES:
+            reqs.append(engine_image(cfg, dev, rng))
+        reqs.append(rng.integers(0, 151000, n))
+    return reqs
+
+
+def tp_engine_pair(name: str, model, sharded, dev, requests, kv: str, mesh) -> dict:
+    """The plain engine over `model`, then the TP engine over `sharded`
+    (`engine_tokens`), with each run's seconds printed: a `slice_parallel_
+    engine` line with both runs' rates, capture seconds, image TTFTs and
+    launches. Returns that line."""
+    t0 = time.perf_counter()
+    plain = engine_tokens(model, dev, requests, kv)
+    t1 = time.perf_counter()
+    tp = engine_tokens(sharded, dev, requests, kv, mesh=mesh)
+    t2 = time.perf_counter()
+    row = dict(phase="slice_parallel_engine", run=name, requests=len(requests), new_tokens=ENGINE_TP_NEW,
+               equal=tp["toks"] == plain["toks"], plain_s=t1 - t0, tp_s=t2 - t1,
+               **{k: v for k, v in tp.items() if k != "toks"},
+               **{f"plain_{k}": v for k, v in plain.items() if k != "toks"})
+    emit(**row)
+    return row
+
+
 def phase_slice_parallel(dev) -> dict:
     """The parallel axes at world 1 over NCCL on the card (tp = dp = pp = ep
     = sp = 1; every collective runs, on one rank): sharded_generate against
     generate_compiled at full width (greedy tokens equal; decode tok/s of
     generate_compiled over the sharded and the plain model); the TP engine
-    against the plain engine over bf16 and int8 slot caches (tokens equal,
-    tok/s); one sgd_train_step in f32 against the plain step
-    (`sgd_update_err`), pipeline_lm_loss
-    against model.loss, ring and Ulysses attention in the trunk against the
-    plain trunk (PAR_LAYERS layers, full width); moe_forward_ep against the
-    MoE layer at QWEN2_MOE_08B's widths (2 layers); then `python -m
-    mllm_tpu_torch.parallel.dryrun --device cuda` in a process of its own."""
+    against the plain engine over bf16 and int8 slot caches and a paged pool
+    that requeues (tokens equal, tok/s), then over the full-width Qwen2-VL-2B
+    (its `.lm` sharded, the tower whole) with image and text requests
+    (tokens equal, image TTFT, one image request's broadcast ms); one
+    sgd_train_step in f32 against the plain step (`sgd_update_err`),
+    pipeline_lm_loss against model.loss, ring and Ulysses attention in the
+    trunk against the plain trunk (PAR_LAYERS layers, full width);
+    moe_forward_ep against the MoE layer at QWEN2_MOE_08B's widths (2
+    layers); then `python -m mllm_tpu_torch.parallel.dryrun --device cuda`
+    in a process of its own. Launches on the card are counted through
+    `graphs.device_launches` (window replays included)."""
     import torch.distributed as dist
 
     from mllm_tpu_torch.core.config import TextConfig
+    from mllm_tpu_torch.generation import graphs
     from mllm_tpu_torch.generation.generate import generate_compiled
+    from mllm_tpu_torch.models.qwen2_vl import Qwen2VLForConditionalGeneration
     from mllm_tpu_torch.parallel.comm import make_axis_mesh
     from mllm_tpu_torch.parallel.expert import moe_forward_ep
     from mllm_tpu_torch.parallel.heads import pad_heads_for_tp
@@ -5440,9 +5573,13 @@ def phase_slice_parallel(dev) -> dict:
     from mllm_tpu_torch.parallel.sharding import make_mesh, shard_model, sharded_generate
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
-    kernels = wrappers()
-    for fn in kernels.values():
-        fn.launches = 0
+    launches = {}
+
+    def take():  # the launches on the card since the last reset, then reset
+        add_launches(launches, graphs.device_launches(vl_counts()))
+        vl_reset()
+
+    vl_reset()
     out = {}
     try:
         mesh = make_mesh(1, 1)
@@ -5468,13 +5605,29 @@ def phase_slice_parallel(dev) -> dict:
                     want = [int(t) for t in toks]
             prompts = [rng.integers(0, cfg.vocab_size, n) for n in ENGINE_TP_LENS]
             engines = {}
-            for kv in ("bf16", "int8"):
-                plain_toks, plain_rate = engine_tokens(model, dev, prompts, kv)
-                tp_toks, tp_rate = engine_tokens(sharded, dev, prompts, kv, mesh=mesh)
-                engines[kv] = dict(equal=tp_toks == plain_toks, tok_s=tp_rate, plain_tok_s=plain_rate)
+            take()
+            for kv in ("bf16", "int8", "paged"):
+                engines[kv] = tp_engine_pair(kv, model, sharded, dev, prompts, kv, mesh)
         out.update(sharded_generate_equal=toks_tp == want, sharded_generate_s=gen_s,
-                   decode_tok_s=rates, engine=engines)
+                   decode_tok_s=rates)
         del model, sharded
+        torch.cuda.empty_cache()
+
+        # image requests: Qwen2-VL-2B, its LM sharded over tp, the tower whole
+        t0 = time.perf_counter()
+        vl = Qwen2VLForConditionalGeneration.init(vl_config(QWEN2VL_2B_LM), device=dev, dtype=torch.bfloat16,
+                                                  generator=torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            reqs = tp_vl_requests(vl.cfg, dev, rng)
+            torch.cuda.synchronize()
+            emit(phase="slice_parallel_vl_init", seconds=time.perf_counter() - t0)
+            engines["vl"] = tp_engine_pair("vl", vl, shard_model(vl, mesh), dev, reqs, "bf16", mesh)
+        for e in engines.values():
+            add_launches(add_launches(launches, e["launches"]), e["plain_launches"])
+        out.update(engine={k: {f: e[f] for f in ("equal", "tok_s", "plain_tok_s", "requeued", "tp_s", "plain_s")}
+                           for k, e in engines.items()})
+        tower_launches = vl.cfg.vision.depth * PAR_VL_IMAGES  # one head_dim-80 flash launch a tower block
+        del vl, reqs
         torch.cuda.empty_cache()
 
         small = TextConfig(**{**QWEN2VL_2B_LM, "num_hidden_layers": PAR_LAYERS})
@@ -5511,9 +5664,9 @@ def phase_slice_parallel(dev) -> dict:
         out.update(moe_ep=ep_rows)
         del moe_model_
         torch.cuda.empty_cache()
+        take()
     finally:
         dist.destroy_process_group()
-    launches = {k: f.launches for k, f in kernels.items()}
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "mllm_tpu_torch.parallel.dryrun", "--device", "cuda"],
                           capture_output=True, text=True, timeout=300)
@@ -5525,6 +5678,16 @@ def phase_slice_parallel(dev) -> dict:
     if not out["sharded_generate_equal"]:
         bad.append("sharded_generate tokens")
     bad += [f"engine {kv} tokens" for kv, e in out["engine"].items() if not e["equal"]]
+    if engines["paged"]["requeued"] == 0:
+        bad.append("engine paged: no request waited for pool blocks")
+    for kv, e in engines.items():
+        if e["graph_replays"] != e["windows"]:
+            bad.append(f"engine {kv}: {e['windows'] - e['graph_replays']} of {e['windows']} windows ran eagerly")
+    if not engines["paged"]["launches"].get("decode_attention_paged"):
+        bad.append(f"engine paged launches {engines['paged']['launches']}")
+    vl_l = engines["vl"]["launches"]
+    if vl_l.get("flash_attention@80") != tower_launches or not vl_l.get("decode_attention"):
+        bad.append(f"engine vl launches {vl_l} (expected {tower_launches} head_dim-80 flash launches)")
     loss, plain_loss = out["sgd_loss"]
     if abs(loss - plain_loss) > 1e-3 * abs(plain_loss) or not out["sgd_update_err"] <= SGD_TOL:
         bad.append(f"sgd step {out['sgd_loss']} {out['sgd_update_err']}")

@@ -39,15 +39,23 @@ the decode window gives each slot the rope position head + delta, read on the
 device, so one captured window serves every mix of requests.
 
 Tensor-parallel serving (`mesh=`, a `parallel.sharding.make_mesh` mesh and
-a model from `shard_model(pad_heads_for_tp(model, tp), mesh)`): every rank
-runs the engine over its shard; the model's local cfg gives each rank's slot
-cache its own kv heads. Every rank takes part in each collective, so every
-rank must admit the same requests at the same step: rank 0 of the mesh owns
-the request queue, and at each step broadcasts what it took from it (and
-whether to stop); each rank's `submit` returns a queue that receives the
-tokens of the request with the same submission number on rank 0. Under NCCL
-the windows are CUDA graphs with the collectives captured in them; under
-gloo, which no graph captures, they run eagerly as on the CPU.
+a model from `shard_model(pad_heads_for_tp(model, tp), mesh)`, or, for a
+Qwen2-VL / Qwen2.5-VL model, `shard_model(model, mesh)` with a tp that
+divides its heads): every rank runs the engine over its shard; the model's
+local cfg (a VL model's `cfg.text`) gives each rank's slot cache, or paged
+pool, its own kv heads, with every slot, block and table entry. Every rank
+takes part in each collective, so every rank must admit the same requests at
+the same step: rank 0 of the mesh owns the request queue, and at each step
+broadcasts what it took from it (and whether to stop); an image request's
+patches follow as one tensor broadcast on the mesh's device. Each rank's
+`submit` / `submit_vl` returns a queue that receives the tokens of the
+request with the same submission number on rank 0. A VL model's tower is
+whole on every rank: each encodes the image on its copy, then runs its shard
+of the trunk. The paged allocator runs on every rank and makes the same
+decisions from the same inputs (see `_paged_reserve`), so the block tables
+agree without being sent. Under NCCL the windows are CUDA graphs with the
+collectives captured in them, reading the pool's table and the heads in
+place; under gloo, which no graph captures, they run eagerly as on the CPU.
 """
 
 from __future__ import annotations
@@ -277,9 +285,6 @@ class ContinuousEngine:
                  eos_token_id=None, kv_dtype="bf16", start_thread: bool = True,
                  decode_window: int = 8, pipeline: bool = False, prefix_cache: int = 0,
                  paged: int = 0, mesh=None):
-        if mesh is not None and (paged > 0 or hasattr(model, "visual")):
-            raise NotImplementedError("tensor-parallel serving takes text models over slot caches (dense, "
-                                      "int8, int4); the paged pool and image requests are not split over tp")
         self.mesh = mesh
         self._seq = 0  # submissions on this rank (a request's number)
         self._outs: dict = {}  # request number -> its queue, on ranks other than 0
@@ -345,6 +350,26 @@ class ContinuousEngine:
     def submit(self, prompt_ids: np.ndarray, max_tokens: int = 64,
                sampling: Optional[SamplingConfig] = None) -> queue.Queue:
         """Returns a queue yielding token ids, then None when finished."""
+        return self._enqueue(prompt_ids, max_tokens, sampling, None)
+
+    def submit_vl(self, proc_out, max_tokens: int = 64,
+                  sampling: Optional[SamplingConfig] = None) -> queue.Queue:
+        """Submit a multimodal (Qwen2-VL) request: `proc_out` a
+        `Qwen2VLProcessorOutput` (input_ids, patches, grid_thw, position_ids,
+        mrope_delta). Image and text requests share the slots. Under a mesh,
+        ranks other than 0 need no image: their queue is filled from rank
+        0's request of the same number."""
+        if not self.is_vl:
+            raise ValueError("the model has no vision tower")
+        vl = None
+        if self.mesh is None or self._leader():
+            vl = (proc_out.patches, tuple(proc_out.grid_thw), np.asarray(proc_out.position_ids, np.int64),
+                  int(proc_out.mrope_delta))
+        return self._enqueue(proc_out.input_ids, max_tokens, sampling, vl)
+
+    def _enqueue(self, prompt_ids, max_tokens: int, sampling: Optional[SamplingConfig], vl) -> queue.Queue:
+        """Number a text or VL request and queue it (rank 0 of a mesh, or no
+        mesh), or register its output queue under its number (other ranks)."""
         out: queue.Queue = queue.Queue()
         ids = np.asarray(prompt_ids, np.int64).reshape(-1)
         # capacity guard: past max_len a slot's appends would clamp onto its
@@ -355,26 +380,9 @@ class ContinuousEngine:
         if self.mesh is not None and not self._leader():
             self._outs[self._seq] = out  # filled from rank 0's request of this number
         else:
-            self.pending.put(_Request(ids, max_tokens, out, time.perf_counter(),
-                                      sampling or SamplingConfig(), seq=self._seq))
+            self.pending.put(_Request(ids, max_tokens, out, time.perf_counter(), sampling or SamplingConfig(),
+                                      vl=vl, seq=self._seq))
         self._seq += 1
-        return out
-
-    def submit_vl(self, proc_out, max_tokens: int = 64,
-                  sampling: Optional[SamplingConfig] = None) -> queue.Queue:
-        """Submit a multimodal (Qwen2-VL) request: `proc_out` a
-        `Qwen2VLProcessorOutput` (input_ids, patches, grid_thw, position_ids,
-        mrope_delta). Image and text requests share the slots."""
-        if not self.is_vl:
-            raise ValueError("the model has no vision tower")
-        out: queue.Queue = queue.Queue()
-        ids = np.asarray(proc_out.input_ids, np.int64).reshape(-1)
-        if len(ids) >= self.max_len:
-            raise ValueError(f"prompt length {len(ids)} >= engine max_len {self.max_len}")
-        max_tokens = min(max_tokens, self.max_len - len(ids))
-        vl = (proc_out.patches, tuple(proc_out.grid_thw), np.asarray(proc_out.position_ids, np.int64),
-              int(proc_out.mrope_delta))
-        self.pending.put(_Request(ids, max_tokens, out, time.perf_counter(), sampling or SamplingConfig(), vl=vl))
         return out
 
     def stop(self, timeout: float = 60.0):
@@ -394,8 +402,12 @@ class ContinuousEngine:
 
     def _sync_requests(self) -> None:
         """Rank 0 moves every pending request into the mirror queue and
-        broadcasts them (with its stop flag); every other rank puts the same
-        requests, with its own output queues, into its mirror queue."""
+        broadcasts them (with its stop flag): ids, budget and sampling, and
+        of an image request its grid, M-RoPE positions and delta, in one
+        object broadcast; then each image's patches as a tensor broadcast on
+        the mesh's device (no pickled copy through the host). Every other
+        rank puts the same requests, with its own output queues, into its
+        mirror queue."""
         import torch.distributed as dist
 
         from ..parallel.comm import axis_group
@@ -407,18 +419,32 @@ class ContinuousEngine:
                     taken.append(self.pending.get_nowait())
                 except queue.Empty:
                     break
+        dev = self.model.device
+        for r in taken:  # the patches on the device once, where admission reads them
+            if r.vl is not None and not isinstance(r.vl[0], torch.Tensor):
+                r.vl = (to_device(np.asarray(r.vl[0]), dev),) + r.vl[1:]
         group = axis_group(self.mesh, "tp")
-        box = [(self._stop, [(r.seq, r.ids, r.max_tokens, r.sampling) for r in taken])]
-        dist.broadcast_object_list(box, dist.get_global_rank(group, 0), group=group)
+        src = dist.get_global_rank(group, 0)
+        meta = [None if r.vl is None else (tuple(r.vl[0].shape), r.vl[0].dtype) + r.vl[1:] for r in taken]
+        box = [(self._stop, [(r.seq, r.ids, r.max_tokens, r.sampling, m) for r, m in zip(taken, meta)])]
+        dist.broadcast_object_list(box, src, group=group)
         stop, items = box[0]
         self._agreed_stop = stop
         if self._leader():
             for r in taken:
+                if r.vl is not None:
+                    dist.broadcast(r.vl[0].to(dev).contiguous(), src, group=group)
                 self._mirror.put(r)
             return
-        for seq, ids, max_tokens, sampling in items:
+        for seq, ids, max_tokens, sampling, m in items:
+            vl = None
+            if m is not None:
+                shape, dtype, grid_thw, positions, delta = m
+                patches = torch.empty(shape, dtype=dtype, device=dev)
+                dist.broadcast(patches, src, group=group)
+                vl = (patches, grid_thw, positions, delta)
             out = self._outs.pop(seq, None) or queue.Queue()
-            self._mirror.put(_Request(ids, max_tokens, out, time.perf_counter(), sampling, seq=seq))
+            self._mirror.put(_Request(ids, max_tokens, out, time.perf_counter(), sampling, vl=vl, seq=seq))
 
     # -- scheduler ---------------------------------------------------------
     def _free_slot(self) -> Optional[int]:
@@ -430,7 +456,18 @@ class ContinuousEngine:
     def _paged_reserve(self, slot: int, n: int, max_tokens: int, bucket: int) -> bool:
         """Reserve this request's blocks in table[slot] (False: the pool is
         full). Reserving prompt + full budget up front means decode never
-        allocates mid-flight."""
+        allocates mid-flight.
+
+        Under a mesh every rank runs this allocator on its own, and the
+        ranks' tables cannot diverge: its state changes only here (a
+        request taken from the mirror queue, which every rank fills from
+        rank 0's broadcast in rank 0's order, and puts back, requeued, by the
+        same rule), in `_paged_retire` (a request finished, decided by the
+        tokens `_drain` reads, which are equal on every rank: the logits are
+        all-gathered and the sampler's generator has the same seed) and in
+        `_paged_release` (once a drain, or twice when idle, at the same
+        steps on every rank). Equal inputs in the same order give every rank
+        the same free list, the same blocks and the same table."""
         if not isinstance(self.cache, PagedKVCache):
             return True
         bs = PagedKVCache.BS

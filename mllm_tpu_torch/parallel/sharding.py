@@ -17,17 +17,26 @@ collectives are explicit, Megatron-style (`comm.py`):
   lm_head       [V, D]     vocab parallel: each rank's logits are all-gathered
   norms, MoE experts, biases of row-parallel layers: replicated
   KV cache      [L, B, Hkv, S, D]: batch rows over dp, kv heads over tp
+  paged pool    [L, NB + 1, Hkv, BS, D] (the sink block included): kv heads
+                over tp; the block table and the write heads whole
+  vision tower  (a Qwen2-VL / Qwen2.5-VL `.visual`): whole on every rank,
+                as the JAX `param_spec` leaves it (its qkv / proj / fc1 /
+                fc2 / gate / up / down names match no rule); the `.lm` is
+                cut as a CausalLM
 
 A dim that the axis does not divide stays whole on every rank, with the
-"sharding dropped" warning of the JAX package; attention is cut only when
-both head counts divide tp (run `heads.pad_heads_for_tp` first), the MLP
-only when its width does. The sharded model's `cfg` is this rank's:
-its head counts are the local ones, so `init_cache` and the engine's caches
-hold this rank's kv heads.
+"sharding dropped" warning of the JAX package, but attention heads do not:
+tp must divide both head counts (run `heads.pad_heads_for_tp` first on a
+text model), or `shard_model` raises a ValueError, where the JAX package
+fails at the rotary embedding; a shard with 0 heads is never built. The MLP
+is cut only when its width divides. The sharded model's `cfg` is this
+rank's: its head counts are the local ones (a VL model's `cfg.text`), so
+`init_cache` and the engine's caches hold this rank's kv heads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Optional
 
@@ -228,17 +237,18 @@ class VocabParallelEmbedding(nn.Module):
 
 def _shard_attention(attn, mesh, path: str):
     """The rank's heads of an attention block (q/k/v column parallel, o row
-    parallel, local head counts in its cfg); the block itself when its head
-    counts or projection types do not allow it."""
+    parallel, local head counts in its cfg); the block itself when its
+    projection types do not allow a cut (int4). Raises a ValueError, before
+    cutting anything, when tp does not divide both head counts."""
     cfg, tp = attn.cfg, axis_size(mesh, "tp")
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     projs = [attn.qkv_proj] if attn.qkv_proj is not None else [attn.q_proj, attn.k_proj, attn.v_proj]
     if not all(_shardable(p) for p in projs + [attn.o_proj]):
         return attn
-    ok = (_divides(mesh, "tp", h * hd, f"{path}.q_proj.weight", 0)
-          & _divides(mesh, "tp", hkv * hd, f"{path}.k_proj.weight", 0))
-    if not ok:
-        return attn
+    if h % tp or hkv % tp:
+        raise ValueError(f"shard_model: {path} has {h} query / {hkv} kv heads, which tp={tp} does not divide "
+                         "(a text model: run parallel.heads.pad_heads_for_tp(model, tp) first; a VL model "
+                         "needs a tp that divides its heads)")
     r = axis_rank(mesh, "tp")
     hl, hkvl = h // tp, hkv // tp
     q_rng = (r * hl * hd, (r + 1) * hl * hd)
@@ -285,9 +295,16 @@ def _shard_mlp(mlp, mesh, path: str):
 
 
 def shard_model(model, mesh):
-    """This rank's shard of a CausalLM under `mesh` (module and tensor layout
-    above); the tensors it does not cut are shared with `model`. The result
-    keeps the mesh as `.mesh` (sgd_train_step's dp mean reads it)."""
+    """This rank's shard of a CausalLM, or of a Qwen2-VL / Qwen2.5-VL model
+    (its `.lm` cut, its `.visual` whole), under `mesh` (module and tensor
+    layout above); the tensors it does not cut are shared with `model`. The
+    result keeps the mesh as `.mesh` (sgd_train_step's dp mean reads it)."""
+    if hasattr(model, "visual") and hasattr(model, "lm"):
+        out = shallow_copy(model)
+        out.lm = shard_model(model.lm, mesh)
+        out.cfg = dataclasses.replace(model.cfg, text=out.lm.cfg)
+        out.mesh = mesh
+        return out
     tp = axis_size(mesh, "tp")
     out = shallow_copy(model)
     out.mesh = mesh
@@ -320,14 +337,12 @@ def _cut(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
     return t.narrow(dim, r * k, k).contiguous()
 
 
-def _cache_cuts(cache, mesh, batch: bool):
+def _cache_cuts(tensors, mesh, batch: bool):
     """Storage tensors of a full-size cache cut to this rank: kv heads (axis
     2) over tp, and with `batch` the rows (axis 1) over dp."""
-    from ..kv.cache import storage
-
     tp, dp = axis_size(mesh, "tp"), axis_size(mesh, "dp")
     out = []
-    for t in storage(cache):
+    for t in tensors:
         if _divides(mesh, "tp", t.shape[2], "kv_cache", 2):
             t = _cut(t, 2, tp, axis_rank(mesh, "tp"))
         if batch and _divides(mesh, "dp", t.shape[1], "kv_cache", 1):
@@ -340,9 +355,9 @@ def shard_cache(cache, mesh):
     """This rank's part of a full-size dense or quantized KVCache (built from
     the unsharded model): its batch rows over dp, its kv heads over tp; the
     write head is shared."""
-    from ..kv.cache import KVCache, QuantKVCache
+    from ..kv.cache import KVCache, QuantKVCache, storage
 
-    parts = _cache_cuts(cache, mesh, batch=True)
+    parts = _cache_cuts(storage(cache), mesh, batch=True)
     if isinstance(cache, QuantKVCache):
         return type(cache)(*parts, cache.pos)
     if type(cache) is KVCache:
@@ -351,17 +366,21 @@ def shard_cache(cache, mesh):
 
 
 def shard_slot_cache(cache, mesh):
-    """A SlotKVCache or SlotQuantKVCache (full size) cut to this rank's kv
-    heads over tp; every slot, the per-slot write heads whole. The paged pool
-    is not split (its blocks are shared by slots)."""
-    from ..kv.cache import SlotKVCache, SlotQuantKVCache
+    """A SlotKVCache, SlotQuantKVCache or PagedKVCache (full size) cut to
+    this rank's kv heads over tp (the JAX `shard_slot_cache`): every slot,
+    the per-slot write heads whole; of the paged pool every block, the sink
+    included, with the block table (device and host copies) whole."""
+    from ..kv.cache import PagedKVCache, SlotKVCache, SlotQuantKVCache, storage
 
-    parts = _cache_cuts(cache, mesh, batch=False)
+    if isinstance(cache, PagedKVCache):
+        k, v = _cache_cuts([cache.k_store, cache.v_store], mesh, batch=False)
+        return PagedKVCache(k, v, cache.table, cache.pos, cache.table_host)
+    parts = _cache_cuts(storage(cache), mesh, batch=False)
     if isinstance(cache, SlotQuantKVCache):
         return SlotQuantKVCache(*parts, cache.pos, bits=cache.bits)
     if type(cache) is SlotKVCache:
         return SlotKVCache(*parts, cache.pos)
-    raise NotImplementedError(f"shard_slot_cache: {type(cache).__name__} (the paged pool is not split over tp)")
+    raise NotImplementedError(f"shard_slot_cache: {type(cache).__name__}")
 
 
 def shard_batch(x, mesh):

@@ -243,8 +243,8 @@ def test_randomized_load(pair):
 def test_unported_options_raise(pair):
     _, tm = pair
     assert _engine(tm, prefix_cache=4)._pcache is not None  # ported: no longer raises
-    with pytest.raises(NotImplementedError, match="paged pool"):  # mesh= is ported, but not over a paged pool
-        _engine(tm, mesh=object(), paged=8)
+    # ported: mesh= over a paged pool builds the pool (its tp run: tests/test_torch_tp.py)
+    assert isinstance(_engine(tm, mesh=object(), paged=8).cache, PagedKVCache)
     with pytest.raises(ValueError, match="no vision tower"):  # ported: a text model takes no images
         _engine(tm).submit_vl(None)
 

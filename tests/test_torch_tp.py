@@ -1,8 +1,10 @@
 """Tensor and data parallelism of the port (`mllm_tpu_torch/parallel/heads.py`,
-`sharding.py`, `multihost.py`, the engine's `mesh=`) in one gloo world of 4
-CPU ranks (tests/torch_dist_cases.py:tp_cases), against the port's
-single-process results and the JAX functions of `tests/test_parallel.py`
-(each called once, on 2 or 4 of the 8 forced CPU devices).
+`sharding.py`, `multihost.py`, the engine's `mesh=` over slot caches, a paged
+pool and image requests) in one gloo world of 4 CPU ranks
+(tests/torch_dist_cases.py:tp_cases), against the port's single-process
+results and the JAX functions of `tests/test_parallel.py` (each called once,
+on 2 or 4 of the 8 forced CPU devices, or on one: the single-chip paged and
+VL engines).
 
 Tolerances (f32): losses 1e-5 relative; logits, updated parameters 1e-5 x
 max|.|; greedy tokens equal.
@@ -33,6 +35,7 @@ ENGINE = dict(vocab_size=97, hidden_size=96, intermediate_size=128, num_hidden_l
 HYBRID = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
               num_key_value_heads=4, head_dim=16, max_position_embeddings=64, eos_token_id=-3)
 TOL = 1e-5
+VL_IMG = 120  # the tiny Qwen2-VL's image pad id; video, vision start and end follow it
 
 
 def _jax(cfg_kw, seed):
@@ -50,12 +53,49 @@ def jax_models():
 
 
 @pytest.fixture(scope="module")
-def inputs():
+def vl_ckpt(tmp_path_factory):
+    """(transformers model, checkpoint directory): the tiny Qwen2-VL of
+    tests/test_torch_qwen2_vl.py (4 / 2 heads of 8, a 2-block tower)."""
+    import transformers
+
+    torch.manual_seed(0)
+    cfg = transformers.Qwen2VLConfig(
+        vocab_size=128, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256,
+        rope_theta=10000.0, tie_word_embeddings=False,
+        rope_scaling={"type": "mrope", "mrope_section": [1, 1, 2]},
+        image_token_id=VL_IMG, video_token_id=VL_IMG + 1, vision_start_token_id=VL_IMG + 2,
+        vision_end_token_id=VL_IMG + 3,
+        vision_config=dict(depth=2, embed_dim=32, hidden_size=32, mlp_ratio=2.0, num_heads=4, in_channels=3,
+                           patch_size=14, temporal_patch_size=2, spatial_merge_size=2))
+    model = transformers.Qwen2VLForConditionalGeneration(cfg).eval()
+    d = tmp_path_factory.mktemp("qwen2vl_tp")
+    model.save_pretrained(d)
+    return model, str(d)
+
+
+def _vl_request():
+    """(ids [1, S], patches, grid, M-RoPE positions [3, 1, S], delta): an
+    image of grid (1, 4, 4), 4 tokens, between text."""
+    from mllm_tpu.models.qwen2_vl import get_rope_index
+
+    rng = np.random.default_rng(0)
+    grid = (1, 4, 4)
+    patches = rng.standard_normal((16, 3 * 2 * 14 * 14)).astype(np.float32)
+    ids = np.array([[10, 20, VL_IMG + 2] + [VL_IMG] * 4 + [VL_IMG + 3, 30, 40, 50]], np.int64)
+    pos, delta = get_rope_index(ids[0], [grid], VL_IMG, VL_IMG + 1, 2)
+    return ids, patches, grid, np.asarray(pos, np.int64)[:, None, :], int(delta)
+
+
+@pytest.fixture(scope="module")
+def inputs(vl_ckpt):
     rng = np.random.default_rng(0)
     return {"fwd_ids": rng.integers(0, 128, (2, 8)), "train_ids": rng.integers(0, 128, (4, 16)),
             "train_tgt": rng.integers(0, 128, (4, 16)), "gen_ids": rng.integers(0, 128, (2, 12)),
             "quant_ids": rng.integers(0, 128, (2, 10)), "hybrid_ids": rng.integers(0, 128, (4, 8)),
-            "engine_prompts": [np.arange(5) % 97, (np.arange(9) * 3) % 97]}
+            "engine_prompts": [np.arange(5) % 97, (np.arange(9) * 3) % 97],
+            "paged_prompts": [np.arange(5) % 97, (np.arange(9) * 3) % 97, (np.arange(12) * 7 + 1) % 97],
+            "vl_dir": vl_ckpt[1], "vl_request": _vl_request(), "vl_text": np.array([7, 100, 30, 42, 9], np.int64)}
 
 
 @pytest.fixture(scope="module")
@@ -147,6 +187,122 @@ def test_engine_tp_matches_jax(world, jax_models, inputs):
     for key in ("engine_single", "engine_tp2", "engine_tp4"):
         assert world[key] == want, key
     assert world["engine_tp2_ranks_agree"] and world["engine_tp4_ranks_agree"]
+
+
+def test_engine_tp_paged_matches_jax(world, jax_models, inputs):
+    """The engine over a paged pool at tp 2 (pools of 4 and 1 blocks) and tp
+    4 (heads padded, a 1-block pool): each rank's pool holds its kv heads of
+    every block; with one block for two slots a request is requeued; tokens
+    equal the single-process paged engines' and the JAX single-chip paged
+    engine's, and every rank's tokens, requeues and block table at every
+    step agree."""
+    from mllm_tpu.generation.engine import ContinuousEngine, collect
+
+    eng = ContinuousEngine(jax_models["engine"], slots=2, max_len=64, prompt_bucket=16, kv_dtype=jnp.float32,
+                           start_thread=False, decode_window=4, paged=1)
+    qs = [eng.submit(np.asarray(p, np.int32), 5) for p in inputs["paged_prompts"]]
+    for _ in range(24):
+        eng.step()
+    want = [collect(q, timeout=5) for q in qs]
+    assert all(len(w) == 5 for w in want)
+    for key in ("paged_single_1", "paged_single_4", "paged_tp2_4", "paged_tp2_1", "paged_tp4_1"):
+        assert world[key] == want, key
+    for key in ("paged_tp2_4", "paged_tp2_1", "paged_tp4_1"):
+        assert world[key + "_ranks_agree"], key
+    assert world["paged_tp2_1_requeued"] > 0 and world["paged_tp4_1_requeued"] > 0
+    assert world["paged_tp2_1_requeued"] == world["paged_single_1_requeued"]
+    assert world["paged_tp2_4_requeued"] == 0
+    assert (world["paged_tp2_4_pool_heads"], world["paged_tp4_1_pool_heads"]) == (1, 1)  # 2 kv heads; 4 padded
+
+
+def test_shard_slot_cache_cuts_the_paged_pool(world):
+    """shard_slot_cache on a PagedKVCache (tp 2, 4 kv heads, 3 blocks and
+    the sink): each rank's k_store is its two kv heads of every block; the
+    block table (device and host) and the write heads are the same objects,
+    as the JAX `shard_slot_cache` splits the pool's kv-head axis and keeps
+    the table and heads replicated."""
+    from mllm_tpu.kv.cache import PagedKVCache
+    from mllm_tpu.parallel.sharding import make_mesh, shard_slot_cache
+
+    mesh = make_mesh(dp=1, tp=2, devices=jax.devices("cpu")[:2])
+    jc = shard_slot_cache(PagedKVCache.init(2, 2, 256, 4, 16, jnp.float32, n_blocks=3), mesh)
+    assert jc.k.sharding.spec == P(None, None, "tp", None, None) and jc.table.sharding.spec == P()
+    cut = world["paged_cut"]
+    assert cut["shape"] == (2, 4, 2, 128, 16)  # layers, 3 blocks + the sink, 2 of 4 kv heads, rows, head_dim
+    assert cut["equal"] and cut["shared"] == (True, True, True)
+
+
+def test_shard_model_raises_where_tp_does_not_divide_the_heads(world):
+    """12 q / 2 kv heads at tp 4 without pad_heads_for_tp, and the tiny
+    Qwen2-VL (4 / 2) at tp 4: ValueError naming pad_heads_for_tp, raised
+    before any shard is built (no rank holds 0 kv heads)."""
+    assert world["shard_12_2_tp4"] is not None and "pad_heads_for_tp" in world["shard_12_2_tp4"]
+    assert world["vl_tp4_raises"] is not None and "2 kv heads" in world["vl_tp4_raises"]
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_engine_tp_vl_matches_jax(world, vl_ckpt, inputs, kv, request):
+    """A tiny Qwen2-VL at tp 2 (its LM cut, its tower whole on each rank):
+    an image request and text requests through the engine over f32 and int8
+    slot caches give the single-process engine's tokens and the JAX
+    single-chip engine's (int8: JAX's quantized attention through the
+    interpret kernels, as tests/test_torch_qwen2_vl.py runs it); each
+    rank's cache holds 1 of the 2 kv heads."""
+    from mllm_tpu.core.param_loader import SafetensorsLoader
+    from mllm_tpu.generation.engine import ContinuousEngine, collect
+    from mllm_tpu.models import qwen2_vl as jvl
+    from mllm_tpu.processor.qwen2_vl import Qwen2VLProcessorOutput
+
+    if kv == "int8":
+        request.getfixturevalue("jax_kernel_arithmetic")
+    d = vl_ckpt[1]
+    jm = jvl.load_qwen2_vl(SafetensorsLoader(d), jvl.qwen2_vl_config_from_hf(d), jnp.float32)
+    ids, patches, grid, pos, delta = inputs["vl_request"]
+    order = {"f32": ("text", "image", "text"), "int8": ("image", "text")}[kv]
+    eng = ContinuousEngine(jm, slots=2, max_len=64, prompt_bucket=16, start_thread=False, eos_token_id=-7,
+                           decode_window=2, kv_dtype=jnp.float32 if kv == "f32" else kv)
+    proc = Qwen2VLProcessorOutput(ids.astype(np.int32), patches, grid, pos.astype(np.int32), delta)
+    qs = [eng.submit_vl(proc, 5) if k == "image" else eng.submit(inputs["vl_text"].astype(np.int32), 5)
+          for k in order]
+    for _ in range(12):
+        eng.step()
+    want = [collect(q, timeout=5) for q in qs]
+    assert all(len(w) == 5 for w in want)
+    assert world[f"vl_single_{kv}"] == want
+    assert world[f"vl_tp2_{kv}"] == want
+    assert world[f"vl_tp2_{kv}_ranks_agree"]
+    assert world[f"vl_tp2_{kv}_cache_heads"] == 1
+    assert world["vl_shard"] == dict(local_heads=(2, 1), tower_shared=True, full_heads=(4, 2))
+
+
+def test_engine_tp_numbers_mixed_text_and_image_requests(world):
+    """Under a mesh, text, image, text submitted on every rank are numbered
+    0, 1, 2 on every rank (submit_vl numbers its request and, off rank 0,
+    registers its queue by that number), so each rank's queues receive the
+    tokens of rank 0's request of the same number."""
+    assert sorted(world["vl_tp2_f32_admitted"]) == [(0, False), (1, True), (2, False)]
+    assert sorted(world["vl_tp2_int8_admitted"]) == [(0, True), (1, False)]
+    assert world["vl_tp2_f32_ranks_agree"] and world["vl_tp2_int8_ranks_agree"]
+
+
+@pytest.fixture
+def jax_kernel_arithmetic(monkeypatch):
+    """The JAX model's quantized-cache attention through the Pallas kernels in
+    interpret mode, whose rounding the port's plain versions follow
+    (tests/test_torch_kvcache.py)."""
+    import mllm_tpu.nn.attention as jattn
+    from test_torch_kvcache import _kernel_arithmetic_attend
+
+    orig = jattn.attend_from_cache
+
+    def attend(q, cache, layer_idx, **kw):
+        return _kernel_arithmetic_attend(orig, q, cache, layer_idx,
+                                         **{"kv_start": None, "window": None, "scale": None, **kw})
+
+    jax.clear_caches()
+    monkeypatch.setattr(jattn, "attend_from_cache", attend)
+    yield
+    jax.clear_caches()
 
 
 def test_hybrid_mesh_and_host_batch_match_jax(world, jax_models, inputs):

@@ -275,6 +275,7 @@ def tp_cases(rank, n, models: dict, inputs: dict) -> dict:
             dist.all_gather_object(every, toks, group=mesh.get_group(1))
             res[f"engine_tp{tp}"] = toks
             res[f"engine_tp{tp}_ranks_agree"] = all(t == toks for t in every)
+    res.update(tp_paged_and_vl_cases(models, inputs, mesh2, mesh4))
 
     # the hybrid mesh (dp between hosts, tp inside) and the per-rank batch
     hm = hybrid_mesh(ici={"tp": 2}, dcn={"dp": 2}, device="cpu")
@@ -291,6 +292,110 @@ def tp_cases(rank, n, models: dict, inputs: dict) -> dict:
         res["hybrid_too_big_raises"] = False
     except ValueError:
         res["hybrid_too_big_raises"] = True
+    return res
+
+
+def _agree(value, mesh) -> bool:
+    """True when every rank of `mesh`'s tp group holds `value` equal to this rank's."""
+    every = [None] * mesh.size(1)
+    dist.all_gather_object(every, value, group=mesh.get_group(1))
+    return all(v == value for v in every)
+
+
+def _raises(fn):
+    """The message of the ValueError fn() raises, or None when it returns."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def tp_paged_and_vl_cases(models: dict, inputs: dict, mesh2, mesh4) -> dict:
+    """The engine under tp over a paged pool (tp 2 and 4, heads padded; a
+    one-block pool that requeues) and with image requests (a Qwen2-VL at tp
+    2, its tower whole; f32 and int8 slot caches), against the
+    single-process engines; the ranks' tokens, block tables and request
+    numbers compared; the head check and the pool's cut."""
+    from mllm_tpu_torch.core.param_loader import SafetensorsLoader
+    from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
+    from mllm_tpu_torch.kv.cache import PagedKVCache
+    from mllm_tpu_torch.models import qwen2_vl as tvl
+    from mllm_tpu_torch.parallel.comm import axis_rank
+    from mllm_tpu_torch.parallel.heads import pad_heads_for_tp
+    from mllm_tpu_torch.parallel.sharding import shard_model, shard_slot_cache
+    from mllm_tpu_torch.processor.qwen2_vl import Qwen2VLProcessorOutput
+
+    res = {}
+    eng_model = lambda: port_model(*models["engine"])  # noqa: E731
+
+    # a paged pool: every step's block table recorded, to compare the ranks'
+    def paged_run(model, mesh, pool):
+        eng = ContinuousEngine(model, slots=2, max_len=64, prompt_bucket=16, kv_dtype=torch.float32,
+                               start_thread=False, decode_window=4, paged=pool, mesh=mesh)
+        qs = [eng.submit(p, 5) for p in inputs["paged_prompts"]]
+        tables = []
+        for _ in range(24):
+            eng.step()
+            tables.append(eng.cache.table_host.tolist())
+        return [collect(q, timeout=5) for q in qs], eng.requeued, tables, eng.cache.k_store.shape[2]
+
+    for pool in (1, 4):
+        res[f"paged_single_{pool}"], res[f"paged_single_{pool}_requeued"], _, _ = paged_run(eng_model(), None, pool)
+    for tp, mesh, pool in ((2, mesh2, 4), (2, mesh2, 1), (4, mesh4, 1)):
+        if member(mesh):
+            toks, requeued, tables, heads = paged_run(shard_model(pad_heads_for_tp(eng_model(), tp), mesh), mesh,
+                                                      pool)
+            key = f"paged_tp{tp}_{pool}"
+            res[key], res[key + "_requeued"], res[key + "_pool_heads"] = toks, requeued, heads
+            res[key + "_ranks_agree"] = _agree((toks, requeued, tables), mesh)
+    # the pool cut by shard_slot_cache: kv heads over tp, the table and heads shared
+    if member(mesh2):
+        full = PagedKVCache.init(2, 2, 64, 4, 16, device=CPU, dtype=torch.float32, n_blocks=3)
+        full.k_store.copy_(torch.arange(full.k_store.numel(), dtype=torch.float32).reshape(full.k_store.shape))
+        cut = shard_slot_cache(full, mesh2)
+        r = axis_rank(mesh2, "tp")
+        res["paged_cut"] = dict(shape=tuple(cut.k_store.shape),
+                                equal=torch.equal(cut.k_store, full.k_store[:, :, 2 * r:2 * r + 2]),
+                                shared=(cut.table is full.table, cut.pos is full.pos,
+                                        cut.table_host is full.table_host))
+
+    # the head check: 12 q / 2 kv heads at tp 4 without pad_heads_for_tp
+    res["shard_12_2_tp4"] = _raises(lambda: shard_model(port_model(*models["flagship"]), mesh4))
+
+    # image and text requests through a tiny Qwen2-VL (tower whole, LM at tp 2)
+    d = inputs["vl_dir"]
+    vl = lambda: tvl.load_qwen2_vl(SafetensorsLoader(d), tvl.qwen2_vl_config_from_hf(d), device=CPU,  # noqa: E731
+                                   dtype=torch.float32)
+    ids, patches, grid, pos, delta = inputs["vl_request"]
+    text = inputs["vl_text"]
+
+    def vl_run(model, mesh, kv, order):
+        eng = ContinuousEngine(model, slots=2, max_len=64, prompt_bucket=16, start_thread=False, eos_token_id=-7,
+                               decode_window=2, kv_dtype=torch.float32 if kv == "f32" else kv, mesh=mesh)
+        admitted = []
+        install = eng._install
+        eng._install = lambda slot, r, tok: (admitted.append((r.seq, r.vl is not None)), install(slot, r, tok))
+        qs = [eng.submit_vl(Qwen2VLProcessorOutput(ids, patches, grid, pos, delta), 5) if kind == "image"
+              else eng.submit(text, 5) for kind in order]
+        for _ in range(12):
+            eng.step()
+        return [collect(q, timeout=5) for q in qs], admitted, eng.cache.k.shape[2]
+
+    res["vl_tp4_raises"] = _raises(lambda: shard_model(vl(), mesh4))
+    orders = {"f32": ("text", "image", "text"), "int8": ("image", "text")}
+    for kv, order in orders.items():
+        res[f"vl_single_{kv}"], _, _ = vl_run(vl(), None, kv, order)
+    if member(mesh2):
+        base = vl()
+        svl = shard_model(base, mesh2)
+        res["vl_shard"] = dict(local_heads=(svl.cfg.text.num_attention_heads, svl.cfg.text.num_key_value_heads),
+                               tower_shared=svl.visual is base.visual,
+                               full_heads=(base.cfg.text.num_attention_heads, base.cfg.text.num_key_value_heads))
+        for kv, order in orders.items():
+            toks, admitted, heads = vl_run(svl, mesh2, kv, order)
+            res[f"vl_tp2_{kv}"], res[f"vl_tp2_{kv}_admitted"], res[f"vl_tp2_{kv}_cache_heads"] = toks, admitted, heads
+            res[f"vl_tp2_{kv}_ranks_agree"] = _agree((toks, admitted), mesh2)
     return res
 
 

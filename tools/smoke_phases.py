@@ -1,12 +1,14 @@
 """Run some of chip_smoke.py's phases alone on the card: the device line, the
 kernel build, then each named phase with its seconds: a phase that takes only
 the device (`phase_slice_<name>(dev)`), `kvq` (slice_kvq over the int8 model
-that slice_int8 builds first, untimed), or `quant_rows` (the kernel check's
+that slice_int8 builds first, untimed), `quant_rows` (the kernel check's
 quantized attention rows at head_dim 128 and 256 and the device-scalar rows
-of the split 256 kernel, int8 and int4).
+of the split 256 kernel, int8 and int4), or `tp_rows` (the kernel check's
+rows at tensor parallelism's head splits, `tp_split_rows`).
 
     python3 tools/smoke_phases.py train parallel
     python3 tools/smoke_phases.py quant_rows kvq cli entry
+    python3 tools/smoke_phases.py tp_rows parallel
 """
 
 import os
@@ -34,6 +36,8 @@ def main(names) -> None:
     for name in names:
         if name == "quant_rows":
             cs.timed_phase("quant_rows", lambda: quant_rows(dev))
+        elif name == "tp_rows":
+            cs.timed_phase("tp_rows", lambda: cs.tp_split_rows(dev, torch.Generator(device=dev).manual_seed(1234)))
         elif name == "kvq":
             _, model8 = cs.phase_slice_quant(dev, "int8", keep=True)
             cs.timed_phase("slice_kvq", lambda: cs.phase_slice_kvq(dev, model8))
