@@ -280,10 +280,25 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
      at half their scale exceed), and
      save_safetensors_model -> auto_model reloads it with equal greedy
      tokens; ms a step and peak memory with and without remat.
+  tp_int4_split_rows (in phase 3): int4_matmul and fused_int4_mlp at the
+     rank shapes of Qwen2-VL-2B int4 at tp 2 and tp 4 (heads padded): the
+     fused q||k||v, o_proj, the tied head's proj and the fused MLP (F / tp
+     4480 / 2240 with block_f 896 / 448: the rank's MLP stays fused), m = 1
+     and 8, cut from full-width weights by the port's pure cuts; every rank
+     within QUANT_TOL of its plain version, the ranks' column outputs side by
+     side and row / MLP partials summed in f32 within QUANT_TOL of the
+     unsplit kernel (`whole_rel_err`); rank 0 timed beside its bound and
+     torch._weight_int4pack_mm.
   31. slice_parallel: a world of 1 over NCCL: sharded_generate against
      generate_compiled (full width, tokens equal, decode tok/s sharded and
      plain), the TP engine against the plain one over bf16 and int8 slot
-     caches (8 slots, window 32; tokens equal, tok/s), sgd_train_step (the
+     caches (8 slots, window 32; tokens equal, tok/s), then over the model
+     quantized to -q int4 (FusedInt4MLP, the int4 head) and -q int4-mixed
+     (attention int8) on bf16 slots (tokens equal, every window a replay,
+     fused_int4_mlp and int4_matmul launched on both sides, int8_matmul too
+     under int4-mixed), and sharded_generate over the int4 model padded for
+     tp 4 by pad_heads_for_tp (12 / 4 heads, the int4 projections re-laid;
+     tokens equal to generate_compiled unpadded), sgd_train_step (the
      f32 update of each parameter within 1e-2 of its largest),
      pipeline_lm_loss, ring and Ulysses trunks (4 layers, full width) and
      moe_forward_ep (QWEN2_MOE_08B's widths, 2 layers) against their
@@ -642,6 +657,8 @@ def phase_kernels(dev) -> dict:
     rows["flash_attention@80"] = flash80_rows(dev, g)
     rows.update(head_dim64_rows(dev, g))
     for name, split_rows in timed_phase("tp_split_rows", lambda: tp_split_rows(dev, g)).items():
+        rows[name] += split_rows
+    for name, split_rows in timed_phase("tp_int4_split_rows", lambda: tp_int4_split_rows(dev, g)).items():
         rows[name] += split_rows
     return rows
 
@@ -1235,6 +1252,46 @@ def int4_operands(m, k, n, affine, dev, g):
     return p, s, z, torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
 
 
+def check_quant_row(name, kernel, plain, shape, weight_bytes, library=None, cublas=None, extra=None,
+                    fields=None) -> dict:
+    """One row of a quantized product: the kernel against its plain version
+    (max |kernel - plain| / max |plain| <= QUANT_TOL, finite), timed beside
+    the plain version, its bound and the library call `library` (name,
+    call), with `cublas` and `extra` timings of other routes and `fields`
+    printed with the row."""
+    m, k, n = shape.get("m"), shape.get("K", shape.get("d")), shape.get("N", shape.get("d"))
+    weights = k * n if name != "fused_int4_mlp" else 3 * shape["d"] * shape["ff"]
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    ms = time_ms(kernel, 20)
+    lib = dict(library_ms=None)
+    if library is not None:  # (name, call): one PyTorch call of the same product
+        try:
+            lib_out = library[1]().float()
+            lib = dict(library=library[0], library_ms=time_ms(library[1], 20),
+                       library_rel_err=((lib_out - ref.float()).abs().max()
+                                        / ref.float().abs().max()).item())
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            lib = dict(library=library[0], library_ms=None, library_error=str(e)[:200])
+    if cublas is not None:  # a yardstick of another function: bf16 weights already in memory
+        lib["cublas_bf16_ms"] = time_ms(cublas, 20)
+    for key, call in (extra or {}).items():  # the same function by another route of the port
+        lib[key] = time_ms(call, 20)
+    row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
+               tolerance=QUANT_TOL[name], finite=finite, ms=ms, plain_ms=time_ms(plain, 5),
+               weight_bytes=weight_bytes, weight_tb_per_s=weight_bytes / ms / 1e9,
+               hbm_tb_per_s=HBM_BYTES_PER_S / 1e12, **lib, **(fields or {}),
+               **bound(weight_bytes + m * k * 2 + m * n * 4, 2 * m * weights))
+    emit(**row)
+    if not finite or not rel <= QUANT_TOL[name]:
+        raise AssertionError(f"{name} {shape}: max |kernel - plain| / max |plain| {rel} "
+                             f"(tolerance {QUANT_TOL[name]}), finite={finite}")
+    return row
+
+
 def quant_kernel_rows(dev, g) -> dict:
     """The quantized products against their plain versions, at the shapes of
     the int8 and int4 phases (Qwen2-VL-2B: qkv 1536->2048, o 1536->1536,
@@ -1251,45 +1308,12 @@ def quant_kernel_rows(dev, g) -> dict:
     def x_rows(m, k):
         return torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
 
-    def check(name, kernel, plain, shape, weight_bytes, library=None, cublas=None, extra=None):
-        m, k, n = shape.get("m"), shape.get("K", shape.get("d")), shape.get("N", shape.get("d"))
-        weights = k * n if name != "fused_int4_mlp" else 3 * shape["d"] * shape["ff"]
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        rel = err / ref.float().abs().max().item()
-        finite = bool(torch.isfinite(out).all())
-        ms = time_ms(kernel, 20)
-        lib = dict(library_ms=None)
-        if library is not None:  # (name, call): one PyTorch call of the same product
-            try:
-                lib_out = library[1]().float()
-                lib = dict(library=library[0], library_ms=time_ms(library[1], 20),
-                           library_rel_err=((lib_out - ref.float()).abs().max()
-                                            / ref.float().abs().max()).item())
-            except RuntimeError as e:  # a yardstick only: the port never calls it
-                lib = dict(library=library[0], library_ms=None, library_error=str(e)[:200])
-        if cublas is not None:  # a yardstick of another function: bf16 weights already in memory
-            lib["cublas_bf16_ms"] = time_ms(cublas, 20)
-        for key, call in (extra or {}).items():  # the same function by another route of the port
-            lib[key] = time_ms(call, 20)
-        row = dict(phase="kernel_check", kernel=name, shape=shape, max_abs_err=err, rel_err=rel,
-                   tolerance=QUANT_TOL[name], finite=finite, ms=ms, plain_ms=time_ms(plain, 5),
-                   weight_bytes=weight_bytes, weight_tb_per_s=weight_bytes / ms / 1e9,
-                   hbm_tb_per_s=HBM_BYTES_PER_S / 1e12, **lib,
-                   **bound(weight_bytes + m * k * 2 + m * n * 4, 2 * m * weights))
-        emit(**row)
-        if not finite or not rel <= QUANT_TOL[name]:
-            raise AssertionError(f"{name} {shape}: max |kernel - plain| / max |plain| {rel} "
-                                 f"(tolerance {QUANT_TOL[name]}), finite={finite}")
-        return row
-
     rows = {"int8_matmul": [], "int4_matmul": [], "fused_int4_mlp": []}
     for m, k, n in INT8_ROWS:
         q, s = _q8_device(weight(n, k))
         x = x_rows(m, k)
         library, cublas = int8_library_calls(x, q, s)
-        rows["int8_matmul"].append(check(
+        rows["int8_matmul"].append(check_quant_row(
             "int8_matmul", lambda: qm.int8_matmul(x, q, s), lambda: qm.int8_matmul_ref(x, q, s),
             dict(m=m, K=k, N=n), k * n + 4 * n, library,
             cublas if m > qm.INT8_STREAM_MAX_M else None))
@@ -1298,7 +1322,7 @@ def quant_kernel_rows(dev, g) -> dict:
     for m, k, n, affine in INT4_ROWS:
         p, s, z, x = int4_operands(m, k, n, affine, dev, g)
         library = None if affine else ("torch._weight_int4pack_mm", int4pack_call(x, p, s, k))
-        rows["int4_matmul"].append(check(
+        rows["int4_matmul"].append(check_quant_row(
             "int4_matmul", lambda: qm.int4_matmul(x, p, s, qm.GROUP, z),
             lambda: qm.int4_matmul_ref(x, p, s, qm.GROUP, z),
             dict(m=m, K=k, N=n, affine=affine, khp=p.shape[0]), int4_bytes(k, n, affine), library))
@@ -1311,7 +1335,7 @@ def quant_kernel_rows(dev, g) -> dict:
         block_f = pick_block_f(ff)
         x = x_rows(m, d)
         kernel, plain, unfused = fused_mlp_calls(x, operands[(d, ff)], act, affine, block_f)
-        rows["fused_int4_mlp"].append(check(
+        rows["fused_int4_mlp"].append(check_quant_row(
             "fused_int4_mlp", kernel, plain, dict(m=m, d=d, ff=ff, block_f=block_f, act=act, affine=affine),
             2 * int4_bytes(d, ff, affine) + int4_bytes(ff, d, affine), extra={"unfused_ms": unfused}))
     return rows
@@ -5295,6 +5319,107 @@ def tp_split_rows(dev, g) -> dict:
     return rows
 
 
+# the int4 cuts of tensor-parallel serving at the same splits (Qwen2-VL-2B int4, heads padded as above):
+# per rank the fused q||k||v (column cut, N (6 + 2) x 128 = 1024 at tp 2, (3 + 2) x 128 = 640 at tp 4),
+# o_proj (row cut, K 768 / 384), the tied head's proj (column cut of the 512-padded vocab 152064, N 76032
+# / 38016) and the fused MLP (F 4480 / 2240, block_f 896 / 448), at the engine's decode m = 1 and 8
+TP_INT4_SPLITS = {"qwen2vl-2b tp2": (2, 12, 2), "qwen2vl-2b padded tp4": (4, 12, 4)}  # tp, q heads, kv heads
+TP_INT4_M = (1, 8)
+VOCAB_PADDED = 152064  # 151936 padded to a multiple of 512 (Int4EmbedHead)
+
+
+def split_rel_err(parts, whole) -> float:
+    """max |assembled ranks - whole| / max |whole| (f32)."""
+    return float((parts.float() - whole.float()).abs().max() / whole.float().abs().max())
+
+
+def tp_int4_split_rows(dev, g) -> dict:
+    """int4_matmul and fused_int4_mlp at the TP_INT4_SPLITS rank shapes, the
+    ranks' operands cut from full-width weights by the port's pure cuts
+    (`column_shard`, `row_shard`, `fused_mlp_shard`): every rank against its
+    plain version (QUANT_TOL), and the ranks together against the unsplit
+    kernel on the same x (the column outputs side by side, the row and MLP
+    partials summed in f32; `whole_rel_err` <= QUANT_TOL). Rank 0's row is
+    timed beside its bound and torch._weight_int4pack_mm on its operands."""
+    from mllm_tpu_torch.nn.layers import Int4Linear
+    from mllm_tpu_torch.ops import quant_matmul as qm
+    from mllm_tpu_torch.ops.fused_mlp import fused_int4_mlp, fused_int4_mlp_ref, pick_block_f
+    from mllm_tpu_torch.ops.quantize_model import FusedInt4MLP, Int4Operands, fused_mlp_shard
+    from mllm_tpu_torch.parallel.sharding import column_shard, row_shard
+
+    d, ff = QWEN2VL_2B_MLP
+    gate, up, down, _ = fused_mlp_operands(d, ff, dev, g)
+    mlp = FusedInt4MLP(Int4Operands(*gate), Int4Operands(*up), Int4Operands(*down), "silu", pick_block_f(ff))
+
+    def linear(n, k):
+        p, s, _, _ = int4_operands(1, k, n, False, dev, g)
+        return Int4Linear(p, s, qm.GROUP)
+
+    head, o_whole = linear(VOCAB_PADDED, d), linear(d, H * D)
+    rows = {"int4_matmul": [], "fused_int4_mlp": []}
+    bad = []
+    for split, (tp, h, hkv) in TP_INT4_SPLITS.items():
+        qkv = linear((h + 2 * hkv) * D, d)
+        hl, kl = h // tp * D, hkv // tp * D
+        k0, v0 = h * D, (h + hkv) * D
+        cuts = {
+            "qkv": (qkv, [column_shard(qkv, [(r * hl, (r + 1) * hl), (k0 + r * kl, k0 + (r + 1) * kl),
+                                             (v0 + r * kl, v0 + (r + 1) * kl)]) for r in range(tp)], "column"),
+            "o_proj": (o_whole, [row_shard(o_whole, H * D, r, tp) for r in range(tp)], "row"),
+            "head": (head, [column_shard(head, [(r * VOCAB_PADDED // tp, (r + 1) * VOCAB_PADDED // tp)])
+                            for r in range(tp)], "column"),
+        }
+        ranks_mlp = [fused_mlp_shard(mlp, r, tp) for r in range(tp)]
+        for m in TP_INT4_M:
+            for what, (whole, ranks, kind) in cuts.items():
+                k = (H * D) // (tp if kind == "row" else 1) if what == "o_proj" else d
+                xw = torch.randn(m, H * D if what == "o_proj" else d, device=dev, generator=g).to(torch.bfloat16)
+                xs = [t.contiguous() for t in xw.split(k, 1)] if kind == "row" else [xw] * tp
+                call = lambda lin, x: qm.int4_matmul(x, lin.packed_t, lin.scales_t, qm.GROUP, lin.zeros_t)  # noqa: E731
+                outs = [call(lin, x) for lin, x in zip(ranks, xs)]
+                for lin, x, y in zip(ranks[1:], xs[1:], outs[1:]):  # ranks 1.. against their plain versions
+                    rel = split_rel_err(y, qm.int4_matmul_ref(x, lin.packed_t, lin.scales_t, qm.GROUP))
+                    if not rel <= QUANT_TOL["int4_matmul"]:
+                        bad.append(f"int4_matmul {split} {what} m={m}: a rank at {rel}")
+                parts = torch.stack(outs).sum(0) if kind == "row" else torch.cat([o.reshape(m, -1) for o in outs], 1)
+                if what == "qkv":  # ranks hold [q_r, k_r, v_r]: back to the whole's q || k || v order
+                    parts = torch.cat([parts.reshape(m, tp, -1)[:, :, a:b].reshape(m, -1)
+                                       for a, b in ((0, hl), (hl, hl + kl), (hl + kl, hl + 2 * kl))], 1)
+                whole_err = split_rel_err(parts, call(whole, xw))
+                if not whole_err <= QUANT_TOL["int4_matmul"]:
+                    bad.append(f"int4_matmul {split} {what} m={m}: ranks against the whole at {whole_err}")
+                lin0, x0 = ranks[0], xs[0]
+                n0 = lin0.packed_t.shape[1]
+                rows["int4_matmul"].append(check_quant_row(
+                    "int4_matmul", lambda: call(lin0, x0),
+                    lambda: qm.int4_matmul_ref(x0, lin0.packed_t, lin0.scales_t, qm.GROUP),
+                    dict(m=m, K=k, N=n0, affine=False, khp=lin0.packed_t.shape[0], tp_split=split, cut=what),
+                    int4_bytes(k, n0, False), ("torch._weight_int4pack_mm", int4pack_call(x0, lin0.packed_t,
+                                                                                         lin0.scales_t, k)),
+                    fields=dict(whole_rel_err=whole_err, ranks=tp)))
+            x = torch.randn(m, d, device=dev, generator=g).to(torch.bfloat16)
+            ops = lambda part: (part.gate_ops.astuple(), part.up_ops.astuple(), part.down_ops.astuple())  # noqa: E731
+            outs = [fused_int4_mlp(x, *ops(part), act="silu", block_f=part.block_f) for part in ranks_mlp]
+            for part, y in zip(ranks_mlp[1:], outs[1:]):
+                rel = split_rel_err(y, fused_int4_mlp_ref(x, *ops(part), act="silu", block_f=part.block_f))
+                if not rel <= QUANT_TOL["fused_int4_mlp"]:
+                    bad.append(f"fused_int4_mlp {split} m={m}: a rank at {rel}")
+            whole_err = split_rel_err(torch.stack(outs).sum(0), fused_int4_mlp(x, *ops(mlp), act="silu",
+                                                                                 block_f=mlp.block_f))
+            if not whole_err <= QUANT_TOL["fused_int4_mlp"]:
+                bad.append(f"fused_int4_mlp {split} m={m}: ranks against the whole at {whole_err}")
+            p0 = ranks_mlp[0]
+            rows["fused_int4_mlp"].append(check_quant_row(
+                "fused_int4_mlp", lambda: fused_int4_mlp(x, *ops(p0), act="silu", block_f=p0.block_f),
+                lambda: fused_int4_mlp_ref(x, *ops(p0), act="silu", block_f=p0.block_f),
+                dict(m=m, d=d, ff=ff // tp, block_f=p0.block_f, act="silu", affine=False, tp_split=split),
+                2 * int4_bytes(d, ff // tp, False) + int4_bytes(ff // tp, d, False),
+                fields=dict(whole_rel_err=whole_err, ranks=tp)))
+    if bad:
+        raise AssertionError(f"tp_int4_split_rows: {bad}")
+    return rows
+
+
 def attention_launches(kernels: dict) -> int:
     return sum(kernels[k].launches for k in ATTENTION_KERNELS)
 
@@ -5544,6 +5669,48 @@ def tp_engine_pair(name: str, model, sharded, dev, requests, kv: str, mesh) -> d
     return row
 
 
+def tp_int4_engines(model, dev, prompts, mesh, prompt, engines: dict) -> dict:
+    """The TP engine pairs over the int4 weights at full width: `model`
+    (bf16) quantized on the card to `-q int4` (q/k/v, o and the head's proj
+    Int4Linear, one FusedInt4MLP a block) and, in place last, to
+    `-q int4-mixed` (attention int8); each sharded at world 1, where every
+    cut is the identity, through `tp_engine_pair` over bf16 slot caches
+    (added to `engines` as "int4" and "int4_mixed"). Then sharded_generate
+    over `pad_heads_for_tp(int4 model, 4)` (12 / 2 heads to 12 / 4: the int4
+    q/k/v/o re-laid), whose greedy tokens must equal generate_compiled on the
+    unpadded model. Returns that check."""
+    import copy
+
+    from mllm_tpu_torch.generation.generate import generate_compiled
+    from mllm_tpu_torch.ops.quantize_model import quantize_model
+    from mllm_tpu_torch.parallel.heads import pad_heads_for_tp
+    from mllm_tpu_torch.parallel.sharding import shard_model, sharded_generate
+
+    t0 = time.perf_counter()
+    int4 = quantize_model(copy.deepcopy(model), "int4", on_device=True)
+    torch.cuda.synchronize()
+    emit(phase="slice_parallel_quantize", mode="int4", seconds=time.perf_counter() - t0)
+    engines["int4"] = tp_engine_pair("int4", int4, shard_model(int4, mesh), dev, prompts, "bf16", mesh)
+    t0 = time.perf_counter()
+    want, _ = generate_compiled(int4, torch.as_tensor(prompt, device=dev), int4.init_cache(1, S_CACHE),
+                                prompt.shape[1], 64)
+    t1 = time.perf_counter()
+    padded = pad_heads_for_tp(int4, 4)
+    got = sharded_generate(padded, prompt, mesh, 64, S_CACHE, cache_dtype=torch.bfloat16)
+    out = dict(int4_padded_tp4=dict(equal=[int(t) for t in got[0]] == [int(t) for t in want],
+                                    heads=(padded.cfg.num_attention_heads, padded.cfg.num_key_value_heads),
+                                    seconds=time.perf_counter() - t1, reference_seconds=t1 - t0))
+    del int4, padded
+    t0 = time.perf_counter()
+    mixed = quantize_model(model, "int4", on_device=True, attn_quant="int8")
+    torch.cuda.synchronize()
+    emit(phase="slice_parallel_quantize", mode="int4-mixed", seconds=time.perf_counter() - t0)
+    engines["int4_mixed"] = tp_engine_pair("int4_mixed", mixed, shard_model(mixed, mesh), dev, prompts, "bf16",
+                                           mesh)
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_slice_parallel(dev) -> dict:
     """The parallel axes at world 1 over NCCL on the card (tp = dp = pp = ep
     = sp = 1; every collective runs, on one rank): sharded_generate against
@@ -5608,9 +5775,11 @@ def phase_slice_parallel(dev) -> dict:
             take()
             for kv in ("bf16", "int8", "paged"):
                 engines[kv] = tp_engine_pair(kv, model, sharded, dev, prompts, kv, mesh)
+            del sharded
+            out.update(tp_int4_engines(model, dev, prompts, mesh, prompt, engines))
         out.update(sharded_generate_equal=toks_tp == want, sharded_generate_s=gen_s,
                    decode_tok_s=rates)
-        del model, sharded
+        del model
         torch.cuda.empty_cache()
 
         # image requests: Qwen2-VL-2B, its LM sharded over tp, the tower whole
@@ -5685,6 +5854,13 @@ def phase_slice_parallel(dev) -> dict:
             bad.append(f"engine {kv}: {e['windows'] - e['graph_replays']} of {e['windows']} windows ran eagerly")
     if not engines["paged"]["launches"].get("decode_attention_paged"):
         bad.append(f"engine paged launches {engines['paged']['launches']}")
+    for name, kernels in (("int4", ("fused_int4_mlp", "int4_matmul")),
+                          ("int4_mixed", ("fused_int4_mlp", "int4_matmul", "int8_matmul"))):
+        for side in ("launches", "plain_launches"):
+            if not all(engines[name][side].get(k) for k in kernels):
+                bad.append(f"engine {name} {side} {engines[name][side]} (expected {kernels})")
+    if not out["int4_padded_tp4"]["equal"] or out["int4_padded_tp4"]["heads"] != (12, 4):
+        bad.append(f"sharded_generate over the int4 model padded for tp 4: {out['int4_padded_tp4']}")
     vl_l = engines["vl"]["launches"]
     if vl_l.get("flash_attention@80") != tower_launches or not vl_l.get("decode_attention"):
         bad.append(f"engine vl launches {vl_l} (expected {tower_launches} head_dim-80 flash launches)")

@@ -1,7 +1,7 @@
 """Generic chat demo: counterpart of `examples/demo_llm.py` of the JAX repo
 (the reference's demo_qwen / demo_llama CLIs):
 
-  python -m mllm_tpu_torch.examples.demo_llm -m <model_dir> [-l kv_limit] [-q int8|int8-a8|int4] \\
+  python -m mllm_tpu_torch.examples.demo_llm -m <model_dir> [-l kv_limit] [-q int8|int8-a8|int4|int4-mixed] \\
       [--prompt "..."] [--max-new 100] [--temperature 0.7 --top-k 40] [--device cuda|cpu]
 
 Model dir = HF-style directory (config.json + safetensors + tokenizer.json)
@@ -9,8 +9,10 @@ or a directory of .mllm files + tokenizer.json. Runs on the card unless
 `--device cpu`. `main(argv)` returns what it generated (token ids) and the
 run's timings.
 
-`-q` offers the port's quantization modes: `int4-mixed` (small projections
-int8 beside int4) is a TPU dispatch heuristic the port does not carry.
+`-q` offers every quantization mode of the JAX demo, quantizing the
+checkpoint's float Linears at load: `int8`, `int8-a8` (int8 activations on
+prefill), `int4`, and `int4-mixed` (the attention projections int8, every
+other Linear int4).
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ decoder blocks:
   - unrolled: `blocks.mods.{i}.attn.q_proj.weight`, ...
   - stacked:  `stacked_blocks.attn.q_proj.weight` with a leading [L] axis.
 The model may have gone through `fuse_projections` and/or `quantize_model`
-(int8 or int4, any flags): the port's structure is read from the names
+(int8 or int4, any flags; int4 with attn_quant="int8" is `-q int4-mixed`:
+int8 attention beside the int4 MLP and head): the port's structure is read
+from the names
 (`qkv_proj`, `gateup_proj`, `qweight_t`/`scales`, `packed_t`/`scales_t`
 [/`zeros_t`], `mlp.gate_ops.0/1[/2]`, `embed_tokens.qweight_t`,
 `embed_tokens.proj.packed_t`); a projection with `lora_a` / `lora_b` (the

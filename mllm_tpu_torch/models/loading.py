@@ -2,7 +2,8 @@
 
 Float weights (f32 / f16 / bf16 safetensors, or float tensors of a `.mllm`
 or GGUF container) are kept float or quantized at load (`quant="int8" |
-"int8-a8" | "int4"`). A container that exposes raw ggml blocks (`.mllm`,
+"int8-a8" | "int4" | "int4-mixed"`; int4-mixed: the attention projections
+int8, every other Linear int4, as the JAX loader). A container that exposes raw ggml blocks (`.mllm`,
 GGUF) gives its quantized Linear weights to `make_linear`, which repacks
 them losslessly into the kernels' layouts: Q4_0 -> symmetric `Int4Linear`,
 Q4_K -> affine `Int4Linear` (with zeros), Q8_0 / Q8_0F -> `QuantLinear`
@@ -23,8 +24,17 @@ from ..core import dtypes as dt
 from ..core.config import TextConfig
 from ..nn.layers import Int4Linear, LayerNorm, Linear, QuantLinear, QuantLinearA8, RotaryEmbedding
 from ..ops import quant_matmul as qm
-from ..ops.quantize_model import check_mode
+from ..ops.quantize_model import MIXED, check_mode
 from .transformer import CausalLM
+
+
+def layer_quant(quant: str | None, attention: bool) -> str | None:
+    """The mode of one Linear under `quant`: under "int4-mixed" the attention
+    projections are int8 and every other Linear int4 (JAX `load_causal_lm`'s
+    `aq`, `make_linear`); other modes apply to every Linear."""
+    if quant == "int4-mixed":
+        return MIXED[1] if attention else MIXED[0]
+    return quant
 
 
 class NameMap:
@@ -190,8 +200,9 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
 
     Every Linear (the untied lm_head too) goes through `make_linear`: raw
     ggml blocks are repacked, float weights quantized on the host when
-    quant="int8" | "int8-a8" | "int4"; the tied embedding and the MLPs stay
-    as they are (no head quantization, no FusedInt4MLP), as in JAX.
+    quant="int8" | "int8-a8" | "int4" | "int4-mixed" (`layer_quant`: the
+    attention projections int8, the rest int4); the tied embedding and the
+    MLPs stay as they are (no head quantization, no FusedInt4MLP), as in JAX.
     mlp_builder(loader, layer_prefix, layer_idx) -> module replaces a
     block's MLP (the MoE families)."""
     if quant is not None:
@@ -226,7 +237,8 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
             h, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.hidden_size
             parts = _split_rows(loader, p + nm.attn_qkv + ".weight", [h * hd, hkv * hd, hkv * hd], d)
             for name, w in zip(("q_proj", "k_proj", "v_proj"), parts):
-                fused[f"blocks.{i}.attn.{name}"] = _from_float(w, quant, device=device, dtype=dtype)
+                fused[f"blocks.{i}.attn.{name}"] = _from_float(w, layer_quant(quant, True), device=device,
+                                                               dtype=dtype)
         if mlp_builder is not None:
             built[i] = mlp_builder(loader, p, i)
             continue
@@ -234,7 +246,8 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
             ff = cfg.intermediate_size
             parts = _split_rows(loader, p + nm.gate_up + ".weight", [ff, ff], cfg.hidden_size)
             for name, w in zip(("gate_proj", "up_proj"), parts):
-                fused[f"blocks.{i}.mlp.{name}"] = _from_float(w, quant, device=device, dtype=dtype)
+                fused[f"blocks.{i}.mlp.{name}"] = _from_float(w, layer_quant(quant, False), device=device,
+                                                              dtype=dtype)
         elif p + nm.up + ".weight" not in loader:
             blk.mlp.up_proj = None
     for i, mlp in built.items():
@@ -264,8 +277,8 @@ def load_causal_lm(loader, cfg: TextConfig, *, device, dtype=torch.bfloat16,
             continue
         bias = tensor(path + ".bias") if path + ".bias" in names else None
         n, k = lin.weight.shape
-        new = make_linear(loader, names.pop(path + ".weight"), n, k, bias, quant, device=device,
-                          dtype=dtype)
+        new = make_linear(loader, names.pop(path + ".weight"), n, k, bias,
+                          layer_quant(quant, ".attn." in f".{path}."), device=device, dtype=dtype)
         parent, _, name = path.rpartition(".")
         setattr(model.get_submodule(parent), name, new)
         state.update({f"{path}.{key}": v for key, v in new.state_dict().items()})

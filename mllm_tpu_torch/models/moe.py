@@ -326,7 +326,9 @@ def load_moe_mlp(loader, prefix: str, cfg: TextConfig, *, device, dtype=torch.bf
     `load_moe_mlp`; mixtral passes its w1 / w3 / w2 names). quant "int8",
     "int8-a8" or "int4" quantizes the expert stacks to int8 on the host
     (`_quant_expert_stack`) and the shared expert as `quantize_model` does
-    (min_size 1: int8 Linears, or one FusedInt4MLP in "int4")."""
+    (min_size 1: int8 Linears, or one FusedInt4MLP in "int4"). Any other
+    quant ("int4-mixed") leaves the block float, as the JAX `load_moe_mlp`
+    does; the mixtral builder passes "int4" for it (`registry.build_model`)."""
     d, e, ff = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size
     shared = shared_prefix is not None and (prefix + shared_prefix + "gate_proj.weight") in loader
     sgate = shared and shared_gate_name is not None and (prefix + shared_gate_name + ".weight") in loader
@@ -348,7 +350,7 @@ def load_moe_mlp(loader, prefix: str, cfg: TextConfig, *, device, dtype=torch.bf
         if sgate:
             state["shared_gate"] = host(prefix + shared_gate_name + ".weight", (1, d))
     moe.load_state_dict(state, strict=True, assign=True)
-    if quant is not None:
+    if quant in ("int8", "int8-a8", "int4"):
         from ..ops.quantize_model import quantize_model
 
         # the expert stacks quantize whatever their size (an explicit

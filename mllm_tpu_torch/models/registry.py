@@ -52,9 +52,12 @@ def build_model(cfg: TextConfig, loader, *, device, dtype=torch.bfloat16, quant=
         kw = dict(device=device, dtype=dtype, quant=quant)
         if mt == "mixtral":  # block_sparse_moe with experts w1 (gate) / w3 (up) / w2 (down)
             names = tuple(f"experts.{{e}}.{w}.weight" for w in ("w1", "w3", "w2"))
+            # int4-mixed quantizes mixtral's experts as "int4"; the other
+            # families' experts stay float under it (JAX registry.py:140-143)
+            mkw = {**kw, "quant": "int4" if quant == "int4-mixed" else quant}
 
             def mlp_builder(ld, prefix, i):
-                return load_moe_mlp(ld, prefix + "block_sparse_moe.", cfg, expert_names=names, **kw)
+                return load_moe_mlp(ld, prefix + "block_sparse_moe.", cfg, expert_names=names, **mkw)
         elif mt == "minicpm_moe":
             def mlp_builder(ld, prefix, i):
                 return load_moe_mlp(ld, prefix + "mlp.", cfg, **kw)
@@ -155,8 +158,9 @@ def auto_model(path: str, dtype=torch.bfloat16, quant=None, config: Optional[Tex
     `auto_model`). The tokenizer is `auto_tokenizer(path)` when the directory
     holds a tokenizer.json and with_tokenizer is set, else None.
 
-    quant="int8" | "int8-a8" | "int4" quantizes the checkpoint's float Linears
-    at load (ggml blocks repack whatever quant says); other modes raise
+    quant="int8" | "int8-a8" | "int4" | "int4-mixed" quantizes the
+    checkpoint's float Linears at load (int4-mixed: attention int8, the rest
+    int4; ggml blocks repack whatever quant says); other modes raise
     NotImplementedError. The model goes to the card unless `device` says
     otherwise. A vision-language or encoder checkpoint (ANY_TYPES) is loaded
     by `auto_model_any`; its config is then the model's `cfg` (None for a ViT

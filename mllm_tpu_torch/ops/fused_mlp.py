@@ -89,6 +89,36 @@ def prepare_int4_ff(packed_t: torch.Tensor, scales_t: torch.Tensor, zeros_t, blo
     return (nib(lo_rows) | (nib(lo_rows + fh) << 4)).to(torch.uint8), scales_t, zeros_t
 
 
+BLOCK_F_CAP = 2048  # the largest block_f `fit_block_f` gives
+
+
+def fit_block_f(ff: int):
+    """Largest F | ff with F a multiple of 64 and <= BLOCK_F_CAP (None if none): the
+    CUDA kernel's own rule (block_f % 64 == 0, ff % block_f == 0), for the
+    F / tp of a rank's MLP, where `pick_block_f`'s multiples of 256 (the
+    Pallas kernel's) may not divide (Qwen2-VL-2B's 8960 / 2 = 4480 -> 896,
+    / 4 = 2240 -> 448)."""
+    best = None
+    for f in range(64, BLOCK_F_CAP + 1, 64):
+        if ff % f == 0:
+            best = f
+    return best
+
+
+def down_take_f(down_ops: tuple, block_f: int, f0: int, f1: int, new_block_f: int) -> tuple:
+    """Block-planar down operands (over K = ff, blocks of block_f) -> those of
+    the hidden units [f0, f1) re-laid in blocks of new_block_f: the same
+    nibbles, scales and zeros, bit for bit (a rank's rows of the fused MLP)."""
+    dp, ds, dz = down_ops
+    fh2, n = dp.shape
+    nblk, fh = 2 * fh2 // block_f, block_f // 2
+    q = torch.stack([(dp & 0x0F).reshape(nblk, fh, n), (dp >> 4).reshape(nblk, fh, n)], 1)
+    q = q.reshape(2 * fh2, n)[f0:f1].reshape((f1 - f0) // new_block_f, 2, new_block_f // 2, n)
+    packed = (q[:, 0] | (q[:, 1] << 4)).reshape((f1 - f0) // 2, n)
+    g0, g1 = f0 // GROUP, f1 // GROUP
+    return packed.contiguous(), ds[g0:g1].contiguous(), None if dz is None else dz[g0:g1].contiguous()
+
+
 def dequant_down_blockplanar(dp: torch.Tensor, ds: torch.Tensor, dz, group: int,
                              block_f: int) -> torch.Tensor:
     """Block-planar down operands -> f32 [ff, n_out] in natural f order."""

@@ -30,8 +30,10 @@ int32 `torch.mm` on the CPU.
 
 The ggml repackers (`repack_q4_0`, `repack_q4_k`, `repack_q8_0`) turn a
 checkpoint's Q4_0 / Q4_K / Q8_0 blocks into these layouts at load time,
-losslessly for the int4 ones. Not ported: the n-axis int4 layout (on purpose,
-ROADMAP ground rules).
+losslessly for the int4 ones. `int4_take_n` / `int4_take_k` cut canonical
+operands by output or input channel (tensor parallelism, head padding), bit
+for bit. Not ported: the n-axis int4 layout (on purpose, ROADMAP ground
+rules; the canonical layout is cut over tp instead).
 """
 
 from __future__ import annotations
@@ -227,6 +229,81 @@ def prepare_int4(packed_t, scales_t, group: int = GROUP, zeros_t=None):
         zeros_t = cat([zeros_t[..., :ng, :], zc, zeros_t[..., ng:, :], zc])
         packed_t = cat([packed_t, zeros_like(lead + (pad, n), u8)])
     return packed_t, scales_t, zeros_t
+
+
+# ---------------------------------------------------------------------------
+# Cuts of canonical operands (tensor parallelism, head padding)
+# ---------------------------------------------------------------------------
+
+
+def _zero_where(t: torch.Tensor, drop: torch.Tensor) -> torch.Tensor:
+    return torch.where(drop, torch.zeros((), dtype=t.dtype, device=t.device), t)
+
+
+def int4_take_n(packed_e8: torch.Tensor, scales_p: torch.Tensor, zeros_p: Optional[torch.Tensor],
+                index) -> tuple:
+    """Canonical operands holding the output channels `index` (natural n, or
+    -1 for a zero channel: nibbles, scale and zero all 0, which dequantize to
+    exactly 0 in both the symmetric and the affine law), in that order."""
+    index = np.asarray(index)
+    idx = torch.as_tensor(np.maximum(index, 0), device=packed_e8.device)
+    drop = torch.as_tensor(index < 0, device=packed_e8.device)[None, :]
+    return tuple(None if t is None else _zero_where(t.index_select(1, idx), drop).contiguous()
+                 for t in (packed_e8, scales_p, zeros_p))
+
+
+def int4_natural(packed_e8: torch.Tensor, scales_p: torch.Tensor, zeros_p: Optional[torch.Tensor],
+                 group: int, k: int) -> tuple:
+    """Canonical operands over K -> (nibbles uint8 [K, N] in natural k order,
+    scales [K/G, N], zeros [K/G, N] or None): the padded rows dropped, the
+    nibbles as stored (excess-8 when zeros is None)."""
+    kh = k // 2
+    ng, ngh = kh // group, packed_e8.shape[0] // group
+    rows = packed_e8[:kh]
+    q = torch.cat([rows & 0x0F, rows >> 4])
+    return (q, *(None if t is None else torch.cat([t[:ng], t[ngh:ngh + ng]]) for t in (scales_p, zeros_p)))
+
+
+def int4_canonical(q: torch.Tensor, scales: torch.Tensor, zeros: Optional[torch.Tensor], group: int) -> tuple:
+    """`int4_natural`'s inverse: natural nibbles [K, N] and group rows [K/G, N]
+    -> canonical (packed [khp, N], scales [2*khp/G, N], zeros or None), padded
+    by `prepare_int4`'s rule (zero rows, zero scales and zeros)."""
+    k, n = q.shape
+    kh = k // 2
+    _, khp = _pick_int4_pad(kh)
+    ng, pad = kh // group, khp - kh
+    packed = torch.cat([q[:kh] | (q[kh:] << 4), q.new_zeros(pad, n)])
+
+    def planar(t):
+        z = t.new_zeros(pad // group, n)
+        return torch.cat([t[:ng], z, t[ng:], z]).contiguous()
+
+    return packed.contiguous(), planar(scales), None if zeros is None else planar(zeros)
+
+
+def int4_take_k(packed_e8: torch.Tensor, scales_p: torch.Tensor, zeros_p: Optional[torch.Tensor],
+                group: int, k: int, index) -> tuple:
+    """Canonical operands over K whose input channels are `index` (natural k
+    of the K given, or -1 for a zero channel), re-laid over K' = len(index):
+    the natural nibbles and group rows gathered, then planar halves and
+    padding planned anew for K' (a K range of rank r straddles the nibble
+    halves of the whole: at tp 2, rank 0 owns every low nibble). Each aligned
+    run of `group` entries must be one whole group of K or all -1, and K' a
+    multiple of 2 * group (the canonical halves hold whole groups); the
+    values stay bit for bit. A zero channel's scale (and zero) is 0."""
+    index = np.asarray(index)
+    kn = len(index)
+    runs = index.reshape(-1, group) if kn % (2 * group) == 0 else None
+    if runs is None or not all((r < 0).all() or (r[0] % group == 0 and (r == r[0] + np.arange(group)).all())
+                               for r in runs):
+        raise ValueError(f"int4_take_k: the channels taken must be whole groups of {group} (or zero runs) and "
+                         f"their number a multiple of {2 * group}; got {kn} channels")
+    dev = packed_e8.device
+    q, s, z = int4_natural(packed_e8, scales_p, zeros_p, group, k)
+    take = lambda t, ix: _zero_where(t.index_select(0, torch.as_tensor(np.maximum(ix, 0), device=dev)),  # noqa: E731
+                                     torch.as_tensor(ix < 0, device=dev)[:, None])
+    g = np.where(runs[:, 0] < 0, -1, runs[:, 0] // group)
+    return int4_canonical(take(q, index), take(s, g), None if z is None else take(z, g), group)
 
 
 def dequant_int4_canonical(packed_e8: torch.Tensor, scales_p: torch.Tensor,

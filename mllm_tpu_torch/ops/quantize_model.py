@@ -1,5 +1,6 @@
 """Whole-model post-training quantization: counterpart of
-`mllm_tpu/ops/quantize_model.py` for the modes "int8", "int8-a8" and "int4".
+`mllm_tpu/ops/quantize_model.py` for the modes "int8", "int8-a8", "int4" and
+"int4-mixed".
 
   - `fuse_projections`: q/k/v -> one `qkv_proj`, gate/up -> one `gateup_proj`.
   - `quantize_model`: every eligible `Linear` becomes a `QuantLinear` (int8,
@@ -10,13 +11,18 @@
     (`QuantEmbedHead` for int8 and int8-a8, `Int4EmbedHead`). A `MoEMLP`
     becomes a `QuantMoEMLP` (int8 expert stacks in every mode, "int4"
     included, as in the JAX package) and its shared expert is walked like
-    any MLP.
+    any MLP. `attn_quant` overrides the mode inside attention blocks: mode
+    "int4" with attn_quant "int8" is `-q int4-mixed` (attention projections
+    int8, the rest int4), as in the JAX package; the loaders take
+    "int4-mixed" by name (`MODES`), `quantize_model` only a Linear's mode.
+  - `fused_mlp_shard`: rank r of tp's part of a `FusedInt4MLP` (tensor
+    parallelism, `parallel/sharding.py`).
 
 Unlike the JAX package, both work IN PLACE on the torch model (the float
 weights are released as each layer is replaced) and return it. There is one
 int4 layout (the canonical planar one of `prepare_int4`): no `MLLM_INT4_IMPL`
-n-axis twin, no `INT4_MIN_PARAMS` int8 fallback for small projections, no
-int4-mixed heuristic (mode "int4-mixed" raises; it is not ported, on purpose). `on_device=True` quantizes where the
+n-axis twin, no `INT4_MIN_PARAMS` int8 fallback for small projections (a
+TPU launch-cost heuristic). `on_device=True` quantizes where the
 weights are, with XLA's reciprocal scale rule (`_q8_device`, `_q4_device`);
 otherwise the same quantizers run on the host with numpy's dividing rule.
 Both give the same bytes as the JAX package.
@@ -24,21 +30,24 @@ Both give the same bytes as the JAX package.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import Embedding, Int4Linear, Linear, QuantLinear, QuantLinearA8
 from . import quant_matmul as qm
-from .fused_mlp import _ACT, fused_int4_mlp, pick_block_f, prepare_int4_ff
+from .fused_mlp import _ACT, down_take_f, fit_block_f, fused_int4_mlp, pick_block_f, prepare_int4_ff
 
-MODES = ("int8", "int8-a8", "int4")
+LINEAR_MODES = ("int8", "int8-a8", "int4")  # the modes of one Linear (`quantize_model`)
+MODES = LINEAR_MODES + ("int4-mixed",)  # every mode of the JAX package's -q (the loaders)
+MIXED = ("int4", "int8")  # -q int4-mixed: (mode, attn_quant)
 
 
 def _not_ported(mode) -> NotImplementedError:
     return NotImplementedError(
-        f"mllm_tpu_torch does not port quantization mode {mode!r} yet (it ports "
-        f"{', '.join(MODES)}): ROADMAP Queue 1 item 8")
+        f"mllm_tpu_torch has no quantization mode {mode!r} (it ports every mode of the JAX "
+        f"package: {', '.join(MODES)}): ROADMAP Queue 1 item 8")
 
 
 def check_mode(mode) -> None:
@@ -126,6 +135,28 @@ class FusedInt4MLP(nn.Module):
         if self.bias is not None:
             y = y + self.bias.float()
         return y.to(x.dtype)
+
+
+def fused_mlp_shard(mlp: FusedInt4MLP, r: int, tp: int) -> FusedInt4MLP:
+    """Rank r of tp's part of `mlp`: the hidden units [r F/tp, (r+1) F/tp),
+    i.e. those columns of the gate and up operands and those rows of the
+    block-planar down operands, re-laid in blocks of `fit_block_f(F / tp)`
+    (the same nibbles, scales and zeros). Its output is the rank's f32 partial
+    sum over its hidden units; it has no bias (the caller adds the whole
+    MLP's after the sum over the ranks). Raises a ValueError where tp does
+    not divide F or no block the CUDA kernel takes divides F / tp: the rank's
+    MLP stays fused or is not built."""
+    gate, up = mlp.gate_ops.astuple(), mlp.up_ops.astuple()
+    ff = gate[0].shape[1]
+    fr = ff // tp
+    block_f = fit_block_f(fr) if ff % tp == 0 else None
+    if block_f is None:
+        raise ValueError(f"fused_mlp_shard: F = {ff} at tp {tp} leaves {ff / tp:g} hidden units a rank, which no "
+                         "block of the fused int4 kernel (a multiple of 64) divides")
+    cols = np.arange(r * fr, (r + 1) * fr)
+    return FusedInt4MLP(Int4Operands(*qm.int4_take_n(*gate, cols)), Int4Operands(*qm.int4_take_n(*up, cols)),
+                        Int4Operands(*down_take_f(mlp.down_ops.astuple(), mlp.block_f, r * fr, (r + 1) * fr,
+                                                  block_f)), mlp.act, block_f)
 
 
 def _q8_device(w: torch.Tensor):
@@ -257,15 +288,18 @@ def quantize_model(model, mode: str = "int8", min_size: int = 1 << 16,
 
     min_size: Linears with fewer weights (or an in-width not a multiple of
     64) stay float. attn_quant overrides `mode` for the Linears inside
-    Attention modules. quant_embed_head quantizes the projection of a tied
-    embedding. on_device=True quantizes with torch ops where the weights lie
-    (the fast path for a model already on the card)."""
+    Attention modules: mode="int4", attn_quant="int8" is `-q int4-mixed`.
+    Both take one Linear's mode (`LINEAR_MODES`). quant_embed_head quantizes the
+    projection of a tied embedding. on_device=True quantizes with torch ops
+    where the weights lie (the fast path for a model already on the card)."""
     from ..models.moe import MoEMLP, QuantMoEMLP
     from ..models.transformer import MLP, Attention
 
-    check_mode(mode)
-    if attn_quant is not None:
-        check_mode(attn_quant)
+    for m in (mode, attn_quant):
+        if m is not None and m not in LINEAR_MODES:
+            check_mode(m)
+            raise ValueError(f"quantize_model takes one Linear's mode {LINEAR_MODES}, not {m!r}: "
+                             f"-q int4-mixed is mode={MIXED[0]!r}, attn_quant={MIXED[1]!r}")
 
     def moe(m):  # int8 per-(expert, out-channel) expert stacks
         return QuantMoEMLP.from_moe(m) if type(m) is MoEMLP and m.w_gate.numel() >= min_size else m

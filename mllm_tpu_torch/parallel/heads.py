@@ -10,6 +10,10 @@ heads on tp=8) is rewritten exactly:
     ragged; a zero q row attends uniformly, but its o_proj columns are zero,
     so the output is unchanged;
   - o_proj's input columns are permuted and padded to match.
+The projections may be float, int8 or int4 (the canonical planar layout: an
+output-channel gather, or for o_proj's inputs a gather in natural k order
+laid out anew, `ops.quant_matmul.int4_take_n` / `int4_take_k`; a pad head's
+channels get zero nibbles, scales and zeros, which dequantize to exactly 0).
 After it every head axis divides tp, so `sharding.shard_model` cuts the KV
 cache and the four projections with nothing replicated. No collective.
 """
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..nn.layers import Int4Linear, Linear, QuantLinear, shallow_copy
+from ..ops.quant_matmul import int4_take_k, int4_take_n
 
 
 def tp_head_plan(h: int, hkv: int, tp: int):
@@ -74,11 +79,21 @@ def _take_heads(x, index, hd: int, axis: int):
     return g.reshape(len(index) * hd, *rest).movedim(0, axis).contiguous()
 
 
-def _map_linear(lin, index, hd: int, *, rows: bool):
-    """The head gather on a Linear or QuantLinear. rows=True: output channels
-    (q/k/v: Linear.weight axis 0, QuantLinear.qweight_t axis 1, scales and
-    bias per row); rows=False: input channels (o_proj: weight axis 1,
-    qweight_t axis 0; scales and bias untouched)."""
+def _channels(index, hd: int) -> np.ndarray:
+    """Head index (-1: a zero head) -> channel index (-1: a zero channel)."""
+    index = np.asarray(index)
+    ch = index[:, None] * hd + np.arange(hd)
+    return np.where(index[:, None] < 0, -1, ch).reshape(-1)
+
+
+def _map_linear(lin, index, hd: int, *, rows: bool, k: int = 0):
+    """The head gather on a Linear, QuantLinear or Int4Linear. rows=True:
+    output channels (q/k/v: Linear.weight axis 0, QuantLinear.qweight_t axis
+    1, Int4Linear's n axis; scales and bias per row); rows=False: input
+    channels (o_proj over k inputs: weight axis 1, qweight_t axis 0, the int4
+    operands re-laid over the new K, their group scales gathered with their
+    channels, which must move in whole groups; scales and bias untouched
+    otherwise)."""
     if type(lin) is Linear:
         w = _take_heads(lin.weight, index, hd, 0 if rows else 1)
         b = _take_heads(lin.bias, index, hd, 0) if (rows and lin.bias is not None) else lin.bias
@@ -88,10 +103,18 @@ def _map_linear(lin, index, hd: int, *, rows: bool):
         sc = _take_heads(lin.scales, index, hd, 0) if rows else lin.scales
         b = _take_heads(lin.bias, index, hd, 0) if (rows and lin.bias is not None) else lin.bias
         return type(lin)(qw, sc, b)
-    what = ("the canonical planar int4 layout cannot be head-sliced" if isinstance(lin, Int4Linear)
-            else "only Linear and int8 QuantLinear projections are head-sliced")
-    raise NotImplementedError(f"pad_heads_for_tp: unsupported projection type {type(lin).__name__} ({what}; "
-                              "use int8 or bf16 weights for tp)")
+    if isinstance(lin, Int4Linear):
+        ch = _channels(index, hd)
+        if rows:
+            ops = int4_take_n(lin.packed_t, lin.scales_t, lin.zeros_t, ch)
+            b = _take_heads(lin.bias, index, hd, 0) if lin.bias is not None else None
+        else:
+            ops = int4_take_k(lin.packed_t, lin.scales_t, lin.zeros_t, lin.group, k, ch)
+            b = lin.bias
+        packed, scales, zeros = ops
+        return Int4Linear(packed, scales, lin.group, zeros, b)
+    raise NotImplementedError(f"pad_heads_for_tp: unsupported projection type {type(lin).__name__} (Linear, "
+                              "int8 QuantLinear and int4 Int4Linear projections are head-sliced)")
 
 
 def pad_heads_for_tp(model, tp: int):
@@ -115,7 +138,7 @@ def pad_heads_for_tp(model, tp: int):
         a2.q_proj = _map_linear(attn.q_proj, q_index, hd, rows=True)
         a2.k_proj = _map_linear(attn.k_proj, kv_index, hd, rows=True)
         a2.v_proj = _map_linear(attn.v_proj, kv_index, hd, rows=True)
-        a2.o_proj = _map_linear(attn.o_proj, q_index, hd, rows=False)
+        a2.o_proj = _map_linear(attn.o_proj, q_index, hd, rows=False, k=h * hd)
         a2.cfg = cfg2
         b2 = shallow_copy(blk)
         b2.attn = a2

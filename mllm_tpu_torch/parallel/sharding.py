@@ -16,6 +16,23 @@ collectives are explicit, Megatron-style (`comm.py`):
                            partial embeddings are summed
   lm_head       [V, D]     vocab parallel: each rank's logits are all-gathered
   norms, MoE experts, biases of row-parallel layers: replicated
+
+The same cuts hold for the quantized layers: an int8 `QuantLinear` (qweight_t
+[in, out], scales [out]) and an int4 `Int4Linear` on the canonical planar
+layout (packed_t [khp, out], scales_t / zeros_t [2 khp/G, out]). A column cut
+of an `Int4Linear` selects output channels; a row cut takes the rank's K
+range [r K/tp, (r+1) K/tp) in natural k order and lays it out anew
+(`ops.quant_matmul.int4_take_k`: the range straddles the nibble halves of the
+whole), which needs K/tp a multiple of 64 (whole groups in each half; else
+the layer stays whole, with the warning). A `FusedInt4MLP` is cut over its
+hidden units (`ops.quantize_model.fused_mlp_shard`: gate/up columns, the
+block-planar down rows in blocks of `fit_block_f(F/tp)`) and stays one fused
+kernel a rank, its f32 partial sum reduced before the bias and the one
+rounding; the tied `Int4EmbedHead` is vocab parallel (lookup rows, `proj`
+columns of the 512-padded vocab, logits gathered, then sliced). The JAX
+package cuts its n-axis int4 twin (`Int4LinearXLA`) instead; the port keeps
+one int4 layout. The pure cuts (`column_shard`, `row_shard`,
+`fused_mlp_shard`) take (module, rank, tp) and no process group.
   KV cache      [L, B, Hkv, S, D]: batch rows over dp, kv heads over tp
   paged pool    [L, NB + 1, Hkv, BS, D] (the sink block included): kv heads
                 over tp; the block table and the write heads whole
@@ -45,7 +62,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..nn.layers import Embedding, Linear, QuantLinear, QuantLinearA8, matmul_f32, shallow_copy
+from ..nn.layers import Embedding, Int4Linear, Linear, QuantLinear, QuantLinearA8, matmul_f32, shallow_copy
+from ..ops.quant_matmul import int4_take_k, int4_take_n
 from ..utils.log import log_warn
 from .comm import (axis_group, axis_rank, axis_size, check_world, copy_to_axis, dp_mean,
                    gather_from_axis, mesh_device, reduce_from_axis)
@@ -73,8 +91,11 @@ _COLUMN_BIAS = re.compile(r"(q_proj|k_proj|v_proj|gate_proj|up_proj|lm_head|qkv_
 _EMBED = re.compile(r"embed_tokens\.weight")
 
 # the int8 QuantLinear holds qweight_t [in, out] + scales [out] ("out last"),
-# so column parallel splits its last axis and row parallel its first; the
-# canonical planar int4 layout stays whole
+# so column parallel splits its last axis and row parallel its first (the JAX
+# package's leaf specs, kept equal to them). The canonical planar int4 leaves
+# (packed_t, scales_t, zeros_t, gate_ops.*) match no rule, as in the JAX
+# package, where that layout stays replicated: the port cuts them by module
+# in `shard_model` (column_shard / row_shard / fused_mlp_shard), not by spec
 _COL_NAMES = r"(q_proj|k_proj|v_proj|gate_proj|up_proj|lm_head)"
 _ROW_NAMES = r"(o_proj|down_proj)"
 _COLUMN_QLEAF = re.compile(_COL_NAMES + r"\.(qweight_t|packed_n|scales_g|zshift_g)")
@@ -103,14 +124,15 @@ def param_spec(path: str, ndim: int) -> tuple:
     return spec
 
 
-def _divides(mesh, axis: str, size: int, path: str, dim: int) -> bool:
-    """True when `axis` divides `size`; otherwise warn as the JAX package's
-    `_validate_spec` does (the dim stays whole)."""
+def _divides(mesh, axis: str, size: int, path: str, dim: int, quantum: int = 1) -> bool:
+    """True when `axis` divides `size` into parts that are multiples of
+    `quantum`; otherwise warn as the JAX package's `_validate_spec` does (the
+    dim stays whole)."""
     n = axis_size(mesh, axis)
-    if size % n == 0:
+    if size % (n * quantum) == 0:
         return True
     log_warn("sharding dropped: dim not divisible by mesh axis", param=path or "<anon>", dim=dim,
-             size=int(size), axis=axis, axis_size=int(n))
+             size=int(size), axis=axis, axis_size=int(n), quantum=quantum)
     return False
 
 
@@ -119,9 +141,9 @@ def _divides(mesh, axis: str, size: int, path: str, dim: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _rows(lin, ranges):
-    """A Linear / QuantLinear holding the output channels in `ranges` (a list
-    of (start, stop)), in that order."""
+def column_shard(lin, ranges):
+    """A Linear / QuantLinear / Int4Linear holding the output channels in
+    `ranges` (a list of (start, stop)), in that order."""
     idx = torch.cat([torch.arange(a, b) for a, b in ranges])
     if type(lin) is Linear:
         w = lin.weight.detach()[idx.to(lin.weight.device)].contiguous()
@@ -131,11 +153,43 @@ def _rows(lin, ranges):
         i = idx.to(lin.qweight_t.device)
         return type(lin)(lin.qweight_t[:, i].contiguous(), lin.scales[i].contiguous(),
                          None if lin.bias is None else lin.bias[i].contiguous())
+    if isinstance(lin, Int4Linear):
+        packed, scales, zeros = int4_take_n(lin.packed_t, lin.scales_t, lin.zeros_t, idx.numpy())
+        return Int4Linear(packed, scales, lin.group, zeros,
+                          None if lin.bias is None else lin.bias[idx.to(lin.bias.device)].contiguous())
+    raise NotImplementedError(f"shard_model: cannot split {type(lin).__name__}")
+
+
+def row_shard(lin, k: int, r: int, tp: int):
+    """Rank r of tp's input channels [r K/tp, (r+1) K/tp) of a Linear /
+    QuantLinear / Int4Linear over K = k inputs, without its bias (a
+    RowParallelLinear adds the whole bias after the sum over the ranks)."""
+    kr = k // tp
+    if type(lin) is Linear:
+        return Linear.from_tensors(lin.weight.detach()[:, r * kr:(r + 1) * kr].contiguous())
+    if isinstance(lin, QuantLinear):
+        return type(lin)(lin.qweight_t[r * kr:(r + 1) * kr].contiguous(), lin.scales, None)
+    if isinstance(lin, Int4Linear):
+        packed, scales, zeros = int4_take_k(lin.packed_t, lin.scales_t, lin.zeros_t, lin.group, k,
+                                            np.arange(r * kr, (r + 1) * kr))
+        return Int4Linear(packed, scales, lin.group, zeros, None)
     raise NotImplementedError(f"shard_model: cannot split {type(lin).__name__}")
 
 
 def _shardable(lin) -> bool:
-    return type(lin) is Linear or isinstance(lin, QuantLinear)
+    return type(lin) is Linear or isinstance(lin, (QuantLinear, Int4Linear))
+
+
+def _n_out(lin) -> int:
+    if type(lin) is Linear:
+        return lin.weight.shape[0]
+    return lin.qweight_t.shape[1] if isinstance(lin, QuantLinear) else lin.packed_t.shape[1]
+
+
+def _k_quantum(lin) -> int:
+    """What a rank's K inputs must be a multiple of: 2 x the group for an
+    Int4Linear (whole groups in each nibble half), else 1."""
+    return 2 * lin.group if isinstance(lin, Int4Linear) else 1
 
 
 class ColumnParallelLinear(nn.Module):
@@ -156,10 +210,11 @@ class ColumnParallelLinear(nn.Module):
 
 class RowParallelLinear(nn.Module):
     """This rank's input channels of a row-parallel projection (weight
-    [out, in/tp], or an int8 qweight_t [in/tp, out] with its scales): the f32
-    partial products are all-reduced over tp, then the bias (replicated) is
-    added in f32 and the sum rounds once to x's dtype, as the unsplit Linear
-    rounds. A QuantLinearA8's prefill-shaped calls take `_a8`."""
+    [out, in/tp], an int8 qweight_t [in/tp, out] with its scales, or int4
+    operands over in/tp): the f32 partial products are all-reduced over tp,
+    then the bias (replicated) is added in f32 and the sum rounds once to x's
+    dtype, as the unsplit Linear rounds. A QuantLinearA8's prefill-shaped
+    calls take `_a8`."""
 
     def __init__(self, inner: nn.Module, bias: Optional[torch.Tensor], mesh):
         super().__init__()
@@ -174,6 +229,10 @@ class RowParallelLinear(nn.Module):
             from ..ops.quant_matmul import int8_matmul
 
             y = int8_matmul(x, self.inner.qweight_t, self.inner.scales)
+        elif isinstance(self.inner, Int4Linear):
+            from ..ops.quant_matmul import int4_matmul
+
+            y = int4_matmul(x, self.inner.packed_t, self.inner.scales_t, self.inner.group, self.inner.zeros_t)
         else:
             y = matmul_f32(x, self.inner.weight)
         y = reduce_from_axis(y, self.mesh, "tp")
@@ -201,15 +260,32 @@ class RowParallelLinear(nn.Module):
         return y.to(x.dtype).reshape(*x.shape[:-1], -1)
 
 
-def _row_parallel(lin, mesh):
-    n, r = axis_size(mesh, "tp"), axis_rank(mesh, "tp")
-    if type(lin) is Linear:
-        k = lin.weight.shape[1] // n
-        inner = Linear.from_tensors(lin.weight.detach()[:, r * k:(r + 1) * k].contiguous())
-    else:
-        k = lin.qweight_t.shape[0] // n
-        inner = type(lin)(lin.qweight_t[r * k:(r + 1) * k].contiguous(), lin.scales, None)
-    return RowParallelLinear(inner, lin.bias, mesh)
+def _row_parallel(lin, mesh, k: int):
+    return RowParallelLinear(row_shard(lin, k, axis_rank(mesh, "tp"), axis_size(mesh, "tp")), lin.bias, mesh)
+
+
+class ParallelFusedInt4MLP(nn.Module):
+    """This rank's hidden units of a FusedInt4MLP (`fused_mlp_shard`): the
+    input enters through `copy_to_axis`, the fused kernel's f32 partial sum
+    is all-reduced over tp, then the whole MLP's bias is added in f32 and the
+    sum rounds once to x's dtype, as the unsplit FusedInt4MLP rounds."""
+
+    def __init__(self, inner, bias: Optional[torch.Tensor], mesh):
+        super().__init__()
+        self.inner = inner
+        self.register_buffer("bias", bias)
+        self.mesh = mesh
+
+    def forward(self, x):
+        from ..ops.fused_mlp import fused_int4_mlp
+
+        m = self.inner
+        y = fused_int4_mlp(copy_to_axis(x, self.mesh, "tp"), m.gate_ops.astuple(), m.up_ops.astuple(),
+                           m.down_ops.astuple(), act=m.act, block_f=m.block_f)
+        y = reduce_from_axis(y, self.mesh, "tp")
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
 
 
 class VocabParallelEmbedding(nn.Module):
@@ -235,11 +311,28 @@ class VocabParallelEmbedding(nn.Module):
         return gather_from_axis(matmul_f32(copy_to_axis(x, self.mesh, "tp"), self.weight), self.mesh, "tp")
 
 
+class VocabParallelInt4Head(VocabParallelEmbedding):
+    """The tied int4 head (`Int4EmbedHead`) over tp: the lookup as
+    VocabParallelEmbedding's, on this rank's rows of the float table; as the
+    lm_head, this rank's columns of `proj` (the 512-padded vocab over tp),
+    the logits all-gathered and sliced to the vocabulary."""
+
+    def __init__(self, weight: torch.Tensor, start: int, proj: Int4Linear, vocab: int, mesh):
+        super().__init__(weight, start, mesh)
+        self.proj = proj
+        self.vocab = vocab
+
+    def as_lm_head(self, x):
+        return gather_from_axis(self.proj(copy_to_axis(x, self.mesh, "tp")), self.mesh, "tp")[..., : self.vocab]
+
+
 def _shard_attention(attn, mesh, path: str):
     """The rank's heads of an attention block (q/k/v column parallel, o row
     parallel, local head counts in its cfg); the block itself when its
-    projection types do not allow a cut (int4). Raises a ValueError, before
-    cutting anything, when tp does not divide both head counts."""
+    projection types do not allow a cut (a LoRA layer), or, with the
+    warning, when an int4 o_proj's K/tp is not a multiple of 64. Raises a
+    ValueError, before cutting anything, when tp does not divide both head
+    counts."""
     cfg, tp = attn.cfg, axis_size(mesh, "tp")
     h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     projs = [attn.qkv_proj] if attn.qkv_proj is not None else [attn.q_proj, attn.k_proj, attn.v_proj]
@@ -249,6 +342,8 @@ def _shard_attention(attn, mesh, path: str):
         raise ValueError(f"shard_model: {path} has {h} query / {hkv} kv heads, which tp={tp} does not divide "
                          "(a text model: run parallel.heads.pad_heads_for_tp(model, tp) first; a VL model "
                          "needs a tp that divides its heads)")
+    if not _divides(mesh, "tp", h * hd, f"{path}.o_proj.weight", 1, _k_quantum(attn.o_proj)):
+        return attn
     r = axis_rank(mesh, "tp")
     hl, hkvl = h // tp, hkv // tp
     q_rng = (r * hl * hd, (r + 1) * hl * hd)
@@ -256,41 +351,50 @@ def _shard_attention(attn, mesh, path: str):
     out = shallow_copy(attn)
     if attn.qkv_proj is not None:  # q || k || v: each part's slice, fused again
         k0, v0 = h * hd, (h + hkv) * hd
-        out.qkv_proj = ColumnParallelLinear(_rows(attn.qkv_proj, [q_rng, (k0 + kv_rng[0], k0 + kv_rng[1]),
-                                                                  (v0 + kv_rng[0], v0 + kv_rng[1])]), mesh)
+        out.qkv_proj = ColumnParallelLinear(column_shard(attn.qkv_proj, [q_rng, (k0 + kv_rng[0], k0 + kv_rng[1]),
+                                                                         (v0 + kv_rng[0], v0 + kv_rng[1])]), mesh)
     else:
-        out.q_proj = ColumnParallelLinear(_rows(attn.q_proj, [q_rng]), mesh)
-        out.k_proj = ColumnParallelLinear(_rows(attn.k_proj, [kv_rng]), mesh)
-        out.v_proj = ColumnParallelLinear(_rows(attn.v_proj, [kv_rng]), mesh)
-    out.o_proj = _row_parallel(attn.o_proj, mesh)
+        out.q_proj = ColumnParallelLinear(column_shard(attn.q_proj, [q_rng]), mesh)
+        out.k_proj = ColumnParallelLinear(column_shard(attn.k_proj, [kv_rng]), mesh)
+        out.v_proj = ColumnParallelLinear(column_shard(attn.v_proj, [kv_rng]), mesh)
+    out.o_proj = _row_parallel(attn.o_proj, mesh, h * hd)
     out.cfg = cfg.replace(num_attention_heads=hl, num_key_value_heads=hkvl, head_dim=hd)
     return out
 
 
 def _shard_mlp(mlp, mesh, path: str):
     """The rank's slice of a dense gated MLP (gate/up column parallel, down
-    row parallel); any other FFN (MoE, fused int4) stays whole."""
+    row parallel) or of a FusedInt4MLP (`ParallelFusedInt4MLP`); any other
+    FFN (MoE) stays whole, and so does an MLP whose width the cut does not
+    divide (with the warning)."""
     from ..models.transformer import MLP
+    from ..ops.quantize_model import FusedInt4MLP, fused_mlp_shard
 
+    tp, r = axis_size(mesh, "tp"), axis_rank(mesh, "tp")
+    if isinstance(mlp, FusedInt4MLP):
+        ff = mlp.gate_ops.astuple()[0].shape[1]
+        if not _divides(mesh, "tp", ff, f"{path}.gate_ops.0", 1):
+            return mlp
+        return ParallelFusedInt4MLP(fused_mlp_shard(mlp, r, tp), mlp.bias, mesh)
     if type(mlp) is not MLP:
         return mlp
     projs = ([mlp.gateup_proj] if mlp.gateup_proj is not None
              else [p for p in (mlp.gate_proj, mlp.up_proj) if p is not None])
     if not all(_shardable(p) for p in projs + [mlp.down_proj]):
         return mlp
-    ff = mlp.down_proj.weight.shape[1] if type(mlp.down_proj) is Linear else mlp.down_proj.qweight_t.shape[0]
-    if not _divides(mesh, "tp", ff, f"{path}.gate_proj.weight", 0):
+    ff = _n_out(projs[0]) // (2 if mlp.gateup_proj is not None else 1)
+    if not _divides(mesh, "tp", ff, f"{path}.down_proj.weight", 1, _k_quantum(mlp.down_proj)):
         return mlp
-    tp, r = axis_size(mesh, "tp"), axis_rank(mesh, "tp")
     rng = (r * ff // tp, (r + 1) * ff // tp)
     out = shallow_copy(mlp)
     if mlp.gateup_proj is not None:
-        out.gateup_proj = ColumnParallelLinear(_rows(mlp.gateup_proj, [rng, (ff + rng[0], ff + rng[1])]), mesh)
+        out.gateup_proj = ColumnParallelLinear(column_shard(mlp.gateup_proj, [rng, (ff + rng[0], ff + rng[1])]),
+                                               mesh)
     else:
-        out.gate_proj = ColumnParallelLinear(_rows(mlp.gate_proj, [rng]), mesh)
+        out.gate_proj = ColumnParallelLinear(column_shard(mlp.gate_proj, [rng]), mesh)
         if mlp.up_proj is not None:
-            out.up_proj = ColumnParallelLinear(_rows(mlp.up_proj, [rng]), mesh)
-    out.down_proj = _row_parallel(mlp.down_proj, mesh)
+            out.up_proj = ColumnParallelLinear(column_shard(mlp.up_proj, [rng]), mesh)
+    out.down_proj = _row_parallel(mlp.down_proj, mesh, ff)
     return out
 
 
@@ -298,7 +402,16 @@ def shard_model(model, mesh):
     """This rank's shard of a CausalLM, or of a Qwen2-VL / Qwen2.5-VL model
     (its `.lm` cut, its `.visual` whole), under `mesh` (module and tensor
     layout above); the tensors it does not cut are shared with `model`. The
-    result keeps the mesh as `.mesh` (sgd_train_step's dp mean reads it)."""
+    result keeps the mesh as `.mesh` (sgd_train_step's dp mean reads it).
+    A MegaDecodeLM raises: its megakernel runs the whole trunk on one card,
+    and the JAX package does not cut it either."""
+    from ..models.megadecode import MegaDecodeLM
+    from ..ops.quantize_model import Int4EmbedHead
+
+    if isinstance(model, MegaDecodeLM):
+        raise NotImplementedError("shard_model: a MegaDecodeLM runs its whole trunk in one kernel on one card and "
+                                  "is not cut over tp (nor is it in the JAX package); shard its int4 model, "
+                                  "`.base`, instead")
     if hasattr(model, "visual") and hasattr(model, "lm"):
         out = shallow_copy(model)
         out.lm = shard_model(model.lm, mesh)
@@ -308,17 +421,24 @@ def shard_model(model, mesh):
     tp = axis_size(mesh, "tp")
     out = shallow_copy(model)
     out.mesh = mesh
+    r = axis_rank(mesh, "tp")
     emb = model.embed_tokens
-    if type(emb) is Embedding and _divides(mesh, "tp", emb.weight.shape[0], "embed_tokens.weight", 0):
-        v = emb.weight.shape[0] // tp
-        r = axis_rank(mesh, "tp")
-        out.embed_tokens = VocabParallelEmbedding(emb.weight.detach()[r * v:(r + 1) * v].contiguous(), r * v, mesh)
+    table = emb.embedding if isinstance(emb, Int4EmbedHead) else emb
+    if type(table) is Embedding and _divides(mesh, "tp", table.weight.shape[0], "embed_tokens.weight", 0):
+        v = table.weight.shape[0] // tp
+        rows = table.weight.detach()[r * v:(r + 1) * v].contiguous()
+        if type(emb) is Embedding:
+            out.embed_tokens = VocabParallelEmbedding(rows, r * v, mesh)
+        elif _divides(mesh, "tp", _n_out(emb.proj), "embed_tokens.proj.packed_t", 1):
+            vp = _n_out(emb.proj) // tp
+            out.embed_tokens = VocabParallelInt4Head(rows, r * v, column_shard(emb.proj, [(r * vp, (r + 1) * vp)]),
+                                                     emb.vocab, mesh)
     head = model.lm_head
     if head is not None and _shardable(head):
-        n = head.weight.shape[0] if type(head) is Linear else head.qweight_t.shape[1]
+        n = _n_out(head)
         if _divides(mesh, "tp", n, "lm_head.weight", 0):
-            r = axis_rank(mesh, "tp")
-            out.lm_head = ColumnParallelLinear(_rows(head, [(r * n // tp, (r + 1) * n // tp)]), mesh, gather=True)
+            out.lm_head = ColumnParallelLinear(column_shard(head, [(r * n // tp, (r + 1) * n // tp)]), mesh,
+                                               gather=True)
     blocks = []
     for i, blk in enumerate(model.blocks):
         b2 = shallow_copy(blk)

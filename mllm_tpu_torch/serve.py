@@ -2,7 +2,7 @@
 JAX package's `examples/serve.py`.
 
     python -m mllm_tpu_torch.serve -m <model_dir> [-p 8000] [--engine continuous|window|sd]
-        [--kv bf16|int8|int4] [--paged N] [--prefix-cache N] [-q int8|int8-a8|int4]
+        [--kv bf16|int8|int4] [--paged N] [--prefix-cache N] [-q int8|int8-a8|int4|int4-mixed]
 
     curl localhost:8000/v1/completions -d '{"prompt": "hello", "max_tokens": 32}'
     curl localhost:8000/v1/chat/completions -d '{"messages": [{"role": "user", "content": "hi"}]}'
@@ -56,6 +56,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from .ops.quantize_model import MODES
 from .utils.log import get_logger
 from .utils.metrics import GLOBAL, GenerationMetrics, Metrics
 
@@ -487,7 +488,7 @@ def parse_args(argv=None):
     ap.add_argument("-p", "--port", type=int, default=8000)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("-l", "--limits", type=int, default=2048, help="KV-cache length a request")
-    ap.add_argument("-q", "--quant", choices=["int8", "int8-a8", "int4"], default=None)
+    ap.add_argument("-q", "--quant", choices=MODES, default=None)
     ap.add_argument("--batch-window-ms", type=int, default=30)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--engine", choices=["continuous", "window", "sd"], default="continuous",

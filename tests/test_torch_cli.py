@@ -5,7 +5,8 @@ package on the same tiny checkpoint directories, run in process with
 - demo_llm, deterministic branches: greedy ids equal to the JAX package's
   own `auto_model` + loop (the JAX demo's code) in bf16, the CLI's dtype:
   plain, `-q int8`, `-q int4` (the JAX side on its canonical int4 layout
-  with every projection int4, the port's only layout), `--kv int8`,
+  with every projection int4, the port's only layout), `-q int4-mixed`
+  (attention int8, the rest int4), `--kv int8`,
   `--chunked 8 --turns 2` (turn 2 a full prefix-cache hit), `--batch 3`
   and `--mbp 2` (a tiny qwen2_moe directory).
 - demo_llm, random branches: `--sparse`, `--elastic` and sampled decoding
@@ -183,6 +184,12 @@ def test_quant_int8_greedy_equals_jax(dirs):
 
 def test_quant_int4_greedy_equals_jax(dirs, jax_canonical_int4):
     assert _cli(dirs["dense"], "-q", "int4")["ids"] == _jax_generate(dirs["dense"], "int4")
+
+
+def test_quant_int4_mixed_greedy_equals_jax(dirs, jax_canonical_int4):
+    """`-q int4-mixed`: the attention projections int8, the rest int4, in
+    both packages' loaders."""
+    assert _cli(dirs["dense"], "-q", "int4-mixed")["ids"] == _jax_generate(dirs["dense"], "int4-mixed")
 
 
 def test_kv_int8_greedy_equals_jax(dirs):
@@ -406,8 +413,9 @@ def test_std_parser_flags():
     ap = _demo_common.std_parser("x", image=True, default_prompt="p")
     args = ap.parse_args(["-m", "d", "-i", "img.png"])
     assert (args.limits, args.quant, args.device, args.prompt, args.max_new) == (2048, None, "cuda", "p", 128)
+    assert ap.parse_args(["-m", "d", "-i", "x", "-q", "int4-mixed"]).quant == "int4-mixed"  # the JAX choices
     with pytest.raises(SystemExit):
-        ap.parse_args(["-m", "d", "-i", "x", "-q", "int4-mixed"])  # a TPU heuristic the port leaves out
+        ap.parse_args(["-m", "d", "-i", "x", "-q", "nf4"])
 
 
 def test_vl_decode_loop_equals_jax(dirs, monkeypatch):

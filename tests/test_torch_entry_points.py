@@ -1,8 +1,9 @@
 """The port's server flags and its tiny-fixture tool.
 
 - `python -m mllm_tpu_torch.serve` takes every flag of `examples/serve.py`
-  (read from its source), each choice of it but `-q int4-mixed` (not
-  ported), with the JAX server's defaults.
+  (read from its source), each choice of it (`-q int4-mixed` included),
+  with the JAX server's defaults, and refuses a mode the JAX server does
+  not offer.
 - `mllm_tpu_torch.tools.make_tiny_fixtures` writes the JAX tool's two
   directories (`tools/make_tiny_fixtures.py`, imported by path, run into
   another directory): the same config.json and tensors, a tokenizer.json of
@@ -37,7 +38,7 @@ from mllm_tpu_torch.tools import make_tiny_fixtures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
-NOT_PORTED = {("-q", "int4-mixed")}
+NOT_PORTED = set()  # (flag, value) pairs of the JAX server that the port leaves out: none
 
 
 def _jax_server_flags() -> list:
@@ -74,8 +75,9 @@ def test_serve_takes_every_flag_of_the_jax_server():
                 assert getattr(got, dest) == value, (name, value)
                 tried += 1
     assert tried >= 20
+    assert serve.parse_args(["-m", "model_dir", "-q", "int4-mixed"]).quant == "int4-mixed"
     with pytest.raises(SystemExit):
-        serve.parse_args(["-m", "model_dir", "-q", "int4-mixed"])
+        serve.parse_args(["-m", "model_dir", "-q", "nf4"])
 
 
 @pytest.fixture(scope="module")

@@ -312,7 +312,16 @@ def test_quantize_model_flags(jax_pallas_int4):
 
 @pytest.mark.parametrize("mode", ["nf4", "int4-mixed", "fp8"])
 def test_unported_modes_raise(mode):
+    """Modes the JAX package lacks raise; "int4-mixed", ported since, is a
+    mode of the loaders: `quantize_model` takes one Linear's mode, as the
+    JAX one does, and names the pair that spells it (mode "int4",
+    attn_quant "int8")."""
     tm = causal_lm_from_jax_params(_params(_jax_float_model("unrolled")), TextConfig(**CFG_KW), CPU)
+    if mode == "int4-mixed":
+        for kw in (dict(mode=mode), dict(mode="int4", attn_quant=mode)):
+            with pytest.raises(ValueError, match="mode='int4', attn_quant='int8'"):
+                tqmod.quantize_model(tm, **kw)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tqmod.quantize_model(tm, mode)
 

@@ -304,8 +304,9 @@ def test_command_line():
     args = serve.parse_args(["-m", "d", "-q", "int8-a8", "--engine", "sd", "--kv", "int4", "--paged", "64",
                              "--image-size", "448"])
     assert (args.quant, args.engine, args.kv, args.paged) == ("int8-a8", "sd", "int4", 64)
+    assert serve.parse_args(["-m", "d", "-q", "int4-mixed"]).quant == "int4-mixed"
     with pytest.raises(SystemExit):
-        serve.parse_args(["-m", "d", "-q", "int4-mixed"])
+        serve.parse_args(["-m", "d", "-q", "nf4"])
 
 
 class _BytesTok:

@@ -1,6 +1,7 @@
 """Tensor and data parallelism of the port (`mllm_tpu_torch/parallel/heads.py`,
 `sharding.py`, `multihost.py`, the engine's `mesh=` over slot caches, a paged
-pool and image requests) in one gloo world of 4 CPU ranks
+pool and image requests, int4 weights cut on the canonical layout and the
+int4-mixed model) in one gloo world of 4 CPU ranks
 (tests/torch_dist_cases.py:tp_cases), against the port's single-process
 results and the JAX functions of `tests/test_parallel.py` (each called once,
 on 2 or 4 of the 8 forced CPU devices, or on one: the single-chip paged and
@@ -34,6 +35,8 @@ ENGINE = dict(vocab_size=97, hidden_size=96, intermediate_size=128, num_hidden_l
               num_key_value_heads=2, head_dim=16, max_position_embeddings=256, eos_token_id=-9)
 HYBRID = dict(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
               num_key_value_heads=4, head_dim=16, max_position_embeddings=64, eos_token_id=-3)
+INT4 = dict(vocab_size=128, hidden_size=128, intermediate_size=512, num_hidden_layers=2, num_attention_heads=12,
+            num_key_value_heads=2, head_dim=64, max_position_embeddings=128, eos_token_id=-3)
 TOL = 1e-5
 VL_IMG = 120  # the tiny Qwen2-VL's image pad id; video, vision start and end follow it
 
@@ -49,7 +52,7 @@ def _params(jm):
 @pytest.fixture(scope="module")
 def jax_models():
     return {"tiny": _jax(TINY, 0), "flagship": _jax(FLAGSHIP, 1), "engine": _jax(ENGINE, 5),
-            "hybrid": _jax(HYBRID, 2)}
+            "hybrid": _jax(HYBRID, 2), "int4": _jax(INT4, 7)}
 
 
 @pytest.fixture(scope="module")
@@ -95,13 +98,16 @@ def inputs(vl_ckpt):
             "quant_ids": rng.integers(0, 128, (2, 10)), "hybrid_ids": rng.integers(0, 128, (4, 8)),
             "engine_prompts": [np.arange(5) % 97, (np.arange(9) * 3) % 97],
             "paged_prompts": [np.arange(5) % 97, (np.arange(9) * 3) % 97, (np.arange(12) * 7 + 1) % 97],
-            "vl_dir": vl_ckpt[1], "vl_request": _vl_request(), "vl_text": np.array([7, 100, 30, 42, 9], np.int64)}
+            "vl_dir": vl_ckpt[1], "vl_request": _vl_request(), "vl_text": np.array([7, 100, 30, 42, 9], np.int64),
+            "int4_ids": rng.integers(0, 128, (2, 10)),
+            "int4_prompts": [np.arange(5) * 11 % 128, (np.arange(9) * 5 + 3) % 128, (np.arange(12) * 7 + 1) % 128]}
 
 
 @pytest.fixture(scope="module")
 def world(jax_models, inputs):
     models = {"tiny": (_params(jax_models["tiny"]), TINY), "flagship": (_params(jax_models["flagship"]), FLAGSHIP),
-              "engine": (_params(jax_models["engine"]), ENGINE), "hybrid": (_params(jax_models["hybrid"]), HYBRID)}
+              "engine": (_params(jax_models["engine"]), ENGINE), "hybrid": (_params(jax_models["hybrid"]), HYBRID),
+              "int4": (_params(jax_models["int4"]), INT4)}
     return cases.run_world(cases.tp_cases, 4, models, inputs)
 
 
@@ -169,6 +175,82 @@ def test_tp_sharded_int8_a8_generate_matches_jax(world, jax_models, inputs):
     assert world["a8_prefill_err"] < TOL
     np.testing.assert_array_equal(world["a8_tp2"], want)
     np.testing.assert_array_equal(world["a8_single"], want)
+
+
+@pytest.fixture
+def jax_xla_int4(monkeypatch):
+    """The JAX package's default int4 impl (the n-axis layout, which its
+    GSPMD cuts over tp) with its numpy packers."""
+    import mllm_tpu.utils.native as jnative
+
+    monkeypatch.setenv("MLLM_INT4_IMPL", "xla")
+    monkeypatch.setattr(jnative, "repack_int8", lambda w: None)
+    monkeypatch.setattr(jnative, "repack_int4", lambda w, group=32: None)
+
+
+_jax_step = jax.jit(lambda m, ids, c: m(ids, c, last_only=True))
+
+
+def _jax_greedy(model, ids, steps: int, max_len: int) -> np.ndarray:
+    """The single-device greedy loop of tests/test_parallel.py (jitted)."""
+    cache = model.init_cache(ids.shape[0], max_len, jnp.float32)
+    logits, cache = _jax_step(model, jnp.asarray(ids, jnp.int32), cache)
+    out = [np.argmax(np.asarray(logits)[:, -1], -1)]
+    for _ in range(steps - 1):
+        logits, cache = _jax_step(model, jnp.asarray(out[-1], jnp.int32)[:, None], cache)
+        out.append(np.argmax(np.asarray(logits)[:, -1], -1))
+    return np.stack(out, 1)
+
+
+@pytest.mark.parametrize("mode", ["int4", "int4-mixed"])
+def test_tp_sharded_int4_generate_matches_jax(world, jax_models, inputs, mode, jax_xla_int4):
+    """The int4 model (every projection int4 on the canonical layout, one
+    FusedInt4MLP a block, the tied int4 head) and the int4-mixed one
+    (attention int8) at tp 2 and at tp 4 (12 / 2 heads padded to 12 / 4):
+    greedy tokens equal the port's single process and the JAX package's
+    single-device int4 model (`test_tp_sharded_quantized_generate[int4]`'s
+    reference, on its default n-axis layout: the same quantized values)."""
+    from mllm_tpu.ops.quantize_model import quantize_model
+
+    kw = dict(attn_quant="int8") if mode == "int4-mixed" else {}
+    want = _jax_greedy(quantize_model(jax_models["int4"], "int4", min_size=1, **kw), inputs["int4_ids"], 6, 64)
+    assert len(set(want.ravel().tolist())) > 2  # not an echo
+    for key in ("single", "tp2", "tp4"):
+        np.testing.assert_array_equal(world[f"{mode}_{key}"], want, err_msg=key)
+
+
+@pytest.mark.parametrize("mode,kind,tp", [("int4", "slot", 2), ("int4", "paged", 4), ("int4-mixed", "slot", 2)])
+def test_engine_tp_int4_matches_single(world, mode, kind, tp):
+    """The engine over the int4 (and int4-mixed) model cut over tp: slot
+    caches at tp 2, a one-block paged pool (a request requeued) at tp 4 with
+    the heads padded; tokens equal the single-process engine's and every
+    rank's agree."""
+    want, requeued = world[f"{mode}_engine_{kind}_single"]
+    assert all(len(w) == 5 for w in want)
+    assert world[f"{mode}_engine_{kind}_tp{tp}"] == (want, requeued)
+    assert world[f"{mode}_engine_{kind}_tp{tp}_ranks_agree"]
+    assert (requeued > 0) == (kind == "paged")
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_int4_leaves_are_cut_over_tp(world, tp):
+    """Each rank holds 1/tp of every cut int4 leaf: the columns of q/k/v, the
+    fused MLP's gate/up and the head's proj (the 512-padded vocab), the live
+    input channels of o_proj, the fused MLP's down rows and the table's rows."""
+    cuts = world[f"int4_cuts_tp{tp}"]
+    assert len(cuts) == 2 * 6 + 2
+    for name, (local, whole) in cuts.items():
+        assert local * tp == whole, (name, local, whole)
+
+
+def test_int4_cut_dropped_where_k_does_not_divide(world):
+    """The tiny model in int4 at tp 2: o_proj's K / tp = 32 is no multiple
+    of 64 (whole groups in each nibble half), so each block's attention stays
+    whole with the "sharding dropped" warning while its MLP (unfused int4, K
+    / tp = 64) is cut; greedy tokens equal the single process's."""
+    assert world["tiny_int4_kept"] == (True, "RowParallelLinear")
+    assert world["tiny_int4_dropped"] >= TINY["num_hidden_layers"]
+    np.testing.assert_array_equal(world["tiny_int4_tp2"], world["tiny_int4_single"])
 
 
 def test_engine_tp_matches_jax(world, jax_models, inputs):

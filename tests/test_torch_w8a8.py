@@ -207,6 +207,13 @@ def test_int8_a8_twin_is_the_int8_model():
 
 @pytest.mark.parametrize("mode", ["int4-mixed", "fp8"])
 def test_other_modes_still_raise(mode):
+    """fp8 (no mode of the JAX package) raises; int4-mixed, ported since,
+    quantizes as mode "int4" with attn_quant "int8": attention int8, the MLP
+    fused int4."""
     tm = causal_lm_from_jax_params(_params(_jax_float_model()), TextConfig(**CFG_KW), CPU)
+    if mode == "int4-mixed":
+        tqmod.quantize_model(tm, "int4", min_size=1, attn_quant="int8")
+        assert type(tm.blocks[0].attn.q_proj) is QuantLinear and isinstance(tm.blocks[0].mlp, tqmod.FusedInt4MLP)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tqmod.quantize_model(tm, mode)

@@ -276,6 +276,7 @@ def tp_cases(rank, n, models: dict, inputs: dict) -> dict:
             res[f"engine_tp{tp}"] = toks
             res[f"engine_tp{tp}_ranks_agree"] = all(t == toks for t in every)
     res.update(tp_paged_and_vl_cases(models, inputs, mesh2, mesh4))
+    res.update(tp_int4_cases(models, inputs, mesh2, mesh4))
 
     # the hybrid mesh (dp between hosts, tp inside) and the per-rank batch
     hm = hybrid_mesh(ici={"tp": 2}, dcn={"dp": 2}, device="cpu")
@@ -396,6 +397,94 @@ def tp_paged_and_vl_cases(models: dict, inputs: dict, mesh2, mesh4) -> dict:
             toks, admitted, heads = vl_run(svl, mesh2, kv, order)
             res[f"vl_tp2_{kv}"], res[f"vl_tp2_{kv}_admitted"], res[f"vl_tp2_{kv}_cache_heads"] = toks, admitted, heads
             res[f"vl_tp2_{kv}_ranks_agree"] = _agree((toks, admitted), mesh2)
+    return res
+
+
+def int4_leaf_cuts(model, whole) -> dict:
+    """(this rank's size, the whole's) of every int4 leaf that shard_model
+    cuts, in natural channels: output channels of the column cuts (q/k/v,
+    the head's proj, the fused MLP's gate and up), live input channels of
+    the row cuts (o_proj, the fused MLP's down rows). o_proj's input
+    channels are read from its operands: those of the groups whose scale is
+    nonzero somewhere (canonical padding and a pad head's rows have none)."""
+    def live_k(lin):
+        return lin.group * int(lin.scales_t.ne(0).any(1).sum())
+
+    out = {}
+    for i, (blk, wb) in enumerate(zip(model.blocks, whole.blocks)):
+        for name in ("q_proj", "k_proj", "v_proj"):
+            out[f"{i}.{name}"] = (getattr(blk.attn, name).inner.packed_t.shape[1],
+                                  getattr(wb.attn, name).packed_t.shape[1])
+        out[f"{i}.o_proj"] = (live_k(blk.attn.o_proj.inner), live_k(wb.attn.o_proj))
+        mine, theirs = blk.mlp.inner, wb.mlp
+        out[f"{i}.gate_ops"] = (mine.gate_ops.astuple()[0].shape[1], theirs.gate_ops.astuple()[0].shape[1])
+        out[f"{i}.down_ops"] = (mine.down_ops.astuple()[0].shape[0], theirs.down_ops.astuple()[0].shape[0])
+    out["head.proj"] = (model.embed_tokens.proj.packed_t.shape[1], whole.embed_tokens.proj.packed_t.shape[1])
+    out["head.rows"] = (model.embed_tokens.weight.shape[0], whole.embed_tokens.weight.shape[0])
+    return out
+
+
+def tp_int4_cases(models: dict, inputs: dict, mesh2, mesh4) -> dict:
+    """int4 weights under tp on the canonical layout: the int4 model (every
+    projection int4, one FusedInt4MLP a block, the tied Int4EmbedHead) at tp 2
+    and at tp 4 with its 12 / 2 heads padded (`pad_heads_for_tp` on int4):
+    each rank's share of every cut leaf, sharded_generate against the single
+    process, the engine over slot caches (tp 2) and a paged pool (tp 4)
+    against the single engines; the int4-mixed model (attention int8) once
+    through each; and the tiny model in int4, whose o_proj K / tp (32) is no
+    multiple of 64: the warning, that block's attention whole, its MLP cut."""
+    import logging
+
+    from mllm_tpu_torch.generation.engine import ContinuousEngine, collect
+    from mllm_tpu_torch.nn.layers import Int4Linear
+    from mllm_tpu_torch.ops.quantize_model import quantize_model
+    from mllm_tpu_torch.parallel.heads import pad_heads_for_tp
+    from mllm_tpu_torch.parallel.sharding import shard_model, sharded_generate
+
+    res = {}
+    ids, steps = inputs["int4_ids"], 6
+    quant = lambda mode: quantize_model(port_model(*models["int4"]), "int4", min_size=1,  # noqa: E731
+                                        attn_quant="int8" if mode == "int4-mixed" else None)
+
+    def engine_run(model, mesh, paged):
+        eng = ContinuousEngine(model, slots=2, max_len=64, prompt_bucket=16, kv_dtype=torch.float32,
+                               start_thread=False, decode_window=4, paged=paged, mesh=mesh)
+        qs = [eng.submit(p, 5) for p in inputs["int4_prompts"]]
+        for _ in range(24):
+            eng.step()
+        return [collect(q, timeout=5) for q in qs], eng.requeued
+
+    for mode in ("int4", "int4-mixed"):
+        res[f"{mode}_single"] = _greedy(quant(mode), ids, steps, 64)
+        for tp, mesh in ((2, mesh2), (4, mesh4)):
+            if member(mesh):
+                res[f"{mode}_tp{tp}"] = sharded_generate(quant(mode), ids, mesh, steps, 64).numpy()
+        runs = (("slot", 0, 2, mesh2), ("paged", 1, 4, mesh4)) if mode == "int4" else (("slot", 0, 2, mesh2),)
+        for kind, pool, tp, mesh in runs:
+            res[f"{mode}_engine_{kind}_single"] = engine_run(quant(mode), None, pool)
+            if member(mesh):
+                got = engine_run(shard_model(pad_heads_for_tp(quant(mode), tp), mesh), mesh, pool)
+                res[f"{mode}_engine_{kind}_tp{tp}"] = got
+                res[f"{mode}_engine_{kind}_tp{tp}_ranks_agree"] = _agree(got, mesh)
+    for tp, mesh in ((2, mesh2), (4, mesh4)):
+        if member(mesh):
+            whole = pad_heads_for_tp(quant("int4"), tp)
+            res[f"int4_cuts_tp{tp}"] = int4_leaf_cuts(shard_model(whole, mesh), whole)
+
+    # the tiny model in int4: o_proj K / tp = 64 / 2 is no multiple of 64
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    logging.getLogger("mllm_tpu_torch").addHandler(handler)
+    tiny4 = lambda: quantize_model(port_model(*models["tiny"]), "int4", min_size=1)  # noqa: E731
+    res["tiny_int4_single"] = _greedy(tiny4(), inputs["quant_ids"], steps, 64)
+    if member(mesh2):
+        sm = shard_model(tiny4(), mesh2)
+        res["tiny_int4_tp2"] = sharded_generate(tiny4(), inputs["quant_ids"], mesh2, steps, 64).numpy()
+        res["tiny_int4_kept"] = (type(sm.blocks[0].attn.o_proj) is Int4Linear,
+                                 type(sm.blocks[0].mlp.down_proj).__name__)
+    logging.getLogger("mllm_tpu_torch").removeHandler(handler)
+    res["tiny_int4_dropped"] = sum("sharding dropped" in r for r in records)
     return res
 
 

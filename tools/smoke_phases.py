@@ -4,7 +4,8 @@ the device (`phase_slice_<name>(dev)`), `kvq` (slice_kvq over the int8 model
 that slice_int8 builds first, untimed), `quant_rows` (the kernel check's
 quantized attention rows at head_dim 128 and 256 and the device-scalar rows
 of the split 256 kernel, int8 and int4), or `tp_rows` (the kernel check's
-rows at tensor parallelism's head splits, `tp_split_rows`).
+rows at tensor parallelism's head splits and int4 cuts, `tp_split_rows` and
+`tp_int4_split_rows`).
 
     python3 tools/smoke_phases.py train parallel
     python3 tools/smoke_phases.py quant_rows kvq cli entry
@@ -37,7 +38,8 @@ def main(names) -> None:
         if name == "quant_rows":
             cs.timed_phase("quant_rows", lambda: quant_rows(dev))
         elif name == "tp_rows":
-            cs.timed_phase("tp_rows", lambda: cs.tp_split_rows(dev, torch.Generator(device=dev).manual_seed(1234)))
+            g = torch.Generator(device=dev).manual_seed(1234)
+            cs.timed_phase("tp_rows", lambda: (cs.tp_split_rows(dev, g), cs.tp_int4_split_rows(dev, g)))
         elif name == "kvq":
             _, model8 = cs.phase_slice_quant(dev, "int8", keep=True)
             cs.timed_phase("slice_kvq", lambda: cs.phase_slice_kvq(dev, model8))
